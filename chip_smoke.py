@@ -1,0 +1,489 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (each prints its lines; any failure exits nonzero before the
+last line):
+
+1. Card: ``nvidia-smi`` name and power limit, torch / CUDA versions; the
+   kernels are compiled from ``src/repro_torch/kernels/*/csrc`` (one
+   ``nvcc`` per source, in parallel).
+2. Kernels against their plain PyTorch versions on the card: every prox
+   of the table, exact and lagged exchanges, with and without the noise
+   operand, ragged widths (N=3, M=1000 and M=1001), a participation row
+   with zeros and a NaN row of ``w`` for an inactive agent, in float32
+   and bfloat16; then the trainer's full shape ``(4, 745,549,056)`` in
+   bfloat16, the plain versions run in column slabs.  Tolerance: 1e-6
+   relative in float32, one bfloat16 ulp in bfloat16.  Each kernel is
+   timed with CUDA events (median of 7) beside its plain version and its
+   byte bound.
+3. A small-input check: the reduced gemma2-2b in float32 runs two
+   federated rounds on the card (kernels) and on the CPU (plain
+   versions); the states agree to 1e-4.
+4. Main path: gemma2-2b at published width cut to 2 layers, N=4 agents,
+   global batch 8, seq 512, N_e=2, gd, gamma 0.05, weight decay 0.01,
+   packed state, fused edges and fused update, 3 rounds through
+   ``repro_torch.launch.train.run_fed``.  Launch counters are zeroed just
+   before and read just after: uplink=3, downlink=3, fedplt_update=6.
+   Then one more round under ``torch.profiler``: device time by kernel
+   group and the device's idle share.
+5. DP path: one round with tau=0.01, clip=1.0 (the noise variant of the
+   update kernel) and its privacy line.
+
+Then one JSON line per kernel table, and the last line
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FULL_N, FULL_M = 4, 745_549_056
+SLAB = 1 << 26                      # columns per slab of the plain versions
+FP32_PEAK = 67e12                   # H100 SXM float32 (non-tensor) FLOP/s
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_bandwidth(name: str) -> float:
+    """Data-sheet memory rate (bytes/s) of the named card."""
+    if "H100" not in name and "H200" not in name:
+        fail(f"no data-sheet bandwidth known for {name!r}")
+    if "H200" in name:
+        return 4.8e12
+    if "PCIe" in name:
+        return 2.0e12
+    if "NVL" in name:
+        return 3.9e12
+    return 3.35e12
+
+
+def cuda_ms(torch, fn, reps=7):
+    """Median of ``reps`` CUDA-event timings of ``fn`` after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def compare(torch, got, want, what):
+    """Max abs error of ``got`` vs ``want``; fails beyond the tolerance
+    (1e-6 relative for float32, one ulp for bfloat16; NaN must match).
+    Wide buffers are compared slab by slab to bound the float32 copies."""
+    if got.ndim == 2 and got.shape[1] > SLAB:
+        return max(compare(torch, got[:, c:c + SLAB], want[:, c:c + SLAB],
+                           what) for c in range(0, got.shape[1], SLAB))
+    a, b = got.float(), want.float()
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    diff = torch.where(both_nan, torch.zeros_like(a), (a - b).abs())
+    if got.dtype == torch.bfloat16:
+        mag = b.abs().clamp_min(torch.finfo(torch.float32).tiny)
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    else:
+        tol = 1e-6 * b.abs()
+    bad = ~(diff <= tol) & ~both_nan
+    if bool(bad.any()):
+        fail(f"{what}: {int(bad.sum())} elements beyond tolerance, "
+             f"max abs err {float(diff.nan_to_num(float('inf')).max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def small_checks(torch):
+    from repro_torch.core.prox import make_prox
+    from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.kernels.round_edge import ref as edge_ref
+
+    proxes = [None, make_prox("zero"), make_prox("l1"), make_prox("l2sq"),
+              make_prox("weight_decay", weight=0.3),
+              make_prox("elastic_net", l1=0.5, l2=2.0),
+              make_prox("box", lo=-0.2, hi=0.3),
+              make_prox("linf_ball", radius=0.25)]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_checks, worst = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (1000, 1001):
+            x, w, z, t, g = (torch.randn((3, m), generator=gen, device=dev
+                                         ).to(dtype) for _ in range(5))
+            w[1] = float("nan")
+            u = torch.tensor([1.0, 0.0, 1.0], device=dev)
+            for prox in proxes:
+                for tt in (None, t):
+                    tag = f"{dtype} m={m} prox={getattr(prox, '__name__', prox)} lagged={tt is not None}"
+                    got = edge_ops.round_uplink(z, tt, prox=prox, rho_eff=0.7)
+                    want = edge_ref.round_uplink_ref(z, tt, prox, 0.7)
+                    for a, b in zip(got, want):
+                        worst = max(worst, compare(torch, a, b, "uplink " + tag))
+                    got = edge_ops.round_downlink(x, w, z, u, tt, prox=prox,
+                                                  rho_eff=0.7, damping=0.5)
+                    want = edge_ref.round_downlink_ref(x, w, z, u, tt, prox,
+                                                       0.7, 0.5)
+                    for a, b in zip(got, want):
+                        worst = max(worst, compare(torch, a, b, "downlink " + tag))
+                    if not (torch.equal(got[0][1], x[1])
+                            and torch.equal(got[1][1], z[1])):
+                        fail(f"downlink {tag}: inactive agent's state changed")
+                    n_checks += 2
+            for tt in (None, t):
+                got = update_ops.fedplt_update(z, g, x, tt, gamma=0.05,
+                                               inv_rho=0.8)
+                want = fedplt_update_ref(z, g, x, tt, gamma=0.05, inv_rho=0.8)
+                worst = max(worst, compare(torch, got, want,
+                                           f"fedplt_update {dtype} m={m}"))
+                inplace = z.clone()
+                update_ops.fedplt_update(inplace, g, x, tt, gamma=0.05,
+                                         inv_rho=0.8, out=inplace)
+                worst = max(worst, compare(torch, inplace, want,
+                                           f"fedplt_update in place {dtype}"))
+                n_checks += 2
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_checks} small-shape kernel checks passed "
+        f"(fp32 and bf16, N=3, M=1000 and 1001, prox table, exact/lagged, "
+        f"t present/absent, NaN inactive row); max abs err {worst}")
+
+
+def slabbed(fn, outs, *ins):
+    """Run the plain version ``fn`` over column slabs, writing ``outs``."""
+    m = ins[0].shape[-1]
+    for c0 in range(0, m, SLAB):
+        res = fn(*[None if a is None else a[..., c0:c0 + SLAB] for a in ins])
+        res = res if isinstance(res, tuple) else (res,)
+        for o, r in zip(outs, res):
+            o[..., c0:c0 + SLAB] = r
+
+
+def full_shape(torch, bw):
+    """Every kernel at the trainer's full shape, against its slabbed plain
+    version; returns ``{name: record}`` (and prints one line each)."""
+    from repro_torch.core.prox import make_prox
+    from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.kernels.round_edge import ref as edge_ref
+
+    N, M, s = FULL_N, FULL_M, 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prox, rho = make_prox("weight_decay", weight=0.01), 0.25
+
+    def buf():
+        return torch.randn((N, M), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def record(name, bytes_, flops, ms, plain_ms, err):
+        bound = max(bytes_ / bw, flops / FP32_PEAK) * 1e3
+        rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
+                   else "operations", max_abs_err=err)
+        log(f"phase 2 full shape: {name} ({N}x{M} bf16) max_abs_err={err} "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound:.3f} ms ({bytes_ / 1e9:.2f} GB), "
+            f"{100 * bound / ms:.1f}% of bound")
+        return rec
+
+    recs = {}
+    for lagged in (False, True):
+        z = buf()
+        t = buf() if lagged else None
+        y, v = edge_ops.round_uplink(z, t, prox=prox, rho_eff=rho)
+        py, pv = torch.empty_like(y), torch.empty_like(v)
+        plain = lambda: slabbed(lambda *a: edge_ref.round_uplink_ref(
+            *a, prox, rho), (py, pv), z, t)
+        plain()
+        err = max(compare(torch, y, py, "uplink full"),
+                  compare(torch, v, pv, "uplink full"))
+        ms = cuda_ms(torch, lambda: edge_ops.round_uplink(z, t, prox=prox,
+                                                          rho_eff=rho))
+        pms = cuda_ms(torch, plain, reps=5)
+        reads = N * M * (2 if lagged else 1)
+        name = "round_uplink" + ("[lagged]" if lagged else "")
+        recs[name] = record(name, (reads + N * M + M) * s, 3 * N * M + 6 * M,
+                            ms, pms, err)
+        del z, t, y, v, py, pv
+        torch.cuda.empty_cache()
+
+    for lagged in (False, True):
+        x, w, z = buf(), buf(), buf()
+        t = buf() if lagged else None
+        u = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+        xo, zo = edge_ops.round_downlink(x, w, z, u, t, prox=prox,
+                                         rho_eff=rho, damping=1.0)
+        px, pz = torch.empty_like(xo), torch.empty_like(zo)
+        plain = lambda: slabbed(lambda x_, w_, z_, t_: edge_ref.round_downlink_ref(
+            x_, w_, z_, u, t_, prox, rho, 1.0), (px, pz), x, w, z, t)
+        plain()
+        err = max(compare(torch, xo, px, "downlink full"),
+                  compare(torch, zo, pz, "downlink full"))
+        del xo, zo
+        ms = cuda_ms(torch, lambda: edge_ops.round_downlink(
+            x, w, z, u, t, prox=prox, rho_eff=rho, damping=1.0))
+        pms = cuda_ms(torch, plain, reps=5)
+        reads = 3 * N * M + (N * M if lagged else 0)
+        name = "round_downlink" + ("[lagged]" if lagged else "")
+        recs[name] = record(name, (reads + 2 * N * M) * s + 4 * N,
+                            4 * N * M + N * M + 6 * M, ms, pms, err)
+        del x, w, z, t, px, pz
+        torch.cuda.empty_cache()
+
+    for noise in (False, True):
+        w, g, v = buf(), buf(), buf()
+        t = buf() if noise else None
+        out = update_ops.fedplt_update(w, g, v, t, gamma=0.05, inv_rho=1.0)
+        pout = torch.empty_like(out)
+        plain = lambda: slabbed(lambda *a: fedplt_update_ref(
+            *a, gamma=0.05, inv_rho=1.0), (pout,), w, g, v, t)
+        plain()
+        err = compare(torch, out, pout, "fedplt_update full")
+        ms = cuda_ms(torch, lambda: update_ops.fedplt_update(
+            w, g, v, t, gamma=0.05, inv_rho=1.0, out=out))
+        pms = cuda_ms(torch, plain, reps=5)
+        n_in = 4 if noise else 3
+        name = "fedplt_update" + ("[noise]" if noise else "")
+        recs[name] = record(name, (n_in + 1) * N * M * s,
+                            (5 + int(noise)) * N * M, ms, pms, err)
+        del w, g, v, t, out, pout
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# Phases 3-5: the trainer
+# ---------------------------------------------------------------------------
+
+def small_input_parity(torch):
+    """Two reduced-gemma2 rounds (float32) on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.configs.base import InputShape
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    spec = api.FedSpec(n_agents=2, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                       state_layout="packed", engine_backend="fused",
+                       use_fused_update=True)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    shape = InputShape("small", 64, 4, "train")
+    batches = [make_batch_for(cfg, shape, gen, n_agents=2) for _ in range(2)]
+    states = {}
+    for dev in ("cuda", "cpu"):
+        tr = api.build_trainer(model, spec, dev)
+        st, _ = tr.init(0, params=params)
+        for b in batches:
+            st, _ = tr.step(st, b, u=torch.ones(2))
+        states[dev] = st
+    err = max(float((states["cuda"].x.cpu() - states["cpu"].x).abs().max()),
+              float((states["cuda"].z.cpu() - states["cpu"].z).abs().max()))
+    if not err <= 1e-4:
+        fail(f"small-input check: card vs CPU max abs err {err}")
+    log(f"phase 3: reduced gemma2-2b fp32, 2 rounds, card (kernels) vs CPU "
+        f"(plain versions): max abs err {err:.3g} (tolerance 1e-4)")
+
+
+def _kernel_group(name: str) -> str:
+    low = name.lower()
+    if "uplink_kernel" in name:
+        return "round_uplink"
+    if "downlink_kernel" in name:
+        return "round_downlink"
+    if "update_kernel" in name:
+        return "fedplt_update"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+        return "matmul"
+    if any(k in low for k in ("copy", "memcpy", "fill", "memset")):
+        return "copy/fill"
+    return "other elementwise/reduction"
+
+
+def profile_round(torch, trainer, state, gen, cfg):
+    """One more main-path round under torch.profiler: device time by
+    kernel group, the top kernels, and the device's idle share of the
+    round's wall time (one stream, so kernel times do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+
+    batch = make_batch_for(cfg, InputShape("profile", 512, 8, "train"), gen,
+                           n_agents=FULL_N, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = trainer.step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels_ms = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + ms
+        kernels_ms[e.key[:60]] = kernels_ms.get(e.key[:60], 0.0) + ms
+    busy = sum(groups.values())
+    top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
+    rec = {"wall_ms": wall_ms, "device_busy_ms": busy,
+           "idle_share": (1.0 - busy / wall_ms) if busy else None,
+           "groups_ms": groups, "top_kernels_ms": top}
+    log(f"phase 4 profile: one round {wall_ms:.1f} ms wall under the "
+        f"profiler, device busy {busy:.1f} ms"
+        + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
+           " (the profiler saw no device time)"))
+    log(json.dumps({"profile": rec}))
+
+
+def train_phase(torch, label, spec, steps, expect, profile=False):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_fed
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    trainer, state, hist = run_fed(cfg, spec, steps=steps, seq_len=512,
+                                   batch=8, device="cuda", log=log)
+    trainer_gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.time() - t0
+    n_params = trainer.model.param_count()
+    if n_params != 745_549_056:
+        fail(f"{label}: {n_params} parameters, want 745,549,056")
+    if trainer.packed_meta.width != FULL_M:
+        fail(f"{label}: packed width {trainer.packed_meta.width}")
+    for h in hist:
+        if not math.isfinite(h["loss"]):
+            fail(f"{label}: non-finite loss {h['loss']}")
+    x = state.x
+    if not bool(torch.isfinite(x).all()):
+        fail(f"{label}: non-finite agent state")
+    if counts != expect:
+        fail(f"{label}: launch counts {counts}, want {expect}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{label}: {n_params:,} params, packed state {tuple(x.shape)} "
+        f"{x.dtype}; launches {counts}; peak device memory "
+        f"{peak / 1e9:.2f} GB; {wall:.1f} s wall")
+    if profile:
+        profile_round(torch, trainer, state, trainer_gen, cfg)
+    del trainer, state, x
+    torch.cuda.empty_cache()
+    return counts, hist
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False -- this "
+              "script needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import kernels
+    from repro_torch.fed.api import FedSpec, PrivacySpec
+    from repro_torch.kernels import build
+
+    # phase 1: the card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {name}, capability {torch.cuda.get_device_capability(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bw = card_bandwidth(name)
+    t0 = time.time()
+    build.build_all(kernels.kernel_sources())
+    log(f"phase 1: kernels built in {time.time() - t0:.1f} s "
+        f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
+
+    # phase 2: kernels against plain versions
+    small_checks(torch)
+    recs = full_shape(torch, bw)
+
+    # phase 3: small-input agreement of the whole round
+    small_input_parity(torch)
+
+    # phase 4: the main path
+    base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                state_layout="packed", engine_backend="fused",
+                use_fused_update=True)
+    main_counts, hist = train_phase(
+        torch, "phase 4 main path", FedSpec(**base), 3,
+        {"round_uplink": 3, "round_downlink": 3, "fedplt_update": 6},
+        profile=True)
+    round_ms = [1e3 * h["dt"] for h in hist]
+
+    # phase 5: the DP path
+    train_phase(torch, "phase 5 DP path",
+                FedSpec(**base, privacy=PrivacySpec(tau=0.01, clip=1.0)), 1,
+                {"round_uplink": 1, "round_downlink": 1, "fedplt_update": 2})
+
+    table = []
+    meta = {
+        "round_uplink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
+                         "src/repro/kernels/round_edge/kernel.py:229"),
+        "round_downlink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
+                           "src/repro/kernels/round_edge/kernel.py:278"),
+        "fedplt_update": ("src/repro_torch/kernels/fedplt_update/csrc/fedplt_update.cu",
+                          "src/repro/kernels/fedplt_update/kernel.py:59"),
+    }
+    for kname, (source, replaces) in meta.items():
+        r = recs[kname]
+        table.append({"name": kname, "route": "cuda", "source": source,
+                      "replaces": replaces, "launches": main_counts[kname],
+                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                      "bound_by": r["bound_by"], "library_ms": None})
+    variants = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                      "max_abs_err")}
+                for k, v in recs.items() if "[" in k}
+    log(json.dumps({"variants": variants, "round_ms": round_ms}))
+    log(json.dumps({"kernels": table}))
+    log(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

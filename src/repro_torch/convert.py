@@ -1,0 +1,80 @@
+"""Carry parameters between the reference's pytree and the port.
+
+The reference's parameter tree (as numpy arrays) is
+``{"stages": [{"0": {...}, "1": {...}}, ...], "embed", "final_norm"}``
+with each stage's units stacked on axis 0; the port's parameters are
+``{dotted name: tensor}`` named after the same paths
+(``stages.0.1.attn.wq``).  The mapping is by name only, so any tree of
+that structure -- agent-stacked states, gradients, noise draws -- converts
+the same way.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import build_model
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    items = (tree.items() if isinstance(tree, dict)
+             else ((str(i), v) for i, v in enumerate(tree)))
+    for k, v in items:
+        name = f"{prefix}{k}"
+        if isinstance(v, (dict, list, tuple)):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _to_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()
+    return t.numpy()
+
+
+def params_from_jax(tree, cfg: ModelConfig, device="cpu") -> dict:
+    """The reference's parameter tree (numpy leaves) as the port's
+    ``{name: tensor}``, checked against the port's names and the
+    trailing (per-parameter) shapes."""
+    flat = _flatten(tree)
+    expect = build_model(cfg).param_shapes()
+    if set(flat) != set(expect):
+        raise ValueError(f"parameter names differ: only in the tree "
+                         f"{sorted(set(flat) - set(expect))}, only in the "
+                         f"port {sorted(set(expect) - set(flat))}")
+    out = {}
+    for name, (shape, _) in expect.items():
+        t = _to_tensor(flat[name])
+        if tuple(t.shape[t.ndim - len(shape):]) != shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} does not end "
+                             f"in {shape}")
+        out[name] = t.to(device)
+    return out
+
+
+def params_to_jax(params: dict) -> dict:
+    """Inverse of :func:`params_from_jax`: the reference's tree structure
+    with numpy leaves (bfloat16 leaves come back as float32)."""
+    tree: dict = {}
+    for name, t in params.items():
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = _to_numpy(t)
+    stages = tree.get("stages", {})
+    tree["stages"] = [stages[str(i)] for i in range(len(stages))]
+    return tree

@@ -1,0 +1,175 @@
+"""Local training solvers (counterpart of ``repro/core/solvers.py``).
+
+Every solver approximates the local proximal update
+
+    x_{i,k+1} ~= prox_{rho f_i}(v_i) = argmin_w d_i(w),
+    d_i(w) = f_i(w) + ||w - v_i||^2 / (2 rho)
+
+by ``N_e`` epochs, warm-started at the previous local state.  States,
+reflections and gradients are a tensor (a packed ``(N, width)`` buffer or
+a dense array) or a dict of tensors; with ``batched=True`` every leaf
+carries a leading agent axis.
+
+The gradient oracle is ``fgrad(w, epoch) -> grad`` (``(grad, aux)``
+with ``has_aux``).  Solvers: ``gd``, ``agd`` (constant Nesterov
+momentum), ``sgd`` (the oracle supplies the minibatch gradient) and
+``noisy_gd`` (``w += -gamma grad d + t``, ``t ~ sqrt(2 gamma) N(0, tau^2)``).
+
+The DP noise cannot reproduce JAX's threefry bits: it is drawn from a
+``torch.Generator`` or injected through ``noise(epoch, w) -> tree``
+(the parity tests inject the reference's own draws).
+
+``use_fused=True`` routes the step through the fused
+:mod:`repro_torch.kernels.fedplt_update` op whenever the step size is a
+static float and the solver is not agd (the reference's condition).  The
+iterate is a fresh buffer (the warm start ``w0`` is never written), and
+the fused op updates it in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.kernels.fedplt_update import ops as update_ops
+from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+
+GradOracle = Callable[[Any, int], Any]
+
+tree_map = pytree.tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    name: str = "gd"                  # gd | agd | sgd | noisy_gd
+    n_epochs: int = 5                 # N_e
+    step_size: Optional[float] = None  # gamma; None -> optimal for moduli
+    tau: float = 0.0                  # DP noise std (noisy_gd)
+    clip: Optional[float] = None      # clip threshold C for grads (DP)
+
+    def resolve_step_size(self, mu_d: float, L_d: float) -> float:
+        """gamma* = 2/(L_d + mu_d) (Lemma 2)."""
+        if self.step_size is not None:
+            return self.step_size
+        return 2.0 / (L_d + mu_d)
+
+
+def grad_norm(g: Any, *, batched: bool = False) -> torch.Tensor:
+    """l2 norm across all leaves; per agent (leading axis) when
+    ``batched``."""
+    leaves = pytree.tree_leaves(g)
+    if batched:
+        sq = sum(torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
+                           dim=-1) for l in leaves)
+    else:
+        sq = sum(torch.sum(torch.square(l.float())) for l in leaves)
+    return torch.sqrt(sq)
+
+
+def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False) -> Any:
+    """Norm clipping ``g * min(1, C / ||g||)`` over the whole gradient
+    (per agent when ``batched``), in place."""
+    if clip is None:
+        return g
+    nrm = grad_norm(g, batched=batched)
+    factor = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
+    for l in pytree.tree_leaves(g):
+        f = factor.reshape((-1,) + (1,) * (l.ndim - 1)) if batched \
+            else factor
+        l.mul_(f.to(l.dtype))
+    return g
+
+
+def draw_noise(w: Any, scale: float,
+               generator: Optional[torch.Generator]) -> Any:
+    """Gaussian noise ``scale * N(0, I)`` shaped like ``w``, drawn in
+    float32 and stored in each leaf's dtype (the fused op casts it there
+    anyway).  Drawn row by row so the float32 temporaries stay at one
+    agent row."""
+    def draw(shape, device):
+        return scale * torch.randn(shape, generator=generator, device=device)
+
+    def leaf(l):
+        if l.ndim < 2:
+            return draw(l.shape, l.device).to(l.dtype)
+        out = torch.empty_like(l)
+        for r in range(l.shape[0]):
+            out[r] = draw(l.shape[1:], l.device)
+        return out
+    return tree_map(leaf, w)
+
+
+def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
+                cfg: SolverConfig, mu, L, *, batched: bool = False,
+                has_aux: bool = False, use_fused: bool = False,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Callable[[int, Any], Any]] = None):
+    """Run ``cfg.n_epochs`` epochs of the chosen solver on d(w).
+
+    ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both).  Returns
+    ``w_{N_e}`` (and the per-epoch oracle aux stacked on a leading axis
+    when ``has_aux``).  ``noise(epoch, w)`` overrides the noisy_gd draw.
+    """
+    mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
+    gamma = cfg.resolve_step_size(mu_d, L_d)
+    inv_rho = 1.0 / rho
+    fused = use_fused and isinstance(gamma, float) and cfg.name != "agd"
+    if cfg.name not in ("gd", "sgd", "noisy_gd", "agd"):
+        raise ValueError(f"unknown solver {cfg.name!r}")
+
+    def dgrad(w, epoch):
+        out = fgrad(w, epoch)
+        g, aux = out if has_aux else (out, None)
+        return clip_grad(g, cfg.clip, batched=batched), aux
+
+    def step_leaf(wl, gl, vl, tl):
+        """w - gamma (g + inv_rho (w - v)) [+ t], float32 accumulation,
+        written into ``wl``."""
+        if fused:
+            return update_ops.fedplt_update(wl, gl, vl, tl, gamma=gamma,
+                                            inv_rho=inv_rho, out=wl)
+        return wl.copy_(fedplt_update_ref(wl, gl, vl, tl, gamma=gamma,
+                                          inv_rho=inv_rho))
+
+    w = tree_map(torch.clone, w0)
+    auxes = []
+
+    if cfg.name in ("gd", "sgd", "noisy_gd"):
+        scale = math.sqrt(2.0 * gamma) * cfg.tau
+        for e in range(cfg.n_epochs):
+            g, aux = dgrad(w, e)
+            t = None
+            if cfg.name == "noisy_gd":
+                t = (noise(e, w) if noise is not None
+                     else draw_noise(w, scale, generator))
+            if t is None:
+                tree_map(lambda wl, gl, vl: step_leaf(wl, gl, vl, None),
+                         w, g, v)
+            else:
+                tree_map(step_leaf, w, g, v, t)
+            auxes.append(aux)
+    else:
+        # agd, Eq. (12): constant step 1/L_d, constant momentum beta
+        beta = ((math.sqrt(L_d) - math.sqrt(mu_d))
+                / (math.sqrt(L_d) + math.sqrt(mu_d)))
+        u_prev = tree_map(torch.clone, w0)
+        for e in range(cfg.n_epochs):
+            g, aux = dgrad(w, e)
+            u = tree_map(
+                lambda wl, gl, vl: (wl.float() - (gl.float() + inv_rho * (
+                    wl.float() - vl.float())) / L_d).to(wl.dtype),
+                w, g, v)
+            tree_map(lambda wl, ul, upl: wl.copy_(
+                (ul.float() + beta * (ul.float() - upl.float())
+                 ).to(ul.dtype)), w, u, u_prev)
+            u_prev = u
+            auxes.append(aux)
+
+    if has_aux:
+        return w, (torch.stack(auxes) if auxes[0] is not None else None)
+    return w
+

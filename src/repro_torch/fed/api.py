@@ -1,0 +1,492 @@
+"""One front door for Fed-PLT: ``FedSpec`` + ``build_trainer``
+(counterpart of ``repro/fed/api.py``, model-scale front end).
+
+``FedSpec`` keeps the reference's field names and defaults, so one spec
+reads the same in both packages, with two renames for the port's
+backends: ``engine_backend`` is ``"torch"`` (the reference's ``"xla"``,
+unfused tensor ops) or ``"fused"`` (its ``"pallas"``, the
+:mod:`repro_torch.kernels.round_edge` kernels), and ``use_pallas`` is
+``use_fused_update`` (the :mod:`repro_torch.kernels.fedplt_update`
+kernel).  Fields whose features are later slices of the port raise a
+``ValueError`` naming the slice in :meth:`FedSpec.validate`.
+
+The train CLI is generated from the spec's dataclass fields
+(:func:`add_spec_args` / :func:`spec_from_args`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import prox as prox_lib
+from repro_torch.core.solvers import SolverConfig
+from repro_torch.fed import engine
+from repro_torch.fed.compress import get_compressor
+from repro_torch.fed.solvers import get_solver
+
+COMPRESS_BACKENDS = ("auto", "xla", "pallas")
+
+
+def _upgrade_solver(name: str, tau: float) -> str:
+    """tau > 0 turns the gd-type solvers into DP noisy GD; any other
+    solver is rejected under tau > 0 (the Prop. 4 accountant certifies
+    noisy local GD only)."""
+    if tau > 0.0:
+        if name in ("gd", "sgd"):
+            return "noisy_gd"
+        if name != "noisy_gd":
+            raise ValueError("DP noise (tau > 0) requires a gd-type "
+                             f"solver, not {name!r}")
+    return name
+
+
+def _cli(flag=None, help="", arg_type=None, choices=None, default=None,
+         expose=True):
+    """Field metadata driving the generated argparse flags (``default``
+    overrides the dataclass default on the CLI only)."""
+    return {"cli": {"flag": flag, "help": help, "type": arg_type,
+                    "choices": choices, "default": default,
+                    "expose": expose}}
+
+
+def _later(what: str, slice_name: str) -> ValueError:
+    return ValueError(f"{what} is not ported yet: it comes with the "
+                      f"{slice_name} slice of the PyTorch port")
+
+
+# ---------------------------------------------------------------------------
+# Component specs
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PrivacySpec:
+    """DP knobs (paper Section VI)."""
+
+    tau: float = dataclasses.field(default=0.0, metadata=_cli(
+        help="DP noise std (tau > 0 turns gd-type solvers into noisy GD)"))
+    clip: Optional[float] = dataclasses.field(default=None, metadata=_cli(
+        arg_type=float,
+        help="per-agent gradient clip threshold C (DP sensitivity)"))
+    delta: float = dataclasses.field(default=1e-5, metadata=_cli(
+        help="ADP delta for the privacy report"))
+    dp_init: bool = dataclasses.field(default=False, metadata=_cli(
+        expose=False))
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressionSpec:
+    """z-uplink compression (only ``none`` is ported)."""
+
+    name: str = dataclasses.field(default="none", metadata=_cli(
+        flag="--compression", help="z-uplink compressor (registry name)"))
+    ratio: float = dataclasses.field(default=0.25, metadata=_cli(
+        flag="--compress-ratio",
+        help="top-k fraction kept (floor for adaptive_topk)"))
+    energy: float = dataclasses.field(default=0.95, metadata=_cli(
+        flag="--compress-energy",
+        help="adaptive_topk per-agent energy target"))
+    backend: str = dataclasses.field(default="auto", metadata=_cli(
+        flag="--compress-backend", choices=list(COMPRESS_BACKENDS),
+        help="uplink compressor backend"))
+
+
+# ---------------------------------------------------------------------------
+# The spec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FedSpec:
+    """Composable Fed-PLT specification -- the one front-door config."""
+
+    # -- round topology --------------------------------------------------
+    n_agents: Optional[int] = dataclasses.field(default=None, metadata=_cli(
+        arg_type=int, default=4, help="number of agents"))
+    rho: float = dataclasses.field(default=1.0, metadata=_cli(
+        help="proximal penalty rho of Algorithm 1"))
+    participation: float = dataclasses.field(default=1.0, metadata=_cli(
+        help="per-agent Bernoulli participation probability p"))
+    damping: float = dataclasses.field(default=1.0, metadata=_cli(
+        help="Krasnosel'skii relaxation (1 = PRS, 0.5 = Douglas-Rachford)"))
+    # -- local solver ----------------------------------------------------
+    solver: str = dataclasses.field(default="gd", metadata=_cli(
+        choices=["gd", "agd", "sgd"],
+        help="local solver (tau > 0 upgrades gd-type to noisy_gd)"))
+    n_epochs: int = dataclasses.field(default=5, metadata=_cli(
+        help="local epochs N_e per round"))
+    gamma: Optional[float] = dataclasses.field(default=None, metadata=_cli(
+        arg_type=float, default=0.05,
+        help="local step size (required at model scale)"))
+    mu: Optional[float] = dataclasses.field(default=None,
+                                            metadata=_cli(expose=False))
+    L: Optional[float] = dataclasses.field(default=None,
+                                           metadata=_cli(expose=False))
+    batch_size: Optional[int] = dataclasses.field(
+        default=None, metadata=_cli(expose=False))
+    uncoordinated: bool = dataclasses.field(
+        default=False, metadata=_cli(expose=False))
+    agent_groups: Optional[tuple] = dataclasses.field(
+        default=None, metadata=_cli(
+            arg_type=str,
+            help="heterogeneous agent groups (not ported yet)"))
+    # -- coordinator regularizer h --------------------------------------
+    prox_h: str = dataclasses.field(default="zero",
+                                    metadata=_cli(expose=False))
+    weight_decay: float = dataclasses.field(default=0.0, metadata=_cli(
+        help="coordinator l2 regularizer h (prox_h='weight_decay')"))
+    # -- composed specs --------------------------------------------------
+    privacy: PrivacySpec = dataclasses.field(default_factory=PrivacySpec)
+    compression: CompressionSpec = dataclasses.field(
+        default_factory=CompressionSpec)
+    # -- execution -------------------------------------------------------
+    use_fused_update: bool = dataclasses.field(default=False, metadata=_cli(
+        flag="--use-fused-update",
+        help="fused fedplt_update kernel for the local step"))
+    engine_backend: str = dataclasses.field(default="torch", metadata=_cli(
+        flag="--engine-backend", choices=list(engine.ENGINE_BACKENDS),
+        help="round-edge backend (fused = the round_edge kernels)"))
+    state_layout: str = dataclasses.field(default="tree", metadata=_cli(
+        flag="--state-layout", choices=list(engine.ENGINE_LAYOUTS),
+        help="round-to-round state representation (packed = one "
+             "resident agent-axis buffer)"))
+    async_mode: str = dataclasses.field(default="off", metadata=_cli(
+        flag="--async-mode", choices=["off", "stale"],
+        help="async round mode (stale is not ported yet)"))
+    max_staleness: int = dataclasses.field(default=0, metadata=_cli(
+        flag="--max-staleness", arg_type=int,
+        help="staleness bound K (async rounds)"))
+    guard_increments: bool = dataclasses.field(default=False, metadata=_cli(
+        flag="--guard-increments",
+        help="in-round increment guards (not ported yet)"))
+    guard_norm_bound: float = dataclasses.field(
+        default=float("inf"), metadata=_cli(
+            flag="--guard-norm-bound", arg_type=float,
+            help="l2 norm bound for --guard-increments"))
+    aggregator: str = dataclasses.field(default="mean", metadata=_cli(
+        flag="--aggregator",
+        help="coordinator aggregator (only mean is ported)"))
+    aggregator_param: float = dataclasses.field(
+        default=0.0, metadata=_cli(
+            flag="--aggregator-param", arg_type=float,
+            help="aggregator parameter"))
+    agent_shards: int = dataclasses.field(default=1, metadata=_cli(
+        flag="--agent-shards", arg_type=int,
+        help="shard the agent axis across devices (not ported yet)"))
+    mesh_shape: Optional[str] = dataclasses.field(default=None, metadata=_cli(
+        flag="--mesh-shape", arg_type=str,
+        help="explicit AGENTSxMODEL device mesh (not ported yet)"))
+
+    # ------------------------------------------------------------------
+    # Resolution
+    # ------------------------------------------------------------------
+    def solver_name(self) -> str:
+        return _upgrade_solver(self.solver, self.privacy.tau)
+
+    def solver_config(self) -> SolverConfig:
+        return SolverConfig(name=self.solver_name(),
+                            n_epochs=self.n_epochs, step_size=self.gamma,
+                            tau=self.privacy.tau, clip=self.privacy.clip)
+
+    def round_config(self) -> engine.RoundConfig:
+        if self.n_agents is None:
+            raise ValueError("FedSpec.n_agents is unresolved (set it "
+                             "explicitly at model scale)")
+        return engine.RoundConfig(
+            n_agents=self.n_agents, rho=self.rho,
+            participation=self.participation, damping=self.damping,
+            compression=self.compression.name,
+            engine_backend=self.engine_backend,
+            state_layout=self.state_layout)
+
+    def moduli_for(self, gamma: Optional[float]):
+        """(mu, L) of the local f_i; with ``gamma`` set an unknown L is
+        1/gamma - 1/rho, so that agd's 1/L_d step equals gamma."""
+        mu = self.mu if self.mu is not None else 0.0
+        if self.L is not None:
+            return mu, self.L
+        if gamma is None:
+            return mu, None
+        return mu, 1.0 / gamma - 1.0 / self.rho
+
+    def moduli(self):
+        return self.moduli_for(self.gamma)
+
+    def resolve_prox_h(self) -> engine.ProxH:
+        """The coordinator regularizer's prox from the one
+        :func:`repro_torch.core.prox.make_prox` table; None when h = 0."""
+        if self.weight_decay != 0.0:
+            return prox_lib.make_prox("weight_decay",
+                                      weight=self.weight_decay)
+        if self.prox_h == "zero":
+            return None
+        return prox_lib.make_prox(self.prox_h)
+
+    # ------------------------------------------------------------------
+    # Validation
+    # ------------------------------------------------------------------
+    def validate(self) -> "FedSpec":
+        """Raise ValueError on any inconsistent or not-yet-ported
+        combination; returns self."""
+        self._validate_port_scope()
+        if self.n_agents is not None and self.n_agents < 1:
+            raise ValueError("n_agents must be >= 1")
+        if self.rho <= 0.0:
+            raise ValueError("rho must be positive")
+        if not 0.0 < self.participation <= 1.0:
+            raise ValueError("participation must be in (0, 1]")
+        if not 0.0 < self.damping <= 1.0:
+            raise ValueError("damping must be in (0, 1]")
+        if self.n_epochs < 1:
+            raise ValueError("n_epochs must be >= 1")
+        if self.gamma is not None and self.gamma <= 0.0:
+            raise ValueError("gamma must be positive")
+        p = self.privacy
+        if p.tau < 0.0:
+            raise ValueError("tau must be >= 0")
+        if p.clip is not None and p.clip <= 0.0:
+            raise ValueError("clip must be positive (clip=0 zeroes every "
+                             "gradient; use None to disable clipping)")
+        if not 0.0 < p.delta < 1.0:
+            raise ValueError("delta must be in (0, 1)")
+        name = self.solver_name()   # raises for agd + tau > 0
+        get_solver(name)
+        get_compressor(self.compression.name)
+        if not 0.0 < self.compression.ratio <= 1.0:
+            raise ValueError("compress ratio must be in (0, 1]")
+        if not 0.0 < self.compression.energy <= 1.0:
+            raise ValueError("compress energy must be in (0, 1]")
+        if self.compression.backend not in COMPRESS_BACKENDS:
+            raise ValueError(
+                f"unknown compress backend {self.compression.backend!r}; "
+                f"known: {', '.join(COMPRESS_BACKENDS)}")
+        if self.engine_backend not in engine.ENGINE_BACKENDS:
+            raise ValueError(
+                f"unknown engine backend {self.engine_backend!r}; "
+                f"known: {', '.join(engine.ENGINE_BACKENDS)}")
+        if self.state_layout not in engine.ENGINE_LAYOUTS:
+            raise ValueError(
+                f"unknown state layout {self.state_layout!r}; "
+                f"known: {', '.join(engine.ENGINE_LAYOUTS)}")
+        if not self.guard_norm_bound > 0.0:
+            raise ValueError("guard_norm_bound must be positive (use "
+                             "inf for a finiteness-only screen)")
+        if self.weight_decay < 0.0:
+            raise ValueError("weight_decay must be >= 0")
+        if self.weight_decay != 0.0 and self.prox_h not in (
+                "zero", "weight_decay"):
+            raise ValueError("weight_decay and a non-trivial prox_h are "
+                             "mutually exclusive (one coordinator h)")
+        self.resolve_prox_h()
+        if name == "agd":
+            mu, L = self.moduli()
+            if L is not None and L <= mu:
+                raise ValueError(
+                    f"agd momentum needs L > mu; derived L={L:.4g} from "
+                    f"gamma={self.gamma} -- pass an explicit L in the spec")
+        return self
+
+    def _validate_port_scope(self) -> None:
+        if self.compression.name != "none":
+            raise _later(f"compression={self.compression.name!r}",
+                         "compressed z-exchange")
+        if self.async_mode != "off" or self.max_staleness != 0:
+            raise _later("bounded-staleness async rounds", "async runtime")
+        if self.guard_increments:
+            raise _later("increment guards", "fault and robust runtime")
+        if self.aggregator != "mean":
+            raise _later(f"aggregator={self.aggregator!r}",
+                         "fault and robust runtime")
+        if self.agent_groups is not None:
+            raise _later("heterogeneous agent_groups",
+                         "heterogeneous solver groups")
+        if self.agent_shards != 1 or self.mesh_shape is not None:
+            raise _later("sharded rounds (agent_shards / mesh_shape)",
+                         "multi-device")
+        if self.privacy.dp_init:
+            raise _later("dp_init", "dense front end")
+
+
+def as_spec(cfg: Any) -> FedSpec:
+    if isinstance(cfg, FedSpec):
+        return cfg
+    raise TypeError(f"cannot interpret {type(cfg).__name__} as a FedSpec")
+
+
+# ---------------------------------------------------------------------------
+# Privacy accounting from the spec
+# ---------------------------------------------------------------------------
+
+def _resolve_gamma(spec: FedSpec, gamma: Optional[float]) -> float:
+    if gamma is not None:
+        return gamma
+    m, L = spec.moduli()
+    if L is None:
+        raise ValueError("privacy_report needs gamma (or explicit "
+                         "moduli to derive it)")
+    return spec.solver_config().resolve_step_size(
+        m + 1.0 / spec.rho, L + 1.0 / spec.rho)
+
+
+def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
+                   delta: Optional[float] = None, *,
+                   mu: Optional[float] = None):
+    """Position a DP run on the paper's (eps, delta) map (Prop. 4 +
+    Lemma 5 via :mod:`repro_torch.core.privacy`), homogeneous case: one
+    dataset size q for every agent.  ``mu`` defaults to the curvature
+    the algorithm optimizes against (weight_decay + 1/rho).  The runtime
+    clips the per-agent mean gradient at C, so the per-sample-equivalent
+    sensitivity is C * q; an unclipped run assumes 1.0."""
+    from repro_torch.core.privacy import PrivacyReport
+
+    spec = as_spec(spec).validate()
+    p = spec.privacy
+    if p.tau <= 0.0:
+        raise ValueError("privacy_report requires tau > 0")
+    mu_eff = mu if mu is not None else spec.weight_decay + 1.0 / spec.rho
+    if mu_eff <= 0.0:
+        raise ValueError("privacy accounting requires a strongly convex "
+                         "local objective (mu > 0)")
+    delta_eff = delta if delta is not None else p.delta
+    if isinstance(local_dataset_size, (str, bytes)) or hasattr(
+            local_dataset_size, "__len__"):
+        raise _later("per-agent dataset sizes (the per-agent privacy table)",
+                     "heterogeneous solver groups")
+    gamma = _resolve_gamma(spec, spec.gamma)
+    sensitivity = (p.clip * local_dataset_size
+                   if p.clip is not None else 1.0)
+    return PrivacyReport.build(
+        sensitivity=sensitivity, mu=mu_eff, tau=p.tau,
+        q=local_dataset_size, gamma=gamma, K=n_rounds,
+        n_epochs=spec.n_epochs, delta=delta_eff)
+
+
+# ---------------------------------------------------------------------------
+# The trainer handle
+# ---------------------------------------------------------------------------
+
+class ModelTrainer:
+    """:mod:`repro_torch.fed.runtime` behind one handle: ``init / step /
+    run / consensus / privacy_report``.  Runs on the model's device
+    (CUDA unless ``device='cpu'``)."""
+
+    def __init__(self, model, spec: FedSpec, device=None):
+        if spec.n_agents is None:
+            raise ValueError("FedSpec.n_agents is required at model scale")
+        if spec.gamma is None:
+            raise ValueError("FedSpec.gamma is required at model scale "
+                             "(the local moduli are unknown)")
+        from repro_torch.fed import runtime
+
+        self.spec = spec.validate()
+        self.model = model
+        self.device = resolve_device(device)
+        self._runtime = runtime
+        self.packed_meta = (runtime.packed_layout(model, self.spec)
+                            if self.spec.state_layout == "packed" else None)
+        self._step = runtime.make_train_step(model, self.spec)
+
+    def init(self, seed: int = 0, params: Optional[dict] = None):
+        """A fresh state; returns ``(state, generator)``, the generator
+        (seeded on the run's device) drawing every later random choice."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        state = self._runtime.init_state(self.model, self.spec, self.device,
+                                         gen, params)
+        return state, gen
+
+    @torch.no_grad()
+    def step(self, state, batch, generator=None, u=None, noise=None):
+        """One Fed-PLT round on an agent-stacked batch (``u`` replays an
+        ``(N,)`` participation row, ``noise(epoch, w)`` the DP draw)."""
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        return self._step(state, batch, generator=generator, u=u,
+                          noise=noise)
+
+    def run(self, seed: int, n_rounds: int, batches):
+        """Run from a fresh init; ``batches`` is a callable ``i -> batch``
+        or an iterable.  Returns ``(state, metrics_history)``."""
+        state, gen = self.init(seed)
+        it = None if callable(batches) else iter(batches)
+        history = []
+        for i in range(n_rounds):
+            batch = batches(i) if it is None else next(it)
+            state, m = self.step(state, batch, gen)
+            history.append({k: float(v) for k, v in m.items()})
+        return state, history
+
+    def consensus(self, state) -> dict:
+        return self._runtime.consensus_model(state, meta=self.packed_meta)
+
+    def privacy_report(self, n_rounds: int, local_dataset_size=None,
+                       delta: Optional[float] = None):
+        if local_dataset_size is None:
+            raise ValueError("model-scale privacy_report needs the local "
+                             "dataset size q_i")
+        return privacy_report(self.spec, n_rounds, local_dataset_size,
+                              delta)
+
+
+def build_trainer(model, spec: Any, device=None) -> ModelTrainer:
+    """The front door at model scale (the dense front end is a later
+    slice of the port)."""
+    spec = as_spec(spec)
+    if hasattr(model, "local_loss") and hasattr(model, "n_agents"):
+        raise _later("the dense problem front end (DenseTrainer)",
+                     "compressed z-exchange")
+    if hasattr(model, "loss_fn") and hasattr(model, "init"):
+        return ModelTrainer(model, spec, device)
+    raise TypeError(f"cannot build a trainer for {type(model).__name__}: "
+                    f"expected a model (init/loss_fn)")
+
+
+# ---------------------------------------------------------------------------
+# CLI generation
+# ---------------------------------------------------------------------------
+
+def _cli_entries():
+    out = []
+    for owner, cls in (("spec", FedSpec), ("privacy", PrivacySpec),
+                       ("compression", CompressionSpec)):
+        for f in dataclasses.fields(cls):
+            if f.name in ("privacy", "compression"):
+                continue
+            meta = f.metadata.get("cli")
+            if meta is None or not meta["expose"]:
+                continue
+            flag = meta["flag"] or "--" + f.name.replace("_", "-")
+            dest = flag.lstrip("-").replace("-", "_")
+            default = (meta["default"] if meta["default"] is not None
+                       else f.default)
+            kwargs = dict(default=default, help=meta["help"])
+            if f.type in ("bool", bool):
+                kwargs["action"] = "store_true"
+            else:
+                kwargs["type"] = meta["type"] or type(default)
+                if meta["choices"]:
+                    kwargs["choices"] = meta["choices"]
+            out.append((owner, f.name, flag, dest, kwargs))
+    return out
+
+
+def add_spec_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """Add one flag per exposed :class:`FedSpec` field."""
+    for _, _, flag, _, kwargs in _cli_entries():
+        ap.add_argument(flag, **kwargs)
+    return ap
+
+
+def spec_from_args(args) -> FedSpec:
+    """A :class:`FedSpec` from parsed args (or a raw argv list)."""
+    if not isinstance(args, argparse.Namespace):
+        ap = argparse.ArgumentParser(prog="fedspec")
+        add_spec_args(ap)
+        args = ap.parse_args(list(args))
+    buckets = {"spec": {}, "privacy": {}, "compression": {}}
+    for owner, name, _, dest, _ in _cli_entries():
+        buckets[owner][name] = getattr(args, dest)
+    return FedSpec(privacy=PrivacySpec(**buckets["privacy"]),
+                   compression=CompressionSpec(**buckets["compression"]),
+                   **buckets["spec"])

@@ -1,0 +1,349 @@
+"""The Fed-PLT round engine, synchronous core (counterpart of
+``repro/fed/engine.py``).
+
+Every leaf of the state carries a leading agent axis ``(N, ...)``.  One
+round:
+
+  coordinator:  y = prox_{rho h / N}( mean_i z_i )            (Lemma 6)
+  agents i active (u_i ~ Ber(p_i)):
+      v_i   = 2 y - z_i                                       (reflection)
+      x_i   <- N_e epochs of the local solver on
+               d_i(w) = f_i(w) + ||w - v_i||^2/(2 rho),  warm start x_i
+      z_i   <- z_i + 2 * damping * (x_i - y)
+  agents inactive: state unchanged.
+
+Round-edge backends (``RoundConfig.engine_backend``): ``"torch"`` runs
+the edges as unfused tensor ops (the reference's ``"xla"``); ``"fused"``
+runs them as the two :mod:`repro_torch.kernels.round_edge` launches on
+the packed ``(N, M)`` buffer (the reference's ``"pallas"``).  A prox
+without the ``elementwise`` tag takes the torch edge under either
+backend, as :func:`fusible_prox` decides -- the reference's semantics.
+
+State layouts (``RoundConfig.state_layout``): ``"tree"`` carries
+agent-stacked trees; ``"packed"`` one resident ``(N, width)`` buffer per
+state variable (:func:`packed_round_step`), unpacked only at the API
+boundary and, as views, inside the gradient oracle.
+
+Randomness: the participation row is drawn from a ``torch.Generator``
+(the reference uses JAX's threefry; the bits differ), or given
+explicitly as an ``(N,)`` row, which is how the parity tests replay the
+reference's draws.
+
+Not ported yet (later slices): the compressed z-exchange, bounded-
+staleness async rounds, increment guards and fault rows, robust
+aggregators, heterogeneous solver groups and the sharded mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.fed import compress as compress_lib
+from repro_torch.fed.solvers import LocalSolver
+from repro_torch.kernels.round_edge import ops as edge_ops
+
+tree_map = pytree.tree_map
+
+ENGINE_BACKENDS = ("torch", "fused")
+ENGINE_LAYOUTS = ("tree", "packed")
+
+# Leaf-wise proximal operator of the coordinator regularizer h (None =
+# h = 0), applied with rho_eff = rho / N (Lemma 6).
+ProxH = Optional[Callable[[Any, float], Any]]
+
+
+def _numeric_scalar(name: str, value) -> float:
+    if isinstance(value, (str, bytes)):
+        raise ValueError(f"{name} must be a number, got the string {value!r}")
+    try:
+        return float(value)
+    except (TypeError, ValueError):
+        raise ValueError(f"{name} must be a number, got {value!r}") from None
+
+
+class SolverGroup(NamedTuple):
+    """A contiguous slice of the agent axis with its own solver; the
+    port runs a single group only (heterogeneous groups are a later
+    slice)."""
+
+    size: int
+    solver: LocalSolver
+
+
+SolverAssignment = Union[LocalSolver, Tuple[SolverGroup, ...]]
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundConfig:
+    """Round-topology knobs (the synchronous, unsharded subset of the
+    reference's ``RoundConfig``)."""
+
+    n_agents: int
+    rho: float = 1.0
+    # one scalar p, or an (n_agents,)-tuple of per-agent probabilities
+    participation: Union[float, Tuple[float, ...]] = 1.0
+    damping: float = 1.0
+    compression: str = "none"
+    engine_backend: str = "torch"
+    state_layout: str = "tree"
+
+    def __post_init__(self):
+        if self.compression != "none":
+            raise ValueError(
+                f"compression={self.compression!r} is not ported yet: the "
+                f"compressed z-exchange is a later slice of the port")
+        if self.engine_backend not in ENGINE_BACKENDS:
+            raise ValueError(
+                f"unknown engine backend {self.engine_backend!r}; "
+                f"known: {', '.join(ENGINE_BACKENDS)}")
+        if self.state_layout not in ENGINE_LAYOUTS:
+            raise ValueError(
+                f"unknown state layout {self.state_layout!r}; "
+                f"known: {', '.join(ENGINE_LAYOUTS)}")
+        object.__setattr__(self, "damping",
+                           _numeric_scalar("damping", self.damping))
+        object.__setattr__(self, "rho", _numeric_scalar("rho", self.rho))
+        p = self.participation
+        if isinstance(p, (str, bytes)):
+            raise ValueError(
+                f"participation must be a probability or a per-agent "
+                f"sequence of probabilities, got the string {p!r}")
+        if isinstance(p, (list, tuple)):
+            p = tuple(float(x) for x in p)
+            if len(p) != self.n_agents:
+                raise ValueError(
+                    f"per-agent participation has {len(p)} entries for "
+                    f"n_agents={self.n_agents}")
+        else:
+            p = float(p)
+        object.__setattr__(self, "participation", p)
+
+    @property
+    def compressed(self) -> bool:
+        return self.compression != "none"
+
+    @property
+    def fused(self) -> bool:
+        return self.engine_backend == "fused"
+
+
+class RoundResult(NamedTuple):
+    x: Any               # tree, leaves (N, ...) -- or (N, width) buffer
+    z: Any
+    t: Any               # coordinator's copy of z (== z, uncompressed)
+    y: Any               # coordinator model (no agent axis / (1, width))
+    u: torch.Tensor      # (N,) float32 participation row of this round
+    aux: Any             # whatever the local solver returned
+
+
+# ---------------------------------------------------------------------------
+# Round pieces
+# ---------------------------------------------------------------------------
+
+def agent_mean(z: Any) -> Any:
+    """Mean over the leading agent axis, leaf-wise."""
+    return tree_map(lambda zl: torch.mean(zl, dim=0), z)
+
+
+def coordinator_prox(z: Any, cfg: RoundConfig, prox_h: ProxH = None) -> Any:
+    """``y = prox_{rho h / N}(mean_i z_i)`` on trees (Lemma 6)."""
+    zbar = agent_mean(z)
+    if prox_h is None:
+        return zbar
+    rho_eff = cfg.rho / cfg.n_agents
+    return tree_map(lambda zl: prox_h(zl, rho_eff), zbar)
+
+
+def reflect(y: Any, z: Any) -> Any:
+    """``v = 2 y - z`` with y broadcast across the agent axis."""
+    return tree_map(lambda yl, zl: 2.0 * yl[None] - zl, y, z)
+
+
+def participation_mask(cfg: RoundConfig, device, generator=None,
+                       u=None) -> torch.Tensor:
+    """One Bernoulli(p_i) draw per agent as a float32 ``(N,)`` row, or
+    the given row ``u`` (a replayed draw), checked and converted."""
+    if u is not None:
+        u = torch.as_tensor(u, dtype=torch.float32).to(device).reshape(-1)
+        if u.numel() != cfg.n_agents:
+            raise ValueError(f"participation row has {u.numel()} entries "
+                             f"for n_agents={cfg.n_agents}")
+        return u
+    p = torch.as_tensor(cfg.participation, dtype=torch.float32,
+                        device=device)
+    draw = torch.rand((cfg.n_agents,), generator=generator, device=device)
+    return (draw < p).float()
+
+
+def masked_mix(u: torch.Tensor, new: Any, old: Any) -> Any:
+    """``new`` where the agent participated, ``old`` otherwise --
+    ``torch.where``, so a NaN local solve cannot leak into agents that
+    sat the round out."""
+    mask = u != 0
+
+    def mix(nl, ol):
+        return torch.where(mask.reshape((-1,) + (1,) * (nl.ndim - 1)),
+                           nl, ol)
+
+    return tree_map(mix, new, old)
+
+
+def fusible_prox(prox_h: ProxH) -> bool:
+    """Whether ``prox_h`` may run inside the fused edge kernels: h = 0 or
+    a :func:`repro_torch.core.prox.make_prox` table entry (tagged
+    ``elementwise``, with a kernel form)."""
+    return prox_h is None or getattr(prox_h, "elementwise", False)
+
+
+def _uniform_stack(*trees) -> bool:
+    leaves = [l for t in trees for l in pytree.tree_leaves(t)]
+    return len({(l.shape[0], l.dtype) for l in leaves}) == 1
+
+
+# ---------------------------------------------------------------------------
+# Round edges on trees
+# ---------------------------------------------------------------------------
+
+def coordinator_edge(cfg: RoundConfig, z: Any, z_seen: Any,
+                     prox_h: ProxH = None) -> Tuple[Any, Any]:
+    """The uplink: ``y = prox_{rho h/N}(mean_i z_seen_i)`` and
+    ``v = 2 y - z``.  Under the fused backend the leaves are packed and
+    the edge is one :mod:`repro_torch.kernels.round_edge` launch."""
+    if cfg.fused and fusible_prox(prox_h) and _uniform_stack(z, z_seen):
+        buf_z, meta = compress_lib.pack_leaves(z)
+        buf_t = None if z_seen is z else compress_lib.pack_leaves(
+            z_seen, meta)[0]
+        y_buf, v_buf = edge_ops.round_uplink(
+            buf_z, buf_t, prox=prox_h, rho_eff=cfg.rho / cfg.n_agents)
+        return (compress_lib.unpack_coord(y_buf, meta),
+                compress_lib.unpack_leaves(v_buf, meta))
+    y = coordinator_prox(z_seen, cfg, prox_h)
+    return y, reflect(y, z)
+
+
+def agent_edge(cfg: RoundConfig, u: torch.Tensor, w: Any, x: Any, z: Any,
+               y: Any, z_seen: Any = None,
+               prox_h: ProxH = None) -> Tuple[Any, Any]:
+    """The downlink: ``z + 2 damping (w - y)`` and the participation
+    selects of ``x`` (from ``w``) and ``z``.  Under the fused backend one
+    kernel launch on the packed buffers, which recomputes ``y`` from
+    ``z_seen``."""
+    if z_seen is None:
+        z_seen = z
+    if cfg.fused and fusible_prox(prox_h) and _uniform_stack(x, w, z,
+                                                             z_seen):
+        x_buf, meta = compress_lib.pack_leaves(x)
+        w_buf = compress_lib.pack_leaves(w, meta)[0]
+        z_buf = compress_lib.pack_leaves(z, meta)[0]
+        t_buf = None if z_seen is z else compress_lib.pack_leaves(
+            z_seen, meta)[0]
+        xb, zb = edge_ops.round_downlink(
+            x_buf, w_buf, z_buf, u, t_buf, prox=prox_h,
+            rho_eff=cfg.rho / cfg.n_agents, damping=cfg.damping)
+        return (compress_lib.unpack_leaves(xb, meta),
+                compress_lib.unpack_leaves(zb, meta))
+    x_new = masked_mix(u, w, x)
+    z_upd = tree_map(
+        lambda zl, wl, yl: zl + 2.0 * cfg.damping * (wl - yl[None]),
+        z, w, y)
+    return x_new, masked_mix(u, z_upd, z)
+
+
+# ---------------------------------------------------------------------------
+# Round edges on the resident packed buffer
+# ---------------------------------------------------------------------------
+
+def coordinator_edge_packed(cfg: RoundConfig, z: torch.Tensor,
+                            z_seen: torch.Tensor, meta,
+                            prox_h: ProxH = None):
+    """:func:`coordinator_edge` on ``(N, width)`` buffers; returns
+    ``(y (1, width), v)``.  A non-elementwise prox sees the
+    coordinator-sized tree through ``unpack_coord`` / ``pack_coord``."""
+    rho_eff = cfg.rho / cfg.n_agents
+    if cfg.fused and fusible_prox(prox_h):
+        return edge_ops.round_uplink(
+            z, None if z_seen is z else z_seen, prox=prox_h,
+            rho_eff=rho_eff)
+    zbar = torch.mean(z_seen, dim=0, keepdim=True)
+    if prox_h is None:
+        y = zbar
+    elif getattr(prox_h, "elementwise", False):
+        y = prox_h(zbar, rho_eff)
+    else:
+        y = compress_lib.pack_coord(
+            tree_map(lambda l: prox_h(l, rho_eff),
+                     compress_lib.unpack_coord(zbar, meta)), meta)
+    return y, 2.0 * y - z
+
+
+def agent_edge_packed(cfg: RoundConfig, u: torch.Tensor, w: torch.Tensor,
+                      x: torch.Tensor, z: torch.Tensor, y: torch.Tensor,
+                      z_seen: torch.Tensor, prox_h: ProxH = None):
+    """:func:`agent_edge` on ``(N, width)`` buffers (``y`` the
+    ``(1, width)`` coordinator buffer)."""
+    if cfg.fused and fusible_prox(prox_h):
+        return edge_ops.round_downlink(
+            x, w, z, u, None if z_seen is z else z_seen, prox=prox_h,
+            rho_eff=cfg.rho / cfg.n_agents, damping=cfg.damping)
+    mask = (u != 0).reshape(-1, 1)
+    x_new = torch.where(mask, w, x)
+    z_upd = z + 2.0 * cfg.damping * (w - y)
+    return x_new, torch.where(mask, z_upd, z)
+
+
+# ---------------------------------------------------------------------------
+# Solvers and rounds
+# ---------------------------------------------------------------------------
+
+def run_solvers(local_solver: SolverAssignment, x: Any, v: Any,
+                n_agents: int) -> Tuple[Any, Any]:
+    """Run the round's solver on the reflected states (one solver, or a
+    single :class:`SolverGroup` covering every agent)."""
+    if isinstance(local_solver, SolverGroup):
+        local_solver = (local_solver,)
+    if callable(local_solver):
+        return local_solver(x, v)
+    groups = tuple(local_solver)
+    if sum(g.size for g in groups) != n_agents:
+        raise ValueError(f"solver groups cover {sum(g.size for g in groups)}"
+                         f" agents, round has n_agents={n_agents}")
+    if len(groups) != 1:
+        raise ValueError("heterogeneous solver groups are not ported yet "
+                         "(later slice of the port)")
+    return groups[0].solver(x, v)
+
+
+def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
+                      z: torch.Tensor, t: torch.Tensor,
+                      local_solver: SolverAssignment, prox_h: ProxH = None,
+                      *, generator=None, u=None) -> RoundResult:
+    """One round on the resident packed state (``(N, width)`` buffers laid
+    out by ``meta``); mirrors :func:`round_step`.  ``u`` replays a given
+    ``(N,)`` participation row instead of drawing one."""
+    z_seen = t if cfg.compressed else z
+    y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h)
+    w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
+    del v
+    u = participation_mask(cfg, x.device, generator, u)
+    x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h)
+    return RoundResult(x=x_new, z=z_new, t=z_new, y=y, u=u, aux=aux)
+
+
+def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
+               local_solver: SolverAssignment, prox_h: ProxH = None, *,
+               generator=None, u=None) -> RoundResult:
+    """One Fed-PLT round on agent-stacked trees (``t`` is ``z`` itself:
+    the exchange is uncompressed).  ``u`` replays a given participation
+    row."""
+    z_seen = t if cfg.compressed else z
+    y, v = coordinator_edge(cfg, z, z_seen, prox_h)
+    w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
+    del v
+    device = pytree.tree_leaves(x)[0].device
+    u = participation_mask(cfg, device, generator, u)
+    x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h)
+    return RoundResult(x=x_new, z=z_new, t=z_new, y=y, u=u, aux=aux)

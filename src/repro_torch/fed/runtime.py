@@ -1,0 +1,152 @@
+"""Fed-PLT at model scale (counterpart of ``repro/fed/runtime.py``).
+
+The agents' states ``(x, z)`` are the model's parameters stacked on a
+leading agent axis: a dict of ``(A, ...)`` tensors (tree layout) or ONE
+resident ``(A, width)`` buffer per variable (packed layout).  One call
+of the train step is one round of the paper's Algorithm 1 through
+:mod:`repro_torch.fed.engine`.
+
+The gradient oracle loops over agents (where JAX vmaps): agent ``i``'s
+parameters are views of its state row, made autograd leaves with
+``detach().requires_grad_()`` and passed through
+``torch.func.functional_call``; ``torch.autograd.grad`` returns the
+per-leaf gradients, which are copied into ONE preallocated gradient
+buffer of the state's layout.  No parameter is copied on the way in.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch.fed import compress as compress_lib
+from repro_torch.fed import engine
+from repro_torch.fed.solvers import (make_local_solver,
+                                     make_packed_local_solver)
+
+tree_map = pytree.tree_map
+
+
+class FedState(NamedTuple):
+    """Per-agent federated state: ``x``/``z`` are dicts of ``(A, ...)``
+    tensors, or ``(A, width)`` buffers under the packed layout.  (The
+    coordinator's lagged copy ``t`` joins with the compressed exchange.)"""
+
+    x: Any
+    z: Any
+    step: int
+
+
+def _stacked_meta_tree(model, n_agents: int) -> dict:
+    return {name: torch.empty((n_agents,) + shape, dtype=dtype,
+                              device="meta")
+            for name, (shape, dtype) in model.param_shapes().items()}
+
+
+def packed_layout(model, spec) -> compress_lib.PackedMeta:
+    """The static packed layout of a model's agent-stacked state (shape
+    arithmetic over meta tensors; nothing is allocated)."""
+    return compress_lib.packed_meta(_stacked_meta_tree(model, spec.n_agents))
+
+
+def init_state(model, spec, device, generator=None,
+               params: Optional[dict] = None) -> FedState:
+    """Every agent starts from the same parameters: ``params`` when
+    given (e.g. converted from the reference), else ``model.init``."""
+    if params is None:
+        params = model.init(generator, device)
+    params = {n: params[n].to(device) for n in model.param_shapes()}
+    A = spec.n_agents
+    if spec.state_layout == "packed":
+        meta = packed_layout(model, spec)
+        x = torch.zeros((A, meta.width), dtype=meta.dtype, device=device)
+        for row in range(A):
+            for dst, src in zip(
+                    pytree.tree_leaves(compress_lib.unpack_row(x[row], meta)),
+                    params.values()):
+                dst.copy_(src)
+        return FedState(x=x, z=x.clone(), step=0)
+    x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
+         for n, p in params.items()}
+    return FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0)
+
+
+def _gradient_oracle(model, batch: dict, g, meta=None):
+    """``fgrad(w, epoch) -> (g, losses)``: per-agent loss gradients at the
+    stacked state ``w`` (packed buffer when ``meta`` is given, else a
+    dict of ``(A, ...)`` tensors), written into ``g`` (same layout as
+    ``w``) every epoch."""
+    names = list(model.param_shapes())
+
+    def rows(w, i):
+        if meta is not None:
+            return pytree.tree_leaves(compress_lib.unpack_row(w[i], meta))
+        return [w[n][i] for n in names]
+
+    def fgrad(w, epoch):
+        del epoch  # the local batch is fixed within a round
+        A = batch["tokens"].shape[0]
+        losses = torch.empty((A,), dtype=torch.float32,
+                             device=batch["tokens"].device)
+        for i in range(A):
+            leaves = [p.detach().requires_grad_() for p in rows(w, i)]
+            batch_i = {k: b[i] for k, b in batch.items()}
+            with torch.enable_grad():
+                loss = model.loss_fn(dict(zip(names, leaves)), batch_i)
+                grads = torch.autograd.grad(loss, leaves)
+            for dst, src in zip(rows(g, i), grads):
+                dst.copy_(src)
+            losses[i] = loss.detach()
+        return g, losses
+
+    return fgrad
+
+
+def make_train_step(model, spec):
+    """Returns ``step(state, batch, *, generator=None, u=None,
+    noise=None) -> (state, metrics)``.  ``batch`` leaves carry a leading
+    agent axis (tokens ``(A, b, S)``); ``u`` replays an ``(A,)``
+    participation row; ``noise(epoch, w)`` overrides the noisy_gd draw."""
+    spec = spec.validate()
+    scfg = spec.solver_config()
+    rcfg = spec.round_config()
+    prox_h = spec.resolve_prox_h()
+    mu, L = spec.moduli()
+    meta = packed_layout(model, spec) if spec.state_layout == "packed" \
+        else None
+
+    def train_step(state: FedState, batch: dict, *, generator=None, u=None,
+                   noise=None):
+        # padding columns of a packed gradient stay zero
+        g = tree_map(torch.zeros_like, state.x)
+        fgrad = _gradient_oracle(model, batch, g, meta)
+        kw = dict(use_fused=spec.use_fused_update, has_aux=True,
+                  generator=generator, noise=noise)
+        if meta is not None:
+            solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
+                                              meta=meta, **kw)
+            res = engine.packed_round_step(rcfg, meta, state.x, state.z,
+                                           state.z, solver, prox_h,
+                                           generator=generator, u=u)
+        else:
+            solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
+            res = engine.round_step(rcfg, state.x, state.z, state.z, solver,
+                                    prox_h, generator=generator, u=u)
+        metrics = {
+            "loss": (torch.mean(res.aux[-1]) if res.aux is not None
+                     else torch.tensor(float("nan"))),
+            "participation": torch.mean(res.u),
+        }
+        return FedState(x=res.x, z=res.z, step=state.step + 1), metrics
+
+    return train_step
+
+
+def consensus_model(state: FedState, meta=None) -> dict:
+    """The deployable model: the agent average of the local states
+    (``meta`` required for a packed state)."""
+    x = state.x if meta is None else compress_lib.unpack_leaves(state.x,
+                                                                meta)
+    return {n: torch.mean(l, dim=0) for n, l in x.items()}

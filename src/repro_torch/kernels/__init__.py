@@ -1,0 +1,44 @@
+"""Hand-written Hopper kernels of the port (counterpart of
+``repro/kernels``).
+
+Each suite is ``<name>/{kernel.py, ops.py, ref.py}`` plus ``csrc/``:
+``csrc/*.cu`` is the CUDA C++ source (sm_90a), ``kernel.py`` builds it
+and launches it through ctypes, ``ref.py`` is the plain PyTorch version,
+and ``ops.py`` sends CUDA tensors to the kernel and CPU tensors to the
+plain version.
+
+  round_edge     -- the round's coordinator edges on the packed
+                    ``(N, M)`` agent buffer: mean + prox + reflection
+                    (uplink), z-update + participation selects (downlink).
+  fedplt_update  -- the fused local step ``w - gamma (g + (w - v)/rho)
+                    [+ noise]``.
+
+Every ops wrapper counts its kernel launches; :func:`launch_counts` and
+:func:`reset_launch_counts` read and clear them all.
+"""
+
+
+def _wrappers() -> dict:
+    from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.round_edge import ops as edge_ops
+
+    return {"round_uplink": edge_ops.round_uplink,
+            "round_downlink": edge_ops.round_downlink,
+            "fedplt_update": update_ops.fedplt_update}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def kernel_sources() -> list:
+    """The CUDA sources of every suite (for a parallel build)."""
+    from repro_torch.kernels.fedplt_update import kernel as update_kernel
+    from repro_torch.kernels.round_edge import kernel as edge_kernel
+
+    return [edge_kernel.SOURCE, update_kernel.SOURCE]

@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source of a kernel suite is compiled by ``nvcc`` into
+a shared library with a plain C interface, loaded with ``ctypes``.
+Libraries go to ``build/repro_torch_kernels/`` at the root of the
+checkout (``build/`` is git-ignored) under a name that carries a hash of
+the source and the flags, so an unchanged source is compiled once.
+Nothing is built when a module is imported: the first launch builds,
+and :func:`build_all` compiles several sources in parallel (one ``nvcc``
+per source, all started together).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterable
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+# sm_90a: Hopper.  --fmad=false keeps every float operation separately
+# rounded, so the kernels match their plain PyTorch versions bit for bit.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    candidates = []
+    if CUDA_HOME:
+        candidates.append(os.path.join(CUDA_HOME, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    for c in candidates:
+        if os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH): "
+                       "the CUDA kernels are compiled at first use")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(
+        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def _start(source: Path):
+    """Start nvcc for ``source`` unless its library exists; returns
+    ``(process, tmp, out)`` or None."""
+    out = library_path(source)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                             str(source)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(job, source: Path) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(sources: Iterable[Path]) -> None:
+    """Compile every source whose library is missing, in parallel."""
+    sources = list(sources)
+    jobs = [(_start(s), s) for s in sources]
+    errors = []
+    for job, src in jobs:
+        if job is None:
+            continue
+        try:
+            _finish(job, src)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+@functools.cache
+def load(source: Path) -> ctypes.CDLL:
+    """The loaded library of ``source``, compiling it first if needed."""
+    build_all([source])
+    return ctypes.CDLL(str(library_path(source)))

@@ -1,0 +1,102 @@
+"""Training entry point (counterpart of ``repro/launch/train.py``, fed
+mode).
+
+Runs Fed-PLT rounds of an architecture on one device: CUDA unless
+``--device cpu``.  :func:`run_fed` holds the round loop for a built
+config and spec, so other scripts (``chip_smoke.py``) run the same loop
+on a config cut in depth.
+
+Example (the slice's main path, on a card):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --steps 3 --n-agents 4 --batch 8 --seq-len 512 --n-epochs 2 \\
+      --state-layout packed --engine-backend fused --use-fused-update \\
+      --weight-decay 0.01
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.data.synthetic import make_batch_for
+from repro_torch.fed import api
+from repro_torch.models.model import build_model
+
+
+def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
+            seq_len: int, batch: int, device=None, seed: int = 0,
+            local_dataset_size=None, log=print):
+    """``steps`` Fed-PLT rounds of ``cfg`` under ``spec`` on synthetic
+    per-agent batches; logs one line per round (and the privacy position
+    first when ``tau > 0``).  Returns ``(trainer, state, history)``."""
+    device = resolve_device(device)
+    spec.validate()
+    trainer = api.build_trainer(build_model(cfg), spec, device)
+    if spec.privacy.tau > 0:
+        q = local_dataset_size or max(1, batch // spec.n_agents)
+        rep = trainer.privacy_report(steps, q)
+        caveat = "" if spec.privacy.clip is not None else \
+            " (UNCLIPPED: per-sample sensitivity assumed 1.0 -- pass --clip)"
+        log(f"privacy: ({rep.adp_eps:.3f}, {rep.adp_delta:.0e})-ADP"
+            f" over K={rep.K} rounds x N_e={rep.n_epochs};"
+            f" ceiling as K*Ne->inf: eps={rep.eps_ceiling:.3f}"
+            f" at Renyi order {rep.rdp_order:.1f}{caveat}")
+    state, gen = trainer.init(seed)
+    shape = InputShape("cli", seq_len, batch, "train")
+    history = []
+    for i in range(steps):
+        b = make_batch_for(cfg, shape, gen, n_agents=spec.n_agents,
+                           device=device)
+        t0 = time.time()
+        state, metrics = trainer.step(state, b, gen)
+        m = {k: float(v) for k, v in metrics.items()}   # waits for the device
+        m["dt"] = time.time() - t0
+        history.append(m)
+        log(f"round {i:4d} loss={m['loss']:.4f} "
+            f"part={m['participation']:.2f} dt={m['dt']:.2f}s")
+    return trainer, state, history
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--mode", default="fed", choices=["fed"],
+                    help="fed only (standard training is a later slice)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (2 layers, d_model 256)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--local-dataset-size", type=int, default=None,
+                    help="local dataset size q_i for the privacy report "
+                         "(default: per-agent batch)")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    api.add_spec_args(ap)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    spec = api.spec_from_args(args).validate()
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.reduced()
+    trainer, state, _ = run_fed(
+        cfg, spec, steps=args.steps, seq_len=args.seq_len, batch=args.batch,
+        device=device, seed=args.seed,
+        local_dataset_size=args.local_dataset_size)
+    final = trainer.consensus(state)
+    n = sum(p.numel() for p in final.values())
+    print(f"done: {args.arch} ({n / 1e6:.2f}M params) on {device}")
+    if device.type == "cuda":
+        print(f"peak device memory: "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,53 @@
+"""The public Model bundle (counterpart of ``repro/models/model.py``;
+decode is a later slice).
+
+``loss_fn(params, batch)`` and ``forward(params, batch)`` run the meta
+:class:`~repro_torch.models.transformer.Transformer` through
+``torch.func.functional_call`` with ``params`` -- a ``{name: tensor}``
+mapping, typically views into a packed agent buffer row.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch.func import functional_call
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as tfm
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    config: ModelConfig
+    module: torch.nn.Module                       # on the meta device
+    init: Callable[..., dict]                     # (generator, device)
+    loss_fn: Callable[..., torch.Tensor]          # (params, batch)
+    forward: Callable[..., torch.Tensor]          # (params, batch) -> logits
+
+    def param_shapes(self) -> dict:
+        """``{name: (shape, dtype)}`` in the module's parameter order."""
+        return {n: (tuple(p.shape), p.dtype)
+                for n, p in self.module.named_parameters()}
+
+    def param_count(self) -> int:
+        return sum(p.numel() for p in self.module.parameters())
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    with torch.device("meta"):
+        module = tfm.Transformer(cfg)
+
+    def init(generator: torch.Generator, device) -> dict:
+        return tfm.init_params(cfg, generator, device)
+
+    def loss_fn(params: dict, batch: dict) -> torch.Tensor:
+        return functional_call(module, params, (batch,))
+
+    def forward(params: dict, batch: dict) -> torch.Tensor:
+        return functional_call(module, params, (batch,), {"logits": True})
+
+    return Model(config=cfg, module=module, init=init, loss_fn=loss_fn,
+                 forward=forward)

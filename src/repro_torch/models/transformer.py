@@ -1,0 +1,243 @@
+"""Stage-based transformer, dense path (counterpart of
+``repro/models/transformer.py``).
+
+A model is a list of *stages*; each stage is a repeating unit of layer
+kinds (gemma2's ``('local', 'global')``) run ``n_units`` times with
+parameters stacked on a leading ``n_units`` axis, exactly as the
+reference stacks them (a Python loop over units where JAX scans).
+
+The module is an ``nn.Module`` whose parameter names mirror the
+reference's pytree paths (``stages.0.1.attn.wq`` is
+``params["stages"][0]["1"]["attn"]["wq"]``).  It is built on the meta
+device and driven through ``torch.func.functional_call`` with the
+parameters passed in -- views of a packed state buffer in the federated
+trainer -- so the module itself holds no weights.
+
+Only the ``global`` / ``local`` attention kinds are ported; MoE, SSM,
+RG-LRU, enc-dec and multimodal frontends raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (apply_rope, cross_entropy,
+                                       embed_scale, init_mlp, mlp,
+                                       mlp_shapes, rms_norm, softcap)
+
+_PORTED_KINDS = ("global", "local")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported yet: repro_torch runs the dense "
+        f"global/local transformer only (later slice of the port)")
+
+
+# ---------------------------------------------------------------------------
+# Stage structure
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class StageSpec:
+    unit: tuple            # layer kinds within the repeating unit
+    n_units: int
+    cross: bool = False
+
+
+def build_stages(cfg: ModelConfig) -> list[StageSpec]:
+    if cfg.n_enc_layers:
+        raise _not_ported("the encoder-decoder model")
+    unit = tuple(cfg.pattern)
+    stages = []
+    n_full, rem = divmod(cfg.n_layers, len(unit))
+    if n_full:
+        stages.append(StageSpec(unit=unit, n_units=n_full))
+    if rem:
+        stages.append(StageSpec(unit=unit[:rem], n_units=1))
+    return stages
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if cfg.n_experts:
+        raise _not_ported("the MoE FFN")
+    if cfg.frontend:
+        raise _not_ported(f"the {cfg.frontend} frontend")
+    if not cfg.tie_embeddings:
+        raise _not_ported("an untied LM head")
+    if cfg.chunked_loss:
+        raise _not_ported("the vocab-chunked loss")
+    for kind in cfg.layer_kinds():
+        if kind not in _PORTED_KINDS:
+            raise _not_ported(f"the {kind!r} layer kind")
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameters on the meta device; real tensors come in through
+# functional_call)
+# ---------------------------------------------------------------------------
+
+def _param(shape, dtype):
+    return nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: ModelConfig, n_units: int, dtype):
+        super().__init__()
+        shapes = attn_lib.attn_shapes(cfg.d_model, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.resolved_head_dim)
+        for k, s in shapes.items():
+            setattr(self, k, _param((n_units,) + s, dtype))
+
+    def unit(self, u: int) -> dict:
+        return {"wq": self.wq[u], "wk": self.wk[u], "wv": self.wv[u],
+                "wo": self.wo[u]}
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: ModelConfig, n_units: int, dtype):
+        super().__init__()
+        shapes = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.activation)
+        for k, s in shapes.items():
+            setattr(self, k, _param((n_units,) + s, dtype))
+
+    def unit(self, u: int) -> dict:
+        return {"wi": self.wi[u], "wo": self.wo[u]}
+
+
+class Layer(nn.Module):
+    """One attention + FFN layer, parameters stacked over units."""
+
+    def __init__(self, kind: str, cfg: ModelConfig, n_units: int, dtype):
+        super().__init__()
+        self.kind = kind
+        self.cfg = cfg
+        self.ln1 = _param((n_units, cfg.d_model), dtype)
+        self.attn = Attention(cfg, n_units, dtype)
+        self.ln2 = _param((n_units, cfg.d_model), dtype)
+        self.mlp = MLP(cfg, n_units, dtype)
+
+    def _attention(self, p, x, positions):
+        cfg = self.cfg
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k, v = attn_lib.qkv(p, x, n_heads=H, n_kv_heads=Hkv, head_dim=D)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        if self.kind == "local":
+            o = attn_lib.attn_block_local(q, k, v, window=cfg.window,
+                                          cap=cfg.attn_softcap)
+        else:
+            o = attn_lib.attn_chunked(q, k, v, causal=cfg.causal,
+                                      cap=cfg.attn_softcap,
+                                      chunk=cfg.attn_chunk)
+        return o @ p["wo"]
+
+    def forward(self, x, u: int, positions):
+        eps = self.cfg.norm_eps
+        x = x + self._attention(self.attn.unit(u),
+                                rms_norm(x, self.ln1[u], eps), positions)
+        h = rms_norm(x, self.ln2[u], eps)
+        return x + mlp(self.mlp.unit(u), h, self.cfg.activation)
+
+
+class Stage(nn.ModuleDict):
+    """The repeating unit of a stage: layer ``str(i)`` of kind
+    ``unit[i]``, each with ``n_units`` stacked parameter sets."""
+
+    def __init__(self, spec: StageSpec, cfg: ModelConfig, dtype):
+        super().__init__({str(i): Layer(kind, cfg, spec.n_units, dtype)
+                          for i, kind in enumerate(spec.unit)})
+        self.spec = spec
+
+    def forward(self, x, positions):
+        for u in range(self.spec.n_units):
+            for i in range(len(self.spec.unit)):
+                x = self[str(i)](x, u, positions)
+        return x
+
+
+class Transformer(nn.Module):
+    """``forward(batch)`` is the mean token cross-entropy;
+    ``forward(batch, logits=True)`` the softcapped logits."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        _check_ported(cfg)
+        dtype = getattr(torch, cfg.dtype)
+        self.cfg = cfg
+        self.stages = nn.ModuleList(
+            [Stage(s, cfg, dtype) for s in build_stages(cfg)])
+        self.embed = _param((cfg.vocab, cfg.d_model), dtype)
+        self.final_norm = _param((cfg.d_model,), dtype)
+
+    def forward_hidden(self, tokens):
+        """Embedding (scaled by sqrt(d) in the param dtype) -> stages ->
+        final norm."""
+        cfg = self.cfg
+        x = self.embed[tokens] * embed_scale(cfg.d_model, self.embed.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for stage in self.stages:
+            x = stage(x, positions)
+        return rms_norm(x, self.final_norm, cfg.norm_eps)
+
+    def forward(self, batch: dict, logits: bool = False):
+        x = self.forward_hidden(batch["tokens"])
+        out = softcap(x @ self.embed.t(), self.cfg.final_softcap)
+        if logits:
+            return out
+        return cross_entropy(out, batch["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Parameter init (the reference's distributions; the bits differ, since
+# the port draws from a torch.Generator)
+# ---------------------------------------------------------------------------
+
+def _init_layer(generator, cfg: ModelConfig, dtype, device,
+                n_units: int) -> dict:
+    d = cfg.d_model
+    lead = (n_units,)
+    return {
+        "ln1": torch.zeros(lead + (d,), dtype=dtype, device=device),
+        "attn": attn_lib.init_attn(generator, d, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.resolved_head_dim,
+                                   dtype, device=device, lead=lead),
+        "ln2": torch.zeros(lead + (d,), dtype=dtype, device=device),
+        "mlp": init_mlp(generator, d, cfg.d_ff, cfg.activation, dtype,
+                        device=device, lead=lead),
+    }
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device) -> dict:
+    """Random parameters as ``{name: tensor}`` (names of
+    :class:`Transformer`'s ``named_parameters``)."""
+    _check_ported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    tree = {"stages": {
+        str(si): {str(i): _init_layer(generator, cfg, dtype, device,
+                                      s.n_units)
+                  for i in range(len(s.unit))}
+        for si, s in enumerate(build_stages(cfg))}}
+    tree["embed"] = (cfg.d_model ** -0.5 * torch.randn(
+        (cfg.vocab, cfg.d_model), generator=generator,
+        device=device)).to(dtype)
+    tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                     device=device)
+    return _flatten(tree)

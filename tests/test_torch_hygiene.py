@@ -1,0 +1,94 @@
+"""Import hygiene and device rules of the PyTorch port.
+
+``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor anything
+of the reference package ``repro``; every module imports on a machine
+without CUDA, nvcc or Triton; an entry point asked for CUDA on such a
+machine raises rather than carrying on on the CPU.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
+
+
+def _modules():
+    return sorted(p for p in PKG.rglob("*.py"))
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _modules() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_reference_or_jax_imports(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, roots
+
+
+def test_every_module_imports_without_jax_repro_or_triton():
+    names = []
+    for p in _modules():
+        rel = p.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        names.append(".".join(parts))
+    code = (
+        "import importlib, sys\n"
+        f"for n in {names!r}:\n"
+        "    importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_train_entry_point_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the entry point would run")
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "gemma2-2b", "--smoke", "--steps", "1"])
+
+
+def test_trainer_on_cuda_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from repro_torch.configs import get_config
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    model = build_model(get_config("gemma2-2b").reduced())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.build_trainer(model, api.FedSpec(n_agents=2, gamma=0.05))
+
+
+def test_chip_smoke_fails_without_cuda_and_without_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
