@@ -7,7 +7,9 @@ backends: ``engine_backend`` is ``"torch"`` (the reference's ``"xla"``,
 unfused tensor ops) or ``"fused"`` (its ``"pallas"``, the
 :mod:`repro_torch.kernels.round_edge` kernels), and ``use_pallas`` is
 ``use_fused_update`` (the :mod:`repro_torch.kernels.fedplt_update`
-kernel).  Fields whose features are later slices of the port raise a
+kernel); ``CompressionSpec.backend`` likewise takes ``"torch"`` or
+``"fused"`` (the :mod:`repro_torch.kernels.compress` kernels) besides
+``"auto"``.  Fields whose features are later slices of the port raise a
 ``ValueError`` naming the slice in :meth:`FedSpec.validate`.
 
 The train CLI is generated from the spec's dataclass fields
@@ -26,10 +28,9 @@ from repro_torch import resolve_device
 from repro_torch.core import prox as prox_lib
 from repro_torch.core.solvers import SolverConfig
 from repro_torch.fed import engine
-from repro_torch.fed.compress import get_compressor
+from repro_torch.fed.compress import (COMPRESS_BACKENDS,
+                                      available_compressors, get_compressor)
 from repro_torch.fed.solvers import get_solver
-
-COMPRESS_BACKENDS = ("auto", "xla", "pallas")
 
 
 def _upgrade_solver(name: str, tau: float) -> str:
@@ -80,7 +81,8 @@ class PrivacySpec:
 
 @dataclasses.dataclass(frozen=True)
 class CompressionSpec:
-    """z-uplink compression (only ``none`` is ported)."""
+    """z-uplink compression; ``name`` is a
+    :mod:`repro_torch.fed.compress` registry entry."""
 
     name: str = dataclasses.field(default="none", metadata=_cli(
         flag="--compression", help="z-uplink compressor (registry name)"))
@@ -92,7 +94,8 @@ class CompressionSpec:
         help="adaptive_topk per-agent energy target"))
     backend: str = dataclasses.field(default="auto", metadata=_cli(
         flag="--compress-backend", choices=list(COMPRESS_BACKENDS),
-        help="uplink compressor backend"))
+        help="uplink compressor backend (auto = the kernel wherever one "
+             "exists; fused = the compress kernels)"))
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +202,9 @@ class FedSpec:
             n_agents=self.n_agents, rho=self.rho,
             participation=self.participation, damping=self.damping,
             compression=self.compression.name,
+            compress_ratio=self.compression.ratio,
+            compress_energy=self.compression.energy,
+            compress_backend=self.compression.backend,
             engine_backend=self.engine_backend,
             state_layout=self.state_layout)
 
@@ -290,9 +296,6 @@ class FedSpec:
         return self
 
     def _validate_port_scope(self) -> None:
-        if self.compression.name != "none":
-            raise _later(f"compression={self.compression.name!r}",
-                         "compressed z-exchange")
         if self.async_mode != "off" or self.max_staleness != 0:
             raise _later("bounded-staleness async rounds", "async runtime")
         if self.guard_increments:
@@ -435,7 +438,7 @@ def build_trainer(model, spec: Any, device=None) -> ModelTrainer:
     spec = as_spec(spec)
     if hasattr(model, "local_loss") and hasattr(model, "n_agents"):
         raise _later("the dense problem front end (DenseTrainer)",
-                     "compressed z-exchange")
+                     "dense front end")
     if hasattr(model, "loss_fn") and hasattr(model, "init"):
         return ModelTrainer(model, spec, device)
     raise TypeError(f"cannot build a trainer for {type(model).__name__}: "
@@ -467,6 +470,8 @@ def _cli_entries():
                 kwargs["type"] = meta["type"] or type(default)
                 if meta["choices"]:
                     kwargs["choices"] = meta["choices"]
+            if f.name == "name" and owner == "compression":
+                kwargs["choices"] = available_compressors()
             out.append((owner, f.name, flag, dest, kwargs))
     return out
 

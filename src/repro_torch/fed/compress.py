@@ -1,8 +1,22 @@
-"""Uplink compressor registry and leaf packing (counterpart of
-``repro/fed/compress.py``, packing half).
+"""Uplink compressors and leaf packing (counterpart of
+``repro/fed/compress.py``).
 
-The registry holds ``none`` only: the compressed z-exchange (topk, int8,
-adaptive_topk and their kernels) is a later slice of the port.
+A compressor maps a flattened per-leaf increment ``dz`` of shape
+``(N, m)`` (one row per agent) to the values actually transmitted; the
+round engine advances the coordinator's lagged copy ``t`` by exactly
+what was transmitted.  Registered: ``none``, ``topk``, ``int8`` and
+``adaptive_topk`` (plain torch, with the tie and key rules of
+:mod:`repro_torch.kernels.compress.ref`); :func:`register_compressor`
+adds more, reachable by name from ``FedSpec`` and the CLI.
+
+Backends (``cfg.compress_backend``, the port's names): ``"torch"`` runs
+the registry function leaf by leaf (the reference's ``"xla"``);
+``"fused"`` runs the compressors of :data:`FUSED_COMPRESSORS` as ONE
+:mod:`repro_torch.kernels.compress` launch on the packed ``(N, width)``
+buffer with per-leaf segments (the reference's ``"pallas"``); other
+compressors take the registry path under either.  ``"auto"`` means the
+kernel wherever one exists (:func:`resolve_backend`).  Both backends give
+the same bits.
 
 Packing lays an agent-stacked tree (every leaf ``(N, ...)``) out as ONE
 ``(N, width)`` buffer: leaf ``j`` occupies columns ``segments[j]``.  The
@@ -23,10 +37,17 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.kernels.compress import ops as compress_ops
+from repro_torch.kernels.compress import ref as compress_ref
+
 # (dz_rows (N, m), round_cfg) -> transmitted rows (N, m)
 CompressFn = Callable[[torch.Tensor, Any], torch.Tensor]
 
 _REGISTRY: Dict[str, CompressFn] = {}
+
+COMPRESS_BACKENDS = ("auto", "torch", "fused")
+# registry names with a kernel
+FUSED_COMPRESSORS = frozenset({"topk", "adaptive_topk", "int8"})
 
 # segment alignment of the packed buffer, in elements
 _ALIGN = 64
@@ -60,6 +81,77 @@ def compress_none(dz: torch.Tensor, cfg) -> torch.Tensor:
     """Exact exchange: transmit the full-precision increment."""
     del cfg
     return dz
+
+
+@register_compressor("topk")
+def compress_topk(dz: torch.Tensor, cfg) -> torch.Tensor:
+    """Keep the ``compress_ratio`` fraction of largest-magnitude entries
+    per agent, exactly ``max(1, int(ratio * m))`` of them (ties by
+    position: a threshold would transmit every tied entry)."""
+    return compress_ref.rank_select_ref(dz, None, "topk", cfg.compress_ratio)
+
+
+@register_compressor("int8")
+def compress_int8(dz: torch.Tensor, cfg) -> torch.Tensor:
+    """Symmetric per-agent int8 quantization (scale = max|dz| / 127)."""
+    del cfg
+    return compress_ref.int8_ref(dz)
+
+
+@register_compressor("adaptive_topk")
+def compress_adaptive_topk(dz: torch.Tensor, cfg) -> torch.Tensor:
+    """Per-agent adaptive top-k: each agent keeps the smallest k_i whose
+    top entries capture a ``compress_energy`` fraction of its increment's
+    l2 energy, floored at ``max(1, int(ratio * m))`` (the energy is
+    summed in float64: :mod:`repro_torch.kernels.compress.ref`)."""
+    return compress_ref.rank_select_ref(dz, None, "adaptive_topk",
+                                        cfg.compress_ratio,
+                                        cfg.compress_energy)
+
+
+# ---------------------------------------------------------------------------
+# Backends
+# ---------------------------------------------------------------------------
+
+def resolve_backend(cfg) -> str:
+    """``cfg.compress_backend`` as ``"torch"`` or ``"fused"``.
+
+    ``"auto"`` takes the kernel wherever one exists.  The reference's
+    ``"auto"`` rule (``_AUTO_INT8_MIN_COLS``, and static topk always on
+    XLA) rests on ``BENCH_compress.json``, timed on a CPU in interpret
+    mode; it says nothing of the card, where the kernel replaces a sort
+    of every segment (or, for int8, five unfused passes) with a few
+    streaming passes.  The two backends give the same bits."""
+    backend = getattr(cfg, "compress_backend", "torch")
+    if backend not in COMPRESS_BACKENDS:
+        raise ValueError(f"unknown compress backend {backend!r}; known: "
+                         f"{', '.join(COMPRESS_BACKENDS)}")
+    if backend == "auto":
+        return "fused" if cfg.compression in FUSED_COMPRESSORS else "torch"
+    return backend
+
+
+def _use_fused(cfg) -> bool:
+    return (cfg.compression in FUSED_COMPRESSORS
+            and resolve_backend(cfg) == "fused")
+
+
+def _fused_rows(dz: torch.Tensor, cfg, segments=None) -> torch.Tensor:
+    """The kernel compressor on an ``(N, m)`` buffer with column
+    segments (None: one segment)."""
+    if cfg.compression == "int8":
+        return compress_ops.int8_quantize(dz, segments=segments)
+    return compress_ops.rank_select(dz, segments=segments,
+                                    mode=cfg.compression,
+                                    ratio=cfg.compress_ratio,
+                                    energy=cfg.compress_energy)
+
+
+def compress_rows(dz: torch.Tensor, cfg) -> torch.Tensor:
+    """The configured compressor on a flattened ``(N, m)`` increment."""
+    if _use_fused(cfg):
+        return _fused_rows(dz, cfg)
+    return get_compressor(cfg.compression)(dz, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -164,3 +256,43 @@ def pack_coord(tree: Any, meta: PackedMeta) -> torch.Tensor:
 def unpack_coord(buf: torch.Tensor, meta: PackedMeta) -> Any:
     """Invert :func:`pack_coord` (views of the ``(1, width)`` buffer)."""
     return unpack_row(buf[0], meta)
+
+
+# ---------------------------------------------------------------------------
+# Compressing an increment
+# ---------------------------------------------------------------------------
+
+def compress_increment(dz: Any, cfg) -> Any:
+    """The configured compressor on an agent-stacked increment tree
+    (scales and keep-counts per agent per leaf).  Torch backend: leaf by
+    leaf.  Fused backend: the leaves are packed into one buffer and the
+    kernel runs once, with one segment per leaf."""
+    leaves = pytree.tree_leaves(dz)
+    if _use_fused(cfg):
+        if len({(l.shape[0], l.dtype) for l in leaves}) == 1:
+            buf, meta = pack_leaves(dz)
+            return unpack_leaves(_fused_rows(buf, cfg, meta.segments), meta)
+        # mixed dtypes have no single wire format: one launch per leaf
+        return pytree.tree_map(
+            lambda l: _fused_rows(l.reshape(l.shape[0], -1),
+                                  cfg).reshape(l.shape), dz)
+    fn = get_compressor(cfg.compression)
+    return pytree.tree_map(
+        lambda l: fn(l.reshape(l.shape[0], -1), cfg).reshape(l.shape), dz)
+
+
+def compress_increment_packed(dz_buf: torch.Tensor, meta: PackedMeta,
+                              cfg) -> torch.Tensor:
+    """The configured compressor on a resident packed ``(N, width)``
+    increment.  Fused: one kernel launch with ``meta.segments``.  Torch:
+    the registry function per segment, written into a zero buffer.
+    Columns outside every segment (the alignment gaps between leaves and
+    the padded tail) come back zero under both, so ``t``'s padding stays
+    zero across rounds."""
+    if _use_fused(cfg):
+        return _fused_rows(dz_buf, cfg, meta.segments)
+    fn = get_compressor(cfg.compression)
+    out = torch.zeros_like(dz_buf)
+    for s0, s1 in meta.segments:
+        out[:, s0:s1] = fn(dz_buf[:, s0:s1], cfg)
+    return out

@@ -24,14 +24,24 @@ agent-stacked trees; ``"packed"`` one resident ``(N, width)`` buffer per
 state variable (:func:`packed_round_step`), unpacked only at the API
 boundary and, as views, inside the gradient oracle.
 
+Compressed z-exchange (``RoundConfig.compression`` != ``"none"``): the
+coordinator sees its lagged copy ``t`` of the agents' ``z`` (the uplink
+and the downlink read ``t`` where they read ``z`` when exact); after the
+downlink each agent transmits ``q = compress(z_new - t)`` and
+``t <- t + u q``, so the never-transmitted residual is the error-feedback
+memory.  ``t`` is advanced IN PLACE (``addcmul_``): for ``u`` in {0, 1}
+the product ``u q`` is exact, so one rounding of ``t + u q`` gives the
+reference's bits, and no second ``t``-sized buffer is made.  The round
+therefore consumes the ``t`` it is given.
+
 Randomness: the participation row is drawn from a ``torch.Generator``
 (the reference uses JAX's threefry; the bits differ), or given
 explicitly as an ``(N,)`` row, which is how the parity tests replay the
 reference's draws.
 
-Not ported yet (later slices): the compressed z-exchange, bounded-
-staleness async rounds, increment guards and fault rows, robust
-aggregators, heterogeneous solver groups and the sharded mesh.
+Not ported yet (later slices): bounded-staleness async rounds, increment
+guards and fault rows, robust aggregators, heterogeneous solver groups
+and the sharded mesh.
 """
 
 from __future__ import annotations
@@ -87,15 +97,23 @@ class RoundConfig:
     # one scalar p, or an (n_agents,)-tuple of per-agent probabilities
     participation: Union[float, Tuple[float, ...]] = 1.0
     damping: float = 1.0
+    # compressor name in the repro_torch.fed.compress registry
     compression: str = "none"
+    compress_ratio: float = 0.25      # top-k fraction kept (floor for adaptive)
+    compress_energy: float = 0.95     # adaptive_topk per-agent energy target
+    # "torch" = per-leaf registry compressors; "fused" = the
+    # repro_torch.kernels.compress kernels on the packed buffer, one launch
+    # per round; "auto" = the kernel wherever one exists
+    compress_backend: str = "torch"
     engine_backend: str = "torch"
     state_layout: str = "tree"
 
     def __post_init__(self):
-        if self.compression != "none":
+        compress_lib.get_compressor(self.compression)
+        if self.compress_backend not in compress_lib.COMPRESS_BACKENDS:
             raise ValueError(
-                f"compression={self.compression!r} is not ported yet: the "
-                f"compressed z-exchange is a later slice of the port")
+                f"unknown compress backend {self.compress_backend!r}; "
+                f"known: {', '.join(compress_lib.COMPRESS_BACKENDS)}")
         if self.engine_backend not in ENGINE_BACKENDS:
             raise ValueError(
                 f"unknown engine backend {self.engine_backend!r}; "
@@ -134,7 +152,7 @@ class RoundConfig:
 class RoundResult(NamedTuple):
     x: Any               # tree, leaves (N, ...) -- or (N, width) buffer
     z: Any
-    t: Any               # coordinator's copy of z (== z, uncompressed)
+    t: Any               # coordinator's copy of z (z_new when uncompressed)
     y: Any               # coordinator model (no agent axis / (1, width))
     u: torch.Tensor      # (N,) float32 participation row of this round
     aux: Any             # whatever the local solver returned
@@ -330,15 +348,21 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     del v
     u = participation_mask(cfg, x.device, generator, u)
     x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h)
-    return RoundResult(x=x_new, z=z_new, t=z_new, y=y, u=u, aux=aux)
+    del w
+    t_new = z_new
+    if cfg.compressed:
+        q = compress_lib.compress_increment_packed(z_new - t, meta, cfg)
+        t_new = t.addcmul_(u.to(q.dtype).reshape(-1, 1), q)
+    return RoundResult(x=x_new, z=z_new, t=t_new, y=y, u=u, aux=aux)
 
 
 def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
                local_solver: SolverAssignment, prox_h: ProxH = None, *,
                generator=None, u=None) -> RoundResult:
-    """One Fed-PLT round on agent-stacked trees (``t`` is ``z`` itself:
-    the exchange is uncompressed).  ``u`` replays a given participation
-    row."""
+    """One Fed-PLT round on agent-stacked trees.  ``t`` is the
+    coordinator's copy of ``z`` (``z`` itself when the exchange is
+    uncompressed; advanced in place when compressed).  ``u`` replays a
+    given participation row."""
     z_seen = t if cfg.compressed else z
     y, v = coordinator_edge(cfg, z, z_seen, prox_h)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
@@ -346,4 +370,13 @@ def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
     device = pytree.tree_leaves(x)[0].device
     u = participation_mask(cfg, device, generator, u)
     x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h)
-    return RoundResult(x=x_new, z=z_new, t=z_new, y=y, u=u, aux=aux)
+    del w
+    t_new = z_new
+    if cfg.compressed:
+        q = compress_lib.compress_increment(tree_map(torch.sub, z_new, t),
+                                            cfg)
+        t_new = tree_map(
+            lambda tl, ql: tl.addcmul_(
+                u.to(ql.dtype).reshape((-1,) + (1,) * (ql.ndim - 1)), ql),
+            t, q)
+    return RoundResult(x=x_new, z=z_new, t=t_new, y=y, u=u, aux=aux)

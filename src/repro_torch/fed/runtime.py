@@ -31,12 +31,14 @@ tree_map = pytree.tree_map
 
 class FedState(NamedTuple):
     """Per-agent federated state: ``x``/``z`` are dicts of ``(A, ...)``
-    tensors, or ``(A, width)`` buffers under the packed layout.  (The
-    coordinator's lagged copy ``t`` joins with the compressed exchange.)"""
+    tensors, or ``(A, width)`` buffers under the packed layout; ``t`` is
+    the coordinator's lagged copy of ``z`` under a compressed exchange
+    (None otherwise: at model scale it is one more state-sized buffer)."""
 
     x: Any
     z: Any
     step: int
+    t: Any = None
 
 
 def _stacked_meta_tree(model, n_agents: int) -> dict:
@@ -59,6 +61,7 @@ def init_state(model, spec, device, generator=None,
         params = model.init(generator, device)
     params = {n: params[n].to(device) for n in model.param_shapes()}
     A = spec.n_agents
+    compressed = spec.compression.name != "none"
     if spec.state_layout == "packed":
         meta = packed_layout(model, spec)
         x = torch.zeros((A, meta.width), dtype=meta.dtype, device=device)
@@ -67,10 +70,13 @@ def init_state(model, spec, device, generator=None,
                     pytree.tree_leaves(compress_lib.unpack_row(x[row], meta)),
                     params.values()):
                 dst.copy_(src)
-        return FedState(x=x, z=x.clone(), step=0)
+        return FedState(x=x, z=x.clone(), step=0,
+                        t=x.clone() if compressed else None)
     x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
          for n, p in params.items()}
-    return FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0)
+    return FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0,
+                    t={n: l.clone() for n, l in x.items()} if compressed
+                    else None)
 
 
 def _gradient_oracle(model, batch: dict, g, meta=None):
@@ -124,22 +130,24 @@ def make_train_step(model, spec):
         fgrad = _gradient_oracle(model, batch, g, meta)
         kw = dict(use_fused=spec.use_fused_update, has_aux=True,
                   generator=generator, noise=noise)
+        t = state.t if rcfg.compressed else state.z
         if meta is not None:
             solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
                                               meta=meta, **kw)
-            res = engine.packed_round_step(rcfg, meta, state.x, state.z,
-                                           state.z, solver, prox_h,
+            res = engine.packed_round_step(rcfg, meta, state.x, state.z, t,
+                                           solver, prox_h,
                                            generator=generator, u=u)
         else:
             solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
-            res = engine.round_step(rcfg, state.x, state.z, state.z, solver,
+            res = engine.round_step(rcfg, state.x, state.z, t, solver,
                                     prox_h, generator=generator, u=u)
         metrics = {
             "loss": (torch.mean(res.aux[-1]) if res.aux is not None
                      else torch.tensor(float("nan"))),
             "participation": torch.mean(res.u),
         }
-        return FedState(x=res.x, z=res.z, step=state.step + 1), metrics
+        return FedState(x=res.x, z=res.z, step=state.step + 1,
+                        t=res.t if rcfg.compressed else None), metrics
 
     return train_step
 

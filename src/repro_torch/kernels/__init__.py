@@ -12,6 +12,9 @@ plain version.
                     (uplink), z-update + participation selects (downlink).
   fedplt_update  -- the fused local step ``w - gamma (g + (w - v)/rho)
                     [+ noise]``.
+  compress       -- the compressed z-uplink on the packed buffer: exact-k
+                    magnitude selection (topk, adaptive_topk) and int8
+                    quantize-dequantize, per (agent, segment).
 
 Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -19,12 +22,15 @@ Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 
 
 def _wrappers() -> dict:
+    from repro_torch.kernels.compress import ops as compress_ops
     from repro_torch.kernels.fedplt_update import ops as update_ops
     from repro_torch.kernels.round_edge import ops as edge_ops
 
     return {"round_uplink": edge_ops.round_uplink,
             "round_downlink": edge_ops.round_downlink,
-            "fedplt_update": update_ops.fedplt_update}
+            "fedplt_update": update_ops.fedplt_update,
+            "rank_select": compress_ops.rank_select,
+            "int8_quantize": compress_ops.int8_quantize}
 
 
 def launch_counts() -> dict:
@@ -38,7 +44,8 @@ def reset_launch_counts() -> None:
 
 def kernel_sources() -> list:
     """The CUDA sources of every suite (for a parallel build)."""
+    from repro_torch.kernels.compress import kernel as compress_kernel
     from repro_torch.kernels.fedplt_update import kernel as update_kernel
     from repro_torch.kernels.round_edge import kernel as edge_kernel
 
-    return [edge_kernel.SOURCE, update_kernel.SOURCE]
+    return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE]

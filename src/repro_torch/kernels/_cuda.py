@@ -10,8 +10,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # argtypes shorthands: every pointer and the stream as c_void_p (a plain
 # int would be cut to 32 bits), sizes as int64
-PTR, I64, INT, F32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                      ctypes.c_float)
+PTR, I64, INT, F32, F64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                           ctypes.c_float, ctypes.c_double)
 
 
 def check_operands(name: str, ref: torch.Tensor, **others) -> None:

@@ -1,0 +1,756 @@
+// Fed-PLT uplink compression on the packed (N, M) agent buffer, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of repro/kernels/compress/kernel.py, all one pl.pallas_call
+// (_row_blocked_call, :374):
+//   rank_select    <- rank_select_2d (_rank_select_kernel :261, _select_k :247):
+//                     per (agent, segment) exact-k magnitude selection, topk (static
+//                     k = max(1, int(ratio m))) and adaptive_topk (per-agent k_i from the
+//                     energy of the descending squared magnitudes, clipped to [k, m]);
+//                     ties kept in position order; columns outside every segment zero.
+//   int8_quantize  <- int8_2d (_int8_kernel :341): per (agent, segment) symmetric int8
+//                     quantize-dequantize.
+// The plain versions are repro_torch/kernels/compress/ref.py; the kernels match them
+// bit for bit (--fmad=false: every float operation rounds alone).
+//
+// Bound: bytes.  The least possible traffic is one read and one write of (N, M): at the
+// trainer's shape (N = 4, M = 745,549,056, bf16) 11.93 GB, 3.56 ms at 3.35 TB/s.  This
+// first design reads x three times for rank_select (histogram, tie count, write) and twice
+// for int8 (max, write); a later PR fuses passes.
+//
+// rank_select is a radix SELECT, not the reference's sort (nor its bitonic network): the
+// key of an entry is the bit pattern of the float32 |x| (31 bits; NaN above inf), and the
+// mask only needs the k-th largest key T, #(key > T), and the position rank of each tie.
+//   (A) A per-(row, segment) histogram of key bits 30..16 (32,768 bins): a shared-memory
+//       histogram per block of columns (128 KB dynamic smem), flushed with atomics.  For
+//       bf16 these 15 bits are the whole |x|, so a bin is one value.
+//   (B) One block per (row, segment) walks the bins from the top.  topk: the bin holding
+//       the k-th entry (a block scan of counts).  adaptive_topk: one thread accumulates
+//       count x square over the bins in float64, from the top, to find k_i first.
+//       float32 needs a second level: a histogram of key bits 15..0 (65,536 bins, global
+//       atomics) of the entries in the chosen bin; the energy walk uses per-bin float64
+//       energy sums at the first level and exact values at the second.
+//   (C) Ties (key == T) counted per block of columns, when only some of them are kept.
+//   (D) Write x where key > T, or key == T and the tie's position rank < k - #above (the
+//       rank: ties of earlier column blocks, then a block scan in column order); 0
+//       elsewhere and in columns outside every segment.
+// The float64 energy sums run in another order than the plain version's cumsum; the two
+// choose the same k_i wherever energy * total is not within float64 rounding (~1e-16
+// relative) of a prefix sum.
+//
+// int8: (A) per-(row, segment) max|x|: a block reduction, then atomicMax on the bits of
+// the non-negative float.  (B) scale = dtype(max * fl32(1/127)) floored at the dtype's
+// 1e-12, dtype(x / scale), rintf (half to even), saturated to [-128, 127], times the
+// scale, rounded to the dtype: the plain version's operations one for one.
+//
+// Columns come in blocks of a chunk table built by the launcher (block -> segment or gap,
+// column range); every offset is 64-bit (N * M > 2^31 at the trainer's shape).  Loads and
+// stores are 16-byte vectors inside the range when the pointers allow, scalar at the edges.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kHighBins = 1 << 15;  // key bits 30..16 (the sign bit of |x| is 0)
+constexpr int kLowBins = 1 << 16;   // key bits 15..0 (float32 only)
+constexpr int kBigThreads = 1024;   // histogram and select blocks
+constexpr int kThreads = 512;       // streaming blocks
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// the bits of the float32 |x|
+__device__ __forceinline__ uint32_t key_of(float x) { return __float_as_uint(x) & 0x7FFFFFFFu; }
+__device__ __forceinline__ uint32_t key_of(__nv_bfloat16 x) {
+  return ((uint32_t)__bfloat16_as_ushort(x) & 0x7FFFu) << 16;
+}
+
+// |x| squared in the buffer dtype (the plain version's mag * mag)
+template <typename T>
+__device__ __forceinline__ double square_of(uint32_t key) {
+  const float v = __uint_as_float(key);
+  return (double)to_f(from_f<T>(v * v));
+}
+
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec {
+  T v[V];
+};
+
+// Column layout: segments, and a chunk table covering every column of a row once
+// (segment chunks and gap chunks, in column order).
+struct Layout {
+  const int64_t* seg_lo;
+  const int64_t* seg_hi;
+  const int64_t* seg_k;        // static keep-count (topk k, adaptive_topk floor)
+  const int64_t* chunk_lo;
+  const int64_t* chunk_hi;
+  const int64_t* chunk_seg;    // segment index, -1 for a gap
+  const int64_t* chunk_first;  // first chunk of the same segment
+  int64_t n_segs, n_chunks, n_cols;
+};
+
+// Per-(row, segment) selection state, 10 int64 words.
+struct RowSeg {
+  long long k;          // keep count
+  long long key;        // threshold key T: the k-th largest
+  long long above;      // entries with key > T
+  long long ties;       // entries with key == T
+  long long bin;        // float32: high bin whose low histogram is inspected next (-1 none)
+  long long bin_above;  // float32: entries in higher bins than `bin`
+  long long cross;      // float32 adaptive: 1 while `bin` is the energy-crossing bin
+  double s_before;      // float32 adaptive: energy of the higher bins
+  double thr;           // float32 adaptive: energy * total
+  long long pad;
+};
+
+// Calls f(e0, v, ok) once per tile for every thread of the block; the thread's V
+// consecutive columns start at e0, ok marks those inside [lo, hi).  Tiles start at a
+// column whose flat offset is a multiple of V, so a full group is one aligned vector.
+template <typename T, int V, typename F>
+__device__ __forceinline__ void for_each_tile(const T* row, int64_t row_off, int64_t lo,
+                                              int64_t hi, F&& f) {
+  const int64_t start = lo - (row_off + lo) % V;
+  const int64_t step = (int64_t)blockDim.x * V;
+  for (int64_t base = start; base < hi; base += step) {
+    const int64_t e0 = base + (int64_t)threadIdx.x * V;
+    T v[V];
+    bool ok[V];
+    if (e0 >= lo && e0 + V <= hi) {
+      const Vec<T, V> w = *reinterpret_cast<const Vec<T, V>*>(row + e0);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        v[k] = w.v[k];
+        ok[k] = true;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const int64_t c = e0 + k;
+        ok[k] = c >= lo && c < hi;
+        v[k] = ok[k] ? row[c] : from_f<T>(0.f);
+      }
+    }
+    f(e0, v, ok);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_group(T* row, int64_t e0, int64_t lo, int64_t hi,
+                                            const T (&v)[V]) {
+  if (e0 >= lo && e0 + V <= hi) {
+    Vec<T, V> w;
+#pragma unroll
+    for (int k = 0; k < V; ++k) w.v[k] = v[k];
+    *reinterpret_cast<Vec<T, V>*>(row + e0) = w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const int64_t c = e0 + k;
+      if (c >= lo && c < hi) row[c] = v[k];
+    }
+  }
+}
+
+template <typename T, int V>
+__device__ void zero_fill(T* row, int64_t row_off, int64_t lo, int64_t hi) {
+  const int64_t start = lo - (row_off + lo) % V;
+  T z[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) z[k] = from_f<T>(0.f);
+  for (int64_t base = start; base < hi; base += (int64_t)blockDim.x * V)
+    store_group<T, V>(row, base + (int64_t)threadIdx.x * V, lo, hi, z);
+}
+
+// Exclusive prefix of v over the block's threads in thread order; *total = block sum.
+// Every thread of the block must call it (it synchronises).
+template <typename U>
+__device__ U block_exclusive_scan(U v, U* total) {
+  __shared__ U warp_sums[32];
+  __shared__ U block_total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_warps = (blockDim.x + 31) >> 5;
+  U inc = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const U t = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += t;
+  }
+  __syncthreads();  // an earlier call's readers are done with warp_sums
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const U w = lane < n_warps ? warp_sums[lane] : U(0);
+    U wi = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const U t = __shfl_up_sync(0xffffffffu, wi, o);
+      if (lane >= o) wi += t;
+    }
+    if (lane < n_warps) warp_sums[lane] = wi - w;
+    if (lane == 31) block_total = wi;
+  }
+  __syncthreads();
+  *total = block_total;
+  return warp_sums[warp] + inc - v;
+}
+
+struct Kth {
+  long long bin, above, at;
+};
+
+// The bin holding the k-th largest entry (1 <= k <= sum of the counts), bins walked from
+// the top: every thread gets the bin, the entries in higher bins, the entries in the bin.
+__device__ Kth find_kth(const uint32_t* cnt, int n_bins, long long k) {
+  __shared__ Kth res;
+  const int per = n_bins / blockDim.x;
+  const int top = n_bins - 1 - (int)threadIdx.x * per;
+  unsigned long long local = 0;
+  for (int i = 0; i < per; ++i) local += cnt[top - i];
+  __syncthreads();  // an earlier call's readers are done with res
+  if (threadIdx.x == 0) res = Kth{0, 0, 0};
+  unsigned long long total;
+  const unsigned long long before = block_exclusive_scan<unsigned long long>(local, &total);
+  const unsigned long long kk = (unsigned long long)k;
+  if (before < kk && kk <= before + local) {
+    unsigned long long acc = before;
+    for (int i = 0; i < per; ++i) {
+      const unsigned long long c = cnt[top - i];
+      if (acc + c >= kk) {
+        res = Kth{top - i, (long long)acc, (long long)c};
+        break;
+      }
+      acc += c;
+    }
+  }
+  __syncthreads();
+  return res;
+}
+
+// How many of c equal entries of square e, entering at prefix energy s < thr, keep the
+// running sum s + j e below thr (j = 1..c).
+__device__ long long count_below(double s, double e, long long c, double thr) {
+  if (e == 0.0) return c;
+  long long lo = 0, hi = c;  // the largest j in [0, c] with s + j e < thr
+  while (lo < hi) {
+    const long long mid = lo + (hi - lo + 1) / 2;
+    if (s + (double)mid * e < thr) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ long long clamp_k(long long k, long long lo, long long hi) {
+  return k < lo ? lo : (k > hi ? hi : k);
+}
+
+// ---------------------------------------------------------------------------
+// rank_select
+// ---------------------------------------------------------------------------
+
+// (A) High-bit histogram of one chunk of one row; with `energy` (float32 adaptive_topk)
+// also the float64 sum of the squares per bin.
+template <typename T, int V>
+__global__ void __launch_bounds__(kBigThreads)
+    hist_high_kernel(const T* x, Layout L, uint32_t* hist, double* energy) {
+  extern __shared__ uint32_t sh[];
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  if (seg < 0) return;
+  for (int i = threadIdx.x; i < kHighBins; i += blockDim.x) sh[i] = 0;
+  __syncthreads();
+  const int64_t rs = row * L.n_segs + seg;
+  double* en = energy ? energy + rs * kHighBins : nullptr;
+  const int64_t row_off = row * L.n_cols;
+  for_each_tile<T, V>(x + row_off, row_off, L.chunk_lo[chunk], L.chunk_hi[chunk],
+                      [&](int64_t, const T(&v)[V], const bool(&ok)[V]) {
+#pragma unroll
+                        for (int k = 0; k < V; ++k) {
+                          if (!ok[k]) continue;
+                          const uint32_t key = key_of(v[k]);
+                          atomicAdd(&sh[key >> 16], 1u);
+                          if (en) atomicAdd(&en[key >> 16], square_of<T>(key));
+                        }
+                      });
+  __syncthreads();
+  uint32_t* h = hist + rs * kHighBins;
+  for (int i = threadIdx.x; i < kHighBins; i += blockDim.x)
+    if (sh[i]) atomicAdd(&h[i], sh[i]);
+}
+
+// (B) for bf16, where a high bin is one value: k (adaptive: one thread walks the bins
+// from the top in float64), then T's bin.
+template <typename T>
+__global__ void __launch_bounds__(kBigThreads)
+    select_exact_kernel(Layout L, const uint32_t* hist, RowSeg* st, int adaptive,
+                        double energy) {
+  extern __shared__ uint32_t cnt[];
+  __shared__ long long k_sh;
+  const int64_t seg = blockIdx.x, row = blockIdx.y, rs = row * L.n_segs + seg;
+  const uint32_t* h = hist + rs * kHighBins;
+  for (int i = threadIdx.x; i < kHighBins; i += blockDim.x) cnt[i] = h[i];
+  const long long m = L.seg_hi[seg] - L.seg_lo[seg];
+  const long long k_floor = L.seg_k[seg];
+  if (threadIdx.x == 0) k_sh = k_floor;
+  __syncthreads();
+  if (adaptive && threadIdx.x == 0) {
+    double total = 0.0;
+    for (int b = kHighBins - 1; b >= 0; --b)
+      if (cnt[b]) total += (double)cnt[b] * square_of<T>((uint32_t)b << 16);
+    total = fmax(total, 1e-30);
+    const double thr = energy * total;
+    double s = 0.0;
+    long long below = 0;
+    for (int b = kHighBins - 1; b >= 0; --b) {
+      const uint32_t c = cnt[b];
+      if (!c) continue;
+      const double e = square_of<T>((uint32_t)b << 16);
+      const double g = (double)c * e;
+      if (s + g < thr) {
+        s += g;
+        below += c;
+        continue;
+      }
+      below += count_below(s, e, c, thr);
+      break;
+    }
+    k_sh = clamp_k(1 + below, k_floor, m);
+  }
+  __syncthreads();
+  const long long k = k_sh;
+  const Kth r = find_kth(cnt, kHighBins, k);
+  if (threadIdx.x == 0) {
+    RowSeg& s = st[rs];
+    s.k = k;
+    s.key = r.bin << 16;
+    s.above = r.above;
+    s.ties = r.at;
+    s.bin = -1;
+  }
+}
+
+// (B, float32, first level) topk: T's high bin.  adaptive_topk: the high bin where the
+// energy walk crosses energy * total (or k = m when it never does).
+__global__ void __launch_bounds__(kBigThreads)
+    select_stage1_kernel(Layout L, const uint32_t* hist, const double* energy_hist,
+                         RowSeg* st, int adaptive, double energy) {
+  __shared__ long long bin_sh, above_sh;
+  __shared__ double s_sh, thr_sh;
+  const int64_t seg = blockIdx.x, row = blockIdx.y, rs = row * L.n_segs + seg;
+  const uint32_t* h = hist + rs * kHighBins;
+  const long long m = L.seg_hi[seg] - L.seg_lo[seg];
+  long long k = L.seg_k[seg];
+  RowSeg& s = st[rs];
+  if (adaptive) {
+    if (threadIdx.x == 0) {
+      const double* en = energy_hist + rs * kHighBins;
+      double total = 0.0;
+      for (int b = kHighBins - 1; b >= 0; --b)
+        if (h[b]) total += en[b];
+      total = fmax(total, 1e-30);
+      const double thr = energy * total;
+      double acc = 0.0;
+      long long above = 0, bin = -1;
+      for (int b = kHighBins - 1; b >= 0; --b) {
+        if (!h[b]) continue;
+        if (acc + en[b] < thr) {
+          acc += en[b];
+          above += h[b];
+        } else {
+          bin = b;
+          break;
+        }
+      }
+      bin_sh = bin;
+      above_sh = above;
+      s_sh = acc;
+      thr_sh = thr;
+    }
+    __syncthreads();
+    if (bin_sh >= 0) {
+      if (threadIdx.x == 0) {
+        s.bin = bin_sh;
+        s.bin_above = above_sh;
+        s.cross = 1;
+        s.s_before = s_sh;
+        s.thr = thr_sh;
+      }
+      return;
+    }
+    k = m;  // every prefix stays below the threshold
+  }
+  const Kth r = find_kth(h, kHighBins, k);
+  if (threadIdx.x == 0) {
+    s.k = k;
+    s.bin = r.bin;
+    s.bin_above = r.above;
+    s.cross = 0;
+  }
+}
+
+// (A, float32, second level) low-bit histogram of the entries in the row-segment's
+// inspected high bin.
+template <typename T, int V>
+__global__ void hist_low_kernel(const T* x, Layout L, const RowSeg* st, uint32_t* hist_lo) {
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  if (seg < 0) return;
+  const int64_t rs = row * L.n_segs + seg;
+  const long long bin = st[rs].bin;
+  if (bin < 0) return;
+  uint32_t* h = hist_lo + rs * kLowBins;
+  const int64_t row_off = row * L.n_cols;
+  for_each_tile<T, V>(x + row_off, row_off, L.chunk_lo[chunk], L.chunk_hi[chunk],
+                      [&](int64_t, const T(&v)[V], const bool(&ok)[V]) {
+#pragma unroll
+                        for (int k = 0; k < V; ++k) {
+                          const uint32_t key = key_of(v[k]);
+                          if (ok[k] && (long long)(key >> 16) == bin)
+                            atomicAdd(&h[key & 0xFFFFu], 1u);
+                        }
+                      });
+}
+
+// (B, float32, second level) adaptive crossing bin: finish the energy walk over its exact
+// values to get k, then find k's high bin; if that is another bin, clear the low histogram
+// and leave it for the next low pass.  Otherwise (and for topk) T from the low histogram.
+__global__ void __launch_bounds__(kBigThreads)
+    select_stage2_kernel(Layout L, const uint32_t* hist, uint32_t* hist_lo, RowSeg* st) {
+  __shared__ long long k_sh;
+  const int64_t seg = blockIdx.x, row = blockIdx.y, rs = row * L.n_segs + seg;
+  RowSeg& s = st[rs];
+  const long long bin = s.bin, bin_above = s.bin_above, cross = s.cross;
+  const double s_before = s.s_before, thr = s.thr;
+  long long k = s.k;
+  __syncthreads();
+  if (bin < 0) return;
+  uint32_t* lo_h = hist_lo + rs * kLowBins;
+  const long long m = L.seg_hi[seg] - L.seg_lo[seg];
+  if (cross) {
+    if (threadIdx.x == 0) {
+      double acc = s_before;
+      long long below = bin_above;
+      for (int b = kLowBins - 1; b >= 0; --b) {
+        const uint32_t c = lo_h[b];
+        if (!c) continue;
+        const double e = square_of<float>(((uint32_t)bin << 16) | (uint32_t)b);
+        const double g = (double)c * e;
+        if (acc + g < thr) {
+          acc += g;
+          below += c;
+          continue;
+        }
+        below += count_below(acc, e, c, thr);
+        break;
+      }
+      k_sh = clamp_k(1 + below, L.seg_k[seg], m);
+    }
+    __syncthreads();
+    k = k_sh;
+    const Kth r = find_kth(hist + rs * kHighBins, kHighBins, k);
+    if (r.bin != bin) {
+      for (int i = threadIdx.x; i < kLowBins; i += blockDim.x) lo_h[i] = 0;
+      if (threadIdx.x == 0) {
+        s.k = k;
+        s.bin = r.bin;
+        s.bin_above = r.above;
+        s.cross = 0;
+      }
+      return;
+    }
+  }
+  const Kth r = find_kth(lo_h, kLowBins, k - bin_above);
+  if (threadIdx.x == 0) {
+    s.k = k;
+    s.key = (bin << 16) | r.bin;
+    s.above = bin_above + r.above;
+    s.ties = r.at;
+    s.bin = -1;
+  }
+}
+
+__device__ __forceinline__ bool ranks_ties(const RowSeg& s) {
+  const long long need = s.k - s.above;
+  return need > 0 && need < s.ties;
+}
+
+// (C) entries equal to T in one chunk, where only some ties are kept.
+template <typename T, int V>
+__global__ void count_ties_kernel(const T* x, Layout L, const RowSeg* st, uint32_t* ties) {
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  if (seg < 0) return;
+  const RowSeg& s = st[row * L.n_segs + seg];
+  if (!ranks_ties(s)) return;
+  const uint32_t t_key = (uint32_t)s.key;
+  uint32_t local = 0;
+  const int64_t row_off = row * L.n_cols;
+  for_each_tile<T, V>(x + row_off, row_off, L.chunk_lo[chunk], L.chunk_hi[chunk],
+                      [&](int64_t, const T(&v)[V], const bool(&ok)[V]) {
+#pragma unroll
+                        for (int k = 0; k < V; ++k) local += ok[k] && key_of(v[k]) == t_key;
+                      });
+  uint32_t total;
+  block_exclusive_scan<uint32_t>(local, &total);
+  if (threadIdx.x == 0) ties[row * L.n_chunks + chunk] = total;
+}
+
+// (D) the masked write; gap chunks write zeros.
+template <typename T, int V>
+__global__ void write_select_kernel(const T* x, T* out, Layout L, const RowSeg* st,
+                                    const uint32_t* ties) {
+  __shared__ long long rank_sh;
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  const int64_t lo = L.chunk_lo[chunk], hi = L.chunk_hi[chunk];
+  const int64_t row_off = row * L.n_cols;
+  if (seg < 0) {
+    zero_fill<T, V>(out + row_off, row_off, lo, hi);
+    return;
+  }
+  const RowSeg& s = st[row * L.n_segs + seg];
+  const uint32_t t_key = (uint32_t)s.key;
+  const long long need = s.k - s.above;
+  const bool rank = ranks_ties(s);
+  const bool keep_ties = need >= s.ties;  // used when not ranking: all ties or none
+  long long rank0 = 0;
+  if (rank) {
+    if (threadIdx.x == 0) {
+      long long p = 0;
+      for (int64_t j = L.chunk_first[chunk]; j < chunk; ++j) p += ties[row * L.n_chunks + j];
+      rank_sh = p;
+    }
+    __syncthreads();
+    rank0 = rank_sh;
+  }
+  T* orow = out + row_off;
+  for_each_tile<T, V>(x + row_off, row_off, lo, hi,
+                      [&](int64_t e0, const T(&v)[V], const bool(&ok)[V]) {
+                        T o[V];
+                        bool tie[V];
+                        uint32_t n_tie = 0;
+#pragma unroll
+                        for (int k = 0; k < V; ++k) {
+                          const uint32_t key = key_of(v[k]);
+                          tie[k] = ok[k] && key == t_key;
+                          n_tie += tie[k];
+                          const bool keep = key > t_key || (tie[k] && keep_ties);
+                          o[k] = keep ? v[k] : from_f<T>(0.f);
+                        }
+                        if (rank) {
+                          uint32_t tile_ties;
+                          long long r = rank0 + block_exclusive_scan<uint32_t>(n_tie, &tile_ties);
+#pragma unroll
+                          for (int k = 0; k < V; ++k) {
+                            if (!tie[k]) continue;
+                            o[k] = r < need ? v[k] : from_f<T>(0.f);
+                            ++r;
+                          }
+                          rank0 += tile_ties;
+                        }
+                        store_group<T, V>(orow, e0, lo, hi, o);
+                      });
+}
+
+// ---------------------------------------------------------------------------
+// int8_quantize
+// ---------------------------------------------------------------------------
+
+// (A) per-(row, segment) max|x| as the bits of the non-negative float
+template <typename T, int V>
+__global__ void absmax_kernel(const T* x, Layout L, uint32_t* amax) {
+  __shared__ uint32_t warp_max[32];
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  if (seg < 0) return;
+  uint32_t mx = 0;
+  const int64_t row_off = row * L.n_cols;
+  for_each_tile<T, V>(x + row_off, row_off, L.chunk_lo[chunk], L.chunk_hi[chunk],
+                      [&](int64_t, const T(&v)[V], const bool(&ok)[V]) {
+#pragma unroll
+                        for (int k = 0; k < V; ++k)
+                          if (ok[k]) mx = max(mx, key_of(v[k]));
+                      });
+  mx = __reduce_max_sync(0xffffffffu, mx);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    mx = lane < (int)((blockDim.x + 31) >> 5) ? warp_max[lane] : 0u;
+    mx = __reduce_max_sync(0xffffffffu, mx);
+    if (lane == 0) atomicMax(&amax[row * L.n_segs + seg], mx);
+  }
+}
+
+// (B) quantize-dequantize; gap chunks write zeros
+template <typename T, int V>
+__global__ void quantize_kernel(const T* x, T* out, Layout L, const uint32_t* amax,
+                                float inv127, float floor_) {
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  const int64_t lo = L.chunk_lo[chunk], hi = L.chunk_hi[chunk];
+  const int64_t row_off = row * L.n_cols;
+  if (seg < 0) {
+    zero_fill<T, V>(out + row_off, row_off, lo, hi);
+    return;
+  }
+  const float a = __uint_as_float(amax[row * L.n_segs + seg]);
+  float scale = to_f(from_f<T>(a * inv127));
+  scale = scale < floor_ ? floor_ : scale;
+  T* orow = out + row_off;
+  for_each_tile<T, V>(x + row_off, row_off, lo, hi,
+                      [&](int64_t e0, const T(&v)[V], const bool(&)[V]) {
+                        T o[V];
+#pragma unroll
+                        for (int k = 0; k < V; ++k) {
+                          const float d = to_f(from_f<T>(to_f(v[k]) / scale));
+                          const float q = fminf(fmaxf(rintf(d), -128.f), 127.f);
+                          o[k] = from_f<T>(q * scale);
+                        }
+                        store_group<T, V>(orow, e0, lo, hi, o);
+                      });
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+#define RETURN_IF_ERROR()                        \
+  do {                                           \
+    const cudaError_t e_ = cudaGetLastError();   \
+    if (e_ != cudaSuccess) return (int)e_;       \
+  } while (0)
+
+template <typename T, int V>
+int rank_select_launch(const T* x, T* out, int64_t n_rows, const Layout& L, int adaptive,
+                       double energy, uint32_t* hist_hi, uint32_t* hist_lo,
+                       double* energy_hi, RowSeg* st, uint32_t* ties, cudaStream_t s) {
+  const dim3 chunks((unsigned)L.n_chunks, (unsigned)n_rows);
+  const dim3 segs((unsigned)L.n_segs, (unsigned)n_rows);
+  const size_t hist_smem = kHighBins * sizeof(uint32_t);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (L.n_segs > 0) {
+    cudaFuncSetAttribute(hist_high_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)hist_smem);
+    hist_high_kernel<T, V><<<chunks, kBigThreads, hist_smem, s>>>(
+        x, L, hist_hi, (kF32 && adaptive) ? energy_hi : nullptr);
+    RETURN_IF_ERROR();
+    if (kF32) {
+      select_stage1_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, energy_hi, st, adaptive,
+                                                         energy);
+      RETURN_IF_ERROR();
+      for (int pass = 0; pass < 2; ++pass) {  // adaptive may inspect a second high bin
+        hist_low_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, L, st, hist_lo);
+        RETURN_IF_ERROR();
+        select_stage2_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, hist_lo, st);
+        RETURN_IF_ERROR();
+      }
+    } else {
+      cudaFuncSetAttribute(select_exact_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)hist_smem);
+      select_exact_kernel<T><<<segs, kBigThreads, hist_smem, s>>>(L, hist_hi, st, adaptive,
+                                                                  energy);
+      RETURN_IF_ERROR();
+    }
+    count_ties_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, L, st, ties);
+    RETURN_IF_ERROR();
+  }
+  write_select_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, out, L, st, ties);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+template <typename T, int V>
+int int8_launch(const T* x, T* out, int64_t n_rows, const Layout& L, uint32_t* amax,
+                float inv127, float floor_, cudaStream_t s) {
+  const dim3 chunks((unsigned)L.n_chunks, (unsigned)n_rows);
+  if (L.n_segs > 0) {
+    absmax_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, L, amax);
+    RETURN_IF_ERROR();
+  }
+  quantize_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, out, L, amax, inv127, floor_);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+Layout make_layout(const int64_t* seg_lo, const int64_t* seg_hi, const int64_t* seg_k,
+                   int64_t n_segs, const int64_t* chunk_lo, const int64_t* chunk_hi,
+                   const int64_t* chunk_seg, const int64_t* chunk_first, int64_t n_chunks,
+                   int64_t n_cols) {
+  return Layout{seg_lo, seg_hi, seg_k, chunk_lo, chunk_hi, chunk_seg, chunk_first,
+                n_segs, n_chunks, n_cols};
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16; vec: 16-byte vectors allowed (both pointers aligned);
+// mode: 0 topk, 1 adaptive_topk.  Scratch comes zeroed from the caller: hist_hi
+// (N S 32768 u32), hist_lo (float32: N S 65536 u32), energy_hi (float32 adaptive:
+// N S 32768 f64), state (N S RowSeg), ties (N n_chunks u32).  Returns the first
+// launch's cudaGetLastError() that is not 0, -1 for an unknown dtype, else 0.
+extern "C" int repro_rank_select(const void* x, void* out, int64_t n_rows, int64_t n_cols,
+                                 int dtype, int vec, int mode, double energy,
+                                 const int64_t* seg_lo, const int64_t* seg_hi,
+                                 const int64_t* seg_k, int64_t n_segs, const int64_t* chunk_lo,
+                                 const int64_t* chunk_hi, const int64_t* chunk_seg,
+                                 const int64_t* chunk_first, int64_t n_chunks, void* hist_hi,
+                                 void* hist_lo, void* energy_hi, void* state, void* ties,
+                                 void* stream) {
+  const Layout L = make_layout(seg_lo, seg_hi, seg_k, n_segs, chunk_lo, chunk_hi, chunk_seg,
+                               chunk_first, n_chunks, n_cols);
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t *hh = (uint32_t*)hist_hi, *hl = (uint32_t*)hist_lo, *tc = (uint32_t*)ties;
+  double* eh = (double*)energy_hi;
+  RowSeg* st = (RowSeg*)state;
+  switch (dtype) {
+    case 0:
+      return vec ? rank_select_launch<float, 4>((const float*)x, (float*)out, n_rows, L, mode,
+                                                energy, hh, hl, eh, st, tc, s)
+                 : rank_select_launch<float, 1>((const float*)x, (float*)out, n_rows, L, mode,
+                                                energy, hh, hl, eh, st, tc, s);
+    case 1:
+      return vec ? rank_select_launch<__nv_bfloat16, 8>((const __nv_bfloat16*)x,
+                                                        (__nv_bfloat16*)out, n_rows, L, mode,
+                                                        energy, hh, hl, eh, st, tc, s)
+                 : rank_select_launch<__nv_bfloat16, 1>((const __nv_bfloat16*)x,
+                                                        (__nv_bfloat16*)out, n_rows, L, mode,
+                                                        energy, hh, hl, eh, st, tc, s);
+  }
+  return -1;
+}
+
+// amax: N S u32, zeroed by the caller; floor_ is 1e-12 rounded to the dtype.
+extern "C" int repro_int8_quantize(const void* x, void* out, int64_t n_rows, int64_t n_cols,
+                                   int dtype, int vec, const int64_t* seg_lo,
+                                   const int64_t* seg_hi, int64_t n_segs,
+                                   const int64_t* chunk_lo, const int64_t* chunk_hi,
+                                   const int64_t* chunk_seg, const int64_t* chunk_first,
+                                   int64_t n_chunks, void* amax, float inv127, float floor_,
+                                   void* stream) {
+  const Layout L = make_layout(seg_lo, seg_hi, nullptr, n_segs, chunk_lo, chunk_hi, chunk_seg,
+                               chunk_first, n_chunks, n_cols);
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* am = (uint32_t*)amax;
+  switch (dtype) {
+    case 0:
+      return vec ? int8_launch<float, 4>((const float*)x, (float*)out, n_rows, L, am, inv127,
+                                         floor_, s)
+                 : int8_launch<float, 1>((const float*)x, (float*)out, n_rows, L, am, inv127,
+                                         floor_, s);
+    case 1:
+      return vec ? int8_launch<__nv_bfloat16, 8>((const __nv_bfloat16*)x, (__nv_bfloat16*)out,
+                                                 n_rows, L, am, inv127, floor_, s)
+                 : int8_launch<__nv_bfloat16, 1>((const __nv_bfloat16*)x, (__nv_bfloat16*)out,
+                                                 n_rows, L, am, inv127, floor_, s);
+  }
+  return -1;
+}

@@ -11,6 +11,13 @@ Example (the slice's main path, on a card):
       --steps 3 --n-agents 4 --batch 8 --seq-len 512 --n-epochs 2 \\
       --state-layout packed --engine-backend fused --use-fused-update \\
       --weight-decay 0.01
+
+The same with the compressed z-uplink (one rank_select kernel per
+round; ``--compression int8|adaptive_topk`` likewise):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --steps 3 --n-agents 4 --batch 8 --seq-len 512 --n-epochs 2 \\
+      --state-layout packed --engine-backend fused --use-fused-update \\
+      --weight-decay 0.01 --compression topk --compress-ratio 0.25
 """
 
 from __future__ import annotations

@@ -1,0 +1,410 @@
+"""The port's uplink compressors against the reference's, on the CPU.
+
+``repro_torch.kernels.compress.ops`` on a CPU tensor runs the plain
+versions (``ref.py``), which the CUDA kernels are held to bit for bit on
+the card.  Here they, and the port's registry compressors, are held to
+the reference's fused ops in interpret mode and to its registry
+functions on the same numpy inputs: float32 and bfloat16, one segment and
+several with gap columns, ragged widths, tie-heavy, all-equal and
+all-zero rows.  Top-k masks and int8 codes are discrete: equality is
+exact.
+
+``adaptive_topk`` sums the energy in float64 where the reference sums in
+the buffer dtype, so it is held to exact equality on the segments whose
+energy threshold lies farther than 1e-4 of the total (float32) or 1%
+(bfloat16) from every prefix sum; the test computes that margin on its
+own data and requires enough segments to pass it.
+"""
+
+import argparse
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.fed import compress as jcompress
+from repro.kernels.compress import ops as jops
+from repro_torch import kernels
+from repro_torch.fed import api as tapi
+from repro_torch.fed import compress as tcompress
+from repro_torch.fed import engine as tengine
+from repro_torch.kernels.compress import kernel as tkernel
+from repro_torch.kernels.compress import ops as tops
+from repro_torch.kernels.compress import ref as tref
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+class Cfg:
+    """Duck-typed round config for the registry functions."""
+
+    def __init__(self, name="topk", ratio=0.25, energy=0.95, backend="torch"):
+        self.compression = name
+        self.compress_ratio = ratio
+        self.compress_energy = energy
+        self.compress_backend = backend
+
+
+def _data(kind, n, m, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "randn":
+        return rng.normal(size=(n, m)).astype(np.float32)
+    x = rng.choice(np.array([-1, -0.5, 0, 0.5, 1], np.float32), size=(n, m))
+    x[1] = 0.5                      # all equal
+    x[2] = 0.0                      # all zero
+    return x
+
+
+def _segments(multi, m):
+    return ((0, 300), (310, 700), (700, m - 5)) if multi else None
+
+
+def _pair(x, dt):
+    jdt, tdt = DTYPES[dt]
+    jx = jnp.asarray(x, jdt)
+    tx = torch.from_numpy(x).to(tdt)
+    assert np.array_equal(np.asarray(jx.astype(jnp.float32)), tx.float().numpy())
+    return jx, tx
+
+
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+def _jax_registry(name, jx, segs, **cfg):
+    """The reference's registry compressor, segment by segment (jitted:
+    the reference compares its int8 path jit against jit)."""
+    fn = jax.jit(lambda a: jcompress.get_compressor(name)(a, Cfg(name, **cfg)))
+    segs = segs or ((0, jx.shape[1]),)
+    out = np.zeros(jx.shape, np.float32)
+    for s0, s1 in segs:
+        out[:, s0:s1] = _np(fn(jx[:, s0:s1]))
+    return out
+
+
+def _port_registry(name, tx, segs, **cfg):
+    segs = segs or ((0, tx.shape[1]),)
+    out = np.zeros(tx.shape, np.float32)
+    for s0, s1 in segs:
+        out[:, s0:s1] = _np(tcompress.get_compressor(name)(
+            tx[:, s0:s1], Cfg(name, **cfg)))
+    return out
+
+
+CASES = [(dt, kind, multi) for dt in DTYPES for kind in ("randn", "ties")
+         for multi in (False, True)]
+
+
+@pytest.mark.parametrize("dt,kind,multi", CASES,
+                         ids=[f"{d}-{k}-{'segs' if s else 'one'}"
+                              for d, k, s in CASES])
+def test_topk_matches_reference_exactly(dt, kind, multi):
+    m = 1000 if multi else 1001
+    jx, tx = _pair(_data(kind, 3, m, seed=len(dt) + 7 * multi), dt)
+    segs = _segments(multi, m)
+    for ratio in (0.01, 0.25, 1.0):
+        want = _np(jops.rank_select(jx, segments=segs, mode="topk",
+                                    ratio=ratio, interpret=True))
+        got = tops.rank_select(tx, segments=segs, mode="topk", ratio=ratio)
+        assert got.dtype == tx.dtype and got.shape == tx.shape
+        np.testing.assert_array_equal(_np(got), want)
+        np.testing.assert_array_equal(
+            _port_registry("topk", tx, segs, ratio=ratio),
+            _jax_registry("topk", jx, segs, ratio=ratio))
+        kept = (_np(got) != 0).sum(axis=1)
+        if kind == "randn":         # exactly k per (row, segment)
+            ks = [tref.seg_k(ratio, s1 - s0)
+                  for s0, s1 in (segs or ((0, m),))]
+            assert (kept == sum(ks)).all()
+
+
+@pytest.mark.parametrize("dt,kind,multi", CASES,
+                         ids=[f"{d}-{k}-{'segs' if s else 'one'}"
+                              for d, k, s in CASES])
+def test_int8_matches_reference_exactly(dt, kind, multi):
+    m = 1000 if multi else 1001
+    x = _data(kind, 3, m, seed=3 + multi)
+    if kind == "randn":
+        x *= np.exp(np.random.default_rng(5).normal(size=x.shape) * 2)
+    jx, tx = _pair(x.astype(np.float32), dt)
+    segs = _segments(multi, m)
+    want = _np(jops.int8_quantize(jx, segments=segs, interpret=True))
+    got = tops.int8_quantize(tx, segments=segs)
+    np.testing.assert_array_equal(_np(got), want)
+    np.testing.assert_array_equal(_port_registry("int8", tx, segs),
+                                  _jax_registry("int8", jx, segs))
+
+
+def _hot_rows(n, m, seed):
+    """Rows with a few dominant entries (exact in bf16) over small noise:
+    the energy crossings sit far from the neighbouring prefix sums."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, m)) * 1e-3).astype(np.float32)
+    for i in range(n):
+        hot = rng.choice(m, size=rng.integers(2, 12), replace=False)
+        mags = 2.0 ** rng.integers(-2, 4, size=hot.size) * rng.choice(
+            [1.0, 1.5], size=hot.size)
+        x[i, hot] = mags * rng.choice([-1.0, 1.0], size=hot.size)
+    return x
+
+
+def _margin(seg_np, dt, energy):
+    """min_j |cum_j - energy * total| / total of one segment row, with the
+    squares rounded to the buffer dtype and summed in float64."""
+    _, tdt = DTYPES[dt]
+    mag = torch.from_numpy(np.abs(seg_np)).to(tdt)
+    sq = (mag * mag).double().numpy()
+    cum = np.cumsum(np.sort(sq)[::-1])
+    total = max(cum[-1], 1e-30)
+    return np.abs(cum - energy * total).min() / total
+
+
+# randn segments of a few hundred entries have prefix sums about 1/300 of
+# the total apart: enough margin in float32, never 1% in bfloat16
+@pytest.mark.parametrize("dt,data", [("f32", "randn"), ("f32", "hot"),
+                                     ("bf16", "hot")])
+def test_adaptive_topk_matches_reference_where_the_threshold_has_margin(
+        dt, data):
+    tol = {"f32": 1e-4, "bf16": 1e-2}[dt]
+    m = 1000
+    x = (_data("randn", 4, m, seed=11) if data == "randn"
+         else _hot_rows(4, m, seed=12))
+    jx, tx = _pair(x, dt)
+    segs = ((0, 300), (310, 700), (700, m - 5))
+    checked = 0
+    for ratio, energy in ((0.001, 0.5), (0.001, 0.8), (0.001, 0.95),
+                          (0.25, 0.5), (0.25, 0.95)):
+        kw = dict(mode="adaptive_topk", ratio=ratio, energy=energy)
+        want = _np(jops.rank_select(jx, segments=segs, interpret=True, **kw))
+        got = _np(tops.rank_select(tx, segments=segs, **kw))
+        jreg = _jax_registry("adaptive_topk", jx, segs, ratio=ratio,
+                             energy=energy)
+        treg = _port_registry("adaptive_topk", tx, segs, ratio=ratio,
+                              energy=energy)
+        np.testing.assert_array_equal(treg, got)
+        for i in range(x.shape[0]):
+            for s0, s1 in segs:
+                if _margin(_np(tx)[i, s0:s1], dt, energy) <= tol:
+                    continue
+                np.testing.assert_array_equal(got[i, s0:s1], want[i, s0:s1])
+                np.testing.assert_array_equal(got[i, s0:s1], jreg[i, s0:s1])
+                checked += 1
+    assert checked >= 20, f"only {checked} segments had the margin"
+
+
+def test_adaptive_topk_keeps_everything_of_an_all_zero_row():
+    x = torch.zeros((2, 50))
+    x[0, 3] = 2.0
+    out = tops.rank_select(x, mode="adaptive_topk", ratio=0.1, energy=0.9)
+    assert torch.equal(out, x)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_segment_ranks_oracle_matches_reference(dt):
+    x = _data("ties", 3, 257, seed=4)
+    x[0] = np.random.default_rng(4).normal(size=257)
+    jx, tx = _pair(x, dt)
+    segs = ((0, 100), (120, 250))
+    want = np.asarray(jops.segment_ranks(jx, segments=segs, interpret=True))
+    got = tref.segment_ranks_ref(tx, segs).numpy()
+    for s0, s1 in segs:
+        np.testing.assert_array_equal(got[:, s0:s1], want[:, s0:s1])
+
+
+def test_ops_reject_what_the_reference_rejects():
+    x = torch.randn(3, 40)
+    with pytest.raises(ValueError, match="float64"):
+        tops.rank_select(x.double())
+    with pytest.raises(ValueError, match=r"\(N, M\)"):
+        tops.int8_quantize(x[0])
+    with pytest.raises(ValueError, match="sorted and disjoint"):
+        tops.rank_select(x, segments=((10, 20), (15, 30)))
+    with pytest.raises(ValueError, match="out of range"):
+        tops.int8_quantize(x, segments=((0, 41),))
+    with pytest.raises(ValueError, match="mode"):
+        tops.rank_select(x, mode="bottomk")
+
+
+def test_cpu_ops_count_no_launch_and_launchers_reject_cpu_tensors():
+    kernels.reset_launch_counts()
+    x = torch.randn(3, 64)
+    tops.rank_select(x)
+    tops.int8_quantize(x)
+    assert kernels.launch_counts()["rank_select"] == 0
+    assert kernels.launch_counts()["int8_quantize"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.rank_select(x, ((0, 64),), "topk", 0.25, 0.95)
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.int8_quantize(x, ((0, 64),))
+
+
+def test_chunk_table_covers_segments_and_gaps_in_order():
+    segs = ((3, 10), (10, 10 + 2 * tkernel.CHUNK + 5), (10 + 2 * tkernel.CHUNK + 9,
+                                                        10 + 2 * tkernel.CHUNK + 20))
+    width = segs[-1][1] + 7
+    table = tkernel.chunk_table(segs, width)
+    assert table[0] == (0, 3, -1, 0)
+    cursor = 0
+    for lo, hi, seg, first in table:
+        assert lo == cursor and hi - lo <= tkernel.CHUNK
+        assert table[first][2] == seg and table[first][0] <= lo
+        if seg >= 0:
+            assert segs[seg][0] <= lo and hi <= segs[seg][1]
+        cursor = hi
+    assert cursor == width
+    assert [t[2] for t in table].count(1) == 3
+
+
+# ---------------------------------------------------------------------------
+# Increment compression: backends, packing, padding
+# ---------------------------------------------------------------------------
+
+def _gappy_tree(n=3, seed=0, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return {"a": torch.randn((n, 7), generator=g, dtype=dtype),
+            "b": torch.randn((n, 10, 10), generator=g, dtype=dtype),
+            "c": torch.randn((n, 33), generator=g, dtype=dtype)}
+
+
+@pytest.mark.parametrize("name", ["topk", "int8", "adaptive_topk"])
+def test_backends_and_layouts_give_the_same_bits_and_zero_padding(name):
+    tree = _gappy_tree()
+    buf, meta = tcompress.pack_leaves(tree)
+    assert meta.width > meta.m_total       # the layout has gap columns
+    buf_dirty = buf.clone()
+    gap = torch.ones(meta.width, dtype=torch.bool)
+    for s0, s1 in meta.segments:
+        gap[s0:s1] = False
+    buf_dirty[:, gap] = 7.0
+    outs = []
+    for backend in ("torch", "fused", "auto"):
+        cfg = Cfg(name, ratio=0.2, energy=0.9, backend=backend)
+        q = tcompress.compress_increment_packed(buf_dirty, meta, cfg)
+        assert torch.equal(q[:, gap], torch.zeros_like(q[:, gap]))
+        outs.append(q)
+        qt = tcompress.compress_increment(tree, cfg)
+        assert torch.equal(tcompress.pack_leaves(qt, meta)[0], q)
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.parametrize("name", ["topk", "int8", "adaptive_topk"])
+def test_packed_rounds_keep_t_padding_zero_and_match_tree_rounds(name):
+    """Three compressed rounds of the engine with a toy local solver on a
+    layout with gap columns: the packed and tree layouts agree bit for
+    bit, t's padding stays zero, and an idle agent's t stays put."""
+    tree = _gappy_tree(seed=1)
+    meta = tcompress.packed_meta(tree)
+    gap = torch.ones(meta.width, dtype=torch.bool)
+    for s0, s1 in meta.segments:
+        gap[s0:s1] = False
+
+    def solver(x, v):
+        return tengine.tree_map(lambda a, b: 0.6 * a + 0.5 * b, x, v), None
+
+    rcfg = tengine.RoundConfig(n_agents=3, compression=name,
+                               compress_ratio=0.3, compress_backend="fused",
+                               engine_backend="fused", state_layout="packed")
+    tcfg = dataclasses.replace(rcfg, state_layout="tree")
+    x, z, t = (tcompress.pack_leaves(tree, meta)[0] for _ in range(3))
+    xt, zt = tree, {k: v.clone() for k, v in tree.items()}
+    tt = {k: v.clone() for k, v in tree.items()}
+    for u in ([1.0, 0.0, 1.0], [1.0, 1.0, 1.0], [0.0, 1.0, 1.0]):
+        idle = u.index(0.0) if 0.0 in u else None
+        t_idle = None if idle is None else t[idle].clone()
+        res = tengine.packed_round_step(rcfg, meta, x, z, t, solver, u=u)
+        rt = tengine.round_step(tcfg, xt, zt, tt, solver, u=u)
+        x, z, t = res.x, res.z, res.t
+        xt, zt, tt = rt.x, rt.z, rt.t
+        assert torch.equal(t[:, gap], torch.zeros_like(t[:, gap]))
+        assert idle is None or torch.equal(t[idle], t_idle)
+        for var, tr in (("x", xt), ("z", zt), ("t", tt)):
+            assert torch.equal(getattr(res, var),
+                               tcompress.pack_leaves(tr, meta)[0]), var
+    assert not torch.equal(t, z)
+
+
+def test_resolve_backend_takes_the_kernel_wherever_one_exists():
+    assert tcompress.resolve_backend(Cfg("topk", backend="auto")) == "fused"
+    assert tcompress.resolve_backend(Cfg("int8", backend="auto")) == "fused"
+    assert tcompress.resolve_backend(Cfg("none", backend="auto")) == "torch"
+    assert tcompress.resolve_backend(Cfg("topk", backend="torch")) == "torch"
+    with pytest.raises(ValueError, match="compress backend"):
+        tcompress.resolve_backend(Cfg("topk", backend="pallas"))
+
+
+def test_fedspec_cli_round_trip_with_compression_flags():
+    spec = tapi.spec_from_args(["--compression", "adaptive_topk",
+                                "--compress-ratio", "0.1",
+                                "--compress-energy", "0.9",
+                                "--compress-backend", "fused",
+                                "--state-layout", "packed"])
+    assert spec.compression == tapi.CompressionSpec(
+        name="adaptive_topk", ratio=0.1, energy=0.9, backend="fused")
+    rcfg = spec.validate().round_config()
+    assert (rcfg.compression, rcfg.compress_ratio, rcfg.compress_energy,
+            rcfg.compress_backend) == ("adaptive_topk", 0.1, 0.9, "fused")
+    assert rcfg.compressed
+    ap = argparse.ArgumentParser()
+    tapi.add_spec_args(ap)
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--compression", "sign"])
+    with pytest.raises(SystemExit):
+        ap.parse_args(["--compress-backend", "pallas"])
+
+
+def test_unknown_compressor_and_backend_raise():
+    with pytest.raises(ValueError, match="unknown compressor 'sign'"):
+        tapi.FedSpec(n_agents=2, gamma=0.05,
+                     compression=tapi.CompressionSpec(name="sign")).validate()
+    with pytest.raises(ValueError, match="unknown compress backend"):
+        tapi.FedSpec(n_agents=2, gamma=0.05, compression=tapi.CompressionSpec(
+            name="topk", backend="xla")).validate()
+    with pytest.raises(ValueError, match="unknown compressor"):
+        tengine.RoundConfig(n_agents=2, compression="sign")
+    with pytest.raises(ValueError, match="compress backend"):
+        tengine.RoundConfig(n_agents=2, compression="topk",
+                            compress_backend="pallas")
+
+
+def test_registered_compressor_is_reachable_by_name():
+    @tcompress.register_compressor("halve_test")
+    def halve(dz, cfg):
+        return dz * 0.5
+
+    try:
+        cfg = tengine.RoundConfig(n_agents=3, compression="halve_test",
+                                  compress_backend="fused")
+        tree = _gappy_tree()
+        q = tcompress.compress_increment(tree, cfg)
+        assert torch.equal(q["b"], tree["b"] * 0.5)
+    finally:
+        tcompress._REGISTRY.pop("halve_test")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card "
+                    "(chip_smoke.py phase 2 is their full check)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_compress_kernels_match_plain_versions_on_card(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((3, 1001), generator=gen, device=cuda_device).to(dtype)
+    segs = ((0, 300), (310, 700), (700, 996))
+    for mode, energy in (("topk", 0.95), ("adaptive_topk", 0.5),
+                         ("adaptive_topk", 0.95)):
+        assert torch.equal(
+            tops.rank_select(x, segments=segs, mode=mode, energy=energy),
+            tref.rank_select_ref(x, segs, mode, 0.25, energy))
+    assert torch.equal(tops.int8_quantize(x, segments=segs),
+                       tref.int8_ref(x, segs))

@@ -194,7 +194,7 @@ def test_fedspec_defaults_and_cli_match_reference():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(compression=tapi.CompressionSpec(name="topk")), "compressed"),
+    (dict(privacy=tapi.PrivacySpec(dp_init=True)), "dense front end"),
     (dict(async_mode="stale"), "async"),
     (dict(guard_increments=True), "fault"),
     (dict(aggregator="trimmed_mean"), "robust"),

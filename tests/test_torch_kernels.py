@@ -152,7 +152,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     tupdate.fedplt_update(z, z, z, gamma=0.1, inv_rho=1.0)
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
-                                       "fedplt_update": 0}
+                                       "fedplt_update": 0,
+                                       "rank_select": 0,
+                                       "int8_quantize": 0}
 
 
 def test_kernel_launchers_reject_cpu_tensors():
