@@ -39,6 +39,18 @@ last line):
    of int8 (int8_quantize=1, rank_select=0) and adaptive_topk
    (rank_select=1).
 
+7. Robust main path: phase 4's spec with ``--aggregator trimmed_mean
+   --aggregator-param 1 --guard-increments``, 3 rounds with the ``(N, 2)``
+   rows of a seeded one-agent sign-flip ``FaultPlan``: sort_aggregate=3,
+   uplink=3, downlink=3 (lagged variants), fedplt_update=6; one profiled
+   round.  Then, from that state, one round each of ``coord_median`` with
+   ``live = [1, 1, 1, 0]`` (sort_aggregate=1), ``norm_clip_mean`` with the
+   radius set to the median of the rows' residual norms ``||z_i -
+   median(z)||`` (sort_aggregate=1, the centre) and ``mean`` with guards on
+   and a NaN ``(N,)`` corrupt row, which the guard quarantines (that
+   agent's x and z rows unchanged, sort_aggregate=0).  Round ms and peak
+   memory of each variant.
+
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
 int8, fp32 and bf16, N=3, M=1000 and 1001, one segment and several with
@@ -47,7 +59,16 @@ all-equal and all-zero rows, a misaligned view (the scalar path); then at
 the full ``(4, 745,549,056)`` bf16 shape with the trainer's 18 packed
 segments, the plain versions run row by row, timed beside the byte bound
 and, for topk, ``torch.topk`` per (row, segment) as a yardstick (its tie
-order differs).  Phase 3 also runs 2 compressed (topk) rounds.
+order differs).  And the robust-aggregation kernel, bit for bit (NaN
+results by position): N in {1, 2, 3, 4, 5, 8, 17, 33, 100, 128}, M = 1000
+(16-byte vectors) and 1001 (scalar), fp32 and bf16, every trim and
+coord_median, live rows all live, with evictions, with one live agent and
+all dead, columns of ties, +-0.0, +-inf and NaN, and a misaligned view;
+then at the full ``(4, 745,549,056)`` bf16 shape (trimmed_mean f=1, the
+robust main path's statistic) against its plain version run in column
+slabs, timed beside the byte bound and, as a yardstick of the sort alone,
+``torch.sort(x, dim=0)``.  Phase 3 also runs 2 compressed (topk) rounds
+and 2 robust rounds (N=4, trimmed_mean f=1, one sign-flipped agent).
 
 Then one JSON line per kernel table, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -437,6 +458,133 @@ def compress_full_shape(torch, bw):
     return recs
 
 
+def same_bits(torch, got, want, what):
+    """Fails unless ``got`` equals ``want`` bit for bit, NaN results
+    compared by position only (a NaN's bits may differ between the kernel
+    and PyTorch's float-to-bf16 conversion)."""
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"{what}: NaN positions differ")
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    g = got.view(ints[got.dtype])
+    w = want.view(ints[want.dtype])
+    bad = (g != w) & ~nan
+    if bool(bad.any()):
+        fail(f"{what}: {int(bad.sum())} of {bad.numel()} entries differ")
+
+
+ROBUST_NS = (1, 2, 3, 4, 5, 8, 17, 33, 100, 128)
+
+
+def robust_small_checks(torch):
+    """The sort_aggregate kernel against its plain version, bit for bit."""
+    from repro_torch.kernels.robust_agg import ops as rops
+    from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
+                             -1.0, 2.5], device=dev)
+    n_checks = 0
+
+    def lives(n):
+        out = {"all live": None}
+        if n > 1:
+            ev = torch.ones(n, device=dev)
+            ev[::max(n // 3, 2)] = 0.0
+            out["evictions"] = ev
+            one = torch.zeros(n, device=dev)
+            one[n // 2] = 1.0
+            out["one live"] = one
+        out["all dead"] = torch.zeros(n, device=dev)
+        return out
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (1000, 1001):
+            for n in ROBUST_NS:
+                x = torch.randn((n, m), generator=gen, device=dev)
+                idx = torch.randint(0, len(specials), (n, 64), generator=gen,
+                                    device=dev)
+                x[:, :64] = specials[idx]
+                x[:, 64:72] = 0.75                 # whole tied columns
+                x = x.to(dtype)
+                views = {"": x}
+                if n == 4:
+                    flat = torch.empty(n * m + 1, device=dev, dtype=dtype)
+                    mis = flat[1:].view(n, m)
+                    mis.copy_(x)
+                    views[" misaligned view"] = mis
+                stats = ([("trimmed_mean", f) for f in range((n - 1) // 2 + 1)]
+                         + [("coord_median", 0)])
+                for vname, xv in views.items():
+                    for lname, live in lives(n).items():
+                        for stat, trim in stats:
+                            got = rops.robust_aggregate(xv, live, stat=stat,
+                                                        trim=trim)
+                            want = robust_aggregate_ref(xv, live, stat=stat,
+                                                        trim=trim)
+                            same_bits(torch, got, want,
+                                      f"sort_aggregate {dtype} N={n} M={m} "
+                                      f"{lname}{vname} {stat} trim={trim}")
+                            n_checks += 1
+    try:
+        rops.robust_aggregate(torch.zeros((129, 8), device=dev),
+                              stat="coord_median")
+    except ValueError as e:
+        log(f"phase 2: N=129 on the card raises: {e}")
+    else:
+        fail("sort_aggregate took 129 rows (the kernel's limit is 128)")
+    torch.cuda.synchronize()
+    log(f"phase 2: {n_checks} small-shape sort_aggregate checks bit-equal "
+        f"(NaN by position): N in {ROBUST_NS}, M=1000 and 1001, fp32 and "
+        f"bf16, every trim and coord_median, all live / evictions / one "
+        f"live / all dead, ties, +-0.0, +-inf, NaN, a misaligned view")
+
+
+def robust_full_shape(torch, bw):
+    """sort_aggregate at the trainer's full shape against its slabbed
+    plain version; returns ``{name: record}``."""
+    from repro_torch.kernels.robust_agg import ops as rops
+    from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
+
+    N, M = FULL_N, FULL_M
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((N, M), generator=gen, device=dev, dtype=torch.bfloat16)
+    live = torch.ones(N, device=dev)
+    run = lambda: rops.robust_aggregate(x, live, stat="trimmed_mean", trim=1)
+    got = run()
+    want = torch.empty_like(got)
+    plain = lambda: slabbed(lambda a: robust_aggregate_ref(
+        a, live, stat="trimmed_mean", trim=1), (want,), x)
+    plain()
+    same_bits(torch, got, want, "sort_aggregate full shape")
+    del got
+    ms = cuda_ms(torch, run)
+    pms = cuda_ms(torch, plain, reps=3)
+    del want
+    torch.cuda.empty_cache()
+    sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=0), reps=3)
+    bytes_ = (N * M + M) * 2
+    # per column: 6 compare-exchanges (2 ops each) of the 4-key bitonic
+    # network, 4 selects, 3 adds and a multiply
+    ops = M * (2 * 6 + 4 + 3 + 1)
+    bound = max(bytes_ / bw, ops / FP32_PEAK) * 1e3
+    rec = dict(bytes=bytes_, ms=ms, plain_ms=pms, bound_ms=bound,
+               bound_by="bytes" if bytes_ / bw >= ops / FP32_PEAK
+               else "operations", max_abs_err=0.0,   # bit-equal
+               library_ms=None, sort_yardstick_ms=sort_ms)
+    log(f"phase 2 full shape: sort_aggregate trimmed_mean f=1 ({N}x{M} "
+        f"bf16) bit-equal to the plain version; kernel {ms:.3f} ms, plain "
+        f"{pms:.3f} ms, bound {bound:.3f} ms ({bytes_ / 1e9:.3f} GB), "
+        f"{100 * bound / ms:.1f}% of bound; yardstick torch.sort(x, dim=0) "
+        f"alone {sort_ms:.3f} ms (sorts only; no library call computes "
+        f"the trimmed mean)")
+    del x
+    torch.cuda.empty_cache()
+    return {"sort_aggregate": rec}
+
+
 # ---------------------------------------------------------------------------
 # Phases 3-6: the trainer
 # ---------------------------------------------------------------------------
@@ -491,6 +639,34 @@ def small_input_parity(torch):
                f"{3 * states['cpu'].x.numel():,}) that follow a near-tie "
                f"top-k swap" if compressed else ""))
 
+    # the robust round: 4 agents, trimmed_mean f=1, one sign-flipped agent
+    from repro_torch import kernels
+
+    spec = api.FedSpec(**dict(base, n_agents=4), aggregator="trimmed_mean",
+                       aggregator_param=1, guard_increments=True)
+    batches = [make_batch_for(cfg, InputShape("small", 64, 8, "train"), gen,
+                              n_agents=4) for _ in range(2)]
+    flip = torch.tensor([[0.0, 0.0], [-1.0, 0.0], [0.0, 0.0], [0.0, 0.0]])
+    states = {}
+    for dev in ("cuda", "cpu"):
+        tr = api.build_trainer(model, spec, dev)
+        st, _ = tr.init(0, params=params)
+        kernels.reset_launch_counts()
+        for b in batches:
+            st, _ = tr.step(st, b, u=torch.ones(4), corrupt=flip)
+        states[dev] = (st, kernels.launch_counts()["sort_aggregate"])
+    err = max(float((getattr(states["cuda"][0], v).cpu()
+                     - getattr(states["cpu"][0], v)).abs().max())
+              for v in ("x", "z"))
+    if not err <= 1e-4 or states["cuda"][1] != 2 or states["cpu"][1] != 0:
+        fail(f"small-input check (robust): card vs CPU max abs err {err}, "
+             f"sort_aggregate launches card {states['cuda'][1]} / CPU "
+             f"{states['cpu'][1]} (want 2 / 0)")
+    log(f"phase 3 robust (trimmed_mean f=1, guards on, one sign-flipped "
+        f"agent of 4): reduced gemma2-2b fp32, 2 rounds, card (kernels, "
+        f"2 sort_aggregate launches) vs CPU (plain versions): max abs err "
+        f"{err:.3g} (tolerance 1e-4)")
+
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
@@ -506,6 +682,8 @@ def _kernel_group(name: str) -> str:
         return "rank_select"
     if "absmax_kernel" in name or "quantize_kernel" in name:
         return "int8_quantize"
+    if "sort_aggregate_kernel" in name:
+        return "sort_aggregate"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "matmul"
     if any(k in low for k in ("copy", "memcpy", "fill", "memset")):
@@ -544,7 +722,8 @@ def profile_round(torch, trainer, state, gen, cfg, label):
     busy = sum(groups.values())
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     compress_ms = {k: v for k, v in kernels_ms.items()
-                   if _kernel_group(k) in ("rank_select", "int8_quantize")}
+                   if _kernel_group(k) in ("rank_select", "int8_quantize",
+                                           "sort_aggregate")}
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1.0 - busy / wall_ms) if busy else None,
            "groups_ms": groups, "top_kernels_ms": top}
@@ -599,6 +778,149 @@ def train_phase(torch, label, spec, steps, expect, profile=False):
     return counts, hist, peak
 
 
+def expected_counts(**kw):
+    """Every kernel's launch count: 0 unless given."""
+    from repro_torch import kernels
+
+    out = dict.fromkeys(kernels.launch_counts(), 0)
+    out.update(kw)
+    return out
+
+
+def robust_phase(torch, base):
+    """Phase 7: the robust main path and its variants, driven through
+    ``ModelTrainer.step(corrupt=, live=)``; returns ``(counts of the
+    3-round path, {variant: {"round_ms": [...], "peak_gb": g}})``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.fed.faults import FaultPlan
+    from repro_torch.fed.robust import row_sq_norms
+    from repro_torch.kernels.robust_agg import ops as rops
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    model = build_model(cfg)
+    shape = InputShape("robust", 512, 8, "train")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    plan = FaultPlan.generate(0, FULL_N, 3, n_byzantine=1,
+                              byzantine_kind="sign_flip")
+    rows = []
+    for r in range(3):
+        row = torch.zeros((FULL_N, 2))
+        for a in range(FULL_N):
+            pair = plan.byzantine_at(a, r)
+            if pair is not None:
+                row[a] = torch.tensor(pair)
+        rows.append(row)
+    flipped = [a for a in range(FULL_N) if plan.byzantine_at(a, 0)]
+    robust = dict(base, guard_increments=True)
+    def drive(label, spec, state, n, corrupt, live, expect):
+        trainer = api.build_trainer(model, spec, "cuda")
+        if state is None:
+            state, _ = trainer.init(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        hist = []
+        for r in range(n):
+            b = make_batch_for(cfg, shape, gen, n_agents=FULL_N,
+                               device="cuda")
+            t0 = time.time()
+            state, m = trainer.step(state, b, gen, corrupt=corrupt[r],
+                                    live=live)
+            m = {k: float(v) for k, v in m.items()}   # waits for the device
+            m["dt"] = time.time() - t0
+            hist.append(m)
+            log(f"round {r:4d} loss={m['loss']:.4f} "
+                f"part={m['participation']:.2f} dt={m['dt']:.2f}s")
+        torch.cuda.synchronize()
+        got = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if got != expect:
+            fail(f"{label}: launch counts {got}, want {expect}")
+        for h in hist:
+            if not math.isfinite(h["loss"]):
+                fail(f"{label}: non-finite loss {h['loss']}")
+        if not bool(torch.isfinite(state.x).all() & torch.isfinite(
+                state.z).all()):
+            fail(f"{label}: non-finite agent state")
+        if peak > 80e9:
+            fail(f"{label}: peak device memory {peak / 1e9:.2f} GB")
+        log(f"{label}: launches {got}; peak device memory "
+            f"{peak / 1e9:.2f} GB; round ms "
+            f"{[round(1e3 * h['dt'], 1) for h in hist]}")
+        return trainer, state, got, hist, peak
+
+    variants = {}
+
+    def note(name, hist, peak):
+        variants[name] = {"round_ms": [1e3 * h["dt"] for h in hist],
+                          "peak_gb": peak / 1e9,
+                          "participation": [h["participation"] for h in hist]}
+
+    label = "phase 7 robust main path (trimmed_mean f=1, guards on)"
+    log(f"{label}: sign-flipped agent(s) {flipped} of {FULL_N} "
+        f"(FaultPlan.generate(0, 4, 3, n_byzantine=1))")
+    trainer, state, main_counts, hist, peak = drive(
+        label, api.FedSpec(**robust, aggregator="trimmed_mean",
+                           aggregator_param=1), None, 3, rows, None,
+        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6,
+               sort_aggregate=3))
+    note("trimmed_mean", hist, peak)
+    profile_round(torch, trainer, state, gen, cfg, "phase 7")
+    del trainer
+
+    _, st, _, hist, peak = drive(
+        "phase 7 coord_median, live [1, 1, 1, 0]",
+        api.FedSpec(**robust, aggregator="coord_median"), state, 1, [None],
+        [1.0, 1.0, 1.0, 0.0],
+        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
+               sort_aggregate=1))
+    if hist[0]["participation"] != 0.75:
+        fail("phase 7 coord_median: the evicted agent took part")
+    note("coord_median", hist, peak)
+    del st
+    torch.cuda.empty_cache()
+
+    center = rops.robust_aggregate(state.z, stat="coord_median")
+    norms = torch.sqrt(row_sq_norms(state.z - center)).tolist()
+    radius = sorted(norms)[FULL_N // 2]
+    del center
+    log(f"phase 7 norm_clip_mean: residual norms ||z_i - median(z)|| "
+        f"{[round(v, 4) for v in norms]}, radius {radius:.4f} (their median)")
+    _, st, _, hist, peak = drive(
+        "phase 7 norm_clip_mean", api.FedSpec(
+            **robust, aggregator="norm_clip_mean", aggregator_param=radius),
+        state, 1, [None], None,
+        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
+               sort_aggregate=1))
+    note("norm_clip_mean", hist, peak)
+    del st
+    torch.cuda.empty_cache()
+
+    bad = 2
+    x_row, z_row = state.x[bad].clone(), state.z[bad].clone()
+    poison = torch.zeros(FULL_N)
+    poison[bad] = math.nan
+    _, st, _, hist, peak = drive(
+        "phase 7 mean, guards on, NaN corrupt row for agent 2",
+        api.FedSpec(**robust), state, 1, [poison], None,
+        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2))
+    if not (torch.equal(st.x[bad], x_row) and torch.equal(st.z[bad], z_row)):
+        fail("phase 7 guard: the quarantined agent's state changed")
+    if hist[0]["participation"] != 0.75:
+        fail("phase 7 guard: the NaN row was not quarantined")
+    log("phase 7 guard: agent 2's NaN increment was quarantined (x and z "
+        "rows unchanged, participation 0.75, finite loss)")
+    note("mean_guard_nan", hist, peak)
+    del st, state, x_row, z_row
+    torch.cuda.empty_cache()
+    return main_counts, variants
+
+
 def main() -> int:
     import torch
 
@@ -632,16 +954,11 @@ def main() -> int:
     compress_small_checks(torch)
     recs = full_shape(torch, bw)
     recs.update(compress_full_shape(torch, bw))
+    robust_small_checks(torch)
+    recs.update(robust_full_shape(torch, bw))
 
     # phase 3: small-input agreement of the whole round
     small_input_parity(torch)
-
-    def counts(**kw):
-        out = dict.fromkeys(("round_uplink", "round_downlink",
-                             "fedplt_update", "rank_select",
-                             "int8_quantize"), 0)
-        out.update(kw)
-        return out
 
     # phase 4: the main path
     base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
@@ -649,32 +966,36 @@ def main() -> int:
                 use_fused_update=True)
     main_counts, hist, _ = train_phase(
         torch, "phase 4 main path", FedSpec(**base), 3,
-        counts(round_uplink=3, round_downlink=3, fedplt_update=6),
+        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6),
         profile=True)
     round_ms = [1e3 * h["dt"] for h in hist]
 
     # phase 5: the DP path
     train_phase(torch, "phase 5 DP path",
                 FedSpec(**base, privacy=PrivacySpec(tau=0.01, clip=1.0)), 1,
-                counts(round_uplink=1, round_downlink=1, fedplt_update=2))
+                expected_counts(round_uplink=1, round_downlink=1,
+                                fedplt_update=2))
 
     # phase 6: the compressed z-exchange on the main path
     comp_counts, comp_hist, comp_peak = train_phase(
         torch, "phase 6 compressed main path (topk 0.25)",
         FedSpec(**base, compression=CompressionSpec("topk", ratio=0.25)), 3,
-        counts(round_uplink=3, round_downlink=3, fedplt_update=6,
+        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6,
                rank_select=3), profile=True)
     int8_counts, int8_hist, int8_peak = train_phase(
         torch, "phase 6 compressed (int8)",
         FedSpec(**base, compression=CompressionSpec("int8")), 1,
-        counts(round_uplink=1, round_downlink=1, fedplt_update=2,
+        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
                int8_quantize=1), profile=True)
     _, ada_hist, ada_peak = train_phase(
         torch, "phase 6 compressed (adaptive_topk 0.25, energy 0.95)",
         FedSpec(**base, compression=CompressionSpec("adaptive_topk",
                                                     ratio=0.25)), 1,
-        counts(round_uplink=1, round_downlink=1, fedplt_update=2,
+        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
                rank_select=1))
+
+    # phase 7: the byzantine-robust, fault-screened round
+    robust_counts, robust_variants = robust_phase(torch, base)
 
     table = []
     meta = {
@@ -693,6 +1014,9 @@ def main() -> int:
         "int8_quantize": ("src/repro_torch/kernels/compress/csrc/compress.cu",
                           "src/repro/kernels/compress/kernel.py:374",
                           int8_counts),
+        "sort_aggregate": ("src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
+                           "src/repro/kernels/robust_agg/kernel.py:175",
+                           robust_counts),
     }
     for kname, (source, replaces, path_counts) in meta.items():
         r = recs[kname]
@@ -716,7 +1040,10 @@ def main() -> int:
                         "adaptive_topk": [1e3 * h["dt"] for h in ada_hist]},
                     "compressed_peak_gb": {"topk": comp_peak / 1e9,
                                            "int8": int8_peak / 1e9,
-                                           "adaptive_topk": ada_peak / 1e9}}))
+                                           "adaptive_topk": ada_peak / 1e9},
+                    "robust": robust_variants,
+                    "sort_aggregate_yardstick_torch_sort_ms":
+                        recs["sort_aggregate"]["sort_yardstick_ms"]}))
     log(json.dumps({"kernels": table}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ unfused tensor ops) or ``"fused"`` (its ``"pallas"``, the
 ``use_fused_update`` (the :mod:`repro_torch.kernels.fedplt_update`
 kernel); ``CompressionSpec.backend`` likewise takes ``"torch"`` or
 ``"fused"`` (the :mod:`repro_torch.kernels.compress` kernels) besides
-``"auto"``.  Fields whose features are later slices of the port raise a
-``ValueError`` naming the slice in :meth:`FedSpec.validate`.
+``"auto"``.  The fault and robust fields (``guard_increments``,
+``guard_norm_bound``, ``aggregator``, ``aggregator_param``) mean what they
+mean in the reference; under ``engine_backend="fused"`` the order-statistic
+aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.  Fields
+whose features are later slices of the port raise a ``ValueError`` naming
+the slice in :meth:`FedSpec.validate`.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -30,6 +34,7 @@ from repro_torch.core.solvers import SolverConfig
 from repro_torch.fed import engine
 from repro_torch.fed.compress import (COMPRESS_BACKENDS,
                                       available_compressors, get_compressor)
+from repro_torch.fed.robust import validate_aggregator
 from repro_torch.fed.solvers import get_solver
 
 
@@ -164,18 +169,22 @@ class FedSpec:
         help="staleness bound K (async rounds)"))
     guard_increments: bool = dataclasses.field(default=False, metadata=_cli(
         flag="--guard-increments",
-        help="in-round increment guards (not ported yet)"))
+        help="screen agent increments in the round: a non-finite (or "
+             "over-norm) uplink row becomes a non-arrival this round"))
     guard_norm_bound: float = dataclasses.field(
         default=float("inf"), metadata=_cli(
             flag="--guard-norm-bound", arg_type=float,
-            help="l2 norm bound for --guard-increments"))
+            help="l2 norm bound for --guard-increments (inf = "
+                 "finiteness-only screen)"))
     aggregator: str = dataclasses.field(default="mean", metadata=_cli(
         flag="--aggregator",
-        help="coordinator aggregator (only mean is ported)"))
+        help="coordinator aggregator (repro_torch.fed.robust registry "
+             "name; mean = the fault-free uplink)"))
     aggregator_param: float = dataclasses.field(
         default=0.0, metadata=_cli(
             flag="--aggregator-param", arg_type=float,
-            help="aggregator parameter"))
+            help="aggregator parameter: trim count f for trimmed_mean, "
+                 "clip radius for norm_clip_mean"))
     agent_shards: int = dataclasses.field(default=1, metadata=_cli(
         flag="--agent-shards", arg_type=int,
         help="shard the agent axis across devices (not ported yet)"))
@@ -206,7 +215,11 @@ class FedSpec:
             compress_energy=self.compression.energy,
             compress_backend=self.compression.backend,
             engine_backend=self.engine_backend,
-            state_layout=self.state_layout)
+            state_layout=self.state_layout,
+            guard_increments=self.guard_increments,
+            guard_norm_bound=self.guard_norm_bound,
+            aggregator=self.aggregator,
+            aggregator_param=self.aggregator_param)
 
     def moduli_for(self, gamma: Optional[float]):
         """(mu, L) of the local f_i; with ``gamma`` set an unknown L is
@@ -280,6 +293,8 @@ class FedSpec:
         if not self.guard_norm_bound > 0.0:
             raise ValueError("guard_norm_bound must be positive (use "
                              "inf for a finiteness-only screen)")
+        validate_aggregator(self.aggregator, self.aggregator_param,
+                            self.n_agents)
         if self.weight_decay < 0.0:
             raise ValueError("weight_decay must be >= 0")
         if self.weight_decay != 0.0 and self.prox_h not in (
@@ -298,11 +313,6 @@ class FedSpec:
     def _validate_port_scope(self) -> None:
         if self.async_mode != "off" or self.max_staleness != 0:
             raise _later("bounded-staleness async rounds", "async runtime")
-        if self.guard_increments:
-            raise _later("increment guards", "fault and robust runtime")
-        if self.aggregator != "mean":
-            raise _later(f"aggregator={self.aggregator!r}",
-                         "fault and robust runtime")
         if self.agent_groups is not None:
             raise _later("heterogeneous agent_groups",
                          "heterogeneous solver groups")
@@ -401,12 +411,17 @@ class ModelTrainer:
         return state, gen
 
     @torch.no_grad()
-    def step(self, state, batch, generator=None, u=None, noise=None):
+    def step(self, state, batch, generator=None, u=None, noise=None,
+             corrupt=None, live=None):
         """One Fed-PLT round on an agent-stacked batch (``u`` replays an
-        ``(N,)`` participation row, ``noise(epoch, w)`` the DP draw)."""
+        ``(N,)`` participation row, ``noise(epoch, w)`` the DP draw).
+        ``corrupt`` / ``live`` are fault rows: per-agent corruption
+        (``(N,)`` multipliers or ``(N, 2)`` ``[mult, add]`` pairs, e.g. a
+        :class:`repro_torch.fed.faults.FaultPlan` realised per round) and
+        the ``(N,)`` survivor mask after evictions."""
         batch = {k: v.to(self.device) for k, v in batch.items()}
         return self._step(state, batch, generator=generator, u=u,
-                          noise=noise)
+                          noise=noise, corrupt=corrupt, live=live)
 
     def run(self, seed: int, n_rounds: int, batches):
         """Run from a fresh init; ``batches`` is a callable ``i -> batch``

@@ -39,21 +39,34 @@ Randomness: the participation row is drawn from a ``torch.Generator``
 explicitly as an ``(N,)`` row, which is how the parity tests replay the
 reference's draws.
 
-Not ported yet (later slices): bounded-staleness async rounds, increment
-guards and fault rows, robust aggregators, heterogeneous solver groups
-and the sharded mesh.
+Faults and robustness (the reference's fault hooks, in its order): the
+coordinator's input passes :func:`robust_seen` (a robust aggregate of the
+live rows broadcast back, or the survivor-mean rescale for ``mean``);
+after the local solvers :func:`apply_corruption` injects a recorded
+corruption row; evicted agents leave the participation row
+(:func:`live_mask_rows`); :func:`increment_guard` turns a non-finite or
+over-norm row into a non-arrival.  With ``corrupt=None``, ``live=None``,
+guards off and ``mean`` each of them returns its input unchanged, so the
+round is the fault-free one bit for bit (``z_seen is z`` still selects
+the exact edges).
+
+Not ported yet (later slices): bounded-staleness async rounds,
+heterogeneous solver groups and the sharded mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.fed import compress as compress_lib
+from repro_torch.fed import robust as robust_lib
 from repro_torch.fed.solvers import LocalSolver
+from repro_torch.kernels.robust_agg.ref import live_row
 from repro_torch.kernels.round_edge import ops as edge_ops
 
 tree_map = pytree.tree_map
@@ -107,9 +120,24 @@ class RoundConfig:
     compress_backend: str = "torch"
     engine_backend: str = "torch"
     state_layout: str = "tree"
+    # in-round increment guards: a non-finite row of the local solvers'
+    # output, or one whose l2 norm exceeds guard_norm_bound, becomes a
+    # non-arrival (u_i -> 0).  Clean rows multiply u by ones: unchanged
+    guard_increments: bool = False
+    guard_norm_bound: float = float("inf")   # inf = finiteness-only screen
+    # coordinator aggregator (repro_torch.fed.robust registry): "mean"
+    # keeps the fault-free uplink; "trimmed_mean" (param = trim count f),
+    # "coord_median" and "norm_clip_mean" (param = clip radius) replace
+    # the agent mean with a robust statistic of the live rows
+    aggregator: str = "mean"
+    aggregator_param: float = 0.0
 
     def __post_init__(self):
         compress_lib.get_compressor(self.compression)
+        object.__setattr__(
+            self, "aggregator_param",
+            robust_lib.validate_aggregator(
+                self.aggregator, self.aggregator_param, self.n_agents))
         if self.compress_backend not in compress_lib.COMPRESS_BACKENDS:
             raise ValueError(
                 f"unknown compress backend {self.compress_backend!r}; "
@@ -125,6 +153,14 @@ class RoundConfig:
         object.__setattr__(self, "damping",
                            _numeric_scalar("damping", self.damping))
         object.__setattr__(self, "rho", _numeric_scalar("rho", self.rho))
+        object.__setattr__(self, "guard_increments",
+                           bool(self.guard_increments))
+        bound = _numeric_scalar("guard_norm_bound", self.guard_norm_bound)
+        if not bound > 0.0:   # rejects 0, negatives, and NaN
+            raise ValueError(
+                f"guard_norm_bound must be > 0 (inf disables the norm "
+                f"screen), got {bound}")
+        object.__setattr__(self, "guard_norm_bound", bound)
         p = self.participation
         if isinstance(p, (str, bytes)):
             raise ValueError(
@@ -147,6 +183,19 @@ class RoundConfig:
     @property
     def fused(self) -> bool:
         return self.engine_backend == "fused"
+
+    @property
+    def robust_aggregator(self) -> Optional[str]:
+        """The aggregator name when the uplink is actually robust, else
+        None: ``"mean"`` -- and ``"trimmed_mean"`` at ``f = 0``, which IS
+        the mean -- keep the survivor-mean path, so clean configurations
+        run the fault-free round bit for bit."""
+        if self.aggregator == "mean":
+            return None
+        if (self.aggregator == "trimmed_mean"
+                and int(self.aggregator_param) == 0):
+            return None
+        return self.aggregator
 
 
 class RoundResult(NamedTuple):
@@ -208,6 +257,120 @@ def masked_mix(u: torch.Tensor, new: Any, old: Any) -> Any:
                            nl, ol)
 
     return tree_map(mix, new, old)
+
+
+# ---------------------------------------------------------------------------
+# Faults: corruption injection, increment guards, survivor means and the
+# robust aggregate.  Each returns its input unchanged when disabled
+# (corrupt=None / guards off / live=None / mean).
+# ---------------------------------------------------------------------------
+
+def apply_corruption(w: Any, corrupt) -> Any:
+    """Inject a recorded corruption row into the local solvers' output.
+
+    ``corrupt`` is an ``(N,)`` row -- agent ``i``'s rows become
+    ``w * corrupt[i]`` wherever the entry is non-zero or NaN (NaN poisons
+    the row, a huge value trips the norm guard) -- or an ``(N, 2)``
+    ``[mult, add]`` pair per agent: rows whose pair is not ``(0, 0)``
+    become ``w * mult + add`` (``sign_flip`` = ``(-1, 0)``, ``scale(v)``
+    = ``(v, 0)``, ``drift(v)`` = ``(1, v)``).  ``mult`` and ``add`` are
+    rounded to the leaf's dtype first, as the reference casts them.
+    ``None`` returns ``w`` unchanged.
+
+    The flagged rows are rewritten IN PLACE (the round owns its solvers'
+    output, a fresh buffer): at full width a functional form would hold
+    one more state-sized buffer.  The row is read on the host."""
+    if corrupt is None:
+        return w
+    c = torch.as_tensor(corrupt, dtype=torch.float32).cpu()
+    pairs = c if c.ndim == 2 else torch.stack([c.reshape(-1),
+                                               torch.zeros(c.numel())], 1)
+    # NaN != 0 is True: NaN entries flag the row (poison)
+    flagged = ((pairs[:, 0] != 0.0) | (pairs[:, 1] != 0.0)).tolist()
+    for leaf in pytree.tree_leaves(w):
+        # the pairs rounded to the leaf's dtype, as Python floats
+        rows = pairs.to(leaf.dtype).tolist()
+        for i, (mult, add) in enumerate(rows):
+            if flagged[i]:
+                leaf[i].mul_(mult)
+                if c.ndim == 2:
+                    leaf[i].add_(add)
+    return w
+
+
+def _row_sq_norms(w: Any, meta=None) -> torch.Tensor:
+    """Per-agent squared l2 norm over the non-agent axes, in float32.
+    For a resident packed buffer pass ``meta``: only the real columns
+    count (padding may have drifted, even to NaN)."""
+    if meta is not None:
+        return robust_lib.row_sq_norms(w, meta.segments)
+    total = None
+    for l in pytree.tree_leaves(w):
+        sq = robust_lib.row_sq_norms(l.reshape(l.shape[0], -1))
+        total = sq if total is None else total + sq
+    return total
+
+
+def increment_guard(cfg: RoundConfig, w: Any, u: torch.Tensor, meta=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The uplink screen: returns ``(u_guarded, ok)``, ``ok`` the
+    per-agent ``(N,)`` bool clean mask (None when guards are off).  A
+    row that is non-finite, or whose l2 norm exceeds
+    ``cfg.guard_norm_bound``, becomes a non-arrival (``u_i -> 0``), and
+    the NaN-safe selects downstream keep it out of ``(x, z, t)``.  With
+    every row clean ``u * ok`` multiplies by ones."""
+    if not cfg.guard_increments:
+        return u, None
+    sq = _row_sq_norms(w, meta)
+    ok = torch.isfinite(sq)
+    if math.isfinite(cfg.guard_norm_bound):
+        bound = torch.tensor(cfg.guard_norm_bound, dtype=torch.float32)
+        ok = ok & (sq <= (bound ** 2).to(sq.device))
+    return u * ok.to(u.dtype), ok
+
+
+def survivor_mean_input(cfg: RoundConfig, z_seen: Any, live) -> Any:
+    """Fold an eviction ``live`` row into the coordinator's input so the
+    edges' mean over N becomes the mean over survivors: ``z * live *
+    (N / n_live)``.  ``live=None`` returns ``z_seen`` itself."""
+    if live is None:
+        return z_seen
+    device = pytree.tree_leaves(z_seen)[0].device
+    lv = live_row(live, cfg.n_agents, device)
+    # a true division (a Python number over a tensor would multiply by
+    # the tensor's reciprocal)
+    scale = lv * (lv.new_tensor(float(cfg.n_agents)) / lv.sum())
+    return tree_map(
+        lambda l: l * scale.to(l.dtype).reshape((-1,) + (1,) * (l.ndim - 1)),
+        z_seen)
+
+
+def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None) -> Any:
+    """The uplink's aggregation input transform.  ``mean`` (and
+    ``trimmed_mean`` at ``f = 0``) is :func:`survivor_mean_input`, which
+    returns ``z_seen`` itself without a live row, so the exact edges are
+    still selected by ``z_seen is z``.  A robust aggregator computes its
+    ``(1, M)`` statistic over the live rows and broadcasts it back across
+    the agent axis (:mod:`repro_torch.fed.robust`).  ``meta`` marks the
+    packed form (``z_seen`` a resident ``(N, width)`` buffer)."""
+    name = cfg.robust_aggregator
+    if name is None:
+        return survivor_mean_input(cfg, z_seen, live)
+    if meta is not None:
+        return robust_lib.robust_seen_packed(
+            z_seen, live, name=name, param=cfg.aggregator_param, meta=meta,
+            backend=cfg.engine_backend)
+    return robust_lib.robust_seen_tree(
+        z_seen, live, name=name, param=cfg.aggregator_param,
+        backend=cfg.engine_backend)
+
+
+def live_mask_rows(u: torch.Tensor, live) -> torch.Tensor:
+    """Zero the participation row of evicted agents (``live`` an
+    ``(N,)`` 0/1 row; None returns ``u`` unchanged)."""
+    if live is None:
+        return u
+    return u * live_row(live, u.numel(), u.device)
 
 
 def fusible_prox(prox_h: ProxH) -> bool:
@@ -338,15 +501,20 @@ def run_solvers(local_solver: SolverAssignment, x: Any, v: Any,
 def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
                       z: torch.Tensor, t: torch.Tensor,
                       local_solver: SolverAssignment, prox_h: ProxH = None,
-                      *, generator=None, u=None) -> RoundResult:
+                      *, generator=None, u=None, corrupt=None,
+                      live=None) -> RoundResult:
     """One round on the resident packed state (``(N, width)`` buffers laid
     out by ``meta``); mirrors :func:`round_step`.  ``u`` replays a given
-    ``(N,)`` participation row instead of drawing one."""
+    ``(N,)`` participation row instead of drawing one; ``corrupt`` and
+    ``live`` are fault rows (see :func:`round_step`)."""
     z_seen = t if cfg.compressed else z
+    z_seen = robust_seen(cfg, z_seen, live, meta)
     y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
     del v
-    u = participation_mask(cfg, x.device, generator, u)
+    w = apply_corruption(w, corrupt)
+    u = live_mask_rows(participation_mask(cfg, x.device, generator, u), live)
+    u, _ok = increment_guard(cfg, w, u, meta)
     x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h)
     del w
     t_new = z_new
@@ -358,17 +526,24 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
 
 def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
                local_solver: SolverAssignment, prox_h: ProxH = None, *,
-               generator=None, u=None) -> RoundResult:
+               generator=None, u=None, corrupt=None, live=None) -> RoundResult:
     """One Fed-PLT round on agent-stacked trees.  ``t`` is the
     coordinator's copy of ``z`` (``z`` itself when the exchange is
     uncompressed; advanced in place when compressed).  ``u`` replays a
-    given participation row."""
+    given participation row.  ``corrupt`` is a recorded corruption row
+    applied to the solvers' output (:func:`apply_corruption`, screened by
+    :func:`increment_guard` when guards are on); ``live`` drops evicted
+    agents from the participation row and from the coordinator's
+    aggregate.  ``None`` for both runs the fault-free round."""
     z_seen = t if cfg.compressed else z
+    z_seen = robust_seen(cfg, z_seen, live)
     y, v = coordinator_edge(cfg, z, z_seen, prox_h)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
     del v
+    w = apply_corruption(w, corrupt)
     device = pytree.tree_leaves(x)[0].device
-    u = participation_mask(cfg, device, generator, u)
+    u = live_mask_rows(participation_mask(cfg, device, generator, u), live)
+    u, _ok = increment_guard(cfg, w, u)
     x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h)
     del w
     t_new = z_new

@@ -112,9 +112,11 @@ def _gradient_oracle(model, batch: dict, g, meta=None):
 
 def make_train_step(model, spec):
     """Returns ``step(state, batch, *, generator=None, u=None,
-    noise=None) -> (state, metrics)``.  ``batch`` leaves carry a leading
-    agent axis (tokens ``(A, b, S)``); ``u`` replays an ``(A,)``
-    participation row; ``noise(epoch, w)`` overrides the noisy_gd draw."""
+    noise=None, corrupt=None, live=None) -> (state, metrics)``.  ``batch``
+    leaves carry a leading agent axis (tokens ``(A, b, S)``); ``u``
+    replays an ``(A,)`` participation row; ``noise(epoch, w)`` overrides
+    the noisy_gd draw; ``corrupt`` (``(A,)`` or ``(A, 2)``) and ``live``
+    (``(A,)``) are fault rows (:func:`repro_torch.fed.engine.round_step`)."""
     spec = spec.validate()
     scfg = spec.solver_config()
     rcfg = spec.round_config()
@@ -124,7 +126,7 @@ def make_train_step(model, spec):
         else None
 
     def train_step(state: FedState, batch: dict, *, generator=None, u=None,
-                   noise=None):
+                   noise=None, corrupt=None, live=None):
         # padding columns of a packed gradient stay zero
         g = tree_map(torch.zeros_like, state.x)
         fgrad = _gradient_oracle(model, batch, g, meta)
@@ -136,11 +138,13 @@ def make_train_step(model, spec):
                                               meta=meta, **kw)
             res = engine.packed_round_step(rcfg, meta, state.x, state.z, t,
                                            solver, prox_h,
-                                           generator=generator, u=u)
+                                           generator=generator, u=u,
+                                           corrupt=corrupt, live=live)
         else:
             solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
             res = engine.round_step(rcfg, state.x, state.z, t, solver,
-                                    prox_h, generator=generator, u=u)
+                                    prox_h, generator=generator, u=u,
+                                    corrupt=corrupt, live=live)
         metrics = {
             "loss": (torch.mean(res.aux[-1]) if res.aux is not None
                      else torch.tensor(float("nan"))),

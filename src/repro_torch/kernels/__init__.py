@@ -15,6 +15,9 @@ plain version.
   compress       -- the compressed z-uplink on the packed buffer: exact-k
                     magnitude selection (topk, adaptive_topk) and int8
                     quantize-dequantize, per (agent, segment).
+  robust_agg     -- the byzantine-robust coordinator aggregate: per column
+                    of the ``(N, M)`` buffer, sort the live agents' values
+                    and reduce to a trimmed mean or the median.
 
 Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -24,13 +27,15 @@ Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 def _wrappers() -> dict:
     from repro_torch.kernels.compress import ops as compress_ops
     from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.robust_agg import ops as robust_ops
     from repro_torch.kernels.round_edge import ops as edge_ops
 
     return {"round_uplink": edge_ops.round_uplink,
             "round_downlink": edge_ops.round_downlink,
             "fedplt_update": update_ops.fedplt_update,
             "rank_select": compress_ops.rank_select,
-            "int8_quantize": compress_ops.int8_quantize}
+            "int8_quantize": compress_ops.int8_quantize,
+            "sort_aggregate": robust_ops.robust_aggregate}
 
 
 def launch_counts() -> dict:
@@ -46,6 +51,8 @@ def kernel_sources() -> list:
     """The CUDA sources of every suite (for a parallel build)."""
     from repro_torch.kernels.compress import kernel as compress_kernel
     from repro_torch.kernels.fedplt_update import kernel as update_kernel
+    from repro_torch.kernels.robust_agg import kernel as robust_kernel
     from repro_torch.kernels.round_edge import kernel as edge_kernel
 
-    return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE]
+    return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE,
+            robust_kernel.SOURCE]

@@ -18,6 +18,14 @@ round; ``--compression int8|adaptive_topk`` likewise):
       --steps 3 --n-agents 4 --batch 8 --seq-len 512 --n-epochs 2 \\
       --state-layout packed --engine-backend fused --use-fused-update \\
       --weight-decay 0.01 --compression topk --compress-ratio 0.25
+
+The byzantine-robust, fault-screened round (one sort_aggregate kernel
+per round; ``--aggregator coord_median|norm_clip_mean`` likewise):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --steps 3 --n-agents 4 --batch 8 --seq-len 512 --n-epochs 2 \\
+      --state-layout packed --engine-backend fused --use-fused-update \\
+      --weight-decay 0.01 --aggregator trimmed_mean --aggregator-param 1 \\
+      --guard-increments
 """
 
 from __future__ import annotations

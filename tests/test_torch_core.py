@@ -196,8 +196,8 @@ def test_fedspec_defaults_and_cli_match_reference():
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(privacy=tapi.PrivacySpec(dp_init=True)), "dense front end"),
     (dict(async_mode="stale"), "async"),
-    (dict(guard_increments=True), "fault"),
-    (dict(aggregator="trimmed_mean"), "robust"),
+    (dict(max_staleness=2), "async"),
+    (dict(mesh_shape="2x1"), "multi-device"),
     (dict(agent_groups="2*gd,2*agd"), "groups"),
     (dict(agent_shards=2), "multi-device"),
 ])

@@ -23,6 +23,7 @@ from repro_torch.core import prox as tprox
 from repro_torch.kernels.fedplt_update import kernel as update_kernel
 from repro_torch.kernels.fedplt_update import ops as tupdate
 from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+from repro_torch.kernels.robust_agg import ops as trobust
 from repro_torch.kernels.round_edge import kernel as edge_kernel
 from repro_torch.kernels.round_edge import ops as tedge
 
@@ -150,11 +151,13 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     tedge.round_uplink(z)
     tedge.round_downlink(z, z, z, torch.ones(3))
     tupdate.fedplt_update(z, z, z, gamma=0.1, inv_rho=1.0)
+    trobust.robust_aggregate(z, stat="trimmed_mean", trim=1)
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
                                        "fedplt_update": 0,
                                        "rank_select": 0,
-                                       "int8_quantize": 0}
+                                       "int8_quantize": 0,
+                                       "sort_aggregate": 0}
 
 
 def test_kernel_launchers_reject_cpu_tensors():
