@@ -50,6 +50,27 @@ last line):
    and a NaN ``(N,)`` corrupt row, which the guard quarantines (that
    agent's x and z rows unchanged, sort_aggregate=0).  Round ms and peak
    memory of each variant.
+8. Sharded rounds (``mesh_shape="1x1"``: a 1-rank NCCL process group in
+   this process).  8a: ``round_uplink_partial`` and
+   ``round_downlink_presummed`` bit-equal to their plain versions (NaN by
+   position) for N_local 1..8, M = 1000 and 1001, fp32 and bf16, exact and
+   lagged, damping 1 and 0.65, a NaN row of ``w`` for an inactive agent
+   and a misaligned view; then at the full ``(4, 745,549,056)`` bf16
+   shape, timed beside the byte bound, the plain versions and, for the
+   partial sum, ``torch.sum(z, dim=0, keepdim=True)``.  8b: reduced
+   gemma2-2b fp32, N = 4, 3 rounds (mean, topk 0.25, trimmed_mean f=1
+   with a sign-flipped agent): the 1-rank mesh equals the unsharded card
+   run bit for bit, with partial=3, presummed=3 and no unsharded edge
+   launch.  8c: phase 4's spec under the mesh, 3 rounds:
+   round_uplink_partial=3, round_downlink_presummed=3, fedplt_update=6;
+   one profiled round; round times beside phase 4's; then the bf16 ``y``
+   of the mesh against the unsharded uplink on the same ``z`` after round
+   1 (at most 1 ulp: the partial sum is rounded to bf16 before ``/ N``).
+   8d: one robust round (trimmed_mean f=1, guards, a sign flip) under the
+   mesh: sort_aggregate=1, partial=1, presummed=1.  8e: two gloo ranks
+   spawned on the one card, 2 agents each, against 8b's 1-rank run
+   (rtol 1e-5, atol 1e-6); dropped with a note only if gloo refuses CUDA
+   tensors (any other failure of a rank fails the smoke).
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -80,6 +101,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -670,6 +692,10 @@ def small_input_parity(torch):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "partial_sum_kernel" in name:
+        return "round_uplink_partial"
+    if "downlink_presummed_kernel" in name:
+        return "round_downlink_presummed"
     if "uplink_kernel" in name:
         return "round_uplink"
     if "downlink_kernel" in name:
@@ -921,6 +947,368 @@ def robust_phase(torch, base):
     return main_counts, variants
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 8: sharded rounds
+# ---------------------------------------------------------------------------
+
+def sharded_small_checks(torch):
+    """The sharded round-edge kernels against their plain versions, bit
+    for bit (NaN results by position)."""
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.kernels.round_edge import ref as edge_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for m in (1000, 1001):
+            for n in range(1, 9):
+                x, w, z, t = (torch.randn((n, m), generator=gen, device=dev
+                                          ).to(dtype) for _ in range(4))
+                u = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+                u[0] = 0.0
+                w[0] = float("nan")    # a diverged solve of an inactive agent
+                views = {"": (x, w, z, t)}
+                flat = torch.empty(4 * n * m + 1, device=dev, dtype=dtype)
+                mis = tuple(flat[1 + i * n * m:1 + (i + 1) * n * m].view(n, m)
+                            for i in range(4))
+                for a, b in zip(mis, (x, w, z, t)):
+                    a.copy_(b)
+                views[" misaligned view"] = mis
+                for vname, (xv, wv, zv, tv) in views.items():
+                    for seen, lag in ((zv, "exact"), (tv, "lagged")):
+                        tag = f"{dtype} N_local={n} M={m} {lag}{vname}"
+                        s = edge_ops.round_uplink_partial(seen)
+                        same_bits(torch, s, edge_ref.round_uplink_partial_ref(
+                            seen), f"round_uplink_partial {tag}")
+                        for damping in (1.0, 0.65):
+                            got = edge_ops.round_downlink_presummed(
+                                xv, wv, zv, s, u, damping=damping)
+                            want = edge_ref.round_downlink_presummed_ref(
+                                xv, wv, zv, u, s, damping)
+                            for a, b in zip(got, want):
+                                same_bits(torch, a, b,
+                                          f"round_downlink_presummed {tag} "
+                                          f"damping={damping}")
+                            if not (torch.equal(got[0][0], xv[0])
+                                    and torch.equal(got[1][0], zv[0])):
+                                fail(f"round_downlink_presummed {tag}: "
+                                     f"inactive agent's state changed")
+                            n_checks += 1
+                        n_checks += 1
+    torch.cuda.synchronize()
+    log(f"phase 8a: {n_checks} small-shape checks of round_uplink_partial "
+        f"and round_downlink_presummed bit-equal (NaN by position): N_local "
+        f"1..8, M=1000 and 1001, fp32 and bf16, exact and lagged, damping 1 "
+        f"and 0.65, a NaN row of w for an inactive agent, a misaligned view")
+
+
+def sharded_full_shape(torch, bw):
+    """Both sharded kernels at the trainer's full shape against their
+    slabbed plain versions; returns ``{name: record}``."""
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.kernels.round_edge import ref as edge_ref
+
+    N, M, sz = FULL_N, FULL_M, 2
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def buf():
+        return torch.randn((N, M), generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def record(name, bytes_, flops, ms, plain_ms, lib_ms):
+        bound = max(bytes_ / bw, flops / FP32_PEAK) * 1e3
+        rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
+                   else "operations", max_abs_err=0.0,   # bit-equal
+                   library_ms=lib_ms)
+        log(f"phase 8a full shape: {name} ({N}x{M} bf16) bit-equal to the "
+            f"plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {bound:.3f} ms ({bytes_ / 1e9:.3f} GB), "
+            f"{100 * bound / ms:.1f}% of bound"
+            + ("" if lib_ms is None else
+               f"; torch.sum(z, dim=0, keepdim=True) {lib_ms:.3f} ms"))
+        return rec
+
+    recs = {}
+    z = buf()
+    s = edge_ops.round_uplink_partial(z)
+    ps = torch.empty_like(s)
+    plain = lambda: slabbed(edge_ref.round_uplink_partial_ref, (ps,), z)
+    plain()
+    same_bits(torch, s, ps, "round_uplink_partial full shape")
+    ms = cuda_ms(torch, lambda: edge_ops.round_uplink_partial(z))
+    pms = cuda_ms(torch, plain, reps=5)
+    lib_ms = cuda_ms(torch, lambda: torch.sum(z, dim=0, keepdim=True))
+    recs["round_uplink_partial"] = record(
+        "round_uplink_partial", (N * M + M) * sz, N * M, ms, pms, lib_ms)
+    del z, ps
+    torch.cuda.empty_cache()
+
+    x, w, z = buf(), buf(), buf()
+    y = s
+    u = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    xo, zo = edge_ops.round_downlink_presummed(x, w, z, y, u, damping=1.0)
+    px, pz = torch.empty_like(xo), torch.empty_like(zo)
+    plain = lambda: slabbed(lambda x_, w_, z_, y_: edge_ref.round_downlink_presummed_ref(
+        x_, w_, z_, u, y_, 1.0), (px, pz), x, w, z, y)
+    plain()
+    same_bits(torch, xo, px, "round_downlink_presummed full shape x")
+    same_bits(torch, zo, pz, "round_downlink_presummed full shape z")
+    del xo, zo
+    ms = cuda_ms(torch, lambda: edge_ops.round_downlink_presummed(
+        x, w, z, y, u, damping=1.0))
+    pms = cuda_ms(torch, plain, reps=5)
+    recs["round_downlink_presummed"] = record(
+        "round_downlink_presummed", (5 * N * M + M) * sz + 4 * N,
+        3 * N * M, ms, pms, None)
+    del x, w, z, y, s, px, pz
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _reduced_sharded_rounds(torch, spec_kw, device, step_kw=None):
+    """3 rounds of reduced gemma2-2b (fp32, N = 4) from seeded parameters
+    and batches; returns ``(state, launch counts)``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batches = [make_batch_for(cfg, InputShape("small", 64, 8, "train"), gen,
+                              n_agents=FULL_N) for _ in range(3)]
+    tr = api.build_trainer(model, api.FedSpec(
+        n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+        participation=0.75, state_layout="packed", engine_backend="fused",
+        use_fused_update=True, **spec_kw), device)
+    st, tgen = tr.init(0, params=params)
+    kernels.reset_launch_counts()
+    for b in batches:
+        st, m = tr.step(st, b, tgen, **(step_kw or {}))
+    float(m["loss"])                        # waits for the device
+    return st, kernels.launch_counts()
+
+
+def sharded_reduced_parity(torch):
+    """Phase 8b: the 1-rank mesh against the unsharded card run, bit for
+    bit; returns the mean case's 1-rank state (8e's reference)."""
+    from repro_torch.fed.api import CompressionSpec
+
+    flip = torch.tensor([[0.0, 0.0], [-1.0, 0.0], [0.0, 0.0], [0.0, 0.0]])
+    cases = {
+        "mean": ({}, None),
+        "topk 0.25": (dict(compression=CompressionSpec("topk", ratio=0.25)),
+                      None),
+        "trimmed_mean f=1 (guards, agent 1 sign-flipped)": (
+            dict(aggregator="trimmed_mean", aggregator_param=1,
+                 guard_increments=True), dict(corrupt=flip)),
+    }
+    keep = None
+    for label, (kw, step_kw) in cases.items():
+        st0, c0 = _reduced_sharded_rounds(torch, kw, "cuda", step_kw)
+        st1, c1 = _reduced_sharded_rounds(torch, dict(kw, mesh_shape="1x1"),
+                                          "cuda", step_kw)
+        for var in ("x", "z", "t"):
+            a, b = getattr(st0, var), getattr(st1, var)
+            if (a is None) != (b is None) or (a is not None
+                                              and not torch.equal(a, b)):
+                again = _reduced_sharded_rounds(torch, kw, "cuda",
+                                                step_kw)[0]
+                fail(f"phase 8b {label}: the 1-rank mesh's {var} differs "
+                     f"from the unsharded card run (max abs "
+                     f"{float((a - b).abs().max())}); a second unsharded "
+                     f"run {'repeats' if torch.equal(getattr(again, var), a) else 'does not repeat'} "
+                     f"the first bit for bit")
+        if (c0["round_uplink"], c0["round_downlink"],
+                c0["round_uplink_partial"]) != (3, 3, 0) or (
+                c1["round_uplink_partial"], c1["round_downlink_presummed"],
+                c1["round_uplink"], c1["round_downlink"]) != (3, 3, 0, 0):
+            fail(f"phase 8b {label}: launches unsharded {c0}, mesh {c1}")
+        log(f"phase 8b {label}: reduced gemma2-2b fp32, N=4, 3 rounds: the "
+            f"1-rank NCCL mesh equals the unsharded card run bit for bit "
+            f"(x, z, t); launches partial={c1['round_uplink_partial']}, "
+            f"presummed={c1['round_downlink_presummed']}, unsharded edges 0")
+        if label == "mean":
+            keep = st1
+    return keep
+
+
+def bf16_y_difference(torch, base):
+    """The coordinator ``y`` of the 1-rank mesh against the unsharded
+    fused uplink on the same bf16 ``z`` after round 1 (round 0's rows are
+    equal, so its ``y`` is exact either way)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    model = build_model(cfg)
+    z1 = {}
+    for label, kw in (("unsharded", {}), ("mesh", {"mesh_shape": "1x1"})):
+        tr = api.build_trainer(model, api.FedSpec(**base, **kw), "cuda")
+        st, gen = tr.init(0)
+        b = make_batch_for(cfg, InputShape("cli", 512, 8, "train"), gen,
+                           n_agents=FULL_N, device="cuda")
+        st, _ = tr.step(st, b, gen)
+        z1[label] = st.z
+        del st, tr
+        torch.cuda.empty_cache()
+    if not torch.equal(z1["unsharded"], z1["mesh"]):
+        fail("phase 8c: z after round 1 differs between the 1-rank mesh "
+             "and the unsharded run")
+    z = z1.pop("mesh")
+    del z1
+    spec = api.FedSpec(**base, mesh_shape="1x1")
+    prox, rho_eff = spec.resolve_prox_h(), spec.rho / FULL_N
+    y0 = edge_ops.round_uplink(z, prox=prox, rho_eff=rho_eff)[0]
+    mesh = spec.build_mesh("cuda")
+    y1 = edge_ops.round_uplink_sharded(z, mesh=mesh, n_total=FULL_N,
+                                       prox=prox, rho_eff=rho_eff)[0]
+    a, b = y0.float(), y1.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    ulps = (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    differ = int((y0 != y1).sum())
+    rec = {"entries": y0.numel(), "differ": differ,
+           "share": differ / y0.numel(), "max_ulps": float(ulps.max()),
+           "max_abs": float((a - b).abs().max())}
+    del y0, y1, a, b, mag, ulps, z
+    torch.cuda.empty_cache()
+    if rec["max_ulps"] > 1.0:
+        fail(f"phase 8c: the 1-rank mesh's bf16 y differs by "
+             f"{rec['max_ulps']} ulps (tolerance 1: one extra rounding of "
+             f"the partial sum)")
+    log(f"phase 8c bf16 y after round 1 (1-rank mesh vs unsharded, same z): "
+        f"{differ:,} of {rec['entries']:,} entries differ "
+        f"({100 * rec['share']:.2f}%), max {rec['max_ulps']} bf16 ulp, max "
+        f"abs {rec['max_abs']:.3g} (tolerance: 1 ulp, the partial sum's "
+        f"rounding to bf16 before the division)")
+    return rec
+
+
+def _two_rank_worker(rank, world, store, out_dir):
+    """8e: one of two gloo ranks on the one card (spawned)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        st, counts = _reduced_sharded_rounds(torch, {"agent_shards": world},
+                                             "cuda")
+        torch.save({"x": st.x.cpu(), "z": st.z.cpu(), "counts": counts},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+# gloo's refusal of a CUDA tensor (``ProcessGroupGloo::allreduce:
+# unsupported device type cuda``, or a gloo built without CUDA): the one
+# error that drops 8e; any other failure of a rank fails the smoke
+GLOO_REFUSES_CUDA = re.compile(
+    r"ProcessGroupGloo::\w+: unsupported device type|"
+    r"[Gg]loo[^\n]*(?:not|without)[^\n]*CUDA")
+
+
+def two_ranks_over_gloo(torch, want):
+    """Phase 8e: two gloo ranks on the one card, each holding 2 of the 4
+    agents, against 8b's 1-rank run (fp32 rounding).  Returns a short
+    outcome string.  Only gloo's refusal of CUDA tensors
+    (:data:`GLOO_REFUSES_CUDA`) drops 8e; any other failure fails."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp()
+    try:
+        mp.start_processes(_two_rank_worker,
+                           args=(2, os.path.join(out, "store"), out),
+                           nprocs=2, join=True, start_method="spawn")
+    except Exception as e:
+        text = str(e)
+        last = (text.strip().splitlines() or [type(e).__name__])[-1]
+        if not GLOO_REFUSES_CUDA.search(text):
+            fail(f"phase 8e: a rank of the two-rank run failed: {last}")
+        log(f"phase 8e dropped: gloo on this build refuses CUDA tensors: "
+            f"{last}")
+        return f"dropped: {last}"
+    got = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(2)]
+    worst = 0.0
+    for var in ("x", "z"):
+        g = torch.cat([r[var] for r in got])
+        w = getattr(want, var).cpu()
+        d = (g - w).abs()
+        if not bool((d <= 1e-6 + 1e-5 * w.abs()).all()):
+            fail(f"phase 8e: two ranks' {var} differ from the 1-rank run "
+                 f"beyond rtol 1e-5 / atol 1e-6 (max abs {float(d.max())})")
+        worst = max(worst, float(d.max()))
+    counts = got[0]["counts"]
+    log(f"phase 8e: two gloo ranks on the card (2 agents each, engine via "
+        f"ModelTrainer.step -> packed_round_step(mesh=...)): x and z agree "
+        f"with the 1-rank run to max abs {worst:.3g} (rtol 1e-5, atol 1e-6); "
+        f"rank 0 launches partial={counts['round_uplink_partial']}, "
+        f"presummed={counts['round_downlink_presummed']}")
+    return f"ran: max abs {worst}"
+
+
+def sharded_robust_round(torch, base):
+    """Phase 8d: one robust round (trimmed_mean f=1, guards, one
+    sign-flipped agent) at full width under the 1-rank mesh."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    tr = api.build_trainer(build_model(cfg), api.FedSpec(
+        **base, guard_increments=True, aggregator="trimmed_mean",
+        aggregator_param=1, mesh_shape="1x1"), "cuda")
+    st, gen = tr.init(0)
+    b = make_batch_for(cfg, InputShape("robust", 512, 8, "train"), gen,
+                       n_agents=FULL_N, device="cuda")
+    flip = torch.zeros((FULL_N, 2))
+    flip[1, 0] = -1.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    st, m = tr.step(st, b, gen, corrupt=flip)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_counts(sort_aggregate=1, round_uplink_partial=1,
+                           round_downlink_presummed=1, fedplt_update=2)
+    if counts != want:
+        fail(f"phase 8d: launch counts {counts}, want {want}")
+    if not math.isfinite(loss) or peak > 80e9:
+        fail(f"phase 8d: loss {loss}, peak {peak / 1e9:.2f} GB")
+    log(f"phase 8d robust round under the 1-rank mesh (trimmed_mean f=1, "
+        f"guards, agent 1 sign-flipped): launches {counts}; loss {loss:.4f}; "
+        f"{1e3 * dt:.1f} ms; peak device memory {peak / 1e9:.2f} GB "
+        f"(the all-gather of one rank's block is skipped)")
+    del tr, st
+    torch.cuda.empty_cache()
+    return {"round_ms": 1e3 * dt, "peak_gb": peak / 1e9}
+
+
 def main() -> int:
     import torch
 
@@ -997,6 +1385,25 @@ def main() -> int:
     # phase 7: the byzantine-robust, fault-screened round
     robust_counts, robust_variants = robust_phase(torch, base)
 
+    # phase 8: agent-sharded rounds on a 1-rank NCCL mesh
+    sharded_small_checks(torch)
+    recs.update(sharded_full_shape(torch, bw))
+    one_rank = sharded_reduced_parity(torch)
+    mesh_counts, mesh_hist, mesh_peak = train_phase(
+        torch, "phase 8c main path under a 1-rank NCCL mesh (mesh_shape 1x1)",
+        FedSpec(**base, mesh_shape="1x1"), 3,
+        expected_counts(round_uplink_partial=3, round_downlink_presummed=3,
+                        fedplt_update=6), profile=True)
+    mesh_ms = [1e3 * h["dt"] for h in mesh_hist]
+    log(f"phase 8c: steady rounds {[round(v, 1) for v in mesh_ms[1:]]} ms "
+        f"under the mesh, {[round(v, 1) for v in round_ms[1:]]} ms in phase "
+        f"4; peak {mesh_peak / 1e9:.2f} GB; losses "
+        f"{[round(h['loss'], 4) for h in mesh_hist]} (phase 4 "
+        f"{[round(h['loss'], 4) for h in hist]})")
+    y_diff = bf16_y_difference(torch, base)
+    mesh_robust = sharded_robust_round(torch, base)
+    two_ranks = two_ranks_over_gloo(torch, one_rank)
+
     table = []
     meta = {
         "round_uplink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
@@ -1017,6 +1424,12 @@ def main() -> int:
         "sort_aggregate": ("src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
                            "src/repro/kernels/robust_agg/kernel.py:175",
                            robust_counts),
+        "round_uplink_partial": (
+            "src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
+            "src/repro/kernels/round_edge/kernel.py:307", mesh_counts),
+        "round_downlink_presummed": (
+            "src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
+            "src/repro/kernels/round_edge/kernel.py:345", mesh_counts),
     }
     for kname, (source, replaces, path_counts) in meta.items():
         r = recs[kname]
@@ -1043,8 +1456,16 @@ def main() -> int:
                                            "adaptive_topk": ada_peak / 1e9},
                     "robust": robust_variants,
                     "sort_aggregate_yardstick_torch_sort_ms":
-                        recs["sort_aggregate"]["sort_yardstick_ms"]}))
+                        recs["sort_aggregate"]["sort_yardstick_ms"],
+                    "sharded": {"round_ms": mesh_ms,
+                                "peak_gb": mesh_peak / 1e9,
+                                "bf16_y": y_diff, "robust": mesh_robust,
+                                "two_gloo_ranks": two_ranks}}))
     log(json.dumps({"kernels": table}))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
@@ -84,21 +84,34 @@ def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False) -> Any:
     return g
 
 
-def draw_noise(w: Any, scale: float,
-               generator: Optional[torch.Generator]) -> Any:
+def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
+               agent_rows: Optional[Tuple[slice, int]] = None) -> Any:
     """Gaussian noise ``scale * N(0, I)`` shaped like ``w``, drawn in
     float32 and stored in each leaf's dtype (the fused op casts it there
     anyway).  Drawn row by row so the float32 temporaries stay at one
-    agent row."""
+    agent row.
+
+    ``agent_rows = (rows, n_total)`` says that ``w`` holds the agents
+    ``rows`` of ``n_total`` (one rank's block of a sharded round): every
+    leaf then draws all ``n_total`` rows in agent order and keeps its
+    own.  Each agent then gets the noise that an unsharded run draws for
+    it from the same generator, and no two agents share theirs, at the
+    cost of ``n_total / len(rows)`` times the draws."""
     def draw(shape, device):
         return scale * torch.randn(shape, generator=generator, device=device)
 
     def leaf(l):
         if l.ndim < 2:
-            return draw(l.shape, l.device).to(l.dtype)
+            if agent_rows is None:
+                return draw(l.shape, l.device).to(l.dtype)
+            rows, n = agent_rows
+            return draw((n,) + l.shape[1:], l.device)[rows].to(l.dtype)
+        rows, n = agent_rows or (slice(0, l.shape[0]), l.shape[0])
         out = torch.empty_like(l)
-        for r in range(l.shape[0]):
-            out[r] = draw(l.shape[1:], l.device)
+        for r in range(n):
+            d = draw(l.shape[1:], l.device)
+            if rows.start <= r < rows.stop:
+                out[r - rows.start] = d
         return out
     return tree_map(leaf, w)
 
@@ -107,12 +120,15 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
                 cfg: SolverConfig, mu, L, *, batched: bool = False,
                 has_aux: bool = False, use_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
-                noise: Optional[Callable[[int, Any], Any]] = None):
+                noise: Optional[Callable[[int, Any], Any]] = None,
+                agent_rows: Optional[Tuple[slice, int]] = None):
     """Run ``cfg.n_epochs`` epochs of the chosen solver on d(w).
 
     ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both).  Returns
     ``w_{N_e}`` (and the per-epoch oracle aux stacked on a leading axis
-    when ``has_aux``).  ``noise(epoch, w)`` overrides the noisy_gd draw.
+    when ``has_aux``).  ``noise(epoch, w)`` overrides the noisy_gd draw;
+    ``agent_rows`` places a sharded ``w`` among all agents
+    (:func:`draw_noise`).
     """
     mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
     gamma = cfg.resolve_step_size(mu_d, L_d)
@@ -145,7 +161,7 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
             t = None
             if cfg.name == "noisy_gd":
                 t = (noise(e, w) if noise is not None
-                     else draw_noise(w, scale, generator))
+                     else draw_noise(w, scale, generator, agent_rows))
             if t is None:
                 tree_map(lambda wl, gl, vl: step_leaf(wl, gl, vl, None),
                          w, g, v)

@@ -12,9 +12,13 @@ kernel); ``CompressionSpec.backend`` likewise takes ``"torch"`` or
 ``"auto"``.  The fault and robust fields (``guard_increments``,
 ``guard_norm_bound``, ``aggregator``, ``aggregator_param``) mean what they
 mean in the reference; under ``engine_backend="fused"`` the order-statistic
-aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.  Fields
-whose features are later slices of the port raise a ``ValueError`` naming
-the slice in :meth:`FedSpec.validate`.
+aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.
+``agent_shards`` / ``mesh_shape`` shard the agent axis over an
+``("agent", "model")`` mesh of processes (:mod:`repro_torch.launch.mesh`,
+one process per rank under torchrun; a 1x1 mesh runs in the caller's
+process); the model extent must be 1.  Fields whose features are later
+slices of the port raise a ``ValueError`` naming the slice in
+:meth:`FedSpec.validate`.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -187,10 +191,12 @@ class FedSpec:
                  "clip radius for norm_clip_mean"))
     agent_shards: int = dataclasses.field(default=1, metadata=_cli(
         flag="--agent-shards", arg_type=int,
-        help="shard the agent axis across devices (not ported yet)"))
+        help="shard the round's agent axis across this many devices, one "
+             "process each (n-agents must divide evenly; 1 = unsharded)"))
     mesh_shape: Optional[str] = dataclasses.field(default=None, metadata=_cli(
         flag="--mesh-shape", arg_type=str,
-        help="explicit AGENTSxMODEL device mesh (not ported yet)"))
+        help="explicit AGENTSxMODEL device mesh, e.g. '2x1' (default: "
+             "agent-shards x 1; the model extent must be 1)"))
 
     # ------------------------------------------------------------------
     # Resolution
@@ -219,7 +225,55 @@ class FedSpec:
             guard_increments=self.guard_increments,
             guard_norm_bound=self.guard_norm_bound,
             aggregator=self.aggregator,
-            aggregator_param=self.aggregator_param)
+            aggregator_param=self.aggregator_param,
+            agent_shards=self.resolved_agent_shards())
+
+    def mesh_axes(self) -> Optional[tuple]:
+        """The ``(agent, model)`` mesh extents this spec denotes, or None
+        when the run is unsharded.  ``mesh_shape`` wins when set (and must
+        agree with a non-default ``agent_shards``)."""
+        if self.mesh_shape is None:
+            if self.agent_shards == 1:
+                return None
+            return (self.agent_shards, 1)
+        parts = self.mesh_shape.lower().split("x")
+        if len(parts) != 2:
+            raise ValueError(
+                f"mesh_shape must be 'AGENTSxMODEL' (e.g. '8x1'), got "
+                f"{self.mesh_shape!r}")
+        try:
+            a, m = (int(p) for p in parts)
+        except ValueError:
+            raise ValueError(
+                f"mesh_shape extents must be integers, got "
+                f"{self.mesh_shape!r}") from None
+        if a < 1 or m < 1:
+            raise ValueError(f"mesh_shape extents must be >= 1, got "
+                             f"{self.mesh_shape!r}")
+        if self.agent_shards != 1 and self.agent_shards != a:
+            raise ValueError(
+                f"agent_shards={self.agent_shards} disagrees with "
+                f"mesh_shape={self.mesh_shape!r} (agent extent {a}); "
+                f"set one, or make them agree")
+        return (a, m)
+
+    def resolved_agent_shards(self) -> int:
+        """The agent-axis device count the engine validates against (1
+        when unsharded)."""
+        axes = self.mesh_axes()
+        return 1 if axes is None else axes[0]
+
+    def build_mesh(self, device=None):
+        """The :class:`torch.distributed.device_mesh.DeviceMesh` this spec
+        denotes on ``device``'s type (CUDA unless the CPU is asked for), or
+        None when unsharded.  Raises, naming torchrun, when the running
+        process group does not hold ``agents x model`` ranks."""
+        axes = self.mesh_axes()
+        if axes is None:
+            return None
+        from repro_torch.launch.mesh import make_fed_mesh
+
+        return make_fed_mesh(*axes, device=resolve_device(device))
 
     def moduli_for(self, gamma: Optional[float]):
         """(mu, L) of the local f_i; with ``gamma`` set an unknown L is
@@ -295,6 +349,7 @@ class FedSpec:
                              "inf for a finiteness-only screen)")
         validate_aggregator(self.aggregator, self.aggregator_param,
                             self.n_agents)
+        self._validate_mesh()
         if self.weight_decay < 0.0:
             raise ValueError("weight_decay must be >= 0")
         if self.weight_decay != 0.0 and self.prox_h not in (
@@ -310,15 +365,24 @@ class FedSpec:
                     f"gamma={self.gamma} -- pass an explicit L in the spec")
         return self
 
+    def _validate_mesh(self) -> None:
+        if self.agent_shards < 1:
+            raise ValueError(f"agent_shards must be >= 1, got "
+                             f"{self.agent_shards}")
+        if self.n_agents is not None:
+            self.round_config()     # checks n_agents against the shards
+
     def _validate_port_scope(self) -> None:
         if self.async_mode != "off" or self.max_staleness != 0:
             raise _later("bounded-staleness async rounds", "async runtime")
         if self.agent_groups is not None:
             raise _later("heterogeneous agent_groups",
                          "heterogeneous solver groups")
-        if self.agent_shards != 1 or self.mesh_shape is not None:
-            raise _later("sharded rounds (agent_shards / mesh_shape)",
-                         "multi-device")
+        axes = self.mesh_axes()     # parses and checks mesh_shape
+        if axes is not None and axes[1] > 1:
+            raise _later(f"a model mesh extent above 1 (mesh_shape="
+                         f"{self.mesh_shape!r}: the tensor-parallel forward "
+                         f"pass)", "tensor-parallel model axis")
         if self.privacy.dp_init:
             raise _later("dp_init", "dense front end")
 
@@ -384,7 +448,10 @@ def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
 class ModelTrainer:
     """:mod:`repro_torch.fed.runtime` behind one handle: ``init / step /
     run / consensus / privacy_report``.  Runs on the model's device
-    (CUDA unless ``device='cpu'``)."""
+    (CUDA unless ``device='cpu'``).  A sharded spec builds its mesh
+    (``self.mesh``); the state then holds this rank's agent rows, on
+    ``cuda:LOCAL_RANK`` for a CUDA run, while ``step`` takes the global
+    batch and rows and the consensus averages over every rank."""
 
     def __init__(self, model, spec: FedSpec, device=None):
         if spec.n_agents is None:
@@ -397,17 +464,22 @@ class ModelTrainer:
         self.spec = spec.validate()
         self.model = model
         self.device = resolve_device(device)
+        self.mesh = self.spec.build_mesh(self.device)
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import mesh_device
+
+            self.device = mesh_device(self.device)
         self._runtime = runtime
         self.packed_meta = (runtime.packed_layout(model, self.spec)
                             if self.spec.state_layout == "packed" else None)
-        self._step = runtime.make_train_step(model, self.spec)
+        self._step = runtime.make_train_step(model, self.spec, self.mesh)
 
     def init(self, seed: int = 0, params: Optional[dict] = None):
         """A fresh state; returns ``(state, generator)``, the generator
         (seeded on the run's device) drawing every later random choice."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         state = self._runtime.init_state(self.model, self.spec, self.device,
-                                         gen, params)
+                                         gen, params, self.mesh)
         return state, gen
 
     @torch.no_grad()
@@ -436,7 +508,9 @@ class ModelTrainer:
         return state, history
 
     def consensus(self, state) -> dict:
-        return self._runtime.consensus_model(state, meta=self.packed_meta)
+        return self._runtime.consensus_model(state, meta=self.packed_meta,
+                                             mesh=self.mesh,
+                                             n_agents=self.spec.n_agents)
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):

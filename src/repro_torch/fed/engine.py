@@ -50,8 +50,37 @@ guards off and ``mean`` each of them returns its input unchanged, so the
 round is the fault-free one bit for bit (``z_seen is z`` still selects
 the exact edges).
 
-Not ported yet (later slices): bounded-staleness async rounds,
-heterogeneous solver groups and the sharded mesh.
+SHARDED ROUNDS -- the MESH CONTRACT (the reference's, on
+``torch.distributed``): passing ``mesh`` (an ``("agent", "model")``
+:class:`torch.distributed.device_mesh.DeviceMesh`, one process per rank;
+:mod:`repro_torch.launch.mesh`) to :func:`round_step` /
+:func:`packed_round_step` runs the round on this rank's contiguous
+``n_agents / agent_shards`` row block of every per-agent carrier
+(:mod:`repro_torch.fed.sharding`): the state the caller passes is that
+block, and the ``(N,)`` rows it passes (``u``, ``corrupt``, ``live``) are
+GLOBAL -- the engine slices them, and keeps the global ``live`` where the
+coordinator needs it.  The uplink's agent mean becomes a local column sum
+(one ``round_uplink_partial`` launch under the fused backend), ONE
+``(1, width)`` all-reduce over the mesh's ``agent`` group, then
+``/ N -> prox -> reflection`` at coordinator size; the downlink consumes
+the replicated ``y`` with row-local work (one ``round_downlink_presummed``
+launch), so a fused sharded round launches two edge kernels per rank.
+Everything between the edges (solvers, compression, fault hooks, guards)
+is row-wise.  A 1-rank mesh equals the unsharded engine bit for bit in
+float32 (the fused uplink multiplies by the float32 reciprocal ``1/N``
+after the all-reduce, as the unsharded kernel does; the torch backend
+divides the sum by N, as ``torch.mean`` does); in bf16 the partial sum
+is rounded to bf16 before the division, as in the reference.  Several
+ranks agree with one to float32 rounding (the all-reduce reorders the
+sum).  A non-elementwise prox under a mesh all-reduces the sums, applies
+the prox to the whole coordinator tree on every rank, and reflects
+locally.  An order-statistic aggregator all-gathers the row blocks first
+(:func:`repro_torch.fed.robust.robust_seen_packed`); the survivor mean
+scales by the global ``N / n_live``.  The ``model`` axis (tensor-parallel
+forward) is not ported yet: a model extent above 1 raises.
+
+Not ported yet (later slices): bounded-staleness async rounds and
+heterogeneous solver groups.
 """
 
 from __future__ import annotations
@@ -65,6 +94,8 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.fed import compress as compress_lib
 from repro_torch.fed import robust as robust_lib
+from repro_torch.fed import sharding
+from repro_torch.fed.sharding import mesh_agent_shards
 from repro_torch.fed.solvers import LocalSolver
 from repro_torch.kernels.robust_agg.ref import live_row
 from repro_torch.kernels.round_edge import ops as edge_ops
@@ -88,6 +119,20 @@ def _numeric_scalar(name: str, value) -> float:
         raise ValueError(f"{name} must be a number, got {value!r}") from None
 
 
+def _int_scalar(name: str, value) -> int:
+    """An integer knob: ints (and integral floats) pass, anything else
+    raises."""
+    if isinstance(value, (str, bytes, bool)):
+        raise ValueError(f"{name} must be an integer, got {value!r}")
+    try:
+        f = float(value)
+    except (TypeError, ValueError):
+        raise ValueError(f"{name} must be an integer, got {value!r}") from None
+    if f != int(f):
+        raise ValueError(f"{name} must be an integer, got {value!r}")
+    return int(f)
+
+
 class SolverGroup(NamedTuple):
     """A contiguous slice of the agent axis with its own solver; the
     port runs a single group only (heterogeneous groups are a later
@@ -102,8 +147,8 @@ SolverAssignment = Union[LocalSolver, Tuple[SolverGroup, ...]]
 
 @dataclasses.dataclass(frozen=True)
 class RoundConfig:
-    """Round-topology knobs (the synchronous, unsharded subset of the
-    reference's ``RoundConfig``)."""
+    """Round-topology knobs (the synchronous subset of the reference's
+    ``RoundConfig``)."""
 
     n_agents: int
     rho: float = 1.0
@@ -131,6 +176,11 @@ class RoundConfig:
     # the agent mean with a robust statistic of the live rows
     aggregator: str = "mean"
     aggregator_param: float = 0.0
+    # number of contiguous row blocks the agent axis is sharded into
+    # when a mesh is passed to the round step (mesh contract in the
+    # module docstring); 1 = unsharded.  Every shard owns
+    # n_agents/agent_shards agents, so N must divide evenly
+    agent_shards: int = 1
 
     def __post_init__(self):
         compress_lib.get_compressor(self.compression)
@@ -153,6 +203,17 @@ class RoundConfig:
         object.__setattr__(self, "damping",
                            _numeric_scalar("damping", self.damping))
         object.__setattr__(self, "rho", _numeric_scalar("rho", self.rho))
+        shards = _int_scalar("agent_shards", self.agent_shards)
+        if shards < 1:
+            raise ValueError(f"agent_shards must be >= 1, got {shards}")
+        object.__setattr__(self, "agent_shards", shards)
+        if self.n_agents % shards:
+            raise ValueError(
+                f"n_agents={self.n_agents} is not divisible by "
+                f"agent_shards={shards}: every shard owns an equal "
+                f"contiguous row block of the agent axis -- choose "
+                f"n_agents a multiple of the shard count (or reduce "
+                f"agent_shards)")
         object.__setattr__(self, "guard_increments",
                            bool(self.guard_increments))
         bound = _numeric_scalar("guard_norm_bound", self.guard_norm_bound)
@@ -329,10 +390,13 @@ def increment_guard(cfg: RoundConfig, w: Any, u: torch.Tensor, meta=None
     return u * ok.to(u.dtype), ok
 
 
-def survivor_mean_input(cfg: RoundConfig, z_seen: Any, live) -> Any:
+def survivor_mean_input(cfg: RoundConfig, z_seen: Any, live,
+                        mesh=None) -> Any:
     """Fold an eviction ``live`` row into the coordinator's input so the
     edges' mean over N becomes the mean over survivors: ``z * live *
-    (N / n_live)``.  ``live=None`` returns ``z_seen`` itself."""
+    (N / n_live)``.  ``live=None`` returns ``z_seen`` itself.  Under a
+    ``mesh`` ``z_seen`` is this rank's row block and ``live`` the global
+    row: the scale uses the global N and count of live agents."""
     if live is None:
         return z_seen
     device = pytree.tree_leaves(z_seen)[0].device
@@ -340,29 +404,33 @@ def survivor_mean_input(cfg: RoundConfig, z_seen: Any, live) -> Any:
     # a true division (a Python number over a tensor would multiply by
     # the tensor's reciprocal)
     scale = lv * (lv.new_tensor(float(cfg.n_agents)) / lv.sum())
+    scale = sharding.fed_row_spec(scale, mesh, cfg.n_agents)
     return tree_map(
         lambda l: l * scale.to(l.dtype).reshape((-1,) + (1,) * (l.ndim - 1)),
         z_seen)
 
 
-def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None) -> Any:
+def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None,
+                mesh=None) -> Any:
     """The uplink's aggregation input transform.  ``mean`` (and
     ``trimmed_mean`` at ``f = 0``) is :func:`survivor_mean_input`, which
     returns ``z_seen`` itself without a live row, so the exact edges are
     still selected by ``z_seen is z``.  A robust aggregator computes its
     ``(1, M)`` statistic over the live rows and broadcasts it back across
     the agent axis (:mod:`repro_torch.fed.robust`).  ``meta`` marks the
-    packed form (``z_seen`` a resident ``(N, width)`` buffer)."""
+    packed form (``z_seen`` a resident ``(N, width)`` buffer).  Under a
+    ``mesh`` ``z_seen`` is this rank's row block and ``live`` the global
+    row (the robust aggregate all-gathers the blocks)."""
     name = cfg.robust_aggregator
     if name is None:
-        return survivor_mean_input(cfg, z_seen, live)
+        return survivor_mean_input(cfg, z_seen, live, mesh)
     if meta is not None:
         return robust_lib.robust_seen_packed(
             z_seen, live, name=name, param=cfg.aggregator_param, meta=meta,
-            backend=cfg.engine_backend)
+            backend=cfg.engine_backend, mesh=mesh)
     return robust_lib.robust_seen_tree(
         z_seen, live, name=name, param=cfg.aggregator_param,
-        backend=cfg.engine_backend)
+        backend=cfg.engine_backend, mesh=mesh)
 
 
 def live_mask_rows(u: torch.Tensor, live) -> torch.Tensor:
@@ -386,33 +454,114 @@ def _uniform_stack(*trees) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# Mesh plumbing (the mesh contract in the module docstring)
+# ---------------------------------------------------------------------------
+
+def validate_mesh(cfg: RoundConfig, mesh) -> None:
+    """Screening of a sharded round: the mesh's agent axis must evenly
+    partition the agent axis, agree with ``cfg.agent_shards`` when that
+    was pinned, and have model extent 1 (the tensor-parallel axis is not
+    ported yet).  Solver groups are not ported yet either
+    (:func:`run_solvers` takes one), so no group boundary is screened."""
+    shards = mesh_agent_shards(mesh)
+    if cfg.n_agents % shards:
+        raise ValueError(
+            f"n_agents={cfg.n_agents} is not divisible by the mesh's "
+            f"agent axis ({shards} shards): every shard owns an equal "
+            f"contiguous row block -- choose n_agents a multiple of "
+            f"the shard count or shrink the mesh")
+    if cfg.agent_shards > 1 and cfg.agent_shards != shards:
+        raise ValueError(
+            f"RoundConfig.agent_shards={cfg.agent_shards} but the mesh "
+            f"has {shards} agent shards: drop one of the two or make "
+            f"them agree")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    if sizes.get("model", 1) > 1:
+        raise ValueError(
+            f"a mesh with model extent {sizes['model']} shards the "
+            f"per-agent forward pass (tensor parallel), which is not "
+            f"ported yet: use a model extent of 1")
+
+
+def _packed_prox(zbar: torch.Tensor, meta, prox_h: ProxH, rho_eff: float):
+    """``y = prox(zbar)`` on the ``(1, width)`` coordinator buffer; a
+    non-elementwise prox sees the coordinator-sized tree."""
+    if prox_h is None:
+        return zbar
+    if getattr(prox_h, "elementwise", False):
+        return prox_h(zbar, rho_eff)
+    return compress_lib.pack_coord(
+        tree_map(lambda l: prox_h(l, rho_eff),
+                 compress_lib.unpack_coord(zbar, meta)), meta)
+
+
+def _uplink_sharded_torch(cfg: RoundConfig, z: torch.Tensor,
+                          z_seen: torch.Tensor, meta, prox_h: ProxH, mesh):
+    """Sharded packed uplink, torch backend (the reference's
+    ``_uplink_sharded_xla``): local column sums, one all-reduce of the
+    ``(1, width)`` partials, ``/ N`` (a division, as ``torch.mean``
+    takes it), the prox at coordinator size on every rank, and the local
+    reflection.  Also the path of a non-elementwise prox under a mesh."""
+    zbar = sharding.agent_sum(torch.sum(z_seen, dim=0, keepdim=True),
+                              mesh).div_(cfg.n_agents)
+    y = _packed_prox(zbar, meta, prox_h, cfg.rho / cfg.n_agents)
+    return y, 2.0 * y - z
+
+
+def _tree_uplink_sharded(cfg: RoundConfig, z: Any, z_seen: Any,
+                         prox_h: ProxH, mesh) -> Tuple[Any, Any]:
+    """Sharded uplink on agent-stacked trees: per-leaf local sums, one
+    all-reduce per leaf, ``/ N``; the ``y`` leaves are complete after the
+    reduction, so any per-leaf prox applies unchanged."""
+    y = tree_map(lambda sl: sharding.agent_sum(torch.sum(sl, dim=0),
+                                               mesh).div_(cfg.n_agents),
+                 z_seen)
+    if prox_h is not None:
+        rho_eff = cfg.rho / cfg.n_agents
+        y = tree_map(lambda l: prox_h(l, rho_eff), y)
+    return y, reflect(y, z)
+
+
+# ---------------------------------------------------------------------------
 # Round edges on trees
 # ---------------------------------------------------------------------------
 
 def coordinator_edge(cfg: RoundConfig, z: Any, z_seen: Any,
-                     prox_h: ProxH = None) -> Tuple[Any, Any]:
+                     prox_h: ProxH = None, mesh=None) -> Tuple[Any, Any]:
     """The uplink: ``y = prox_{rho h/N}(mean_i z_seen_i)`` and
     ``v = 2 y - z``.  Under the fused backend the leaves are packed and
-    the edge is one :mod:`repro_torch.kernels.round_edge` launch."""
+    the edge is one :mod:`repro_torch.kernels.round_edge` launch.  With a
+    ``mesh`` the same edge runs on this rank's row block (mesh contract:
+    module docstring)."""
     if cfg.fused and fusible_prox(prox_h) and _uniform_stack(z, z_seen):
         buf_z, meta = compress_lib.pack_leaves(z)
         buf_t = None if z_seen is z else compress_lib.pack_leaves(
             z_seen, meta)[0]
-        y_buf, v_buf = edge_ops.round_uplink(
-            buf_z, buf_t, prox=prox_h, rho_eff=cfg.rho / cfg.n_agents)
+        rho_eff = cfg.rho / cfg.n_agents
+        if mesh is not None:
+            y_buf, v_buf = edge_ops.round_uplink_sharded(
+                buf_z, buf_t, mesh=mesh, n_total=cfg.n_agents, prox=prox_h,
+                rho_eff=rho_eff)
+        else:
+            y_buf, v_buf = edge_ops.round_uplink(buf_z, buf_t, prox=prox_h,
+                                                 rho_eff=rho_eff)
         return (compress_lib.unpack_coord(y_buf, meta),
                 compress_lib.unpack_leaves(v_buf, meta))
+    if mesh is not None:
+        return _tree_uplink_sharded(cfg, z, z_seen, prox_h, mesh)
     y = coordinator_prox(z_seen, cfg, prox_h)
     return y, reflect(y, z)
 
 
 def agent_edge(cfg: RoundConfig, u: torch.Tensor, w: Any, x: Any, z: Any,
-               y: Any, z_seen: Any = None,
-               prox_h: ProxH = None) -> Tuple[Any, Any]:
+               y: Any, z_seen: Any = None, prox_h: ProxH = None,
+               mesh=None) -> Tuple[Any, Any]:
     """The downlink: ``z + 2 damping (w - y)`` and the participation
     selects of ``x`` (from ``w``) and ``z``.  Under the fused backend one
     kernel launch on the packed buffers, which recomputes ``y`` from
-    ``z_seen``."""
+    ``z_seen`` -- or, with a ``mesh``, consumes the replicated ``y``
+    (``u`` is then this rank's block of the row).  The torch formula is
+    row-local and consumes ``y``: it serves the mesh unchanged."""
     if z_seen is None:
         z_seen = z
     if cfg.fused and fusible_prox(prox_h) and _uniform_stack(x, w, z,
@@ -420,11 +569,16 @@ def agent_edge(cfg: RoundConfig, u: torch.Tensor, w: Any, x: Any, z: Any,
         x_buf, meta = compress_lib.pack_leaves(x)
         w_buf = compress_lib.pack_leaves(w, meta)[0]
         z_buf = compress_lib.pack_leaves(z, meta)[0]
-        t_buf = None if z_seen is z else compress_lib.pack_leaves(
-            z_seen, meta)[0]
-        xb, zb = edge_ops.round_downlink(
-            x_buf, w_buf, z_buf, u, t_buf, prox=prox_h,
-            rho_eff=cfg.rho / cfg.n_agents, damping=cfg.damping)
+        if mesh is not None:
+            xb, zb = edge_ops.round_downlink_presummed(
+                x_buf, w_buf, z_buf, compress_lib.pack_coord(y, meta), u,
+                damping=cfg.damping)
+        else:
+            t_buf = None if z_seen is z else compress_lib.pack_leaves(
+                z_seen, meta)[0]
+            xb, zb = edge_ops.round_downlink(
+                x_buf, w_buf, z_buf, u, t_buf, prox=prox_h,
+                rho_eff=cfg.rho / cfg.n_agents, damping=cfg.damping)
         return (compress_lib.unpack_leaves(xb, meta),
                 compress_lib.unpack_leaves(zb, meta))
     x_new = masked_mix(u, w, x)
@@ -440,33 +594,40 @@ def agent_edge(cfg: RoundConfig, u: torch.Tensor, w: Any, x: Any, z: Any,
 
 def coordinator_edge_packed(cfg: RoundConfig, z: torch.Tensor,
                             z_seen: torch.Tensor, meta,
-                            prox_h: ProxH = None):
+                            prox_h: ProxH = None, mesh=None):
     """:func:`coordinator_edge` on ``(N, width)`` buffers; returns
     ``(y (1, width), v)``.  A non-elementwise prox sees the
-    coordinator-sized tree through ``unpack_coord`` / ``pack_coord``."""
+    coordinator-sized tree through ``unpack_coord`` / ``pack_coord``.
+    With a ``mesh`` the buffers are this rank's row block."""
     rho_eff = cfg.rho / cfg.n_agents
+    lagged = None if z_seen is z else z_seen
+    if mesh is not None:
+        if cfg.fused and fusible_prox(prox_h):
+            return edge_ops.round_uplink_sharded(
+                z, lagged, mesh=mesh, n_total=cfg.n_agents, prox=prox_h,
+                rho_eff=rho_eff)
+        return _uplink_sharded_torch(cfg, z, z_seen, meta, prox_h, mesh)
     if cfg.fused and fusible_prox(prox_h):
-        return edge_ops.round_uplink(
-            z, None if z_seen is z else z_seen, prox=prox_h,
-            rho_eff=rho_eff)
+        return edge_ops.round_uplink(z, lagged, prox=prox_h,
+                                     rho_eff=rho_eff)
     zbar = torch.mean(z_seen, dim=0, keepdim=True)
-    if prox_h is None:
-        y = zbar
-    elif getattr(prox_h, "elementwise", False):
-        y = prox_h(zbar, rho_eff)
-    else:
-        y = compress_lib.pack_coord(
-            tree_map(lambda l: prox_h(l, rho_eff),
-                     compress_lib.unpack_coord(zbar, meta)), meta)
+    y = _packed_prox(zbar, meta, prox_h, rho_eff)
     return y, 2.0 * y - z
 
 
 def agent_edge_packed(cfg: RoundConfig, u: torch.Tensor, w: torch.Tensor,
                       x: torch.Tensor, z: torch.Tensor, y: torch.Tensor,
-                      z_seen: torch.Tensor, prox_h: ProxH = None):
+                      z_seen: torch.Tensor, prox_h: ProxH = None,
+                      mesh=None):
     """:func:`agent_edge` on ``(N, width)`` buffers (``y`` the
-    ``(1, width)`` coordinator buffer)."""
+    ``(1, width)`` coordinator buffer).  With a ``mesh`` the fused
+    backend is one presummed launch on this rank's rows; the torch
+    formula (the reference's ``_downlink_sharded_xla`` under a mesh) is
+    row-local and serves both."""
     if cfg.fused and fusible_prox(prox_h):
+        if mesh is not None:
+            return edge_ops.round_downlink_presummed(x, w, z, y, u,
+                                                     damping=cfg.damping)
         return edge_ops.round_downlink(
             x, w, z, u, None if z_seen is z else z_seen, prox=prox_h,
             rho_eff=cfg.rho / cfg.n_agents, damping=cfg.damping)
@@ -498,24 +659,41 @@ def run_solvers(local_solver: SolverAssignment, x: Any, v: Any,
     return groups[0].solver(x, v)
 
 
+def _round_rows(cfg: RoundConfig, mesh, u, corrupt, live, device,
+                generator):
+    """This rank's ``(u, corrupt)``: the participation row drawn (or
+    replayed) over all N agents -- every rank draws the same row from its
+    identically seeded generator -- masked by ``live``, then both rows
+    sliced to this rank's block (the whole row without a mesh)."""
+    u = participation_mask(cfg, device, generator, u)
+    u = sharding.fed_row_spec(live_mask_rows(u, live), mesh, cfg.n_agents)
+    return u, sharding.fed_row_spec(corrupt, mesh, cfg.n_agents)
+
+
 def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
                       z: torch.Tensor, t: torch.Tensor,
                       local_solver: SolverAssignment, prox_h: ProxH = None,
                       *, generator=None, u=None, corrupt=None,
-                      live=None) -> RoundResult:
+                      live=None, mesh=None) -> RoundResult:
     """One round on the resident packed state (``(N, width)`` buffers laid
     out by ``meta``); mirrors :func:`round_step`.  ``u`` replays a given
     ``(N,)`` participation row instead of drawing one; ``corrupt`` and
-    ``live`` are fault rows (see :func:`round_step`)."""
+    ``live`` are fault rows (see :func:`round_step`).  With a ``mesh`` the
+    buffers are this rank's row block and the rows stay global (mesh
+    contract: module docstring)."""
+    if mesh is not None:
+        validate_mesh(cfg, mesh)
     z_seen = t if cfg.compressed else z
-    z_seen = robust_seen(cfg, z_seen, live, meta)
-    y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h)
+    z_seen = robust_seen(cfg, z_seen, live, meta, mesh)
+    y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h, mesh)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
     del v
+    u, corrupt = _round_rows(cfg, mesh, u, corrupt, live, x.device,
+                             generator)
     w = apply_corruption(w, corrupt)
-    u = live_mask_rows(participation_mask(cfg, x.device, generator, u), live)
     u, _ok = increment_guard(cfg, w, u, meta)
-    x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h)
+    x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h,
+                                     mesh)
     del w
     t_new = z_new
     if cfg.compressed:
@@ -526,7 +704,8 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
 
 def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
                local_solver: SolverAssignment, prox_h: ProxH = None, *,
-               generator=None, u=None, corrupt=None, live=None) -> RoundResult:
+               generator=None, u=None, corrupt=None, live=None,
+               mesh=None) -> RoundResult:
     """One Fed-PLT round on agent-stacked trees.  ``t`` is the
     coordinator's copy of ``z`` (``z`` itself when the exchange is
     uncompressed; advanced in place when compressed).  ``u`` replays a
@@ -534,17 +713,21 @@ def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
     applied to the solvers' output (:func:`apply_corruption`, screened by
     :func:`increment_guard` when guards are on); ``live`` drops evicted
     agents from the participation row and from the coordinator's
-    aggregate.  ``None`` for both runs the fault-free round."""
+    aggregate.  ``None`` for both runs the fault-free round.  With a
+    ``mesh`` the trees hold this rank's row block, the ``(N,)`` rows stay
+    global, and the result's ``u`` is this rank's block."""
+    if mesh is not None:
+        validate_mesh(cfg, mesh)
     z_seen = t if cfg.compressed else z
-    z_seen = robust_seen(cfg, z_seen, live)
-    y, v = coordinator_edge(cfg, z, z_seen, prox_h)
+    z_seen = robust_seen(cfg, z_seen, live, mesh=mesh)
+    y, v = coordinator_edge(cfg, z, z_seen, prox_h, mesh)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
     del v
+    u, corrupt = _round_rows(cfg, mesh, u, corrupt, live,
+                             pytree.tree_leaves(x)[0].device, generator)
     w = apply_corruption(w, corrupt)
-    device = pytree.tree_leaves(x)[0].device
-    u = live_mask_rows(participation_mask(cfg, device, generator, u), live)
     u, _ok = increment_guard(cfg, w, u)
-    x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h)
+    x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h, mesh)
     del w
     t_new = z_new
     if cfg.compressed:

@@ -46,7 +46,13 @@ Differences from the reference:
   the trainer's full width.
 * The aggregate is cast to the buffer's dtype (``norm_clip_mean``
   computes in float32): the fused edges take operands of one dtype.
-* No mesh: the sharded transform waits for the multi-device slice.
+* Under a mesh the gather is ``dist.all_gather`` over the agent group
+  into the row blocks of one ``(N, M)`` buffer, and on a 1-rank agent
+  group it is skipped (the gather of
+  one block is the identity: no second ``(N, M)`` copy at full width).
+  The gathered column is aggregated with the configured backend -- on
+  the card the ``sort_aggregate`` kernel, bit-equal to the oracle the
+  reference takes there.
 * Row norms are ``torch.linalg.vector_norm`` per segment and the live
   mean runs in column slabs of :data:`SLAB`, so that a bf16 state never
   gets a whole float32 copy; the float32 sums therefore associate
@@ -59,8 +65,10 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.fed import compress as compress_lib
+from repro_torch.fed import sharding
 from repro_torch.kernels.robust_agg import ops as robust_ops
 from repro_torch.kernels.robust_agg.ref import live_row, robust_aggregate_ref
 
@@ -255,22 +263,41 @@ def _segment_colmask(meta):
 # Engine entry points: the z_seen input transforms
 # ---------------------------------------------------------------------------
 
+def _gather_rows(block: torch.Tensor, mesh) -> torch.Tensor:
+    """The full ``(N, width)`` agent column from every rank's row block
+    (rank order is agent order); one rank's block is returned as it is."""
+    group = sharding.agent_group(mesh)
+    shards = group.size()
+    if shards == 1:
+        return block
+    full = torch.empty((shards * block.shape[0],) + tuple(block.shape[1:]),
+                       dtype=block.dtype, device=block.device)
+    dist.all_gather(list(full.chunk(shards)), block.contiguous(),
+                    group=group)
+    return full
+
+
 def robust_seen_packed(z_seen: torch.Tensor, live, *, name: str,
-                       param: float, meta, backend: str) -> torch.Tensor:
+                       param: float, meta, backend: str,
+                       mesh=None) -> torch.Tensor:
     """Robust ``z_seen`` transform on the resident packed buffer:
     aggregate the live rows, broadcast back to a contiguous
-    ``(N, width)`` buffer of ``z_seen``'s dtype."""
-    agg = aggregate_rows(z_seen, live, name=name, param=param,
+    ``(N, width)`` buffer of ``z_seen``'s dtype.  With a ``mesh``
+    ``z_seen`` is this rank's row block: the blocks are all-gathered on
+    the agent axis, the full column aggregated with the global ``live``
+    row, and this rank's block of the broadcast returned."""
+    full = z_seen if mesh is None else _gather_rows(z_seen, mesh)
+    agg = aggregate_rows(full, live, name=name, param=param,
                          colmask=_segment_colmask(meta), backend=backend)
     return agg.to(z_seen.dtype).expand_as(z_seen).contiguous()
 
 
 def robust_seen_tree(z_seen, live, *, name: str, param: float,
-                     backend: str):
+                     backend: str, mesh=None):
     """Robust ``z_seen`` transform on agent-stacked trees: pack the
     leaves (a fresh pack: gap columns are exact zeros), aggregate,
-    broadcast, unpack."""
+    broadcast, unpack (this rank's row block under a ``mesh``)."""
     buf, meta = compress_lib.pack_leaves(z_seen)
     out = robust_seen_packed(buf, live, name=name, param=param, meta=meta,
-                             backend=backend)
+                             backend=backend, mesh=mesh)
     return compress_lib.unpack_leaves(out, meta)

@@ -12,6 +12,17 @@ parameters are views of its state row, made autograd leaves with
 ``torch.func.functional_call``; ``torch.autograd.grad`` returns the
 per-leaf gradients, which are copied into ONE preallocated gradient
 buffer of the state's layout.  No parameter is copied on the way in.
+
+Sharded rounds (a ``mesh``, :mod:`repro_torch.fed.sharding`): each rank
+holds only its ``(N / shards, ...)`` row block of the state, takes its
+agents of the global batch, and passes the global ``(N,)`` rows to the
+engine; the metrics and the consensus are means over all N agents
+(local sums, all-reduced, over N).  Every rank's generator is seeded
+alike, so all ranks draw the same participation row; the DP noise is
+drawn for all N agents in agent order on every rank, which keeps each
+agent's own (:func:`repro_torch.core.solvers.draw_noise`), so agents on
+different ranks never share noise and the draws are the unsharded run's.
+An injected ``noise(epoch, w)`` is handed this rank's rows.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.fed import compress as compress_lib
-from repro_torch.fed import engine
+from repro_torch.fed import engine, sharding
 from repro_torch.fed.solvers import (make_local_solver,
                                      make_packed_local_solver)
 
@@ -54,13 +65,15 @@ def packed_layout(model, spec) -> compress_lib.PackedMeta:
 
 
 def init_state(model, spec, device, generator=None,
-               params: Optional[dict] = None) -> FedState:
+               params: Optional[dict] = None, mesh=None) -> FedState:
     """Every agent starts from the same parameters: ``params`` when
-    given (e.g. converted from the reference), else ``model.init``."""
+    given (e.g. converted from the reference), else ``model.init``.
+    Under a ``mesh`` only this rank's ``N / shards`` agent rows are
+    allocated."""
     if params is None:
         params = model.init(generator, device)
     params = {n: params[n].to(device) for n in model.param_shapes()}
-    A = spec.n_agents
+    A = spec.n_agents // sharding.mesh_agent_shards(mesh)
     compressed = spec.compression.name != "none"
     if spec.state_layout == "packed":
         meta = packed_layout(model, spec)
@@ -110,13 +123,15 @@ def _gradient_oracle(model, batch: dict, g, meta=None):
     return fgrad
 
 
-def make_train_step(model, spec):
+def make_train_step(model, spec, mesh=None):
     """Returns ``step(state, batch, *, generator=None, u=None,
     noise=None, corrupt=None, live=None) -> (state, metrics)``.  ``batch``
     leaves carry a leading agent axis (tokens ``(A, b, S)``); ``u``
     replays an ``(A,)`` participation row; ``noise(epoch, w)`` overrides
     the noisy_gd draw; ``corrupt`` (``(A,)`` or ``(A, 2)``) and ``live``
-    (``(A,)``) are fault rows (:func:`repro_torch.fed.engine.round_step`)."""
+    (``(A,)``) are fault rows (:func:`repro_torch.fed.engine.round_step`).
+    Under a ``mesh`` the batch and the rows are global (all A agents) and
+    the state is this rank's row block."""
     spec = spec.validate()
     scfg = spec.solver_config()
     rcfg = spec.round_config()
@@ -124,14 +139,18 @@ def make_train_step(model, spec):
     mu, L = spec.moduli()
     meta = packed_layout(model, spec) if spec.state_layout == "packed" \
         else None
+    # every rank draws all N agents' noise and keeps its block's
+    agent_rows = (None if mesh is None else
+                  (sharding.agent_rows(mesh, spec.n_agents), spec.n_agents))
 
     def train_step(state: FedState, batch: dict, *, generator=None, u=None,
                    noise=None, corrupt=None, live=None):
+        batch = sharding.fed_batch_specs(batch, mesh, spec.n_agents)
         # padding columns of a packed gradient stay zero
         g = tree_map(torch.zeros_like, state.x)
         fgrad = _gradient_oracle(model, batch, g, meta)
         kw = dict(use_fused=spec.use_fused_update, has_aux=True,
-                  generator=generator, noise=noise)
+                  generator=generator, noise=noise, agent_rows=agent_rows)
         t = state.t if rcfg.compressed else state.z
         if meta is not None:
             solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
@@ -139,16 +158,19 @@ def make_train_step(model, spec):
             res = engine.packed_round_step(rcfg, meta, state.x, state.z, t,
                                            solver, prox_h,
                                            generator=generator, u=u,
-                                           corrupt=corrupt, live=live)
+                                           corrupt=corrupt, live=live,
+                                           mesh=mesh)
         else:
             solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
             res = engine.round_step(rcfg, state.x, state.z, t, solver,
                                     prox_h, generator=generator, u=u,
-                                    corrupt=corrupt, live=live)
+                                    corrupt=corrupt, live=live, mesh=mesh)
         metrics = {
-            "loss": (torch.mean(res.aux[-1]) if res.aux is not None
+            "loss": (sharding.agent_mean(res.aux[-1], mesh, spec.n_agents)
+                     if res.aux is not None
                      else torch.tensor(float("nan"))),
-            "participation": torch.mean(res.u),
+            "participation": sharding.agent_mean(res.u, mesh,
+                                                 spec.n_agents),
         }
         return FedState(x=res.x, z=res.z, step=state.step + 1,
                         t=res.t if rcfg.compressed else None), metrics
@@ -156,9 +178,15 @@ def make_train_step(model, spec):
     return train_step
 
 
-def consensus_model(state: FedState, meta=None) -> dict:
+def consensus_model(state: FedState, meta=None, mesh=None,
+                    n_agents: Optional[int] = None) -> dict:
     """The deployable model: the agent average of the local states
-    (``meta`` required for a packed state)."""
+    (``meta`` required for a packed state).  Under a ``mesh`` the state
+    is this rank's row block of ``n_agents`` agents: the row sums are
+    all-reduced over the agent axis and divided by N, on every rank."""
     x = state.x if meta is None else compress_lib.unpack_leaves(state.x,
                                                                 meta)
-    return {n: torch.mean(l, dim=0) for n, l in x.items()}
+    if mesh is None:
+        return {n: torch.mean(l, dim=0) for n, l in x.items()}
+    return {n: sharding.agent_sum(torch.sum(l, dim=0), mesh).div_(n_agents)
+            for n, l in x.items()}

@@ -2,8 +2,8 @@
 ``repro/fed/solvers.py``).
 
 A name maps to a factory ``(scfg, fgrad, rho, mu, L, *, use_fused,
-has_aux, generator, noise) -> solver`` and the solver maps the stacked
-states ``(x, v) -> (w, aux)``, warm-started at ``x``.  The core solvers
+has_aux, generator, noise, agent_rows) -> solver`` and the solver maps
+the stacked states ``(x, v) -> (w, aux)``, warm-started at ``x``.  The core solvers
 gd / agd / sgd / noisy_gd are served by
 :func:`repro_torch.core.solvers.local_train`.
 
@@ -56,13 +56,16 @@ def available_solvers() -> list[str]:
 def make_local_solver(solver_cfg, fgrad, rho: float, mu: float = 0.0,
                       L: float = 0.0, *, use_fused: bool = False,
                       has_aux: bool = False, generator=None,
-                      noise=None) -> LocalSolver:
+                      noise=None, agent_rows=None) -> LocalSolver:
     """Build the solver registered under ``solver_cfg.name``;
     ``fgrad(w_stack, epoch)`` returns the stacked gradient (``(grad,
-    aux)`` with ``has_aux``)."""
+    aux)`` with ``has_aux``).  ``agent_rows = (rows, n_total)`` places a
+    sharded round's row block among all agents, for the random draws
+    (:func:`repro_torch.core.solvers.draw_noise`)."""
     factory = get_solver(solver_cfg.name)
     return factory(solver_cfg, fgrad, rho, mu, L, use_fused=use_fused,
-                   has_aux=has_aux, generator=generator, noise=noise)
+                   has_aux=has_aux, generator=generator, noise=noise,
+                   agent_rows=agent_rows)
 
 
 CORE_SOLVERS = ("gd", "agd", "sgd", "noisy_gd")
@@ -72,13 +75,14 @@ PACKED_DIRECT_SOLVERS = CORE_SOLVERS
 
 
 def _core_local_train(scfg, fgrad, rho, mu, L, *, use_fused, has_aux,
-                      generator, noise):
+                      generator, noise, agent_rows):
     from repro_torch.core.solvers import local_train
 
     def solver(x, v):
         out = local_train(fgrad, x, v, rho, scfg, mu, L, batched=True,
                           has_aux=has_aux, use_fused=use_fused,
-                          generator=generator, noise=noise)
+                          generator=generator, noise=noise,
+                          agent_rows=agent_rows)
         return out if has_aux else (out, None)
 
     return solver
@@ -103,7 +107,8 @@ def wrap_packed_solver(solver: LocalSolver, meta) -> LocalSolver:
 def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
                              mu: float = 0.0, L: float = 0.0, *, meta,
                              use_fused: bool = False, has_aux: bool = False,
-                             generator=None, noise=None) -> LocalSolver:
+                             generator=None, noise=None,
+                             agent_rows=None) -> LocalSolver:
     """A solver on the resident ``(N, width)`` buffer.  ``fgrad_buf`` is
     the buffer oracle ``(w_buf, epoch) -> g_buf`` (``(g_buf, aux)`` with
     ``has_aux``).  Core solvers run on the buffer directly; a custom
@@ -111,7 +116,8 @@ def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
     if solver_cfg.name in PACKED_DIRECT_SOLVERS:
         return make_local_solver(solver_cfg, fgrad_buf, rho, mu, L,
                                  use_fused=use_fused, has_aux=has_aux,
-                                 generator=generator, noise=noise)
+                                 generator=generator, noise=noise,
+                                 agent_rows=agent_rows)
 
     def fgrad_tree(w_tree, epoch):
         out = fgrad_buf(pack_leaves(w_tree, meta)[0], epoch)
@@ -122,4 +128,5 @@ def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
     return wrap_packed_solver(
         make_local_solver(solver_cfg, fgrad_tree, rho, mu, L,
                           use_fused=use_fused, has_aux=has_aux,
-                          generator=generator, noise=noise), meta)
+                          generator=generator, noise=noise,
+                          agent_rows=agent_rows), meta)

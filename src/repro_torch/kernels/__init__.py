@@ -9,7 +9,9 @@ plain version.
 
   round_edge     -- the round's coordinator edges on the packed
                     ``(N, M)`` agent buffer: mean + prox + reflection
-                    (uplink), z-update + participation selects (downlink).
+                    (uplink), z-update + participation selects (downlink);
+                    and their sharded halves on one rank's row block:
+                    the partial column sum and the downlink given ``y``.
   fedplt_update  -- the fused local step ``w - gamma (g + (w - v)/rho)
                     [+ noise]``.
   compress       -- the compressed z-uplink on the packed buffer: exact-k
@@ -32,6 +34,8 @@ def _wrappers() -> dict:
 
     return {"round_uplink": edge_ops.round_uplink,
             "round_downlink": edge_ops.round_downlink,
+            "round_uplink_partial": edge_ops.round_uplink_partial,
+            "round_downlink_presummed": edge_ops.round_downlink_presummed,
             "fedplt_update": update_ops.fedplt_update,
             "rank_select": compress_ops.rank_select,
             "int8_quantize": compress_ops.int8_quantize,

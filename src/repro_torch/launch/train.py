@@ -26,6 +26,15 @@ per round; ``--aggregator coord_median|norm_clip_mean`` likewise):
       --state-layout packed --engine-backend fused --use-fused-update \\
       --weight-decay 0.01 --aggregator trimmed_mean --aggregator-param 1 \\
       --guard-increments
+
+Sharded rounds: one process per rank of the ``(agent, model)`` mesh,
+started by torchrun (``--mesh-shape 1x1`` runs in one process, without
+it); every rank draws the same global batch and keeps its agents, and
+only rank 0 prints.  Two gloo ranks on the CPU:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --n-agents 4 --agent-shards 2 --state-layout packed \\
+      --engine-backend fused --use-fused-update --device cpu
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
@@ -52,6 +62,13 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
     device = resolve_device(device)
     spec.validate()
     trainer = api.build_trainer(build_model(cfg), spec, device)
+    mesh = trainer.mesh
+    if mesh is not None:
+        if dist.get_rank() != 0:
+            log = _silent
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        log(f"mesh: {sizes} over {mesh.size()} devices (agent axis "
+            f"sharded)")
     if spec.privacy.tau > 0:
         q = local_dataset_size or max(1, batch // spec.n_agents)
         rep = trainer.privacy_report(steps, q)
@@ -66,7 +83,7 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
     history = []
     for i in range(steps):
         b = make_batch_for(cfg, shape, gen, n_agents=spec.n_agents,
-                           device=device)
+                           device=trainer.device)
         t0 = time.time()
         state, metrics = trainer.step(state, b, gen)
         m = {k: float(v) for k, v in metrics.items()}   # waits for the device
@@ -75,6 +92,10 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
         log(f"round {i:4d} loss={m['loss']:.4f} "
             f"part={m['participation']:.2f} dt={m['dt']:.2f}s")
     return trainer, state, history
+
+
+def _silent(*args, **kwargs):
+    """The log of ranks other than 0."""
 
 
 def main(argv=None):
@@ -106,11 +127,16 @@ def main(argv=None):
         device=device, seed=args.seed,
         local_dataset_size=args.local_dataset_size)
     final = trainer.consensus(state)
-    n = sum(p.numel() for p in final.values())
-    print(f"done: {args.arch} ({n / 1e6:.2f}M params) on {device}")
-    if device.type == "cuda":
-        print(f"peak device memory: "
-              f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    if trainer.mesh is None or dist.get_rank() == 0:
+        n = sum(p.numel() for p in final.values())
+        print(f"done: {args.arch} ({n / 1e6:.2f}M params) on "
+              f"{trainer.device}")
+        if device.type == "cuda":
+            print(f"peak device memory: "
+                  f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f}"
+                  f" GiB")
+    if trainer.mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

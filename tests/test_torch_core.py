@@ -197,9 +197,9 @@ def test_fedspec_defaults_and_cli_match_reference():
     (dict(privacy=tapi.PrivacySpec(dp_init=True)), "dense front end"),
     (dict(async_mode="stale"), "async"),
     (dict(max_staleness=2), "async"),
-    (dict(mesh_shape="2x1"), "multi-device"),
+    (dict(mesh_shape="2x2"), "tensor-parallel"),
     (dict(agent_groups="2*gd,2*agd"), "groups"),
-    (dict(agent_shards=2), "multi-device"),
+    (dict(agent_shards=2, mesh_shape="2x2"), "tensor-parallel"),
 ])
 def test_unported_fields_raise_naming_the_slice(kw, slice_name):
     with pytest.raises(ValueError, match=slice_name):

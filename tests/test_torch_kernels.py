@@ -152,8 +152,12 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     tedge.round_downlink(z, z, z, torch.ones(3))
     tupdate.fedplt_update(z, z, z, gamma=0.1, inv_rho=1.0)
     trobust.robust_aggregate(z, stat="trimmed_mean", trim=1)
+    tedge.round_uplink_partial(z)
+    tedge.round_downlink_presummed(z, z, z, z[:1], torch.ones(3))
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
+                                       "round_uplink_partial": 0,
+                                       "round_downlink_presummed": 0,
                                        "fedplt_update": 0,
                                        "rank_select": 0,
                                        "int8_quantize": 0,
