@@ -10,7 +10,8 @@ last line):
 
 1. Card: ``nvidia-smi`` name and power limit, torch / CUDA versions; the
    kernels are compiled from ``src/repro_torch/kernels/*/csrc`` (one
-   ``nvcc`` per source, in parallel).
+   ``nvcc`` per source, in parallel); the flash kernels' registers and
+   spills from ``-Xptxas -v``.
 2. Kernels against their plain PyTorch versions on the card: every prox
    of the table, exact and lagged exchanges, with and without the noise
    operand, ragged widths (N=3, M=1000 and M=1001), a participation row
@@ -21,13 +22,14 @@ last line):
    timed with CUDA events (median of 7) beside its plain version and its
    byte bound.
 3. A small-input check: the reduced gemma2-2b in float32 runs two
-   federated rounds on the card (kernels) and on the CPU (plain
-   versions); the states agree to 1e-4.
+   federated rounds on the card (kernels, the flash attention kernels
+   included) and on the CPU (plain versions); the states agree to 1e-4.
 4. Main path: gemma2-2b at published width cut to 2 layers, N=4 agents,
    global batch 8, seq 512, N_e=2, gd, gamma 0.05, weight decay 0.01,
    packed state, fused edges and fused update, 3 rounds through
    ``repro_torch.launch.train.run_fed``.  Launch counters are zeroed just
-   before and read just after: uplink=3, downlink=3, fedplt_update=6.
+   before and read just after: uplink=3, downlink=3, fedplt_update=6,
+   flash_attention_fwd=48, flash_attention_bwd=48.
    Then one more round under ``torch.profiler``: device time by kernel
    group and the device's idle share.
 5. DP path: one round with tau=0.01, clip=1.0 (the noise variant of the
@@ -72,6 +74,29 @@ last line):
    (rtol 1e-5, atol 1e-6); dropped with a note only if gloo refuses CUDA
    tensors (any other failure of a rank fails the smoke).
 
+9. Flash attention (the attention of every layer of the trainer on the
+   card, forward and backward; phases 3-8 count its launches: one
+   forward and one backward per layer per agent per local epoch, 16 of
+   each per round of the full-width trainer).  9a: both kernels against
+   their plain versions (``kernels/flash_attention/ref.py``): fp32 and
+   bf16, S = T in (1, 7, 64, 128, 1000), (H, Hkv) in ((8, 4), (8, 8),
+   (8, 1)), D in (64, 128, 256), causal or not, window None / 3 / 100,
+   cap None / 50, rows with no visible key, and the main path's own
+   shape (B 2, S = T 512, H 8, Hkv 4, D 256, bf16, cap 50, causal with
+   window None and 4096).  Tolerance: fp32 o and lse 1e-5 max(1, |ref|)
+   elementwise, fp32 gradients 1e-4 max|ref|, bf16 one ulp of the plain
+   result plus 1e-5 max|ref|; at S = T = 1 the exact dq and dk are 0
+   (one key, p = 1), held to 1e-5 max|dv|.  9b: gemma2-2b's attention
+   over 8192 tokens (B 1, H 8, Hkv 4, D 256, bf16, cap 50), the global
+   (causal) and the local (window 4096) layer, forward and backward
+   against the plain versions run head by head, timed beside the bound
+   (each product at its operands' rate: bf16 x bf16 at the bf16
+   tensor-core peak, with a float32 operand at the float32 peak), SDPA
+   (``is_causal``, a yardstick: no softcap, no window) and the plain
+   PyTorch path the kernel replaces (``attn_chunked`` /
+   ``attn_block_local`` with autograd).  9c: the
+   same forward and backward again, bit for bit.
+
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
 int8, fp32 and bf16, N=3, M=1000 and 1001, one segment and several with
@@ -109,6 +134,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_N, FULL_M = 4, 745_549_056
+N_EPOCHS, N_LAYERS = 2, 2           # the full-width trainer's N_e and depth
 SLAB = 1 << 26                      # columns per slab of the plain versions
 FP32_PEAK = 67e12                   # H100 SXM float32 (non-tensor) FLOP/s
 
@@ -692,6 +718,8 @@ def small_input_parity(torch):
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "flash_fwd_kernel" in name or "flash_bwd_" in name:
+        return "flash_attention"
     if "partial_sum_kernel" in name:
         return "round_uplink_partial"
     if "downlink_presummed_kernel" in name:
@@ -723,12 +751,14 @@ def profile_round(torch, trainer, state, gen, cfg, label):
     round's wall time (one stream, so kernel times do not overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels
     from repro_torch.configs.base import InputShape
     from repro_torch.data.synthetic import make_batch_for
 
-    batch = make_batch_for(cfg, InputShape("profile", 512, 8, "train"), gen,
-                           n_agents=FULL_N, device="cuda")
+    shape = InputShape("profile", MAIN_SEQ, MAIN_BATCH, "train")
+    batch = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device="cuda")
     torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -755,11 +785,34 @@ def profile_round(torch, trainer, state, gen, cfg, label):
            "groups_ms": groups, "top_kernels_ms": top}
     if compress_ms:
         rec["compress_kernels_ms"] = compress_ms
+    flash_ms = {k: v for k, v in kernels_ms.items()
+                if _kernel_group(k) == "flash_attention"}
+    if flash_ms:
+        rec["flash_kernels_ms"] = flash_ms
+        # this round's flash time against its bound; at MAIN_SEQ <= window
+        # a local layer sees the keys a global (causal) one sees
+        if MAIN_SEQ > cfg.window:
+            fail(f"{label}: sequence {MAIN_SEQ} > window {cfg.window}")
+        counts = kernels.launch_counts()
+        bounds = flash_bounds(card_bandwidth(torch.cuda.get_device_name(0)),
+                              MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.n_heads,
+                              cfg.n_kv_heads, cfg.resolved_head_dim, True,
+                              None)
+        for name in ("fwd", "bwd"):
+            n = counts[f"flash_attention_{name}"]
+            ms = sum(v for k, v in flash_ms.items()
+                     if f"flash_{name}_" in k)
+            bound = n * bounds[name]["bound_ms"]
+            rec[f"flash_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
+                                        share_of_bound=bound / ms)
     log(f"{label} profile: one round {wall_ms:.1f} ms wall under the "
         f"profiler, device busy {busy:.1f} ms"
         + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
            " (the profiler saw no device time)"))
     log(json.dumps({"profile": rec}))
+
+
+MAIN_SEQ, MAIN_BATCH = 512, 8     # the main path's tokens per sequence, batch
 
 
 def train_phase(torch, label, spec, steps, expect, profile=False):
@@ -771,8 +824,8 @@ def train_phase(torch, label, spec, steps, expect, profile=False):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
-    trainer, state, hist = run_fed(cfg, spec, steps=steps, seq_len=512,
-                                   batch=8, device="cuda", log=log)
+    trainer, state, hist = run_fed(cfg, spec, steps=steps, seq_len=MAIN_SEQ,
+                                   batch=MAIN_BATCH, device="cuda", log=log)
     trainer_gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -804,11 +857,16 @@ def train_phase(torch, label, spec, steps, expect, profile=False):
     return counts, hist, peak
 
 
-def expected_counts(**kw):
-    """Every kernel's launch count: 0 unless given."""
+def expected_counts(rounds=0, **kw):
+    """Every kernel's launch count: 0 unless given; ``rounds`` rounds of
+    the full-width trainer add their attention launches (every agent's
+    every local epoch runs one forward and one backward per layer)."""
     from repro_torch import kernels
 
     out = dict.fromkeys(kernels.launch_counts(), 0)
+    per_round = FULL_N * N_EPOCHS * N_LAYERS
+    out.update(flash_attention_fwd=rounds * per_round,
+               flash_attention_bwd=rounds * per_round)
     out.update(kw)
     return out
 
@@ -893,8 +951,8 @@ def robust_phase(torch, base):
     trainer, state, main_counts, hist, peak = drive(
         label, api.FedSpec(**robust, aggregator="trimmed_mean",
                            aggregator_param=1), None, 3, rows, None,
-        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6,
-               sort_aggregate=3))
+        expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6,
+                        sort_aggregate=3))
     note("trimmed_mean", hist, peak)
     profile_round(torch, trainer, state, gen, cfg, "phase 7")
     del trainer
@@ -903,8 +961,8 @@ def robust_phase(torch, base):
         "phase 7 coord_median, live [1, 1, 1, 0]",
         api.FedSpec(**robust, aggregator="coord_median"), state, 1, [None],
         [1.0, 1.0, 1.0, 0.0],
-        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
-               sort_aggregate=1))
+        expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2,
+                        sort_aggregate=1))
     if hist[0]["participation"] != 0.75:
         fail("phase 7 coord_median: the evicted agent took part")
     note("coord_median", hist, peak)
@@ -921,8 +979,8 @@ def robust_phase(torch, base):
         "phase 7 norm_clip_mean", api.FedSpec(
             **robust, aggregator="norm_clip_mean", aggregator_param=radius),
         state, 1, [None], None,
-        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
-               sort_aggregate=1))
+        expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2,
+                        sort_aggregate=1))
     note("norm_clip_mean", hist, peak)
     del st
     torch.cuda.empty_cache()
@@ -934,7 +992,7 @@ def robust_phase(torch, base):
     _, st, _, hist, peak = drive(
         "phase 7 mean, guards on, NaN corrupt row for agent 2",
         api.FedSpec(**robust), state, 1, [poison], None,
-        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2))
+        expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2))
     if not (torch.equal(st.x[bad], x_row) and torch.equal(st.z[bad], z_row)):
         fail("phase 7 guard: the quarantined agent's state changed")
     if hist[0]["participation"] != 0.75:
@@ -1294,7 +1352,7 @@ def sharded_robust_round(torch, base):
     dt = time.time() - t0
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = expected_counts(sort_aggregate=1, round_uplink_partial=1,
+    want = expected_counts(1, sort_aggregate=1, round_uplink_partial=1,
                            round_downlink_presummed=1, fedplt_update=2)
     if counts != want:
         fail(f"phase 8d: launch counts {counts}, want {want}")
@@ -1307,6 +1365,353 @@ def sharded_robust_round(torch, base):
     del tr, st
     torch.cuda.empty_cache()
     return {"round_ms": 1e3 * dt, "peak_gb": peak / 1e9}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: flash attention, forward and backward
+# ---------------------------------------------------------------------------
+
+BF16_PEAK = 989e12                  # H100 SXM bf16 tensor-core FLOP/s, dense
+FLASH_FULL = dict(B=1, S=8192, H=8, Hkv=4, D=256)   # gemma2-2b at 8192 tokens
+FLASH_CAP, FLASH_WINDOW = 50.0, 4096
+
+
+def flash_close(torch, got, want, what, grad=False):
+    """Max abs error of a flash output against its plain version; fails
+    beyond the tolerance: float32 ``o`` and ``lse`` 1e-5 max(1, |ref|)
+    elementwise, float32 gradients 1e-4 max|ref|, bfloat16 one ulp of
+    the plain result plus 1e-5 max|ref|."""
+    a, b = got.float(), want.float()
+    diff = (a - b).abs()
+    top = float(b.abs().max()) if b.numel() else 0.0
+    if got.dtype == torch.bfloat16:
+        mag = torch.maximum(a.abs(), b.abs()).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * top
+    elif grad:
+        tol = 1e-4 * top
+    else:
+        tol = 1e-5 * b.abs().clamp_min(1.0)
+    bad = ~(diff <= tol)
+    if bool(bad.any()):
+        fail(f"{what}: {int(bad.sum())} of {bad.numel()} elements beyond "
+             f"tolerance, max abs err {float(diff.nan_to_num(float('inf')).max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def flash_zero(torch, grads, dv, what):
+    """Fails unless gradients whose exact value is 0 are within 1e-5
+    max|dv| of it (float32 rounding of terms of dv's size)."""
+    top = 1e-5 * float(dv.float().abs().max())
+    for g in grads:
+        err = float(g.float().abs().max())
+        if not err <= top:
+            fail(f"{what}: max |g| {err} beyond 1e-5 max|dv| = {top} "
+                 f"(exact value 0)")
+
+
+def flash_small_checks(torch):
+    """Phase 9a: the forward and backward kernels against their plain
+    versions over dtypes, lengths (ragged too), GQA groupings, head
+    dims, masks and softcaps; the backward kernels and the plain
+    backward get the same inputs (the plain forward's o and lse)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    n_checks, worst = 0, {"o": 0.0, "lse": 0.0, "grad": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 7, 64, 128, 1000):
+            for H, Hkv in ((8, 4), (8, 8), (8, 1)):
+                for D in (64, 128, 256):
+                    q = torch.randn((2, S, H, D), generator=gen, device=dev)
+                    k, v = (torch.randn((2, S, Hkv, D), generator=gen,
+                                        device=dev) for _ in range(2))
+                    do = torch.randn((2, S, H, D), generator=gen, device=dev)
+                    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+                    for causal in (True, False):
+                        for window in (None, 3, 100):
+                            for cap in (None, FLASH_CAP):
+                                kw = dict(causal=causal, window=window,
+                                          cap=cap)
+                                tag = (f"{dtype} S={S} H={H} Hkv={Hkv} D={D} "
+                                       f"{kw}")
+                                o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+                                po, plse = fref.flash_attention_ref(q, k, v, **kw)
+                                worst["o"] = max(worst["o"], flash_close(
+                                    torch, o, po, "flash fwd o " + tag))
+                                worst["lse"] = max(worst["lse"], flash_close(
+                                    torch, lse, plse, "flash fwd lse " + tag))
+                                got = fops.flash_attention_bwd(
+                                    q, k, v, po, plse, do, **kw)
+                                want = fref.flash_attention_bwd_ref(
+                                    q, k, v, po, plse, do, **kw)
+                                if S == 1:
+                                    # one key: p = 1, so the exact dq and
+                                    # dk are 0 and both versions return
+                                    # the rounding of dp - delta
+                                    flash_zero(torch, got[:2], want[2],
+                                               "flash bwd dq, dk " + tag)
+                                    got, want = got[2:], want[2:]
+                                for name, a, b in zip(("dv",) if S == 1 else
+                                                      ("dq", "dk", "dv"), got,
+                                                      want):
+                                    worst["grad"] = max(worst["grad"], flash_close(
+                                        torch, a, b, f"flash bwd {name} {tag}",
+                                        grad=True))
+                                n_checks += 1
+    # the main path's shape: one agent's batch of phase 4 through a
+    # full-width global and local layer (bf16, its softcap and window)
+    from repro_torch.configs import get_config
+
+    cfg = get_config("gemma2-2b")
+    B, S = MAIN_BATCH // FULL_N, MAIN_SEQ
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    for window in (None, cfg.window):
+        kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
+        tag = f"main-path shape B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 {kw}"
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = fref.flash_attention_ref(q, k, v, **kw)
+        worst["o"] = max(worst["o"], flash_close(torch, o, po,
+                                                 "flash fwd o " + tag))
+        worst["lse"] = max(worst["lse"], flash_close(
+            torch, lse, plse, "flash fwd lse " + tag))
+        for name, a, b in zip(("dq", "dk", "dv"),
+                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
+                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
+            worst["grad"] = max(worst["grad"], flash_close(
+                torch, a, b, f"flash bwd {name} {tag}", grad=True))
+        n_checks += 1
+    main_shape = f"B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}, bf16, cap " \
+        f"{cfg.attn_softcap}, causal with window None and {cfg.window}"
+    # rows with no visible key (S > T + window - 1): the mean of v
+    q = torch.randn((2, 300, 8, 64), generator=gen, device=dev)
+    k, v = (torch.randn((2, 40, 4, 64), generator=gen, device=dev)
+            for _ in range(2))
+    do = torch.randn_like(q)
+    for causal in (True, False):
+        kw = dict(causal=causal, window=100, cap=FLASH_CAP)
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = fref.flash_attention_ref(q, k, v, **kw)
+        flash_close(torch, o, po, f"flash fwd o, dead rows {kw}")
+        flash_close(torch, lse, plse, f"flash fwd lse, dead rows {kw}")
+        for name, a, b in zip(("dq", "dk", "dv"),
+                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
+                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
+            flash_close(torch, a, b, f"flash bwd {name}, dead rows {kw}",
+                        grad=True)
+        n_checks += 1
+    torch.cuda.synchronize()
+    log(f"phase 9a: {n_checks} flash attention checks (forward o and lse, "
+        f"backward dq, dk, dv) against the plain versions: fp32 and bf16, "
+        f"S = T in (1, 7, 64, 128, 1000), (H, Hkv) in ((8, 4), (8, 8), "
+        f"(8, 1)), D in (64, 128, 256), causal or not, window None / 3 / "
+        f"100, cap None / 50, the main path's shape ({main_shape}), and "
+        f"rows with no visible key (S 300, T 40, window 100); max abs err "
+        f"o {worst['o']:.3g}, lse {worst['lse']:.3g}, grads "
+        f"{worst['grad']:.3g}")
+
+
+def visible_pairs(S, T, causal, window):
+    """The (query, key) pairs that the masks let through."""
+    total = 0
+    for qpos in range(S):
+        lo = 0 if window is None else max(0, qpos - window + 1)
+        hi = min(T - 1, qpos) if causal else T - 1
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def flash_bounds(bw, B, S, H, Hkv, D, causal, window):
+    """The least time of the bf16 flash forward and backward at a shape:
+    the larger of the bytes (q, k, v, o, and dO, dq, dk, dv, once each,
+    with the float32 lse) over the memory rate and the operations, each
+    product at the rate of its operand types: q k^T and dO v^T multiply
+    two bf16 operands (bf16 tensor cores, fp32 accumulation); p v,
+    p^T dO, ds^T q and ds k carry the fp32 p or ds (the fp32 peak)."""
+    pairs = B * H * visible_pairs(S, S, causal, window)
+    q_elts, kv_elts, lse_bytes = B * S * H * D, B * S * Hkv * D, B * H * S * 4
+    out = {"pairs": pairs}
+    for name, f_bf16, f_fp32, bytes_ in (
+            ("fwd", 2 * D * pairs, 2 * D * pairs,
+             (2 * q_elts + 2 * kv_elts) * 2 + lse_bytes),
+            ("bwd", 4 * D * pairs, 6 * D * pairs,
+             (4 * q_elts + 4 * kv_elts) * 2 + lse_bytes)):
+        ops_s = f_bf16 / BF16_PEAK + f_fp32 / FP32_PEAK
+        out[name] = dict(
+            bound_ms=max(bytes_ / bw, ops_s) * 1e3,
+            bound_by="bytes" if bytes_ / bw >= ops_s else "operations",
+            flops_bf16=f_bf16, flops_fp32=f_fp32, bytes=bytes_)
+    return out
+
+
+def _plain_by_head(fn, q, k, v, *rest, **kw):
+    """A plain flash function run one query head at a time (bounded
+    float32 scores); returns the per-head outputs stacked on the head
+    axis of their layout."""
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    outs = []
+    for h in range(H):
+        sl = slice(h // G, h // G + 1)
+        outs.append(fn(q[:, :, h:h + 1], k[:, :, sl], v[:, :, sl],
+                       *[r(h) for r in rest], **kw))
+    return outs
+
+
+def plain_fwd_by_head(torch, q, k, v, **kw):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    outs = _plain_by_head(flash_attention_ref, q, k, v, **kw)
+    return (torch.cat([o for o, _ in outs], dim=2),
+            torch.cat([lse for _, lse in outs], dim=1))
+
+
+def plain_bwd_by_head(torch, q, k, v, o, lse, do, **kw):
+    """The plain backward one query head at a time in float32, summing
+    dk and dv over the heads of a group in float32 and rounding once."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+
+    H, Hkv = q.shape[2], k.shape[2]
+    G = H // Hkv
+    f32 = lambda t: t.float()
+    outs = _plain_by_head(
+        flash_attention_bwd_ref, f32(q), f32(k), f32(v),
+        lambda h: f32(o[:, :, h:h + 1]), lambda h: lse[:, h:h + 1],
+        lambda h: f32(do[:, :, h:h + 1]), **kw)
+    dq = torch.cat([g[0] for g in outs], dim=2)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros_like(dk)
+    for h, (_, gk, gv) in enumerate(outs):
+        dk[:, :, h // G:h // G + 1] += gk
+        dv[:, :, h // G:h // G + 1] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_full_shape(torch, bw):
+    """Phases 9b and 9c at gemma2-2b's attention shape over 8192 tokens
+    (bf16, cap 50): the global (causal) and local (window 4096) layers,
+    forward and backward, against their plain versions run head by head,
+    timed beside the bounds and the yardsticks; then the same forward and
+    backward twice, bit for bit.  Returns ``{kind: record}``."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import attention as attn_lib
+
+    B, S, H, Hkv, D = (FLASH_FULL[k] for k in ("B", "S", "H", "Hkv", "D"))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(bf)
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).to(bf)
+    recs = {}
+    for kind, causal, window in (("global", True, None),
+                                 ("local", True, FLASH_WINDOW)):
+        kw = dict(causal=causal, window=window, cap=FLASH_CAP)
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = plain_fwd_by_head(torch, q, k, v, **kw)
+        err_o = flash_close(torch, o, po, f"phase 9b {kind} o")
+        err_lse = flash_close(torch, lse, plse, f"phase 9b {kind} lse")
+        grads = fops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = plain_bwd_by_head(torch, q, k, v, o, lse, do, **kw)
+        err_g = max(flash_close(torch, a, b, f"phase 9b {kind} d{n}",
+                                grad=True)
+                    for n, a, b in zip("qkv", grads, want))
+        del want
+        # 9c: the same launches again give the same bits
+        o2, lse2 = fops.flash_attention_fwd(q, k, v, **kw)
+        again = fops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(grads, again))):
+            fail(f"phase 9c {kind}: a second run of the flash kernels "
+                 f"differs from the first")
+        del o2, lse2, again, grads
+        torch.cuda.empty_cache()
+
+        fwd_ms = cuda_ms(torch, lambda: fops.flash_attention_fwd(q, k, v, **kw))
+        bwd_ms = cuda_ms(torch, lambda: fops.flash_attention_bwd(
+            q, k, v, o, lse, do, **kw))
+        pfwd_ms = cuda_ms(torch, lambda: plain_fwd_by_head(torch, q, k, v, **kw),
+                          reps=3)
+        pbwd_ms = cuda_ms(torch, lambda: plain_bwd_by_head(
+            torch, q, k, v, o, lse, do, **kw), reps=3)
+        torch.cuda.empty_cache()
+
+        # yardsticks: SDPA (no softcap, no window: a different function)
+        # and the plain PyTorch path that the kernel replaces, with autograd
+        import torch.nn.functional as F
+
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True,
+                                                      enable_gqa=True)
+        sdpa_fwd_ms = cuda_ms(torch, sdpa)
+        out = sdpa()
+        sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        if kind == "global":
+            plain = lambda: attn_lib.attn_chunked(ql, kl, vl, causal=True,
+                                                  cap=FLASH_CAP)
+        else:
+            plain = lambda: attn_lib.attn_block_local(ql, kl, vl,
+                                                      window=FLASH_WINDOW,
+                                                      cap=FLASH_CAP)
+        with torch.no_grad():
+            torch_fwd_ms = cuda_ms(torch, plain, reps=3)
+        dflat = do.reshape(B, S, H * D)
+        torch_fb_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            plain(), (ql, kl, vl), dflat), reps=3)
+        del ql, kl, vl
+        torch.cuda.empty_cache()
+
+        bounds = flash_bounds(bw, B, S, H, Hkv, D, causal, window)
+        rec = {"pairs": bounds["pairs"]}
+        for name, ms, pms, lib_ms, err in (
+                ("fwd", fwd_ms, pfwd_ms, sdpa_fwd_ms, max(err_o, err_lse)),
+                ("bwd", bwd_ms, pbwd_ms, sdpa_bwd_ms, err_g)):
+            bd = bounds[name]
+            bound, f_bf16, f_fp32 = (bd[f] for f in ("bound_ms", "flops_bf16",
+                                                      "flops_fp32"))
+            rec[name] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
+                             library_ms=lib_ms, **bd)
+            log(f"phase 9b {kind} ({'causal' if window is None else f'window {window}'}"
+                f", cap {FLASH_CAP}, B {B} S {S} H {H} Hkv {Hkv} D {D} bf16) "
+                f"{name}: max_abs_err={err:.3g}; kernel {ms:.3f} ms, plain "
+                f"(head by head) {pms:.3f} ms, bound {bound:.3f} ms "
+                f"({f_bf16 / 1e9:.1f} GFLOP bf16 x bf16 at "
+                f"{BF16_PEAK / 1e12:.0f} TFLOP/s + {f_fp32 / 1e9:.1f} GFLOP "
+                f"with an fp32 operand at {FP32_PEAK / 1e12:.0f} TFLOP/s; "
+                f"{100 * bound / ms:.1f}% of it); yardstick SDPA is_causal "
+                f"{lib_ms:.3f} ms")
+        rec["sdpa_fwd_plus_bwd_ms"] = sdpa_fwd_ms + sdpa_bwd_ms
+        rec["torch_path_fwd_ms"] = torch_fwd_ms
+        rec["torch_path_fwd_plus_bwd_ms"] = torch_fb_ms
+        log(f"phase 9b {kind} yardsticks: SDPA fwd {sdpa_fwd_ms:.3f} + bwd "
+            f"{sdpa_bwd_ms:.3f} ms (no softcap{'' if window is None else ', no window'}: "
+            f"another function); the plain PyTorch path it replaces "
+            f"({'attn_chunked' if window is None else 'attn_block_local'}) "
+            f"fwd {torch_fwd_ms:.3f} ms, fwd + autograd bwd {torch_fb_ms:.3f} "
+            f"ms; kernels fwd + bwd {fwd_ms + bwd_ms:.3f} ms")
+        recs[kind] = rec
+        del o, lse, po, plse
+        torch.cuda.empty_cache()
+    log("phase 9c: a second forward and backward (global and local, full "
+        "shape) repeat the first bit for bit")
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
 
 
 def main() -> int:
@@ -1333,9 +1738,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     bw = card_bandwidth(name)
     t0 = time.time()
-    build.build_all(kernels.kernel_sources())
+    logs = build.build_all(kernels.kernel_sources())
     log(f"phase 1: kernels built in {time.time() - t0:.1f} s "
         f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
+    for src, text in logs.items():
+        if "flash_attention" not in str(src):
+            continue
+        for kname, regs, st, ld in build.ptxas_summary(text):
+            log(f"phase 1 ptxas: {kname[:72]}: {regs} registers, spill "
+                f"stores {st} B, loads {ld} B")
 
     # phase 2: kernels against plain versions
     small_checks(torch)
@@ -1352,35 +1763,35 @@ def main() -> int:
     base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
                 state_layout="packed", engine_backend="fused",
                 use_fused_update=True)
-    main_counts, hist, _ = train_phase(
+    main_counts, hist, main_peak = train_phase(
         torch, "phase 4 main path", FedSpec(**base), 3,
-        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6),
+        expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6),
         profile=True)
     round_ms = [1e3 * h["dt"] for h in hist]
 
     # phase 5: the DP path
     train_phase(torch, "phase 5 DP path",
                 FedSpec(**base, privacy=PrivacySpec(tau=0.01, clip=1.0)), 1,
-                expected_counts(round_uplink=1, round_downlink=1,
+                expected_counts(1, round_uplink=1, round_downlink=1,
                                 fedplt_update=2))
 
     # phase 6: the compressed z-exchange on the main path
     comp_counts, comp_hist, comp_peak = train_phase(
         torch, "phase 6 compressed main path (topk 0.25)",
         FedSpec(**base, compression=CompressionSpec("topk", ratio=0.25)), 3,
-        expected_counts(round_uplink=3, round_downlink=3, fedplt_update=6,
-               rank_select=3), profile=True)
+        expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6,
+                        rank_select=3), profile=True)
     int8_counts, int8_hist, int8_peak = train_phase(
         torch, "phase 6 compressed (int8)",
         FedSpec(**base, compression=CompressionSpec("int8")), 1,
-        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
-               int8_quantize=1), profile=True)
+        expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2,
+                        int8_quantize=1), profile=True)
     _, ada_hist, ada_peak = train_phase(
         torch, "phase 6 compressed (adaptive_topk 0.25, energy 0.95)",
         FedSpec(**base, compression=CompressionSpec("adaptive_topk",
                                                     ratio=0.25)), 1,
-        expected_counts(round_uplink=1, round_downlink=1, fedplt_update=2,
-               rank_select=1))
+        expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2,
+                        rank_select=1))
 
     # phase 7: the byzantine-robust, fault-screened round
     robust_counts, robust_variants = robust_phase(torch, base)
@@ -1392,8 +1803,9 @@ def main() -> int:
     mesh_counts, mesh_hist, mesh_peak = train_phase(
         torch, "phase 8c main path under a 1-rank NCCL mesh (mesh_shape 1x1)",
         FedSpec(**base, mesh_shape="1x1"), 3,
-        expected_counts(round_uplink_partial=3, round_downlink_presummed=3,
-                        fedplt_update=6), profile=True)
+        expected_counts(3, round_uplink_partial=3,
+                        round_downlink_presummed=3, fedplt_update=6),
+        profile=True)
     mesh_ms = [1e3 * h["dt"] for h in mesh_hist]
     log(f"phase 8c: steady rounds {[round(v, 1) for v in mesh_ms[1:]]} ms "
         f"under the mesh, {[round(v, 1) for v in round_ms[1:]]} ms in phase "
@@ -1403,6 +1815,12 @@ def main() -> int:
     y_diff = bf16_y_difference(torch, base)
     mesh_robust = sharded_robust_round(torch, base)
     two_ranks = two_ranks_over_gloo(torch, one_rank)
+
+    # phase 9: flash attention, forward and backward
+    flash_small_checks(torch)
+    flash = flash_full_shape(torch, bw)
+    for kname in ("flash_attention_fwd", "flash_attention_bwd"):
+        recs[kname] = flash["global"][kname[-3:]]
 
     table = []
     meta = {
@@ -1430,6 +1848,14 @@ def main() -> int:
         "round_downlink_presummed": (
             "src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
             "src/repro/kernels/round_edge/kernel.py:345", mesh_counts),
+        # the backward has no TPU kernel: the reference differentiates its
+        # attention by autodiff; both replace the Pallas forward's role
+        "flash_attention_fwd": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:93", main_counts),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:93", main_counts),
     }
     for kname, (source, replaces, path_counts) in meta.items():
         r = recs[kname]
@@ -1460,7 +1886,9 @@ def main() -> int:
                     "sharded": {"round_ms": mesh_ms,
                                 "peak_gb": mesh_peak / 1e9,
                                 "bf16_y": y_diff, "robust": mesh_robust,
-                                "two_gloo_ranks": two_ranks}}))
+                                "two_gloo_ranks": two_ranks},
+                    "main_path_peak_gb": main_peak / 1e9,
+                    "flash_attention_full_shape": flash}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -20,6 +20,10 @@ plain version.
   robust_agg     -- the byzantine-robust coordinator aggregate: per column
                     of the ``(N, M)`` buffer, sort the live agents' values
                     and reduce to a trimmed mean or the median.
+  flash_attention -- the model's attention: online-softmax forward (GQA,
+                    causal mask, sliding window, logit softcap; o and the
+                    float32 log-sum-exp) and its backward (delta, dK/dV,
+                    dQ), behind a ``torch.autograd.Function``.
 
 Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -29,6 +33,7 @@ Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 def _wrappers() -> dict:
     from repro_torch.kernels.compress import ops as compress_ops
     from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.robust_agg import ops as robust_ops
     from repro_torch.kernels.round_edge import ops as edge_ops
 
@@ -39,7 +44,9 @@ def _wrappers() -> dict:
             "fedplt_update": update_ops.fedplt_update,
             "rank_select": compress_ops.rank_select,
             "int8_quantize": compress_ops.int8_quantize,
-            "sort_aggregate": robust_ops.robust_aggregate}
+            "sort_aggregate": robust_ops.robust_aggregate,
+            "flash_attention_fwd": flash_ops.flash_attention_fwd,
+            "flash_attention_bwd": flash_ops.flash_attention_bwd}
 
 
 def launch_counts() -> dict:
@@ -55,8 +62,9 @@ def kernel_sources() -> list:
     """The CUDA sources of every suite (for a parallel build)."""
     from repro_torch.kernels.compress import kernel as compress_kernel
     from repro_torch.kernels.fedplt_update import kernel as update_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.robust_agg import kernel as robust_kernel
     from repro_torch.kernels.round_edge import kernel as edge_kernel
 
     return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE,
-            robust_kernel.SOURCE]
+            robust_kernel.SOURCE, flash_kernel.SOURCE]

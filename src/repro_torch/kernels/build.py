@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,8 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 # sm_90a: Hopper.  --fmad=false keeps every float operation separately
 # rounded, so the kernels match their plain PyTorch versions bit for bit.
+# -Xptxas -v: each kernel's registers and spills in the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -66,29 +69,53 @@ def _start(source: Path):
     return proc, tmp, out
 
 
-def _finish(job, source: Path) -> None:
+def _finish(job, source: Path) -> str:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
+    return log
 
 
-def build_all(sources: Iterable[Path]) -> None:
-    """Compile every source whose library is missing, in parallel."""
+def build_all(sources: Iterable[Path]) -> dict:
+    """Compile every source whose library is missing, in parallel;
+    returns ``{source: nvcc log}`` of the sources compiled now."""
     sources = list(sources)
     jobs = [(_start(s), s) for s in sources]
-    errors = []
+    errors, logs = [], {}
     for job, src in jobs:
         if job is None:
             continue
         try:
-            _finish(job, src)
+            logs[src] = _finish(job, src)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def ptxas_summary(log: str) -> list:
+    """``(kernel, registers, spill store bytes, spill load bytes)`` per
+    entry function of an nvcc ``-Xptxas -v`` log (names as mangled)."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1))) + spills)
+            name, spills = None, (0, 0)
+    return rows
 
 
 @functools.cache

@@ -15,6 +15,13 @@ outside any Pallas kernel:
 
 GQA groups query heads as ``(Hkv, G)``: head ``h = kv * G + g``.  Scores
 are float32; probabilities are cast to v's dtype before the PV product.
+
+These functions are the CPU path of the transformer's layers.  On the
+card every layer (local and global) runs
+``repro_torch.kernels.flash_attention.ops.flash_attention`` instead:
+the hand-written forward and backward kernels, which keep ``p`` in
+float32 for the PV product (so in bfloat16 the two paths differ by the
+rounding of ``p``; in float32 they agree to rounding).
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ parameters passed in -- views of a packed state buffer in the federated
 trainer -- so the module itself holds no weights.
 
 Only the ``global`` / ``local`` attention kinds are ported; MoE, SSM,
-RG-LRU, enc-dec and multimodal frontends raise.
+RG-LRU, enc-dec and multimodal frontends raise.  On a CUDA tensor both
+kinds run the hand-written flash-attention kernels (forward and
+backward); on the CPU they run the reference's plain paths
+(``attn_block_local`` / ``attn_chunked``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (apply_rope, cross_entropy,
                                        embed_scale, init_mlp, mlp,
@@ -128,7 +132,16 @@ class Layer(nn.Module):
         q, k, v = attn_lib.qkv(p, x, n_heads=H, n_kv_heads=Hkv, head_dim=D)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        if self.kind == "local":
+        if q.is_cuda:
+            # both kinds through the hand-written kernel, with the
+            # reference's own arguments (p kept in float32)
+            local = self.kind == "local"
+            o = flash_ops.flash_attention(
+                q, k, v, causal=local or cfg.causal,
+                window=cfg.window if local else None,
+                cap=cfg.attn_softcap)
+            o = o.reshape(q.shape[0], q.shape[1], H * D)
+        elif self.kind == "local":
             o = attn_lib.attn_block_local(q, k, v, window=cfg.window,
                                           cap=cfg.attn_softcap)
         else:

@@ -41,6 +41,15 @@ def test_no_reference_or_jax_imports(path):
     assert not roots & {"jax", "jaxlib", "repro"}, roots
 
 
+def test_flash_attention_suite_is_scanned():
+    """The flash-attention suite is among the modules the import rules
+    here scan (and ``chip_smoke.py``, which drives it on the card)."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    suite = {f"kernels/flash_attention/{m}.py"
+             for m in ("__init__", "kernel", "ops", "ref")}
+    assert suite <= names, suite - names
+
+
 def test_every_module_imports_without_jax_repro_or_triton():
     names = []
     for p in _modules():

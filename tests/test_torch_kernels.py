@@ -23,6 +23,7 @@ from repro_torch.core import prox as tprox
 from repro_torch.kernels.fedplt_update import kernel as update_kernel
 from repro_torch.kernels.fedplt_update import ops as tupdate
 from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+from repro_torch.kernels.flash_attention import ops as tflash
 from repro_torch.kernels.robust_agg import ops as trobust
 from repro_torch.kernels.round_edge import kernel as edge_kernel
 from repro_torch.kernels.round_edge import ops as tedge
@@ -154,6 +155,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     trobust.robust_aggregate(z, stat="trimmed_mean", trim=1)
     tedge.round_uplink_partial(z)
     tedge.round_downlink_presummed(z, z, z, z[:1], torch.ones(3))
+    q = torch.randn(1, 5, 2, 8, requires_grad=True)
+    tflash.flash_attention(q, q[:, :, :1], q[:, :, 1:], window=2,
+                           cap=5.0).sum().backward()
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
                                        "round_uplink_partial": 0,
@@ -161,7 +165,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                                        "fedplt_update": 0,
                                        "rank_select": 0,
                                        "int8_quantize": 0,
-                                       "sort_aggregate": 0}
+                                       "sort_aggregate": 0,
+                                       "flash_attention_fwd": 0,
+                                       "flash_attention_bwd": 0}
 
 
 def test_kernel_launchers_reject_cpu_tensors():
