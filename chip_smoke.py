@@ -11,7 +11,7 @@ last line):
 1. Card: ``nvidia-smi`` name and power limit, torch / CUDA versions; the
    kernels are compiled from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, in parallel); the flash kernels' registers and
-   spills from ``-Xptxas -v``.
+   spills from ``-Xptxas -v`` (and the lru_scan kernels').
 2. Kernels against their plain PyTorch versions on the card: every prox
    of the table, exact and lagged exchanges, with and without the noise
    operand, ragged widths (N=3, M=1000 and M=1001), a participation row
@@ -81,9 +81,11 @@ last line):
    their plain versions (``kernels/flash_attention/ref.py``): fp32 and
    bf16, S = T in (1, 7, 64, 128, 1000), (H, Hkv) in ((8, 4), (8, 8),
    (8, 1)), D in (64, 128, 256), causal or not, window None / 3 / 100,
-   cap None / 50, rows with no visible key, and the main path's own
+   cap None / 50, rows with no visible key, the main path's own
    shape (B 2, S = T 512, H 8, Hkv 4, D 256, bf16, cap 50, causal with
-   window None and 4096).  Tolerance: fp32 o and lse 1e-5 max(1, |ref|)
+   window None and 4096) and recurrentgemma-2b's local layer of phase
+   10d (B 2, S = T 512, H 10, Hkv 1, D 256, bf16, no cap, causal with
+   window None and 2048).  Tolerance: fp32 o and lse 1e-5 max(1, |ref|)
    elementwise, fp32 gradients 1e-4 max|ref|, bf16 one ulp of the plain
    result plus 1e-5 max|ref|; at S = T = 1 the exact dq and dk are 0
    (one key, p = 1), held to 1e-5 max|dv|.  9b: gemma2-2b's attention
@@ -96,6 +98,30 @@ last line):
    PyTorch path the kernel replaces (``attn_chunked`` /
    ``attn_block_local`` with autograd).  9c: the
    same forward and backward again, bit for bit.
+10. The SSM (Mamba-1) and RG-LRU model kinds through the lru_scan
+   kernels (the recurrence ``h_t = a_t h_{t-1} + b_t`` forward, its
+   reverse scan backward).  10a: both kernels bit-equal to their plain
+   versions (``kernels/lru_scan/ref.py``, NaN by position): B in (1, 2,
+   3), S in (1, 7, 128, 129, 1000), W in (1, 5, 1000, 1001), fp32 and
+   bf16, a drawn in (0, 1) with a = 0, 1, 1.5 and -0.7 at scattered
+   entries, one NaN in a, a misaligned view and a 4-D (B, S, W, N) call
+   through the op's autograd Function.  10b: float32 at the trainers'
+   scans (Mamba: B 2, S 512, W 8192 x 16; RG-LRU: B 2, S 512, W 2560)
+   and recurrentgemma's 8192-token context (B 1, W 2560), bit-equal and
+   timed (CUDA events, median of 7) beside the byte bound and the plain
+   versions; no PyTorch call computes the recurrence.  10c: reduced
+   falcon-mamba-7b (2 layers) and recurrentgemma-2b (3 layers: rec,
+   rec, local) in float32, 2 rounds in the tree layout on the card and
+   on the CPU; the states agree to 1e-4.  10d: the full-width trainers,
+   bf16 (a mixed tree: dt_bias, A_log, D and lam stay float32, so the
+   state is the tree layout, the round edges run per leaf in PyTorch and
+   the fused update once per leaf): recurrentgemma-2b cut to one pattern
+   unit (912,309,760 parameters) and falcon-mamba-7b cut to 2 layers
+   (476,966,912), N=4, global batch 8, seq 512, N_e=2, gd, gamma 0.05,
+   weight decay 0.01, fused backend and update, 3 rounds each: lru_scan
+   48 / 48 in both, flash 24 / 24 in recurrentgemma-2b, fedplt_update
+   204 and 72 (one a leaf a local epoch), round edges 0; finite losses
+   and states, peak memory under 80 GB; one profiled round each.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -720,6 +746,8 @@ def _kernel_group(name: str) -> str:
     low = name.lower()
     if "flash_fwd_kernel" in name or "flash_bwd_" in name:
         return "flash_attention"
+    if "lru_fwd_kernel" in name or "lru_bwd_kernel" in name:
+        return "lru_scan"
     if "partial_sum_kernel" in name:
         return "round_uplink_partial"
     if "downlink_presummed_kernel" in name:
@@ -785,6 +813,8 @@ def profile_round(torch, trainer, state, gen, cfg, label):
            "groups_ms": groups, "top_kernels_ms": top}
     if compress_ms:
         rec["compress_kernels_ms"] = compress_ms
+    counts = kernels.launch_counts()
+    bw = card_bandwidth(torch.cuda.get_device_name(0))
     flash_ms = {k: v for k, v in kernels_ms.items()
                 if _kernel_group(k) == "flash_attention"}
     if flash_ms:
@@ -793,9 +823,7 @@ def profile_round(torch, trainer, state, gen, cfg, label):
         # a local layer sees the keys a global (causal) one sees
         if MAIN_SEQ > cfg.window:
             fail(f"{label}: sequence {MAIN_SEQ} > window {cfg.window}")
-        counts = kernels.launch_counts()
-        bounds = flash_bounds(card_bandwidth(torch.cuda.get_device_name(0)),
-                              MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.n_heads,
+        bounds = flash_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.n_heads,
                               cfg.n_kv_heads, cfg.resolved_head_dim, True,
                               None)
         for name in ("fwd", "bwd"):
@@ -805,6 +833,18 @@ def profile_round(torch, trainer, state, gen, cfg, label):
             bound = n * bounds[name]["bound_ms"]
             rec[f"flash_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
                                         share_of_bound=bound / ms)
+    lru_ms = {k: v for k, v in kernels_ms.items()
+              if _kernel_group(k) == "lru_scan"}
+    if lru_ms:
+        # every scan layer of the model has the same width
+        bounds = lru_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ,
+                            scan_width(cfg), 4)
+        for name in ("fwd", "bwd"):
+            n = counts[f"lru_scan_{name}"]
+            ms = sum(v for k, v in lru_ms.items() if f"lru_{name}_kernel" in k)
+            bound = n * bounds[name]["bound_ms"]
+            rec[f"lru_scan_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
+                                           share_of_bound=bound / ms)
     log(f"{label} profile: one round {wall_ms:.1f} ms wall under the "
         f"profiler, device busy {busy:.1f} ms"
         + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
@@ -815,12 +855,36 @@ def profile_round(torch, trainer, state, gen, cfg, label):
 MAIN_SEQ, MAIN_BATCH = 512, 8     # the main path's tokens per sequence, batch
 
 
-def train_phase(torch, label, spec, steps, expect, profile=False):
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """A full-width trainer of the smoke: an architecture at published
+    width cut to ``n_layers``; its parameter count and leaves; the packed
+    width of its state (None: the tree layout, which a mixed-dtype tree
+    takes); its attention and scan layers, which set the flash and
+    lru_scan launches of a round (one forward and one backward per layer
+    per agent per local epoch)."""
+    arch: str
+    n_layers: int
+    n_params: int
+    n_leaves: int
+    packed_width: int | None
+    attn_layers: int
+    scan_layers: int = 0
+
+
+GEMMA = Cell("gemma2-2b", N_LAYERS, 745_549_056, 18, FULL_M, N_LAYERS)
+# one pattern unit (rec, rec, local), and two Mamba layers, both bf16 with
+# float32 leaves (dt_bias, A_log, D; lam): tree layout
+RGEMMA = Cell("recurrentgemma-2b", 3, 912_309_760, 34, None, 1, 2)
+MAMBA = Cell("falcon-mamba-7b", 2, 476_966_912, 12, None, 0, 2)
+
+
+def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA):
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run_fed
 
-    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(cell.arch), n_layers=cell.n_layers)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
@@ -831,24 +895,36 @@ def train_phase(torch, label, spec, steps, expect, profile=False):
     counts = kernels.launch_counts()
     wall = time.time() - t0
     n_params = trainer.model.param_count()
-    if n_params != 745_549_056:
-        fail(f"{label}: {n_params} parameters, want 745,549,056")
-    if trainer.packed_meta.width != FULL_M:
-        fail(f"{label}: packed width {trainer.packed_meta.width}")
+    if n_params != cell.n_params:
+        fail(f"{label}: {n_params} parameters, want {cell.n_params:,}")
+    if len(trainer.model.param_shapes()) != cell.n_leaves:
+        fail(f"{label}: {len(trainer.model.param_shapes())} leaves, want "
+             f"{cell.n_leaves}")
+    meta = trainer.packed_meta
+    if (meta.width if meta is not None else None) != cell.packed_width:
+        fail(f"{label}: packed width {meta and meta.width}, want "
+             f"{cell.packed_width}")
     for h in hist:
         if not math.isfinite(h["loss"]):
             fail(f"{label}: non-finite loss {h['loss']}")
     x = state.x
-    if not bool(torch.isfinite(x).all()):
+
+    def finite(v):
+        return all(bool(torch.isfinite(l).all()) for l in
+                   (v.values() if isinstance(v, dict) else [v]))
+
+    if not finite(x):
         fail(f"{label}: non-finite agent state")
-    if state.t is not None and not bool(torch.isfinite(state.t).all()):
+    if state.t is not None and not finite(state.t):
         fail(f"{label}: non-finite coordinator copy t")
     if counts != expect:
         fail(f"{label}: launch counts {counts}, want {expect}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"{label}: {n_params:,} params, packed state {tuple(x.shape)} "
-        f"{x.dtype}; launches {counts}; peak device memory "
-        f"{peak / 1e9:.2f} GB; {wall:.1f} s wall")
+    layout = (f"packed state {tuple(x.shape)} {x.dtype}" if meta is not None
+              else f"tree state of {len(x)} leaves "
+              f"({sorted({str(l.dtype) for l in x.values()})})")
+    log(f"{label}: {n_params:,} params, {layout}; launches {counts}; peak "
+        f"device memory {peak / 1e9:.2f} GB; {wall:.1f} s wall")
     if profile:
         profile_round(torch, trainer, state, trainer_gen, cfg,
                       " ".join(label.split()[:2]))
@@ -857,16 +933,19 @@ def train_phase(torch, label, spec, steps, expect, profile=False):
     return counts, hist, peak
 
 
-def expected_counts(rounds=0, **kw):
+def expected_counts(rounds=0, cell=GEMMA, **kw):
     """Every kernel's launch count: 0 unless given; ``rounds`` rounds of
-    the full-width trainer add their attention launches (every agent's
-    every local epoch runs one forward and one backward per layer)."""
+    the full-width trainer ``cell`` add their attention and scan launches
+    (every agent's every local epoch runs one forward and one backward per
+    attention layer, and per scan layer)."""
     from repro_torch import kernels
 
     out = dict.fromkeys(kernels.launch_counts(), 0)
-    per_round = FULL_N * N_EPOCHS * N_LAYERS
-    out.update(flash_attention_fwd=rounds * per_round,
-               flash_attention_bwd=rounds * per_round)
+    per_round = FULL_N * N_EPOCHS
+    out.update(flash_attention_fwd=rounds * per_round * cell.attn_layers,
+               flash_attention_bwd=rounds * per_round * cell.attn_layers,
+               lru_scan_fwd=rounds * per_round * cell.scan_layers,
+               lru_scan_bwd=rounds * per_round * cell.scan_layers)
     out.update(kw)
     return out
 
@@ -1489,6 +1568,32 @@ def flash_small_checks(torch):
         n_checks += 1
     main_shape = f"B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}, bf16, cap " \
         f"{cfg.attn_softcap}, causal with window None and {cfg.window}"
+    # recurrentgemma-2b's local layer in phase 10d: MQA, 10 heads over 1
+    cfg = get_config("recurrentgemma-2b")
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    for window in (None, cfg.window):
+        kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
+        tag = f"recurrentgemma shape B={B} S={S} H={H} Hkv={Hkv} D={D} " \
+            f"bf16 {kw}"
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = fref.flash_attention_ref(q, k, v, **kw)
+        worst["o"] = max(worst["o"], flash_close(torch, o, po,
+                                                 "flash fwd o " + tag))
+        worst["lse"] = max(worst["lse"], flash_close(
+            torch, lse, plse, "flash fwd lse " + tag))
+        for name, a, b in zip(("dq", "dk", "dv"),
+                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
+                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
+            worst["grad"] = max(worst["grad"], flash_close(
+                torch, a, b, f"flash bwd {name} {tag}", grad=True))
+        n_checks += 1
+    main_shape += f"; recurrentgemma-2b's B {B}, S = T {S}, H {H}, Hkv " \
+        f"{Hkv}, D {D}, bf16, no cap, causal with window None and " \
+        f"{cfg.window}"
     # rows with no visible key (S > T + window - 1): the mean of v
     q = torch.randn((2, 300, 8, 64), generator=gen, device=dev)
     k, v = (torch.randn((2, 40, 4, 64), generator=gen, device=dev)
@@ -1714,6 +1819,212 @@ def flash_full_shape(torch, bw):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the SSM and RG-LRU model kinds, the lru_scan kernels
+# ---------------------------------------------------------------------------
+
+# the trainers' scans (B 2 a agent, S 512) and recurrentgemma's at its
+# 8192-token context: (B, S, W)
+LRU_FULL = {"mamba": (2, 512, 8192 * 16), "rglru": (2, 512, 2560),
+            "rglru_8k": (1, 8192, 2560)}
+
+
+def scan_width(cfg) -> int:
+    """The channels of the model's scans: Mamba's d_inner x state, or the
+    RG-LRU width."""
+    if "ssm" in cfg.layer_kinds():
+        return cfg.d_inner * cfg.ssm_state
+    return cfg.resolved_lru_width
+
+
+def lru_bounds(bw, B, S, W, elt):
+    """The least time of the scans at a shape: the bytes (forward reads a,
+    b and writes h; backward reads g, a, h and writes da, db; each once)
+    over the memory rate, or the float operations (2 a step forward, 3
+    backward) over the float32 peak, whichever is larger."""
+    n = B * S * W
+    out = {}
+    for name, n_io, flops in (("fwd", 3, 2 * n), ("bwd", 5, 3 * n)):
+        bytes_ = n_io * n * elt
+        out[name] = dict(bytes=bytes_, flops=flops,
+                         bound_ms=max(bytes_ / bw, flops / FP32_PEAK) * 1e3,
+                         bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
+                         else "operations")
+    return out
+
+
+def lru_small_checks(torch):
+    """Phase 10a: both scan kernels against their plain versions, bit for
+    bit (NaN by position): B in (1, 2, 3), S in (1, 7, 128, 129, 1000), W
+    in (1, 5, 1000, 1001), float32 and bfloat16, a drawn in (0, 1) with
+    a = 0, 1, 1.5 and -0.7 at scattered entries; one NaN in a; a 4-D
+    (B, S, W, N) call through the op and its autograd Function; a view
+    one element past an aligned allocation."""
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    special = torch.tensor([0.0, 1.0, 1.5, -0.7], device=dev)
+    n_checks = 0
+
+    def check(a, b, g, tag):
+        h = lops.lru_scan_fwd(a, b)
+        same_bits(torch, h, lref.lru_scan_ref(a, b), f"lru_scan fwd {tag}")
+        for name, got, want in zip(("da", "db"), lops.lru_scan_bwd(a, h, g),
+                                   lref.lru_scan_bwd_ref(a, h, g)):
+            same_bits(torch, got, want, f"lru_scan bwd {name} {tag}")
+
+    def draw(shape, dtype):
+        a = torch.rand(shape, generator=gen, device=dev)
+        pos = torch.randint(0, a.numel(), (8,), generator=gen, device=dev)
+        a.view(-1)[pos] = special.repeat(2)
+        b, g = (torch.randn(shape, generator=gen, device=dev)
+                for _ in range(2))
+        return tuple(t.to(dtype) for t in (a, b, g))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 2, 3):
+            for S in (1, 7, 128, 129, 1000):
+                for W in (1, 5, 1000, 1001):
+                    check(*draw((B, S, W), dtype), f"{dtype} B={B} S={S} W={W}")
+                    n_checks += 1
+        a, b, g = draw((2, 129, 1001), dtype)
+        a[1, 3, 2] = float("nan")
+        check(a, b, g, f"{dtype} one NaN in a")
+        # one element past an aligned allocation (the kernels load
+        # scalars, so any element alignment is legal)
+        a, b, g = (torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:]
+                   .view(t.shape).copy_(t) for t in draw((3, 129, 1000), dtype))
+        check(a, b, g, f"{dtype} misaligned view")
+        # 4-D through the op: the fold and LruScan's forward and backward
+        a, b, g = draw((2, 129, 40, 16), dtype)
+        la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        h = lops.lru_scan(la, lb)
+        da, db = torch.autograd.grad(h, (la, lb), g)
+        fold = lambda t: t.reshape(2, 129, 640)
+        want_h = lref.lru_scan_ref(fold(a), fold(b))
+        same_bits(torch, h.detach(), want_h.reshape(h.shape),
+                  f"lru_scan 4-D fwd {dtype}")
+        for got, want in zip((da, db), lref.lru_scan_bwd_ref(
+                fold(a), want_h, fold(g))):
+            same_bits(torch, got, want.reshape(got.shape),
+                      f"lru_scan 4-D bwd {dtype}")
+        n_checks += 3
+    torch.cuda.synchronize()
+    log(f"phase 10a: {n_checks} lru_scan checks (forward h, backward da and "
+        f"db) bit-equal to the plain versions: fp32 and bf16, B in (1, 2, "
+        f"3), S in (1, 7, 128, 129, 1000), W in (1, 5, 1000, 1001), a in "
+        f"(0, 1) with a = 0, 1, 1.5, -0.7 at scattered entries, one NaN in "
+        f"a (propagated at the plain version's positions), a misaligned "
+        f"view, and a 4-D (2, 129, 40, 16) call through the autograd "
+        f"Function")
+
+
+def lru_full_shape(torch, bw):
+    """Phase 10b: the scans at the trainers' shapes and recurrentgemma's
+    8192-token context, float32, bit-equal to the plain versions and timed
+    (CUDA events, median of 7; plain median of 3) beside the byte bound.
+    Returns ``{name: record}`` with ``lru_scan_fwd`` / ``_bwd`` at the
+    Mamba shape and ``lru_scan_fwd[rglru ...]`` variants."""
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    recs = {}
+    for shape_name, (B, S, W) in LRU_FULL.items():
+        a = torch.rand((B, S, W), generator=gen, device=dev)
+        b, g = (torch.randn((B, S, W), generator=gen, device=dev)
+                for _ in range(2))
+        h = lops.lru_scan_fwd(a, b)
+        ph = lref.lru_scan_ref(a, b)
+        same_bits(torch, h, ph, f"phase 10b {shape_name} h")
+        err = {"fwd": float((h - ph).abs().max())}
+        del ph
+        grads = lops.lru_scan_bwd(a, h, g)
+        want = lref.lru_scan_bwd_ref(a, h, g)
+        for n, x, y in zip(("da", "db"), grads, want):
+            same_bits(torch, x, y, f"phase 10b {shape_name} {n}")
+        err["bwd"] = max(float((x - y).abs().max())
+                         for x, y in zip(grads, want))
+        del grads, want
+        torch.cuda.empty_cache()
+        ms = {"fwd": cuda_ms(torch, lambda: lops.lru_scan_fwd(a, b)),
+              "bwd": cuda_ms(torch, lambda: lops.lru_scan_bwd(a, h, g))}
+        plain = {"fwd": cuda_ms(torch, lambda: lref.lru_scan_ref(a, b),
+                                reps=3),
+                 "bwd": cuda_ms(torch, lambda: lref.lru_scan_bwd_ref(a, h, g),
+                                reps=3)}
+        bounds = lru_bounds(bw, B, S, W, 4)
+        for name in ("fwd", "bwd"):
+            bd = bounds[name]
+            rec = dict(shape=[B, S, W], ms=ms[name], plain_ms=plain[name],
+                       max_abs_err=err[name], library_ms=None, **bd)
+            key = (f"lru_scan_{name}" if shape_name == "mamba" else
+                   f"lru_scan_{name}[{shape_name} B{B} S{S} W{W}]")
+            recs[key] = rec
+            log(f"phase 10b {shape_name} (B {B}, S {S}, W {W:,}, fp32) "
+                f"{name}: bit-equal to the plain version; kernel "
+                f"{ms[name]:.4f} ms, plain {plain[name]:.3f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bytes'] / 1e6:.1f} MB at "
+                f"{bw / 1e12:.2f} TB/s), {100 * bd['bound_ms'] / ms[name]:.1f}% "
+                f"of bound; no PyTorch call computes the recurrence")
+        del a, b, g, h
+        torch.cuda.empty_cache()
+    return recs
+
+
+def ssm_small_input_parity(torch, spec_kw):
+    """Phase 10c: reduced falcon-mamba (2 layers) and recurrentgemma (3
+    layers), float32, 2 rounds in the tree layout on the card (the scan,
+    flash, edge and update kernels) and on the CPU (plain versions); the
+    states agree to 1e-4.  Returns ``{arch: max abs err}``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for cell in (MAMBA, RGEMMA):
+        cfg = get_config(cell.arch).reduced(n_layers=cell.n_layers)
+        spec = api.FedSpec(**dict(spec_kw, n_agents=2))
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        shape = InputShape("small", 64, 4, "train")
+        batches = [make_batch_for(cfg, shape, gen, n_agents=2)
+                   for _ in range(2)]
+        states, counts = {}, {}
+        for dev in ("cuda", "cpu"):
+            tr = api.build_trainer(model, spec, dev)
+            st, _ = tr.init(0, params=params)
+            kernels.reset_launch_counts()
+            for b in batches:
+                st, _ = tr.step(st, b, u=torch.ones(2))
+            states[dev], counts[dev] = st, kernels.launch_counts()
+        err = max(float((getattr(states["cuda"], v)[n].cpu()
+                         - getattr(states["cpu"], v)[n]).abs().max())
+                  for v in ("x", "z") for n in states["cpu"].x)
+        scans = 2 * 2 * N_EPOCHS * cell.scan_layers
+        flash = 2 * 2 * N_EPOCHS * cell.attn_layers
+        got = {k: counts["cuda"][k] for k in ("lru_scan_fwd", "lru_scan_bwd",
+                                               "flash_attention_fwd",
+                                               "flash_attention_bwd")}
+        want = dict(lru_scan_fwd=scans, lru_scan_bwd=scans,
+                    flash_attention_fwd=flash, flash_attention_bwd=flash)
+        if not err <= 1e-4 or got != want or set(counts["cpu"].values()) != {0}:
+            fail(f"phase 10c {cell.arch}: card vs CPU max abs err {err}, "
+                 f"card launches {got} (want {want}), CPU {counts['cpu']}")
+        log(f"phase 10c: reduced {cell.arch} ({cfg.layer_kinds()}) fp32, "
+            f"tree layout, 2 rounds, card (kernels: {got}) vs CPU (plain "
+            f"versions): max abs err {err:.3g} (tolerance 1e-4)")
+        out[cell.arch] = err
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1742,7 +2053,7 @@ def main() -> int:
     log(f"phase 1: kernels built in {time.time() - t0:.1f} s "
         f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
     for src, text in logs.items():
-        if "flash_attention" not in str(src):
+        if "flash_attention" not in str(src) and "lru_scan" not in str(src):
             continue
         for kname, regs, st, ld in build.ptxas_summary(text):
             log(f"phase 1 ptxas: {kname[:72]}: {regs} registers, spill "
@@ -1822,6 +2133,25 @@ def main() -> int:
     for kname in ("flash_attention_fwd", "flash_attention_bwd"):
         recs[kname] = flash["global"][kname[-3:]]
 
+    # phase 10: the SSM and RG-LRU kinds through the lru_scan kernels
+    lru_small_checks(torch)
+    recs.update(lru_full_shape(torch, bw))
+    ssm_base = dict(base, state_layout="tree")
+    ssm_parity = ssm_small_input_parity(torch, ssm_base)
+    ssm = {"card_vs_cpu_max_abs_err": ssm_parity}
+    for cell in (RGEMMA, MAMBA):
+        label = f"phase 10d/{cell.arch} ({cell.n_layers} layers, tree layout)"
+        counts, hist, peak = train_phase(
+            torch, label, FedSpec(**ssm_base), 3,
+            expected_counts(3, cell, fedplt_update=3 * N_EPOCHS * cell.n_leaves),
+            profile=True, cell=cell)
+        if peak > 80e9:
+            fail(f"{label}: peak device memory {peak / 1e9:.2f} GB")
+        ssm[cell.arch] = {"counts": counts, "peak_gb": peak / 1e9,
+                          "round_ms": [1e3 * h["dt"] for h in hist],
+                          "losses": [h["loss"] for h in hist]}
+    lru_counts = ssm[MAMBA.arch]["counts"]
+
     table = []
     meta = {
         "round_uplink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
@@ -1856,6 +2186,14 @@ def main() -> int:
         "flash_attention_bwd": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:93", main_counts),
+        # likewise the scan's backward: the reference differentiates its
+        # scan by autodiff
+        "lru_scan_fwd": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+                         "src/repro/kernels/lru_scan/kernel.py:52",
+                         lru_counts),
+        "lru_scan_bwd": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
+                         "src/repro/kernels/lru_scan/kernel.py:52",
+                         lru_counts),
     }
     for kname, (source, replaces, path_counts) in meta.items():
         r = recs[kname]
@@ -1888,7 +2226,8 @@ def main() -> int:
                                 "bf16_y": y_diff, "robust": mesh_robust,
                                 "two_gloo_ranks": two_ranks},
                     "main_path_peak_gb": main_peak / 1e9,
-                    "flash_attention_full_shape": flash}))
+                    "flash_attention_full_shape": flash,
+                    "ssm_rglru": ssm}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

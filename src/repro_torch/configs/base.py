@@ -2,8 +2,8 @@
 
 A copy of the reference's ``repro/configs/base.py`` fields (the port
 keeps every field so one config reads the same in both packages, even
-where the port does not act on it yet: MoE, SSM, RG-LRU and enc-dec
-models raise in :mod:`repro_torch.models.transformer`).
+where the port does not act on it yet: MoE and enc-dec models raise
+in :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations
@@ -88,6 +88,18 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or max(1, -(-self.d_model // 16))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer temporal-mixing kind, cycling ``pattern``."""

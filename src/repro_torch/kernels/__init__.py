@@ -24,6 +24,10 @@ plain version.
                     causal mask, sliding window, logit softcap; o and the
                     float32 log-sum-exp) and its backward (delta, dK/dV,
                     dQ), behind a ``torch.autograd.Function``.
+  lru_scan       -- the SSM / RG-LRU time mixing: the diagonal linear
+                    recurrence ``h_t = a_t h_{t-1} + b_t`` (forward) and
+                    its reverse scan (backward), behind a
+                    ``torch.autograd.Function``.
 
 Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -34,6 +38,7 @@ def _wrappers() -> dict:
     from repro_torch.kernels.compress import ops as compress_ops
     from repro_torch.kernels.fedplt_update import ops as update_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.lru_scan import ops as lru_ops
     from repro_torch.kernels.robust_agg import ops as robust_ops
     from repro_torch.kernels.round_edge import ops as edge_ops
 
@@ -46,7 +51,9 @@ def _wrappers() -> dict:
             "int8_quantize": compress_ops.int8_quantize,
             "sort_aggregate": robust_ops.robust_aggregate,
             "flash_attention_fwd": flash_ops.flash_attention_fwd,
-            "flash_attention_bwd": flash_ops.flash_attention_bwd}
+            "flash_attention_bwd": flash_ops.flash_attention_bwd,
+            "lru_scan_fwd": lru_ops.lru_scan_fwd,
+            "lru_scan_bwd": lru_ops.lru_scan_bwd}
 
 
 def launch_counts() -> dict:
@@ -63,8 +70,9 @@ def kernel_sources() -> list:
     from repro_torch.kernels.compress import kernel as compress_kernel
     from repro_torch.kernels.fedplt_update import kernel as update_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.lru_scan import kernel as lru_kernel
     from repro_torch.kernels.robust_agg import kernel as robust_kernel
     from repro_torch.kernels.round_edge import kernel as edge_kernel
 
     return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE,
-            robust_kernel.SOURCE, flash_kernel.SOURCE]
+            robust_kernel.SOURCE, flash_kernel.SOURCE, lru_kernel.SOURCE]

@@ -3,7 +3,9 @@
 
 A CUDA tensor goes to the CUDA kernel (:mod:`.kernel`), a CPU tensor to
 the plain version (:mod:`.ref`); no fallback.  ``g``, ``v`` and ``t``
-are cast to ``w``'s dtype first, as the reference's wrapper casts them.
+are cast to ``w``'s dtype first, as the reference's wrapper casts them,
+and made contiguous: in the tree layout a leaf of ``v`` is a view into
+the fused uplink's packed buffer (a column block of its rows).
 ``fedplt_update.launches`` counts kernel launches.
 """
 
@@ -24,8 +26,8 @@ def fedplt_update(w, g, v, t=None, *, gamma: float, inv_rho: float,
     if w.device.type == "cpu":
         return out.copy_(fedplt_update_ref(w, g, v, t, gamma=gamma,
                                            inv_rho=inv_rho))
-    g, v = g.to(w.dtype), v.to(w.dtype)
-    t = None if t is None else t.to(w.dtype)
+    g, v = g.to(w.dtype).contiguous(), v.to(w.dtype).contiguous()
+    t = None if t is None else t.to(w.dtype).contiguous()
     kernel.fedplt_update(w, g, v, t, out, gamma, inv_rho)
     fedplt_update.launches += 1
     return out

@@ -101,6 +101,21 @@ def softcap(x: torch.Tensor, cap) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b=None) -> torch.Tensor:
+    """Depthwise causal temporal conv. x: (B, S, C); w: (K, C).  The K
+    taps unrolled and summed in the reference's order (no conv
+    primitive)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + pad[:, k:k + S, :] * w[k]
+    if b is not None:
+        out = out + b
+    return out
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask=None) -> torch.Tensor:
     """Mean token cross-entropy; logits promoted to float32."""

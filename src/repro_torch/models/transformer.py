@@ -13,11 +13,15 @@ device and driven through ``torch.func.functional_call`` with the
 parameters passed in -- views of a packed state buffer in the federated
 trainer -- so the module itself holds no weights.
 
-Only the ``global`` / ``local`` attention kinds are ported; MoE, SSM,
-RG-LRU, enc-dec and multimodal frontends raise.  On a CUDA tensor both
-kinds run the hand-written flash-attention kernels (forward and
-backward); on the CPU they run the reference's plain paths
-(``attn_block_local`` / ``attn_chunked``).
+The ``global`` / ``local`` attention kinds, the ``ssm`` (Mamba-1) and
+``rec`` (RG-LRU) kinds are ported; MoE, enc-dec and multimodal frontends
+raise.  On a CUDA tensor the attention kinds run the hand-written
+flash-attention kernels and the ``ssm`` / ``rec`` kinds the hand-written
+``lru_scan`` kernels (forward and backward); on the CPU they run the
+reference's plain paths (``attn_block_local`` / ``attn_chunked``, the
+chunked associative scan).  An ``ssm`` layer has no FFN (``ln1`` and
+``mamba`` only), as in the reference; its ``dt_bias``, ``A_log`` and
+``D`` and an RG-LRU's ``lam`` are float32 whatever the model's dtype.
 """
 
 from __future__ import annotations
@@ -30,17 +34,19 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, cross_entropy,
                                        embed_scale, init_mlp, mlp,
                                        mlp_shapes, rms_norm, softcap)
 
-_PORTED_KINDS = ("global", "local")
+_PORTED_KINDS = ("global", "local", "ssm", "rec")
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet: repro_torch runs the dense "
-        f"global/local transformer only (later slice of the port)")
+        f"{what} is not ported yet: repro_torch runs the global, local, "
+        f"ssm and rec layer kinds only (later slice of the port)")
 
 
 # ---------------------------------------------------------------------------
@@ -90,41 +96,43 @@ def _param(shape, dtype):
     return nn.Parameter(torch.empty(shape, dtype=dtype), requires_grad=False)
 
 
-class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, n_units: int, dtype):
+class Params(nn.Module):
+    """A block's parameters stacked over units; ``shapes`` maps each name
+    to its ``(shape, dtype)``."""
+
+    def __init__(self, shapes: dict, n_units: int):
         super().__init__()
-        shapes = attn_lib.attn_shapes(cfg.d_model, cfg.n_heads,
-                                      cfg.n_kv_heads, cfg.resolved_head_dim)
-        for k, s in shapes.items():
+        self.names = tuple(shapes)
+        for k, (s, dtype) in shapes.items():
             setattr(self, k, _param((n_units,) + s, dtype))
 
     def unit(self, u: int) -> dict:
-        return {"wq": self.wq[u], "wk": self.wk[u], "wv": self.wv[u],
-                "wo": self.wo[u]}
-
-
-class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, n_units: int, dtype):
-        super().__init__()
-        shapes = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.activation)
-        for k, s in shapes.items():
-            setattr(self, k, _param((n_units,) + s, dtype))
-
-    def unit(self, u: int) -> dict:
-        return {"wi": self.wi[u], "wo": self.wo[u]}
+        return {k: getattr(self, k)[u] for k in self.names}
 
 
 class Layer(nn.Module):
-    """One attention + FFN layer, parameters stacked over units."""
+    """One layer of a kind, parameters stacked over units: attention (or
+    an RG-LRU block) + FFN, or a Mamba block alone."""
 
     def __init__(self, kind: str, cfg: ModelConfig, n_units: int, dtype):
         super().__init__()
         self.kind = kind
         self.cfg = cfg
         self.ln1 = _param((n_units, cfg.d_model), dtype)
-        self.attn = Attention(cfg, n_units, dtype)
+        if kind == "ssm":
+            self.mamba = Params(ssm_lib.mamba_shapes(cfg, dtype), n_units)
+            return
+        if kind == "rec":
+            self.rec = Params(rglru_lib.rglru_shapes(cfg, dtype), n_units)
+        else:
+            shapes = attn_lib.attn_shapes(cfg.d_model, cfg.n_heads,
+                                          cfg.n_kv_heads,
+                                          cfg.resolved_head_dim)
+            self.attn = Params({k: (s, dtype) for k, s in shapes.items()},
+                               n_units)
         self.ln2 = _param((n_units, cfg.d_model), dtype)
-        self.mlp = MLP(cfg, n_units, dtype)
+        shapes = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.activation)
+        self.mlp = Params({k: (s, dtype) for k, s in shapes.items()}, n_units)
 
     def _attention(self, p, x, positions):
         cfg = self.cfg
@@ -152,8 +160,13 @@ class Layer(nn.Module):
 
     def forward(self, x, u: int, positions):
         eps = self.cfg.norm_eps
-        x = x + self._attention(self.attn.unit(u),
-                                rms_norm(x, self.ln1[u], eps), positions)
+        h = rms_norm(x, self.ln1[u], eps)
+        if self.kind == "ssm":
+            return x + ssm_lib.mamba_forward(self.mamba.unit(u), h, self.cfg)
+        if self.kind == "rec":
+            x = x + rglru_lib.rglru_forward(self.rec.unit(u), h, self.cfg)
+        else:
+            x = x + self._attention(self.attn.unit(u), h, positions)
         h = rms_norm(x, self.ln2[u], eps)
         return x + mlp(self.mlp.unit(u), h, self.cfg.activation)
 
@@ -211,19 +224,25 @@ class Transformer(nn.Module):
 # the port draws from a torch.Generator)
 # ---------------------------------------------------------------------------
 
-def _init_layer(generator, cfg: ModelConfig, dtype, device,
+def _init_layer(generator, kind: str, cfg: ModelConfig, dtype, device,
                 n_units: int) -> dict:
     d = cfg.d_model
     lead = (n_units,)
-    return {
-        "ln1": torch.zeros(lead + (d,), dtype=dtype, device=device),
-        "attn": attn_lib.init_attn(generator, d, cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.resolved_head_dim,
-                                   dtype, device=device, lead=lead),
-        "ln2": torch.zeros(lead + (d,), dtype=dtype, device=device),
-        "mlp": init_mlp(generator, d, cfg.d_ff, cfg.activation, dtype,
-                        device=device, lead=lead),
-    }
+    p = {"ln1": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+    if kind == "ssm":
+        p["mamba"] = ssm_lib.init_mamba(generator, cfg, dtype, device, lead)
+        return p
+    if kind == "rec":
+        p["rec"] = rglru_lib.init_rglru_block(generator, cfg, dtype, device,
+                                              lead)
+    else:
+        p["attn"] = attn_lib.init_attn(generator, d, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.resolved_head_dim,
+                                       dtype, device=device, lead=lead)
+    p["ln2"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+    p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.activation, dtype,
+                        device=device, lead=lead)
+    return p
 
 
 def _flatten(tree, prefix=""):
@@ -244,9 +263,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     tree = {"stages": {
-        str(si): {str(i): _init_layer(generator, cfg, dtype, device,
+        str(si): {str(i): _init_layer(generator, kind, cfg, dtype, device,
                                       s.n_units)
-                  for i in range(len(s.unit))}
+                  for i, kind in enumerate(s.unit)}
         for si, s in enumerate(build_stages(cfg))}}
     tree["embed"] = (cfg.d_model ** -0.5 * torch.randn(
         (cfg.vocab, cfg.d_model), generator=generator,

@@ -50,6 +50,17 @@ def test_flash_attention_suite_is_scanned():
     assert suite <= names, suite - names
 
 
+def test_ssm_slice_modules_are_scanned():
+    """The lru_scan suite, the SSM and RG-LRU blocks and their configs are
+    among the modules the import rules here scan."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    slice_ = {f"kernels/lru_scan/{m}.py"
+              for m in ("__init__", "kernel", "ops", "ref")}
+    slice_ |= {"models/ssm.py", "models/rglru.py",
+               "configs/falcon_mamba_7b.py", "configs/recurrentgemma_2b.py"}
+    assert slice_ <= names, slice_ - names
+
+
 def test_every_module_imports_without_jax_repro_or_triton():
     names = []
     for p in _modules():

@@ -24,6 +24,7 @@ from repro_torch.kernels.fedplt_update import kernel as update_kernel
 from repro_torch.kernels.fedplt_update import ops as tupdate
 from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
 from repro_torch.kernels.flash_attention import ops as tflash
+from repro_torch.kernels.lru_scan import ops as tlru
 from repro_torch.kernels.robust_agg import ops as trobust
 from repro_torch.kernels.round_edge import kernel as edge_kernel
 from repro_torch.kernels.round_edge import ops as tedge
@@ -158,6 +159,8 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     q = torch.randn(1, 5, 2, 8, requires_grad=True)
     tflash.flash_attention(q, q[:, :, :1], q[:, :, 1:], window=2,
                            cap=5.0).sum().backward()
+    a = torch.rand(2, 6, 3, 4, requires_grad=True)
+    tlru.lru_scan(a, a).sum().backward()
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
                                        "round_uplink_partial": 0,
@@ -167,7 +170,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                                        "int8_quantize": 0,
                                        "sort_aggregate": 0,
                                        "flash_attention_fwd": 0,
-                                       "flash_attention_bwd": 0}
+                                       "flash_attention_bwd": 0,
+                                       "lru_scan_fwd": 0,
+                                       "lru_scan_bwd": 0}
 
 
 def test_kernel_launchers_reject_cpu_tensors():
