@@ -123,6 +123,34 @@ last line):
    204 and 72 (one a leaf a local epoch), round edges 0; finite losses
    and states, peak memory under 80 GB; one profiled round each.
 
+11. ``segment_ranks`` (the last TPU kernel: stable descending-|x| ranks
+   within every column interval) and the paper's dense front end.  11a:
+   the kernel bit-equal to its plain version (``kernels/compress/ref.py``
+   ``segment_ranks_ref``): N in (1, 2, 3, 5, 100), M = 1000 and 1001,
+   fp32 and bf16, no segments, one, and several with leading, interior
+   and trailing gaps, tie-heavy, all-equal and all-zero rows, +-0.0,
+   +-inf and NaN, a misaligned view; and ``where(segment_ranks < k, x,
+   0)`` equal to the rank_select kernel's topk per segment.  11b: the
+   public op at the trainer's packed increment (4 x 745,549,056 bf16, 18
+   segments), launch counted, bit-equal to the plain version run row by
+   row, timed beside the byte bound (read x, write int32 ranks), the
+   plain version and ``torch.argsort(stable)`` per (row, interval) as a
+   yardstick.  11c: the paper's problem (N 100, q 250, n 5, eps 0.5)
+   through ``build_trainer(problem, FedSpec(rho=1, n_epochs=5))`` on the
+   card and on the CPU: 200 rounds (the same hitting round, states 1e-5),
+   50% participation with a given ``u`` over 400 rounds, FedAvg's drift
+   plateau (1e-3 relative), ``||x_bar - x*|| < 1e-4`` against ``solve()``.
+   11d: the dense kernel path (fused edges, packed state,
+   ``use_fused_update`` -- which the dense solver never takes -- the fused
+   compress backend, gamma given) on the paper's problem and Table 5's
+   n = 100: topk 0.25, int8, adaptive_topk, trimmed_mean f=5 with guards
+   and coord_median with an evicted agent, 20 rounds each: uplink,
+   downlink and the compress or sort_aggregate kernel 20 launches each,
+   fedplt_update 0; 5 rounds checked against the CPU round by round
+   (1e-5); steady round ms and one profiled round.  11e: the private
+   pipeline (Lemma 7's stabilizer, Prop. 4's noise calibration, noisy GD
+   with ``dp_init``, the (eps, delta) report, Corollary 1's bound).
+
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
 int8, fp32 and bf16, N=3, M=1000 and 1001, one segment and several with
@@ -157,6 +185,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_N, FULL_M = 4, 745_549_056
@@ -766,6 +795,10 @@ def _kernel_group(name: str) -> str:
         return "int8_quantize"
     if "sort_aggregate_kernel" in name:
         return "sort_aggregate"
+    if any(k in name for k in ("hist_kernel", "scan_reduce_kernel",
+                                 "scan_partials_kernel", "scan_apply_kernel",
+                                 "scatter_kernel")):
+        return "segment_ranks"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "matmul"
     if any(k in low for k in ("copy", "memcpy", "fill", "memset")):
@@ -777,32 +810,21 @@ def profile_round(torch, trainer, state, gen, cfg, label):
     """One more main-path round under torch.profiler: device time by
     kernel group, the top kernels, and the device's idle share of the
     round's wall time (one stream, so kernel times do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import kernels
     from repro_torch.configs.base import InputShape
     from repro_torch.data.synthetic import make_batch_for
 
     shape = InputShape("profile", MAIN_SEQ, MAIN_BATCH, "train")
     batch = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device="cuda")
-    torch.cuda.synchronize()
+
     kernels.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def one_round():
         _, m = trainer.step(state, batch, gen)
         float(m["loss"])
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels_ms = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + ms
-        kernels_ms[e.key[:60]] = kernels_ms.get(e.key[:60], 0.0) + ms
+
+    wall_ms, groups, kernels_ms = _profile(torch, one_round)
     busy = sum(groups.values())
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     compress_ms = {k: v for k, v in kernels_ms.items()
@@ -2025,6 +2047,486 @@ def ssm_small_input_parity(torch, spec_kw):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: segment_ranks and the dense front end
+# ---------------------------------------------------------------------------
+
+RANK_NS = (1, 2, 3, 5, 100)
+
+
+def segment_ranks_small_checks(torch):
+    """Phase 11a: the segment_ranks kernel bit-equal to its plain version;
+    then, per segment, the ranks against the rank_select kernel."""
+    from repro_torch.kernels.compress import ops as cops
+    from repro_torch.kernels.compress import ref as cref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
+                             -1.0], device=dev)
+    n_checks = 0
+
+    def check(x, segs, tag):
+        nonlocal n_checks
+        got = cops.segment_ranks(x, segments=segs)
+        want = cref.segment_ranks_ref(x, segs)
+        if not torch.equal(got, want):
+            fail(f"segment_ranks {tag} segs={segs}: "
+                 f"{int((got != want).sum())} ranks differ")
+        n_checks += 1
+        return got
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in RANK_NS:
+            for m in (1000, 1001):
+                seg_sets = (None, ((17, m - 20),),
+                            ((5, 300), (310, 700), (700, m - 5)))
+                x = torch.randn((n, m), generator=gen, device=dev)
+                x[0, ::97] = specials[torch.arange(x[0, ::97].numel(),
+                                                   device=dev) % 7]
+                ties = torch.tensor([-1.0, -0.5, 0.0, 0.5, 1.0], device=dev)[
+                    torch.randint(0, 5, (n, m), generator=gen, device=dev)]
+                if n > 2:
+                    ties[1] = 0.5             # all equal
+                    ties[2] = 0.0             # all zero
+                x, ties = x.to(dtype), ties.to(dtype)
+                for segs in seg_sets:
+                    check(x, segs, f"{dtype} N={n} M={m} randn+specials")
+                    check(ties, segs, f"{dtype} N={n} M={m} ties")
+                wide = torch.randn((n + 1, m), generator=gen,
+                                   device=dev).to(dtype)
+                check(wide[1:], seg_sets[2], f"{dtype} N={n} M={m} "
+                      f"misaligned view")
+                # kernel against kernel: where(rank < k, x, 0) is top-k
+                segs = seg_sets[2]
+                ranks = cops.segment_ranks(x, segments=segs)
+                for r in (0.01, 0.25):
+                    top = cops.rank_select(x, segments=segs, mode="topk",
+                                           ratio=r)
+                    for s0, s1 in segs:
+                        k = cref.seg_k(r, s1 - s0)
+                        sel = torch.where(ranks[:, s0:s1] < k, x[:, s0:s1],
+                                          torch.zeros_like(x[:, s0:s1]))
+                        kept = top[:, s0:s1]
+                        same = (sel == kept) | (torch.isnan(sel)
+                                                & torch.isnan(kept))
+                        if not bool(same.all()):
+                            fail(f"segment_ranks vs rank_select {dtype} N={n} "
+                                 f"M={m} ratio={r} segment ({s0}, {s1})")
+                    n_checks += 1
+    torch.cuda.synchronize()
+    log(f"phase 11a: {n_checks} segment_ranks checks bit-equal (fp32 and "
+        f"bf16; N in {RANK_NS}; M = 1000 and 1001; no segments, one, and "
+        f"several with leading, interior and trailing gaps; tie-heavy, "
+        f"all-equal and all-zero rows, +-0.0, +-inf and NaN; a misaligned "
+        f"view), and where(segment_ranks < k, x, 0) equal to the rank_select "
+        f"kernel's topk per segment (ratios 0.01, 0.25)")
+
+
+def segment_ranks_full_shape(torch, bw):
+    """Phase 11b: the public op at the trainer's packed increment (4 x
+    745,549,056 bf16, 18 packed segments): the path run (launches counted),
+    bit-equal to the plain version run row by row, and timed beside the
+    byte bound, the plain version and the yardstick ``torch.argsort(key,
+    stable=True)`` per (row, interval) on the complemented key (the sort
+    alone).  Returns ``(counts, {name: record})``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.fed import runtime
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.kernels.compress import ops as cops
+    from repro_torch.kernels.compress import ref as cref
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=2)
+    meta = runtime.packed_layout(build_model(cfg), FedSpec(
+        n_agents=FULL_N, gamma=0.05, state_layout="packed"))
+    segs, N, M = meta.segments, FULL_N, meta.width
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randn((N, M), generator=gen, device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = cops.segment_ranks(x, segments=segs)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    if counts != expected_counts(segment_ranks=1):
+        fail(f"phase 11b: launch counts {counts}, want segment_ranks=1")
+    intervals = cref.column_intervals(segs, M)
+    for i in range(N):
+        want = cref.segment_ranks_ref(x[i:i + 1], segs)
+        if not torch.equal(got[i:i + 1], want):
+            fail(f"phase 11b: row {i}: "
+                 f"{int((got[i:i + 1] != want).sum())} ranks differ")
+        del want
+    del got
+    torch.cuda.empty_cache()
+    scratch = torch.empty((N, M), dtype=torch.int32, device=dev)
+
+    def plain():
+        for i in range(N):
+            scratch[i:i + 1] = cref.segment_ranks_ref(x[i:i + 1], segs)
+    plain_ms = cuda_ms(torch, plain, reps=3)
+    del scratch
+    torch.cuda.empty_cache()
+    ms = cuda_ms(torch, lambda: cops.segment_ranks(x, segments=segs))
+    _, _, kernels_ms = _profile(torch, lambda: (
+        cops.segment_ranks(x, segments=segs), torch.cuda.synchronize()))
+    stages = {stage: sum(v for k, v in kernels_ms.items() if stage in k)
+              for stage in ("hist_kernel", "scan_", "scatter_kernel")}
+    torch.cuda.empty_cache()
+    ckey = 0x7FFFFFFF - cref.magnitude_key(x)
+
+    def lib():
+        for i in range(N):
+            for lo, hi, _ in intervals:
+                torch.argsort(ckey[i, lo:hi], stable=True)
+    lib_ms = cuda_ms(torch, lib, reps=3)
+    del ckey, x
+    torch.cuda.empty_cache()
+    bytes_ = N * M * 2 + N * M * 4        # read bf16 x once, write int32 ranks
+    bound = bytes_ / bw * 1e3
+    rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by="bytes", max_abs_err=0.0, library_ms=lib_ms,
+               intervals=len(intervals), profiled_stages_ms=stages)
+    log(f"phase 11b: segment_ranks ({N}x{M:,} bf16, {len(segs)} segments, "
+        f"{len(intervals)} intervals) bit-equal to the plain version; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (row by row into a scratch "
+        f"output, median of 3), bound {bound:.3f} ms ({bytes_ / 1e9:.3f} GB at "
+        f"{bw / 1e12:.2f} TB/s), {100 * bound / ms:.1f}% of bound; yardstick "
+        f"torch.argsort(stable) per (row, interval) {lib_ms:.3f} ms; one "
+        f"profiled call by stage (ms): "
+        f"{ {k: round(v, 3) for k, v in stages.items()} }")
+    return counts, {"segment_ranks": rec}
+
+
+def _profile(torch, fn):
+    """``fn()`` under torch.profiler (it must end in a synchronize):
+    ``(wall ms, {kernel group: device ms}, {kernel: device ms})``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels_ms = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + ms
+        kernels_ms[e.key[:60]] = kernels_ms.get(e.key[:60], 0.0) + ms
+    return wall_ms, groups, kernels_ms
+
+
+PAPER_PROBLEM = dict(n_agents=100, q=250, dim=5, eps=0.5, seed=0)
+TABLE5_PROBLEM = dict(PAPER_PROBLEM, dim=100)
+
+
+def _state_err(torch, a, b):
+    """Max abs difference of x, z and (when the exchange is compressed)
+    t between a card state ``a`` and a CPU state ``b``."""
+    return max(float((getattr(a, v).cpu() - getattr(b, v)).abs().max())
+               for v in ("x", "z", "t") if getattr(a, v) is not None)
+
+
+def dense_paper_runs(torch):
+    """Phase 11c: the paper's problem through ``build_trainer(problem,
+    FedSpec(rho=1, n_epochs=5))`` on the card and on the CPU with the same
+    draws: 200 rounds, 50% participation with a given ``u`` over 400
+    rounds, FedAvg's drift plateau, and ``||x_bar - x*||`` against
+    ``solve()``.  Tolerances: the same ``hitting_round``; states 1e-5
+    absolute (float32 reductions in another order on the card; Fed-PLT
+    contracts, so the difference does not grow); FedAvg's plateau 1e-3
+    relative (400 rounds of a drift that does not contract to a point);
+    ``||x_bar - x*|| < 1e-4`` on the card."""
+    from repro_torch.core.baselines import make_fedavg
+    from repro_torch.core.metrics import hitting_round
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, build_trainer
+
+    problem = make_logreg_problem(**PAPER_PROBLEM)
+    out = {}
+
+    def both(label, spec, rounds, **draws):
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tr = build_trainer(problem, spec, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, crit = tr.run(0, rounds, **draws)
+            crit = crit.cpu().numpy()
+            torch.cuda.synchronize()
+            res[dev] = (tr, state, crit, time.perf_counter() - t0)
+        hit = {d: hitting_round(r[2]) for d, r in res.items()}
+        err = _state_err(torch, res["cuda"][1], res["cpu"][1])
+        if hit["cuda"] != hit["cpu"] or hit["cuda"] is None:
+            fail(f"phase 11c {label}: hitting rounds card {hit['cuda']} / "
+                 f"CPU {hit['cpu']}")
+        if not err <= 1e-5:
+            fail(f"phase 11c {label}: card vs CPU states differ by {err}")
+        ms = 1e3 * res["cuda"][3] / rounds
+        log(f"phase 11c {label}: {rounds} rounds, hitting round "
+            f"{hit['cuda']} on the card and the CPU, final criterion "
+            f"{res['cuda'][2][-1]:.3e} / {res['cpu'][2][-1]:.3e}; card vs "
+            f"CPU states {err:.3g} (tolerance 1e-5); card {ms:.3f} ms a round "
+            f"(host clock over the run, one sync at the end)")
+        out[label] = dict(rounds=rounds, hitting_round=hit["cuda"],
+                          final_crit_card=float(res["cuda"][2][-1]),
+                          final_crit_cpu=float(res["cpu"][2][-1]),
+                          state_err=err, card_ms_per_round=ms)
+        return res
+
+    res = both("Fed-PLT N_e 5", FedSpec(rho=1.0, n_epochs=5), 200)
+    tr, state = res["cuda"][0], res["cuda"][1]
+    x_star = tr.problem.solve()
+    dist = float(torch.linalg.norm(tr.consensus(state) - x_star))
+    if not dist < 1e-4:
+        fail(f"phase 11c: ||x_bar - x*|| = {dist} on the card")
+    log(f"phase 11c: ||x_bar - x*|| = {dist:.3e} on the card (solve(): "
+        f"20,000 GD steps on the card)")
+    out["x_bar_minus_x_star"] = dist
+    u = (torch.rand((400, problem.n_agents),
+                    generator=torch.Generator().manual_seed(7)) < 0.5).float()
+    both("Fed-PLT 50% participation (given u)",
+         FedSpec(rho=1.0, n_epochs=5, participation=0.5), 400, u=u)
+    plateau = {}
+    for dev in ("cuda", "cpu"):
+        crit = make_fedavg(problem.to(dev), gamma=0.1, n_epochs=5).run(0, 400)
+        plateau[dev] = float(crit[-1])
+    rel = abs(plateau["cuda"] - plateau["cpu"]) / plateau["cpu"]
+    if not (plateau["cuda"] > 1e-5 and rel <= 1e-3):
+        fail(f"phase 11c FedAvg: plateau card {plateau['cuda']} / CPU "
+             f"{plateau['cpu']}")
+    log(f"phase 11c FedAvg (gamma 0.1, N_e 5): plateau {plateau['cuda']:.4e} "
+        f"on the card, {plateau['cpu']:.4e} on the CPU after 400 rounds "
+        f"(client drift: never reaches 1e-5; relative difference {rel:.2e}, "
+        f"tolerance 1e-3)")
+    out["fedavg_plateau"] = plateau
+    return out
+
+
+DENSE_R = 20
+# rounds in one profiler window, reported per round: a window can miss its
+# first launches, which a round of the dense path (0.2 ms of device time)
+# would feel
+DENSE_PROFILED = 5
+
+
+def dense_kernel_path(torch):
+    """Phase 11d: the dense kernel path -- fused edges, packed state,
+    ``use_fused_update`` (which the dense solver never takes), the fused
+    compress backend, gamma given -- on the paper's problem and Table 5's
+    n = 100: topk 0.25, int8, adaptive_topk (damping 0.5), trimmed_mean
+    f = 5 with guards, coord_median with one evicted agent.  For each:
+    ``DENSE_R`` rounds on the card, one synchronize a round, counted and
+    timed; 5 rounds checked against the CPU round by round (each CPU round
+    starts from the card's state: x, z and t agree to 1e-5, with no
+    allowance for a compressor choice that flips); the increments
+    ``z_new - t`` the card's compressed rounds hand the compressor,
+    captured there, each held bit-equal to the plain versions under topk,
+    adaptive_topk and int8 (the kernels at the dense path's own shapes,
+    (100, 5) and (100, 100) with one segment); ``DENSE_PROFILED`` rounds
+    under the profiler, reported per round.  Returns
+    ``{cell: {run: record}}``."""
+    from repro_torch import kernels
+    from repro_torch.core.fedplt import FedPLTState
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed import compress as fcompress
+    from repro_torch.fed.api import CompressionSpec, FedSpec, build_trainer
+    from repro_torch.kernels.compress import ops as cops
+    from repro_torch.kernels.compress import ref as cref
+
+    def held(dz, segments, what):
+        """The compress kernels bit-equal to their plain versions on one
+        captured increment."""
+        for mode in ("topk", "adaptive_topk"):
+            got = cops.rank_select(dz, segments=segments, mode=mode,
+                                   ratio=0.25, energy=0.95)
+            want = cref.rank_select_ref(dz, segments, mode, 0.25, 0.95)
+            if not torch.equal(got, want):
+                fail(f"phase 11d {what}: rank_select {mode} at "
+                     f"{tuple(dz.shape)}: {int((got != want).sum())} "
+                     f"entries differ from the plain version")
+        got = cops.int8_quantize(dz, segments=segments)
+        if not torch.equal(got, cref.int8_ref(dz, segments)):
+            fail(f"phase 11d {what}: int8_quantize at {tuple(dz.shape)} "
+                 f"differs from the plain version")
+
+    def capturing(fn, into):
+        def wrapped(x, **kw):
+            if x.is_cuda:
+                into.append((x.clone(), kw.get("segments")))
+            return fn(x, **kw)
+        return wrapped
+
+    out = {}
+    for cell, kw in (("paper (N 100, q 250, n 5)", PAPER_PROBLEM),
+                     ("Table 5 (N 100, q 250, n 100)", TABLE5_PROBLEM)):
+        problem = make_logreg_problem(**kw)
+        N = problem.n_agents
+        mu, L = problem.strong_convexity(), problem.smoothness()
+        gamma = 2.0 / (L + mu + 2.0)           # gamma* at rho = 1, given
+        base = dict(rho=1.0, n_epochs=5, gamma=gamma, engine_backend="fused",
+                    state_layout="packed", use_fused_update=True)
+        live = torch.ones(N)
+        live[N - 1] = 0.0
+        runs = {
+            "topk 0.25": (dict(damping=0.5, compression=CompressionSpec(
+                "topk", ratio=0.25, backend="fused")), dict(rank_select=1),
+                None),
+            "int8": (dict(damping=0.5, compression=CompressionSpec(
+                "int8", backend="fused")), dict(int8_quantize=1), None),
+            "adaptive_topk": (dict(damping=0.5, compression=CompressionSpec(
+                "adaptive_topk", ratio=0.25, backend="fused")),
+                dict(rank_select=1), None),
+            "trimmed_mean f=5, guards": (dict(
+                aggregator="trimmed_mean", aggregator_param=5,
+                guard_increments=True), dict(sort_aggregate=1), None),
+            "coord_median, agent 99 evicted": (dict(
+                aggregator="coord_median"), dict(sort_aggregate=1), live),
+        }
+        out[cell] = {}
+        for name, (extra, per_round, live_row) in runs.items():
+            spec = FedSpec(**base, **extra)
+            card = build_trainer(problem, spec)
+            cpu = build_trainer(problem, spec, device="cpu")
+
+            def step(tr, st):
+                if live_row is None:
+                    return tr.step(st)
+                return tr.round_with_faults(st, None, None, live_row)[0]
+
+            state = card.init(0)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            dts = []
+            for _ in range(DENSE_R):
+                t0 = time.perf_counter()
+                state = step(card, state)
+                torch.cuda.synchronize()
+                dts.append(1e3 * (time.perf_counter() - t0))
+            counts = kernels.launch_counts()
+            want = expected_counts(round_uplink=DENSE_R,
+                                   round_downlink=DENSE_R,
+                                   **{k: v * DENSE_R
+                                      for k, v in per_round.items()})
+            if counts != want:
+                fail(f"phase 11d {cell} {name}: launch counts {counts}, "
+                     f"want {want}")
+            for v in ("x", "z"):
+                if not bool(torch.isfinite(getattr(state, v)).all()):
+                    fail(f"phase 11d {cell} {name}: non-finite {v}")
+            crit = float(card.problem.criterion(state.x))
+            # round-by-round check against the CPU, capturing the card's
+            # compressor inputs where the engine's compressor calls the ops
+            err, captured = 0.0, []
+            st = card.init(0)
+            fcompress.compress_ops = types.SimpleNamespace(
+                rank_select=capturing(cops.rank_select, captured),
+                int8_quantize=capturing(cops.int8_quantize, captured))
+            try:
+                for _ in range(5):
+                    host = FedPLTState(
+                        x=st.x.cpu(), z=st.z.cpu(), y=st.y.cpu(),
+                        generator=torch.Generator().manual_seed(0), k=st.k,
+                        t=None if st.t is None else st.t.cpu().clone())
+                    st = step(card, st)
+                    ref = step(cpu, host)
+                    err = max(err, _state_err(torch, st, ref))
+            finally:
+                fcompress.compress_ops = cops
+            if not err <= 1e-5:
+                fail(f"phase 11d {cell} {name}: card vs CPU {err}")
+            if st.t is not None and len(captured) != 5:
+                fail(f"phase 11d {cell} {name}: {len(captured)} compressor "
+                     f"calls captured in 5 card rounds, want 5")
+            for dz, segments in captured:
+                held(dz, segments, f"{cell} {name}")
+
+            def profiled_rounds(st=state):
+                for _ in range(DENSE_PROFILED):
+                    st = step(card, st)
+                torch.cuda.synchronize()
+
+            wall, groups, kernels_ms = _profile(torch, profiled_rounds)
+            wall /= DENSE_PROFILED
+            groups = {k: v / DENSE_PROFILED for k, v in groups.items()}
+            kernels_ms = {k: v / DENSE_PROFILED
+                          for k, v in kernels_ms.items()}
+            busy = sum(groups.values())
+            steady = statistics.median(dts[1:])
+            rec = dict(round_ms=dts, steady_round_ms=steady, counts=counts,
+                       final_crit=crit, card_vs_cpu=err,
+                       increments_held=len(captured),
+                       profile=dict(wall_ms=wall, device_busy_ms=busy,
+                                    idle_share=(1 - busy / wall)
+                                    if busy else None,
+                                    groups_ms=groups,
+                                    top_kernels_ms=dict(sorted(
+                                        kernels_ms.items(),
+                                        key=lambda kv: -kv[1])[:6])))
+            out[cell][name] = rec
+            log(f"phase 11d {cell} {name}: {DENSE_R} rounds, launches "
+                f"{ {k: v for k, v in counts.items() if v} } (fedplt_update "
+                f"0); steady round {steady:.3f} ms (median, one sync a "
+                f"round); criterion {crit:.3e}; card vs CPU {err:.3g} "
+                f"(x, z, t; tolerance 1e-5)"
+                + (f"; {len(captured)} captured increments "
+                   f"{tuple(captured[0][0].shape)} bit-equal under topk, "
+                   f"adaptive_topk and int8" if captured else "")
+                + "; "
+                f"profiled ({DENSE_PROFILED} rounds) {wall:.3f} ms wall a "
+                f"round, "
+                + (f"device busy {busy:.3f} ms ({100 * (1 - busy / wall):.1f}% "
+                   f"idle)" if busy else "the profiler saw no device time"))
+            del card, cpu, state
+            torch.cuda.empty_cache()
+    return out
+
+
+def private_pipeline(torch):
+    """Phase 11e: the private pipeline of the paper on the card: Lemma 7's
+    stabilizer, Prop. 4's noise calibration for (2.0, 1e-5)-ADP, noisy GD
+    with ``dp_init`` for 300 rounds, the (eps, delta) report and
+    Corollary 1's bound.  Checks a finite criterion and eps at the
+    target."""
+    from repro_torch.core import privacy, theory
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, PrivacySpec, build_trainer
+
+    problem = make_logreg_problem(**PAPER_PROBLEM)
+    mu, L = problem.strong_convexity(), problem.smoothness()
+    K, delta, target = 300, 1e-5, 2.0
+    stab = theory.stabilize(mu, L, n_epochs_grid=(5,))
+    tau = privacy.calibrate_noise(target, delta, sensitivity=1.0, mu=mu,
+                                  q=problem.q, gamma=stab.gamma, K=K,
+                                  n_epochs=stab.n_epochs)
+    trainer = build_trainer(problem, FedSpec(
+        rho=stab.rho, gamma=stab.gamma, n_epochs=stab.n_epochs,
+        privacy=PrivacySpec(tau=tau, dp_init=True, delta=delta)))
+    rep = trainer.privacy_report(K)
+    state, crit = trainer.run(0, K)
+    crit = crit.cpu().numpy()
+    bound = theory.corollary1_bound(
+        K, mu, L, stab.rho, stab.gamma, stab.n_epochs, tau, problem.dim,
+        problem.n_agents, r0=float(torch.linalg.norm(state.x)))
+    if not (math.isfinite(float(crit[-1])) and rep.adp_eps <= target * 1.001):
+        fail(f"phase 11e: criterion {crit[-1]}, eps {rep.adp_eps}")
+    log(f"phase 11e: Lemma-7 stabilizer rho={stab.rho:.3f} gamma="
+        f"{stab.gamma:.3f} N_e={stab.n_epochs} ||S||={stab.s_norm:.3f}; "
+        f"tau = {tau:.4f} for ({target}, {delta})-ADP; achieved eps = "
+        f"{rep.adp_eps:.3f} at Renyi order {rep.rdp_order:.1f}, ceiling "
+        f"{rep.eps_ceiling:.3f}; after K={K} rounds criterion "
+        f"{crit[-1]:.3e}, Corollary-1 bound {bound:.3e}")
+    return dict(tau=tau, adp_eps=rep.adp_eps, final_crit=float(crit[-1]),
+                corollary1_bound=bound)
+
+
 def main() -> int:
     import torch
 
@@ -2053,7 +2555,8 @@ def main() -> int:
     log(f"phase 1: kernels built in {time.time() - t0:.1f} s "
         f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
     for src, text in logs.items():
-        if "flash_attention" not in str(src) and "lru_scan" not in str(src):
+        if not any(k in str(src) for k in ("flash_attention", "lru_scan",
+                                           "segment_ranks")):
             continue
         for kname, regs, st, ld in build.ptxas_summary(text):
             log(f"phase 1 ptxas: {kname[:72]}: {regs} registers, spill "
@@ -2152,6 +2655,14 @@ def main() -> int:
                           "losses": [h["loss"] for h in hist]}
     lru_counts = ssm[MAMBA.arch]["counts"]
 
+    # phase 11: segment_ranks, and the dense front end on the card
+    segment_ranks_small_checks(torch)
+    rank_counts, rank_recs = segment_ranks_full_shape(torch, bw)
+    recs.update(rank_recs)
+    dense = {"paper": dense_paper_runs(torch),
+             "kernel_path": dense_kernel_path(torch),
+             "private": private_pipeline(torch)}
+
     table = []
     meta = {
         "round_uplink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
@@ -2169,6 +2680,9 @@ def main() -> int:
         "int8_quantize": ("src/repro_torch/kernels/compress/csrc/compress.cu",
                           "src/repro/kernels/compress/kernel.py:374",
                           int8_counts),
+        "segment_ranks": (
+            "src/repro_torch/kernels/compress/csrc/segment_ranks.cu",
+            "src/repro/kernels/compress/kernel.py:398", rank_counts),
         "sort_aggregate": ("src/repro_torch/kernels/robust_agg/csrc/robust_agg.cu",
                            "src/repro/kernels/robust_agg/kernel.py:175",
                            robust_counts),
@@ -2227,7 +2741,9 @@ def main() -> int:
                                 "two_gloo_ranks": two_ranks},
                     "main_path_peak_gb": main_peak / 1e9,
                     "flash_attention_full_shape": flash,
-                    "ssm_rglru": ssm}))
+                    "ssm_rglru": ssm,
+                    "segment_ranks_full_shape": rank_recs["segment_ranks"],
+                    "dense": dense}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -1,4 +1,4 @@
-"""Carry parameters between the reference's pytree and the port.
+"""Carry parameters and problems between the reference and the port.
 
 The reference's parameter tree (as numpy arrays) is
 ``{"stages": [{"0": {...}, "1": {...}}, ...], "embed", "final_norm"}``
@@ -7,6 +7,11 @@ with each stage's units stacked on axis 0; the port's parameters are
 (``stages.0.1.attn.wq``).  The mapping is by name only, so any tree of
 that structure -- agent-stacked states, gradients, noise draws -- converts
 the same way.
+
+A dense problem crosses as its arrays: :func:`problem_from_arrays` and
+:func:`quadratic_from_arrays` build the port's problem from the
+reference's ``(A, b)`` or ``(Q, c)`` (as numpy), so that both packages
+solve the same problem.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.problem import LogRegProblem, QuadraticProblem
 from repro_torch.models.model import build_model
 
 
@@ -78,3 +84,19 @@ def params_to_jax(params: dict) -> dict:
     stages = tree.get("stages", {})
     tree["stages"] = [stages[str(i)] for i in range(len(stages))]
     return tree
+
+
+def problem_from_arrays(A, b, eps: float = 0.5, nonconvex: bool = False,
+                        device="cpu") -> LogRegProblem:
+    """The port's :class:`LogRegProblem` on the reference's features
+    ``A`` ``(N, q, n)`` and labels ``b`` ``(N, q)``."""
+    return LogRegProblem(A=_to_tensor(A).to(device),
+                         b=_to_tensor(b).to(device), eps=eps,
+                         nonconvex=nonconvex)
+
+
+def quadratic_from_arrays(Q, c, device="cpu") -> QuadraticProblem:
+    """The port's :class:`QuadraticProblem` on the reference's ``Q``
+    ``(N, n, n)`` and ``c`` ``(N, n)``."""
+    return QuadraticProblem(Q=_to_tensor(Q).to(device),
+                            c=_to_tensor(c).to(device))

@@ -1,0 +1,300 @@
+"""Fed-PLT -- Algorithm 1 of the paper, batched over agents (counterpart of
+``repro/core/fedplt.py``).
+
+The paper-faithful dense front end: the local states are one ``(N, n)``
+tensor, the single-leaf case of the round engine in
+:mod:`repro_torch.fed.engine`, which owns the round topology (coordinator
+prox -> reflection -> warm-started local solver -> Bernoulli participation
+-> optional compressed z-exchange).  This class supplies the per-agent
+gradient oracles and curvature moduli, and the loop over rounds that
+records the paper's convergence criterion.
+
+As in the reference, the local solver never takes the fused update
+kernel here (its step size is a per-agent tensor): ``fedplt_update``
+launches 0 times on the dense path.  Under ``engine_backend="fused"`` the
+round edges, and under a compressed exchange with the fused compress
+backend the compressor, run their kernels; so does ``sort_aggregate``
+under an order-statistic aggregator.
+
+The reference's ``lax.scan`` over rounds is a Python loop: the criterion
+of every round stays on the device (one host sync when the caller reads
+the history).  The random draws are explicit, as the port's parity rules
+say: ``init`` takes an optional ``x0``; a round takes an optional
+participation row ``u`` ``(N,)``, sgd minibatch indices ``batch_idx``
+``(N_e, N, batch)`` and standard-normal noise ``noise`` ``(N_e, N, n)``
+(scaled here by ``sqrt(2 gamma) tau``); ``run`` takes them stacked over
+rounds.  What is not given is drawn from the state's ``torch.Generator``.
+
+Not ported here (each raises naming its slice): heterogeneous solver
+groups and per-agent participation tuples, async rounds (``arrival``,
+``replay``), and a mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import prox as prox_lib
+from repro_torch.core.solvers import SolverConfig
+from repro_torch.fed import api
+from repro_torch.fed import compress as compress_lib
+from repro_torch.fed import engine
+from repro_torch.fed import solvers as solver_registry
+
+
+class FedPLTState(NamedTuple):
+    x: torch.Tensor                 # (N, n) local models
+    z: torch.Tensor                 # (N, n) auxiliary (PRS) variables
+    y: torch.Tensor                 # (n,) coordinator model (last broadcast)
+    generator: torch.Generator      # every draw not given explicitly
+    k: int                          # round counter
+    # the coordinator's copy of each z_i, only when the exchange is
+    # compressed (advanced in place by the next round)
+    t: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FedPLTConfig:
+    rho: float = 1.0
+    solver: SolverConfig = dataclasses.field(default_factory=SolverConfig)
+    participation: float = 1.0        # p (uniform across agents)
+    prox_h: str = "zero"              # coordinator regularizer
+    batch_size: Optional[int] = None  # for the sgd oracle
+    # curvature moduli of the f_i; None -> taken from the problem
+    mu: Optional[float] = None
+    L: Optional[float] = None
+    dp_init: bool = False             # x0 ~ N(0, 2 tau^2/mu I)  (Prop. 4)
+    # Remark 1 (uncoordinated solvers): per-agent step sizes tuned to the
+    # LOCAL moduli (mu_i, L_i) instead of the global (min mu_i, max L_i)
+    uncoordinated: bool = False
+    compression: str = "none"         # compressor registry name
+    compress_ratio: float = 0.25
+    compress_energy: float = 0.95
+    compress_backend: str = "torch"   # "auto" | "torch" | "fused"
+    engine_backend: str = "torch"     # round edges: "torch" | "fused"
+    state_layout: str = "tree"        # "tree" | "packed"
+    damping: float = 1.0              # Krasnosel'skii relaxation
+    async_mode: str = "off"
+    max_staleness: int = 0
+    guard_increments: bool = False
+    guard_norm_bound: float = float("inf")
+    aggregator: str = "mean"
+    aggregator_param: float = 0.0
+
+    def to_spec(self, n_agents: Optional[int] = None):
+        """The equivalent :class:`repro_torch.fed.api.FedSpec`."""
+        s = self.solver
+        # tau is read only under noisy_gd (as in the reference)
+        tau = s.tau if s.name == "noisy_gd" else 0.0
+        return api.FedSpec(
+            n_agents=n_agents, rho=self.rho,
+            participation=self.participation, damping=self.damping,
+            solver=s.name, n_epochs=s.n_epochs, gamma=s.step_size,
+            mu=self.mu, L=self.L, batch_size=self.batch_size,
+            uncoordinated=self.uncoordinated, prox_h=self.prox_h,
+            privacy=api.PrivacySpec(tau=tau, clip=s.clip,
+                                    dp_init=self.dp_init),
+            compression=api.CompressionSpec(
+                name=self.compression, ratio=self.compress_ratio,
+                energy=self.compress_energy,
+                backend=self.compress_backend),
+            engine_backend=self.engine_backend,
+            state_layout=self.state_layout,
+            async_mode=self.async_mode,
+            max_staleness=self.max_staleness,
+            guard_increments=self.guard_increments,
+            guard_norm_bound=self.guard_norm_bound,
+            aggregator=self.aggregator,
+            aggregator_param=self.aggregator_param)
+
+
+def _row(draws, r):
+    return None if draws is None else draws[r]
+
+
+class FedPLT:
+    """Paper-faithful Fed-PLT on a batched federated problem, on the
+    problem's device.
+
+    ``prox_h`` overrides the coordinator regularizer resolved from
+    ``config.prox_h`` (the front door's weight-decay shorthand)."""
+
+    def __init__(self, problem, config: FedPLTConfig, prox_h=None,
+                 solver_groups=None, participation=None, mesh=None):
+        if solver_groups is not None or isinstance(participation, tuple):
+            raise api._later("heterogeneous solver groups and per-agent "
+                         "participation", "heterogeneous solver groups")
+        if config.async_mode != "off" or config.max_staleness != 0:
+            raise api._later("bounded-staleness async rounds", "async runtime")
+        if mesh is not None:
+            raise api._later("a mesh for the dense trainer", "dense mesh")
+        self.problem = problem
+        self.cfg = config
+        self.device = problem.device
+        self.mu = (config.mu if config.mu is not None
+                   else problem.strong_convexity())
+        self.L = config.L if config.L is not None else problem.smoothness()
+        if self.mu <= 0:  # nonconvex / merely convex: the 1/rho curvature
+            self.mu = 0.0
+        N, n = problem.n_agents, problem.dim
+        if config.uncoordinated and hasattr(problem, "per_agent_smoothness"):
+            mu_i = problem.per_agent_strong_convexity()
+            L_i = problem.per_agent_smoothness()
+        else:
+            mu_i = torch.full((N,), self.mu)
+            L_i = torch.full((N,), self.L)
+        # float32 (N, 1) columns: the step size is computed from them in
+        # float32, as the reference computes it from its vmapped moduli
+        self.mu_i = mu_i.to(self.device, torch.float32).reshape(N, 1)
+        self.L_i = L_i.to(self.device, torch.float32).reshape(N, 1)
+        self.prox_h = (prox_h if prox_h is not None
+                       else prox_lib.make_prox(config.prox_h))
+        self._ecfg = config.to_spec(N).round_config()
+        # packed layout: the dense state is single-leaf, so its resident
+        # (N, n) buffer IS the stacked tensor
+        self._meta = (compress_lib.packed_meta(
+            torch.empty((N, n), device="meta"))
+            if config.state_layout == "packed" else None)
+        # noisy_gd's sqrt(2 gamma) tau in float32: per agent when the step
+        # size is resolved from the moduli, else one value
+        scfg, rho = config.solver, config.rho
+        gamma = scfg.resolve_step_size(self.mu_i + 1.0 / rho,
+                                       self.L_i + 1.0 / rho)
+        self._noise_scale = torch.sqrt(torch.as_tensor(
+            2.0 * gamma, dtype=torch.float32)).to(self.device) * scfg.tau
+
+    # ------------------------------------------------------------------
+    def init(self, seed: int = 0, x0=None) -> FedPLTState:
+        """A fresh state: ``x = z = x0`` (zeros, or under ``dp_init`` a
+        draw of ``N(0, 2 tau^2 / mu)``, unless ``x0`` is given) and a
+        generator seeded with ``seed`` on the problem's device."""
+        N, n = self.problem.n_agents, self.problem.dim
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        tau = self.cfg.solver.tau
+        if x0 is not None:
+            x0 = torch.as_tensor(x0, dtype=torch.float32).to(self.device)
+        elif self.cfg.dp_init and tau > 0 and self.mu > 0:
+            std = torch.sqrt(torch.tensor(2.0 * tau ** 2 / self.mu))
+            x0 = std.to(self.device) * torch.randn(
+                (N, n), generator=gen, device=self.device)
+        else:
+            x0 = torch.zeros((N, n), device=self.device)
+        return FedPLTState(x=x0, z=x0.clone(),
+                           y=torch.zeros(n, device=self.device),
+                           generator=gen, k=0,
+                           t=x0.clone() if self._ecfg.compressed else None)
+
+    # ------------------------------------------------------------------
+    def _solver(self, gen, batch_idx, noise):
+        """The round's engine solver ``(x, v) -> (w, None)`` with its
+        draws: sgd minibatch rows ``(N_e, N, batch)`` and noisy_gd noise
+        ``(N_e, N, n)``, given or drawn from ``gen``."""
+        scfg = self.cfg.solver
+        N, n, dev = self.problem.n_agents, self.problem.dim, self.device
+        if scfg.name == "sgd" and self.cfg.batch_size is not None:
+            if batch_idx is None:
+                batch_idx = torch.randint(
+                    0, self.problem.q,
+                    (scfg.n_epochs, N, self.cfg.batch_size),
+                    generator=gen, device=dev)
+            idx = torch.as_tensor(batch_idx).to(dev)
+
+            def fgrad(w, epoch):
+                return self.problem.minibatch_grads(w, idx[epoch])
+        else:
+            def fgrad(w, epoch):
+                return self.problem.grads(w)
+
+        if scfg.name not in solver_registry.CORE_SOLVERS:
+            return solver_registry.make_local_solver(
+                scfg, fgrad, self.cfg.rho, self.mu, self.L, generator=gen)
+        noise_fn = None
+        if scfg.name == "noisy_gd":
+            if noise is None:
+                noise = torch.randn((scfg.n_epochs, N, n), generator=gen,
+                                    device=dev)
+            noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+
+            def noise_fn(epoch, w):
+                return self._noise_scale * noise[epoch]
+        return solver_registry.make_local_solver(
+            scfg, fgrad, self.cfg.rho, self.mu_i, self.L_i, generator=gen,
+            noise=noise_fn)
+
+    def _round_core(self, state: FedPLTState, u=None, batch_idx=None,
+                    noise=None, corrupt=None, live=None):
+        """One round; returns ``(next_state, u)`` with ``u`` the round's
+        realized ``(N,)`` participation row.  ``corrupt`` / ``live`` are
+        fault rows (see :func:`repro_torch.fed.engine.round_step`)."""
+        gen = state.generator
+        solver = self._solver(gen, batch_idx, noise)
+        compressed = self._ecfg.compressed
+        t = state.t if compressed else state.z
+        if self._meta is not None:
+            res = engine.packed_round_step(
+                self._ecfg, self._meta, state.x, state.z, t, solver,
+                prox_h=self.prox_h, generator=gen, u=u, corrupt=corrupt,
+                live=live)
+            y = res.y.reshape(-1)   # (1, n) coordinator buffer -> (n,)
+        else:
+            res = engine.round_step(self._ecfg, state.x, state.z, t, solver,
+                                    prox_h=self.prox_h, generator=gen, u=u,
+                                    corrupt=corrupt, live=live)
+            y = res.y
+        return FedPLTState(x=res.x, z=res.z, y=y, generator=gen,
+                           k=state.k + 1,
+                           t=res.t if compressed else None), res.u
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def round(self, state: FedPLTState, u=None, batch_idx=None,
+              noise=None) -> FedPLTState:
+        """One round (a compressed exchange advances ``state.t`` in
+        place)."""
+        return self._round_core(state, u, batch_idx, noise)[0]
+
+    @torch.no_grad()
+    def round_with_faults(self, state: FedPLTState, arrival=None,
+                          corrupt=None, live=None, *, u=None,
+                          batch_idx=None, noise=None):
+        """One round returning ``(next_state, u)`` under fault rows:
+        ``corrupt`` (per-agent corruption multipliers or ``[mult, add]``
+        pairs applied to the solver output) and ``live`` (0/1 survivor
+        mask).  All None reproduces :meth:`round`."""
+        if arrival is not None:
+            raise api._later("arrival schedules", "async runtime")
+        return self._round_core(state, u, batch_idx, noise, corrupt, live)
+
+    def run(self, seed: int, n_rounds: int, **draws):
+        """Run ``n_rounds`` rounds from :meth:`init`; returns
+        ``(final_state, criterion_history)``, ``criterion_history[k] =
+        || sum_i grad f_i(x_bar_k) ||^2`` after round k (a tensor on the
+        problem's device).  ``draws``: see :meth:`run_recorded`."""
+        state, crit, _ = self.run_recorded(seed, n_rounds, **draws)
+        return state, crit
+
+    @torch.no_grad()
+    def run_recorded(self, seed: int, n_rounds: int, *, u=None,
+                     batch_idx=None, noise=None, x0=None):
+        """:meth:`run` that also returns the realized ``(n_rounds, N)``
+        participation schedule.  ``u`` ``(n_rounds, N)``, ``batch_idx``
+        ``(n_rounds, N_e, N, batch)`` and ``noise`` ``(n_rounds, N_e, N,
+        n)`` replay given draws round by round; ``x0`` the initial
+        models."""
+        state = self.init(seed, x0)
+        N = self.problem.n_agents
+        crit = torch.empty(n_rounds, device=self.device)
+        sched = torch.empty((n_rounds, N), device=self.device)
+        for r in range(n_rounds):
+            state, ur = self._round_core(state, _row(u, r),
+                                         _row(batch_idx, r), _row(noise, r))
+            crit[r] = self.problem.criterion(state.x)
+            sched[r] = ur
+        return state, crit, sched
+
+    # convenience -------------------------------------------------------
+    def x_bar(self, state: FedPLTState) -> torch.Tensor:
+        return torch.mean(state.x, dim=0)

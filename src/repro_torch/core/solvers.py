@@ -24,6 +24,12 @@ The DP noise cannot reproduce JAX's threefry bits: it is drawn from a
 static float and the solver is not agd (the reference's condition).  The
 iterate is a fresh buffer (the warm start ``w0`` is never written), and
 the fused op updates it in place.
+
+The moduli ``mu`` / ``L`` are Python floats, or ``(N, 1)`` float32
+tensors of per-agent moduli (the dense front end's, Remark 1): the step
+size is then a per-agent tensor computed in float32, as the reference
+computes it from its vmapped moduli, and the fused op is not used (its
+step size is static), as in the reference.
 """
 
 from __future__ import annotations
@@ -116,6 +122,10 @@ def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
     return tree_map(leaf, w)
 
 
+def _sqrt(v):
+    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
+
+
 def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
                 cfg: SolverConfig, mu, L, *, batched: bool = False,
                 has_aux: bool = False, use_fused: bool = False,
@@ -124,11 +134,12 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
                 agent_rows: Optional[Tuple[slice, int]] = None):
     """Run ``cfg.n_epochs`` epochs of the chosen solver on d(w).
 
-    ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both).  Returns
-    ``w_{N_e}`` (and the per-epoch oracle aux stacked on a leading axis
-    when ``has_aux``).  ``noise(epoch, w)`` overrides the noisy_gd draw;
-    ``agent_rows`` places a sharded ``w`` among all agents
-    (:func:`draw_noise`).
+    ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both): floats,
+    or ``(N, 1)`` tensors of per-agent moduli.  Returns ``w_{N_e}`` (and
+    the per-epoch oracle aux stacked on a leading axis when ``has_aux``).
+    ``noise(epoch, w)`` overrides the noisy_gd draw (required with
+    per-agent moduli); ``agent_rows`` places a sharded ``w`` among all
+    agents (:func:`draw_noise`).
     """
     mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
     gamma = cfg.resolve_step_size(mu_d, L_d)
@@ -136,6 +147,10 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     fused = use_fused and isinstance(gamma, float) and cfg.name != "agd"
     if cfg.name not in ("gd", "sgd", "noisy_gd", "agd"):
         raise ValueError(f"unknown solver {cfg.name!r}")
+    if cfg.name == "noisy_gd" and noise is None and isinstance(
+            gamma, torch.Tensor):
+        raise ValueError("noisy_gd with per-agent moduli needs the noise "
+                         "draws (noise=)")
 
     def dgrad(w, epoch):
         out = fgrad(w, epoch)
@@ -155,13 +170,13 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     auxes = []
 
     if cfg.name in ("gd", "sgd", "noisy_gd"):
-        scale = math.sqrt(2.0 * gamma) * cfg.tau
         for e in range(cfg.n_epochs):
             g, aux = dgrad(w, e)
             t = None
             if cfg.name == "noisy_gd":
                 t = (noise(e, w) if noise is not None
-                     else draw_noise(w, scale, generator, agent_rows))
+                     else draw_noise(w, math.sqrt(2.0 * gamma) * cfg.tau,
+                                     generator, agent_rows))
             if t is None:
                 tree_map(lambda wl, gl, vl: step_leaf(wl, gl, vl, None),
                          w, g, v)
@@ -170,8 +185,7 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
             auxes.append(aux)
     else:
         # agd, Eq. (12): constant step 1/L_d, constant momentum beta
-        beta = ((math.sqrt(L_d) - math.sqrt(mu_d))
-                / (math.sqrt(L_d) + math.sqrt(mu_d)))
+        beta = ((_sqrt(L_d) - _sqrt(mu_d)) / (_sqrt(L_d) + _sqrt(mu_d)))
         u_prev = tree_map(torch.clone, w0)
         for e in range(cfg.n_epochs):
             g, aux = dgrad(w, e)
@@ -189,3 +203,18 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
         return w, (torch.stack(auxes) if auxes[0] is not None else None)
     return w
 
+
+def solver_contraction(cfg: SolverConfig, mu: float, L: float,
+                       rho: float) -> float:
+    """Contraction factor of the *whole* local training map
+    (chi^{N_e} for GD-type, chi(N_e) of Prop. 3 for AGD)."""
+    mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
+    if cfg.name in ("gd", "sgd", "noisy_gd"):
+        gamma = cfg.resolve_step_size(mu_d, L_d)
+        chi = max(abs(1.0 - gamma * mu_d), abs(1.0 - gamma * L_d))
+        return float(chi ** cfg.n_epochs)
+    if cfg.name == "agd":
+        kappa = L_d / mu_d
+        return float((1.0 + kappa)
+                     * (1.0 - (1.0 / kappa) ** 0.5) ** cfg.n_epochs)
+    raise ValueError(cfg.name)

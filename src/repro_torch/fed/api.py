@@ -1,5 +1,8 @@
 """One front door for Fed-PLT: ``FedSpec`` + ``build_trainer``
-(counterpart of ``repro/fed/api.py``, model-scale front end).
+(counterpart of ``repro/fed/api.py``): a dense problem (``local_loss`` +
+``n_agents``, :mod:`repro_torch.core.problem`) gets the paper-faithful
+:class:`DenseTrainer` over :class:`repro_torch.core.fedplt.FedPLT`, a
+model (``init`` + ``loss_fn``) the model-scale :class:`ModelTrainer`.
 
 ``FedSpec`` keeps the reference's field names and defaults, so one spec
 reads the same in both packages, with two renames for the port's
@@ -383,14 +386,49 @@ class FedSpec:
             raise _later(f"a model mesh extent above 1 (mesh_shape="
                          f"{self.mesh_shape!r}: the tensor-parallel forward "
                          f"pass)", "tensor-parallel model axis")
-        if self.privacy.dp_init:
-            raise _later("dp_init", "dense front end")
+
+    # ------------------------------------------------------------------
+    # Legacy-config bridge
+    # ------------------------------------------------------------------
+    def to_dense_config(self):
+        """The :class:`repro_torch.core.fedplt.FedPLTConfig` this spec
+        denotes (inverse of ``FedPLTConfig.to_spec``); ``use_fused_update``
+        has no counterpart there: the dense solver never fuses its step."""
+        from repro_torch.core.fedplt import FedPLTConfig
+
+        return FedPLTConfig(
+            rho=self.rho,
+            solver=self.solver_config(),
+            participation=self.participation,
+            prox_h=self.prox_h,
+            batch_size=self.batch_size,
+            mu=self.mu, L=self.L,
+            dp_init=self.privacy.dp_init,
+            uncoordinated=self.uncoordinated,
+            compression=self.compression.name,
+            compress_ratio=self.compression.ratio,
+            compress_energy=self.compression.energy,
+            compress_backend=self.compression.backend,
+            engine_backend=self.engine_backend,
+            state_layout=self.state_layout,
+            damping=self.damping,
+            async_mode=self.async_mode,
+            max_staleness=self.max_staleness,
+            guard_increments=self.guard_increments,
+            guard_norm_bound=self.guard_norm_bound,
+            aggregator=self.aggregator,
+            aggregator_param=self.aggregator_param)
 
 
 def as_spec(cfg: Any) -> FedSpec:
+    """A FedSpec, or any config with ``.to_spec()`` (``FedPLTConfig``)."""
     if isinstance(cfg, FedSpec):
         return cfg
-    raise TypeError(f"cannot interpret {type(cfg).__name__} as a FedSpec")
+    to_spec = getattr(cfg, "to_spec", None)
+    if to_spec is None:
+        raise TypeError(f"cannot interpret {type(cfg).__name__} as a "
+                        f"FedSpec (no .to_spec())")
+    return to_spec()
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +482,74 @@ def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
 # ---------------------------------------------------------------------------
 # The trainer handle
 # ---------------------------------------------------------------------------
+
+class DenseTrainer:
+    """:class:`repro_torch.core.fedplt.FedPLT` behind the trainer handle
+    (``init / step / run / consensus / privacy_report``), on ``device``
+    (CUDA unless ``device='cpu'``; the problem's data is moved there).
+    The curvature moduli come from the problem unless the spec sets them;
+    a weight decay overrides ``prox_h`` with the weight-decay prox."""
+
+    def __init__(self, problem, spec: FedSpec, device=None):
+        if spec.n_agents not in (None, problem.n_agents):
+            raise ValueError(f"spec.n_agents={spec.n_agents} != "
+                             f"problem.n_agents={problem.n_agents}")
+        from repro_torch.core.fedplt import FedPLT
+
+        self.device = resolve_device(device)
+        self.problem = problem.to(self.device)
+        self.spec = dataclasses.replace(spec, n_agents=problem.n_agents)
+        if self.spec.mesh_axes() is not None:
+            raise _later("a mesh for the dense trainer", "dense mesh")
+        # the spec with the problem's curvature filled in: validation and
+        # privacy accounting both need the real moduli
+        self._resolved = dataclasses.replace(
+            self.spec,
+            mu=spec.mu if spec.mu is not None
+            else float(problem.strong_convexity()),
+            L=spec.L if spec.L is not None
+            else float(problem.smoothness())).validate()
+        prox_override = (self.spec.resolve_prox_h()
+                         if self.spec.weight_decay != 0.0 else None)
+        self.algo = FedPLT(self.problem, self.spec.to_dense_config(),
+                           prox_h=prox_override)
+
+    def init(self, seed: int = 0, x0=None):
+        return self.algo.init(seed, x0)
+
+    def step(self, state, u=None, batch_idx=None, noise=None):
+        """One Fed-PLT round (``u``, ``batch_idx``, ``noise``: the
+        round's draws, replayed when given)."""
+        return self.algo.round(state, u, batch_idx, noise)
+
+    def run(self, seed: int, n_rounds: int, **draws):
+        """Run from a fresh init; returns ``(state, criterion_history)``."""
+        return self.algo.run(seed, n_rounds, **draws)
+
+    def run_recorded(self, seed: int, n_rounds: int, **draws):
+        """:meth:`run` that also returns the realized ``(n_rounds, N)``
+        participation schedule."""
+        return self.algo.run_recorded(seed, n_rounds, **draws)
+
+    def round_with_faults(self, state, arrival=None, corrupt=None,
+                          live=None, **draws):
+        """One round under fault rows: ``corrupt`` (per-agent corruption
+        multipliers, 0 = clean) and ``live`` (0/1 survivor mask); returns
+        ``(state, u)``.  All None reproduces :meth:`step`."""
+        return self.algo.round_with_faults(state, arrival, corrupt, live,
+                                           **draws)
+
+    def consensus(self, state) -> torch.Tensor:
+        return self.algo.x_bar(state)
+
+    def privacy_report(self, n_rounds: int, local_dataset_size=None,
+                       delta: Optional[float] = None):
+        """``local_dataset_size`` defaults to the problem's q."""
+        q = (local_dataset_size if local_dataset_size is not None
+             else self.problem.q)
+        return privacy_report(self._resolved, n_rounds, q, delta,
+                              mu=self.algo.mu if self.algo.mu > 0 else None)
+
 
 class ModelTrainer:
     """:mod:`repro_torch.fed.runtime` behind one handle: ``init / step /
@@ -521,17 +627,23 @@ class ModelTrainer:
                               delta)
 
 
-def build_trainer(model, spec: Any, device=None) -> ModelTrainer:
-    """The front door at model scale (the dense front end is a later
-    slice of the port)."""
+def build_trainer(problem_or_model, spec: Any, device=None):
+    """The front door: a :class:`DenseTrainer` for a dense problem
+    (``local_loss`` + ``n_agents``), a :class:`ModelTrainer` for a model
+    (``init`` + ``loss_fn``), on ``device`` (CUDA unless the CPU is asked
+    for).  ``spec`` may be a :class:`FedSpec` or a config with
+    ``.to_spec()``."""
     spec = as_spec(spec)
-    if hasattr(model, "local_loss") and hasattr(model, "n_agents"):
-        raise _later("the dense problem front end (DenseTrainer)",
-                     "dense front end")
-    if hasattr(model, "loss_fn") and hasattr(model, "init"):
-        return ModelTrainer(model, spec, device)
-    raise TypeError(f"cannot build a trainer for {type(model).__name__}: "
-                    f"expected a model (init/loss_fn)")
+    if hasattr(problem_or_model, "local_loss") and \
+            hasattr(problem_or_model, "n_agents"):
+        return DenseTrainer(problem_or_model, spec, device)
+    if hasattr(problem_or_model, "loss_fn") and \
+            hasattr(problem_or_model, "init"):
+        return ModelTrainer(problem_or_model, spec, device)
+    raise TypeError(
+        f"cannot build a trainer for {type(problem_or_model).__name__}: "
+        f"expected a dense problem (local_loss/n_agents) or a model "
+        f"(init/loss_fn)")
 
 
 # ---------------------------------------------------------------------------

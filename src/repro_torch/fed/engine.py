@@ -301,8 +301,11 @@ def participation_mask(cfg: RoundConfig, device, generator=None,
             raise ValueError(f"participation row has {u.numel()} entries "
                              f"for n_agents={cfg.n_agents}")
         return u
-    p = torch.as_tensor(cfg.participation, dtype=torch.float32,
-                        device=device)
+    p = cfg.participation
+    if isinstance(p, tuple):
+        p = torch.tensor(p, dtype=torch.float32).to(device)
+    # a scalar p is compared as a number: no host-to-device copy, which
+    # would wait for the device every round
     draw = torch.rand((cfg.n_agents,), generator=generator, device=device)
     return (draw < p).float()
 

@@ -16,7 +16,9 @@ plain version.
                     [+ noise]``.
   compress       -- the compressed z-uplink on the packed buffer: exact-k
                     magnitude selection (topk, adaptive_topk) and int8
-                    quantize-dequantize, per (agent, segment).
+                    quantize-dequantize, per (agent, segment); and the
+                    stable descending-|x| ranks within every column
+                    interval (``segment_ranks``, a radix sort).
   robust_agg     -- the byzantine-robust coordinator aggregate: per column
                     of the ``(N, M)`` buffer, sort the live agents' values
                     and reduce to a trimmed mean or the median.
@@ -48,6 +50,7 @@ def _wrappers() -> dict:
             "round_downlink_presummed": edge_ops.round_downlink_presummed,
             "fedplt_update": update_ops.fedplt_update,
             "rank_select": compress_ops.rank_select,
+            "segment_ranks": compress_ops.segment_ranks,
             "int8_quantize": compress_ops.int8_quantize,
             "sort_aggregate": robust_ops.robust_aggregate,
             "flash_attention_fwd": flash_ops.flash_attention_fwd,
@@ -75,4 +78,5 @@ def kernel_sources() -> list:
     from repro_torch.kernels.round_edge import kernel as edge_kernel
 
     return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE,
-            robust_kernel.SOURCE, flash_kernel.SOURCE, lru_kernel.SOURCE]
+            compress_kernel.RANKS_SOURCE, robust_kernel.SOURCE,
+            flash_kernel.SOURCE, lru_kernel.SOURCE]

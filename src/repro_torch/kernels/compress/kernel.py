@@ -1,10 +1,12 @@
-"""Launchers of the uplink-compression CUDA kernels (``csrc/compress.cu``).
+"""Launchers of the uplink-compression CUDA kernels (``csrc/compress.cu``
+and ``csrc/segment_ranks.cu``).
 
 Replaces ``repro/kernels/compress/kernel.py``'s ``rank_select_2d``
-(``_rank_select_kernel``, ``_select_k``) and ``int8_2d``
-(``_int8_kernel``), which share one ``pl.pallas_call``.  Bound by bytes:
-one read and one write of ``(N, M)``; the source file's header says what
-the radix-select design reads on top of that.
+(``_rank_select_kernel``, ``_select_k``), ``int8_2d`` (``_int8_kernel``)
+and ``segment_ranks_2d`` (``_segment_ranks_kernel``), which share one
+``pl.pallas_call``.  Bound by bytes: one read of ``(N, M)`` and one
+write of the result; the source files' headers say what the radix-select
+and radix-sort designs move on top of that.
 
 The launcher lays the columns out for the kernels: small int64 device
 arrays with each segment's range and static keep-count, and a chunk
@@ -26,15 +28,20 @@ from repro_torch.kernels import build
 from repro_torch.kernels._cuda import (F32, F64, I64, INT, PTR,
                                        check_launch, check_operands, ptr,
                                        stream_of)
-from repro_torch.kernels.compress.ref import INV_127, seg_k
+from repro_torch.kernels.compress.ref import (INV_127, column_intervals,
+                                             seg_k)
 
 SOURCE = Path(__file__).parent / "csrc" / "compress.cu"
+RANKS_SOURCE = Path(__file__).parent / "csrc" / "segment_ranks.cu"
 
 CHUNK = 1 << 21            # columns per CUDA block
 HIGH_BINS, LOW_BINS = 1 << 15, 1 << 16
 ROWSEG_WORDS = 10          # int64 words of the kernels' RowSeg
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MODES = {"topk": 0, "adaptive_topk": 1}
+RANK_TILE = 4096           # positions per block of the radix sort
+RANK_GROUP_COLS = 1 << 28  # rows sorted together: at most this many columns
+SCAN_CHUNK = 4096          # histogram entries per scan block
 
 
 @functools.cache
@@ -55,16 +62,8 @@ def _lib():
 def chunk_table(segments: tuple, width: int) -> list:
     """``(lo, hi, segment or -1, first chunk of the segment)`` for every
     chunk of the segments and of the gaps between them, in column order."""
-    intervals, cursor = [], 0
-    for j, (s0, s1) in enumerate(segments):
-        if cursor < s0:
-            intervals.append((cursor, s0, -1))
-        intervals.append((s0, s1, j))
-        cursor = s1
-    if cursor < width:
-        intervals.append((cursor, width, -1))
     table = []
-    for lo, hi, seg in intervals:
+    for lo, hi, seg in column_intervals(segments, width):
         first = len(table)
         for c in range(lo, hi, CHUNK):
             table.append((c, min(c + CHUNK, hi), seg, first))
@@ -147,4 +146,70 @@ def int8_quantize(x: torch.Tensor, segments: tuple) -> torch.Tensor:
         ptr(lay["seg_hi"]), lay["n_segs"], ptr(lay["chunk_lo"]),
         ptr(lay["chunk_hi"]), ptr(lay["chunk_seg"]), ptr(lay["chunk_first"]),
         lay["n_chunks"], ptr(amax), INV_127, floor, stream_of(x)))
+    return out
+
+
+@functools.cache
+def _ranks_lib():
+    lib = build.load(RANKS_SOURCE)
+    lib.repro_segment_ranks.argtypes = [PTR, PTR, I64, I64, INT, PTR, I64, I64,
+                                        PTR, PTR, PTR, PTR, PTR, PTR, PTR]
+    lib.repro_segment_ranks.restype = INT
+    return lib
+
+
+def rank_tiles(segments: tuple, width: int) -> list:
+    """``(lo, hi, first, count)`` for every tile of at most
+    :data:`RANK_TILE` columns of every column interval (segments and gaps,
+    in column order): the interval's tiles are ``[first, first + count)``."""
+    table = []
+    for lo, hi, _ in column_intervals(segments, width):
+        first = len(table)
+        count = -(-(hi - lo) // RANK_TILE)
+        table.extend((c, min(c + RANK_TILE, hi), first, count)
+                     for c in range(lo, hi, RANK_TILE))
+    return table
+
+
+@functools.lru_cache(maxsize=32)
+def _rank_layout(segments: tuple, width: int, device: torch.device):
+    return torch.tensor(rank_tiles(segments, width), dtype=torch.int64,
+                        device=device)
+
+
+def segment_ranks(x: torch.Tensor, segments: tuple) -> torch.Tensor:
+    """The segment-ranks kernel on a CUDA ``(N, M)`` buffer: int32 ranks.
+    Rows are sorted in groups of at most :data:`RANK_GROUP_COLS` columns;
+    the scratch (two ``(group, M)`` key and column buffers for float32,
+    one for bfloat16, and the digit histograms) is freed with the call."""
+    check_operands("segment_ranks", x)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"segment_ranks: the kernel takes float32 or "
+                        f"bfloat16, not {x.dtype}")
+    n, m = x.shape
+    if n > 65535:
+        raise ValueError(f"segment_ranks: {n} rows exceed the grid's 65,535")
+    if m >= 1 << 31:
+        raise ValueError("segment_ranks: a row of 2^31 columns or more")
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    tiles = _rank_layout(segments, m, x.device)
+    n_tiles = tiles.shape[0]
+    group = max(1, min(n, RANK_GROUP_COLS // m))
+    dev = x.device
+
+    def scratch(count):
+        return torch.empty(count, dtype=torch.int32, device=dev)
+
+    key_a, col_a = scratch(group * m), scratch(group * m)
+    fp32 = x.dtype == torch.float32
+    key_b, col_b = ((scratch(group * m), scratch(group * m)) if fp32
+                    else (None, None))
+    hist = scratch(group * n_tiles * 256)
+    partial = scratch(group * -(-(n_tiles * 256) // SCAN_CHUNK))
+    check_launch("segment_ranks", _ranks_lib().repro_segment_ranks(
+        ptr(x), ptr(out), n, m, DTYPES[x.dtype], ptr(tiles), n_tiles, group,
+        ptr(key_a), ptr(col_a), ptr(key_b), ptr(col_b), ptr(hist),
+        ptr(partial), stream_of(x)))
     return out

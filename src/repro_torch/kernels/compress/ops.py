@@ -3,7 +3,9 @@
 
 ``segments`` is the tuple of ``(start, stop)`` column ranges (one per
 packed leaf; None means the whole buffer is one segment); columns outside
-every segment are padding and come back zero.  A CUDA tensor goes to the
+every segment are padding and come back zero from the compressors
+(:func:`segment_ranks` ranks them within their gap, as the reference
+does).  A CUDA tensor goes to the
 CUDA kernel (:mod:`.kernel`), a CPU tensor to the plain version
 (:mod:`.ref`); there is no fallback: a kernel that fails to build or
 launch raises.  No agent-row padding is needed (the reference pads rows
@@ -66,6 +68,19 @@ def rank_select(x: torch.Tensor, *, segments=None, mode: str = "topk",
     return out
 
 
+def segment_ranks(x: torch.Tensor, *, segments=None) -> torch.Tensor:
+    """Stable descending-``|x|`` rank of every entry within its column
+    interval (int32 ``(N, M)``): each segment, and each gap before,
+    between or after the segments, is ranked within itself; ties keep
+    column order.  An introspection surface: no training path calls it."""
+    segments = _resolve(x, segments)
+    if x.device.type == "cpu":
+        return ref.segment_ranks_ref(x, segments)
+    out = kernel.segment_ranks(x, segments)
+    segment_ranks.launches += 1
+    return out
+
+
 def int8_quantize(x: torch.Tensor, *, segments=None) -> torch.Tensor:
     """Symmetric int8 quantize-dequantize, one scale per (agent,
     segment)."""
@@ -78,4 +93,5 @@ def int8_quantize(x: torch.Tensor, *, segments=None) -> torch.Tensor:
 
 
 rank_select.launches = 0
+segment_ranks.launches = 0
 int8_quantize.launches = 0

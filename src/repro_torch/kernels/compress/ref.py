@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the uplink-compression kernels (counterpart of
 ``repro/kernels/compress/ref.py``).
 
-The functions the CUDA kernels of ``csrc/compress.cu`` compute, segment by
-segment; columns outside every segment are padding and come back zero.
+The functions the CUDA kernels of ``csrc/compress.cu`` and
+``csrc/segment_ranks.cu`` compute, segment by segment; columns outside
+every segment are padding and come back zero from the compressors, while
+``segment_ranks`` ranks each gap within itself, as the reference does.
 The CPU path of :mod:`repro_torch.kernels.compress.ops`, and what the
 card's kernels are held against.
 
@@ -47,6 +49,22 @@ def segments_of(x: torch.Tensor, segments=None) -> tuple:
     """The ``(start, stop)`` column ranges (the whole width when None)."""
     return (((0, x.shape[1]),) if segments is None
             else tuple((int(a), int(b)) for a, b in segments))
+
+
+def column_intervals(segments: tuple, width: int) -> list:
+    """The segments and the gaps before, between and after them, in
+    column order, as ``(start, stop, segment index or -1)``: every column
+    of ``[0, width)`` lies in exactly one interval (the reference's
+    ``_column_intervals``)."""
+    intervals, cursor = [], 0
+    for j, (s0, s1) in enumerate(segments):
+        if cursor < s0:
+            intervals.append((cursor, s0, -1))
+        intervals.append((s0, s1, j))
+        cursor = s1
+    if cursor < width:
+        intervals.append((cursor, width, -1))
+    return intervals
 
 
 def magnitude_key(x: torch.Tensor) -> torch.Tensor:
@@ -117,10 +135,12 @@ def int8_ref(x: torch.Tensor, segments=None) -> torch.Tensor:
 
 
 def segment_ranks_ref(x: torch.Tensor, segments=None) -> torch.Tensor:
-    """Stable descending-``|x|`` rank of every entry within its segment
-    (int32; padding columns 0).  A test oracle: no path calls it."""
-    out = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
-    for s0, s1 in segments_of(x, segments):
+    """Stable descending-``|x|`` rank of every entry within its column
+    interval (int32): each segment, and each gap between or after the
+    segments, is ranked on its own, as the reference's
+    ``_segment_ranks`` ranks the intervals of ``_column_intervals``."""
+    out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    for s0, s1, _ in column_intervals(segments_of(x, segments), x.shape[1]):
         order = torch.sort(magnitude_key(x[:, s0:s1]), dim=1,
                            descending=True, stable=True).indices
         rank = torch.empty_like(order)

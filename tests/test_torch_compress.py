@@ -205,16 +205,74 @@ def test_adaptive_topk_keeps_everything_of_an_all_zero_row():
     assert torch.equal(out, x)
 
 
+# Segment sets over a width of 257: an interior and a trailing gap; a
+# leading gap, interior gaps and a trailing gap; one segment; none.  The
+# reference ranks every gap within itself, so the whole width is compared.
+RANK_SEGMENTS = (((0, 100), (120, 250)),
+                 ((5, 60), (64, 134), (140, 200), (210, 250)),
+                 ((3, 257),), None)
+
+
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_segment_ranks_oracle_matches_reference(dt):
     x = _data("ties", 3, 257, seed=4)
     x[0] = np.random.default_rng(4).normal(size=257)
     jx, tx = _pair(x, dt)
-    segs = ((0, 100), (120, 250))
+    for segs in RANK_SEGMENTS:
+        want = np.asarray(jops.segment_ranks(jx, segments=segs,
+                                             interpret=True))
+        got = tref.segment_ranks_ref(tx, segs).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=f"segments {segs}")
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_segment_ranks_op_equals_the_reference_op(dt):
+    """The port's public op (plain version on the CPU) against the
+    reference's public op in interpret mode, edge values included: ties,
+    +-0.0, +-inf and a NaN (its key ranks above inf's)."""
+    x = _data("ties", 5, 300, seed=6)
+    x[3, ::7] = -0.0
+    x[4, :4] = (np.inf, -np.inf, np.nan, 0.0)
+    jdt, tdt = DTYPES[dt]
+    jx, tx = jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)
+    segs = ((2, 90), (90, 180), (200, 290))
     want = np.asarray(jops.segment_ranks(jx, segments=segs, interpret=True))
-    got = tref.segment_ranks_ref(tx, segs).numpy()
-    for s0, s1 in segs:
-        np.testing.assert_array_equal(got[:, s0:s1], want[:, s0:s1])
+    got = tops.segment_ranks(tx, segments=segs)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the NaN leads its segment; +inf and -inf tie in the leading gap
+    assert got[4, 2] == 0 and got[4, :2].tolist() == [0, 1]
+
+
+def test_segment_ranks_rejects_what_the_reference_rejects():
+    x = torch.randn(3, 40)
+    with pytest.raises(ValueError, match="float64"):
+        tops.segment_ranks(x.double())
+    with pytest.raises(ValueError, match=r"\(N, M\)"):
+        tops.segment_ranks(x[0])
+    with pytest.raises(ValueError, match="sorted and disjoint"):
+        tops.segment_ranks(x, segments=((10, 20), (15, 30)))
+    with pytest.raises(ValueError, match="out of range"):
+        tops.segment_ranks(x, segments=((0, 41),))
+    with pytest.raises(ValueError, match="CUDA"):
+        tkernel.segment_ranks(x, ((0, 40),))
+
+
+def test_rank_tiles_cover_every_interval_in_order():
+    T = tkernel.RANK_TILE
+    segs = ((3, 10), (10, 10 + 2 * T + 5), (10 + 2 * T + 9, 10 + 2 * T + 20))
+    width = segs[-1][1] + 7
+    tiles = tkernel.rank_tiles(segs, width)
+    cursor = 0
+    for t, (lo, hi, first, count) in enumerate(tiles):
+        assert lo == cursor and 0 < hi - lo <= T
+        assert first <= t < first + count
+        assert tiles[first][0] <= lo and tiles[first + count - 1][1] >= hi
+        cursor = hi
+    assert cursor == width
+    starts = sorted({tiles[f][0] for _, _, f, _ in tiles})
+    assert starts == [0, 3, 10, 10 + 2 * T + 5, 10 + 2 * T + 9, segs[-1][1]]
+    assert [c for _, _, f, c in tiles if f == 2][0] == 3
 
 
 def test_ops_reject_what_the_reference_rejects():
@@ -393,6 +451,21 @@ def cuda_device():
         pytest.skip("needs a CUDA device: the kernels run only on the card "
                     "(chip_smoke.py phase 2 is their full check)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_ranks_kernel_matches_plain_version_on_card(cuda_device,
+                                                            dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn((5, 5001), generator=gen, device=cuda_device).to(dtype)
+    x[1] = x[1].round()             # ties
+    x[2, :3] = torch.tensor([float("nan"), float("inf"), -0.0])
+    for segs in (None, ((0, 300), (310, 4700), (4800, 4999))):
+        kernels.reset_launch_counts()
+        got = tops.segment_ranks(x, segments=segs)
+        assert kernels.launch_counts()["segment_ranks"] == 1
+        assert torch.equal(got.cpu(), tref.segment_ranks_ref(x.cpu(), segs))
 
 
 @pytest.mark.cuda

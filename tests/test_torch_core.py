@@ -194,7 +194,7 @@ def test_fedspec_defaults_and_cli_match_reference():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(privacy=tapi.PrivacySpec(dp_init=True)), "dense front end"),
+    (dict(mesh_shape="1x2"), "tensor-parallel"),
     (dict(async_mode="stale"), "async"),
     (dict(max_staleness=2), "async"),
     (dict(mesh_shape="2x2"), "tensor-parallel"),

@@ -20,6 +20,7 @@ from repro.kernels.fedplt_update import ops as jupdate
 from repro.kernels.round_edge import ops as jedge
 from repro_torch import kernels
 from repro_torch.core import prox as tprox
+from repro_torch.kernels.compress import ops as tcompress
 from repro_torch.kernels.fedplt_update import kernel as update_kernel
 from repro_torch.kernels.fedplt_update import ops as tupdate
 from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
@@ -161,12 +162,14 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                            cap=5.0).sum().backward()
     a = torch.rand(2, 6, 3, 4, requires_grad=True)
     tlru.lru_scan(a, a).sum().backward()
+    tcompress.segment_ranks(z, segments=((10, 40), (50, 90)))
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
                                        "round_uplink_partial": 0,
                                        "round_downlink_presummed": 0,
                                        "fedplt_update": 0,
                                        "rank_select": 0,
+                                       "segment_ranks": 0,
                                        "int8_quantize": 0,
                                        "sort_aggregate": 0,
                                        "flash_attention_fwd": 0,
