@@ -77,11 +77,15 @@ last line):
 9. Flash attention (the attention of every layer of the trainer on the
    card, forward and backward; phases 3-8 count its launches: one
    forward and one backward per layer per agent per local epoch, 16 of
-   each per round of the full-width trainer).  9a: both kernels against
+   each per round of the full-width trainer; bf16 runs the tensor-core
+   kernels, fp32 the CUDA-core ones).  9a: both kernels against
    their plain versions (``kernels/flash_attention/ref.py``): fp32 and
    bf16, S = T in (1, 7, 64, 128, 1000), (H, Hkv) in ((8, 4), (8, 8),
    (8, 1)), D in (64, 128, 256), causal or not, window None / 3 / 100,
-   cap None / 50, rows with no visible key, the main path's own
+   cap None / 50; the edges of the bf16 tiles, (S, T) in (63, 63),
+   (65, 65), (129, 129), (192, 192), (300, 40), (40, 300), (200, 129)
+   with (H, Hkv) (8, 4) and the MQA head split (10, 1), D 64 and 256;
+   rows with no visible key, the main path's own
    shape (B 2, S = T 512, H 8, Hkv 4, D 256, bf16, cap 50, causal with
    window None and 4096) and recurrentgemma-2b's local layer of phase
    10d (B 2, S = T 512, H 10, Hkv 1, D 256, bf16, no cap, causal with
@@ -92,9 +96,11 @@ last line):
    over 8192 tokens (B 1, H 8, Hkv 4, D 256, bf16, cap 50), the global
    (causal) and the local (window 4096) layer, forward and backward
    against the plain versions run head by head, timed beside the bound
-   (each product at its operands' rate: bf16 x bf16 at the bf16
-   tensor-core peak, with a float32 operand at the float32 peak), SDPA
-   (``is_causal``, a yardstick: no softcap, no window) and the plain
+   (every product at the bf16 tensor-core peak, the products with the
+   float32 p or ds once per bf16 term), ``flex_attention`` under
+   ``torch.compile`` (the same function: the softcap as its score_mod,
+   the mask as its block mask; ``library_ms``), SDPA (``is_causal``, a
+   yardstick: no softcap, no window) and the plain
    PyTorch path the kernel replaces (``attn_chunked`` /
    ``attn_block_local`` with autograd).  9c: the
    same forward and backward again, bit for bit.
@@ -1516,132 +1522,104 @@ def flash_small_checks(torch):
     versions over dtypes, lengths (ragged too), GQA groupings, head
     dims, masks and softcaps; the backward kernels and the plain
     backward get the same inputs (the plain forward's o and lse)."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(10)
-    n_checks, worst = 0, {"o": 0.0, "lse": 0.0, "grad": 0.0}
+    worst = {"o": 0.0, "lse": 0.0, "grad": 0.0}
+    n_checks = 0
+
+    def draw(B, S, T, H, Hkv, D, dtype):
+        q = torch.randn((B, S, H, D), generator=gen, device=dev)
+        k, v = (torch.randn((B, T, Hkv, D), generator=gen, device=dev)
+                for _ in range(2))
+        do = torch.randn((B, S, H, D), generator=gen, device=dev)
+        return tuple(t.to(dtype) for t in (q, k, v, do))
+
+    def check(q, k, v, do, kw, tag):
+        nonlocal n_checks
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = fref.flash_attention_ref(q, k, v, **kw)
+        worst["o"] = max(worst["o"], flash_close(torch, o, po,
+                                                 "flash fwd o " + tag))
+        worst["lse"] = max(worst["lse"], flash_close(
+            torch, lse, plse, "flash fwd lse " + tag))
+        got = fops.flash_attention_bwd(q, k, v, po, plse, do, **kw)
+        want = fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+        names = ("dq", "dk", "dv")
+        if q.shape[1] == 1 and k.shape[1] == 1:
+            # one key: p = 1, so the exact dq and dk are 0 and both
+            # versions return the rounding of dp - delta
+            flash_zero(torch, got[:2], want[2], "flash bwd dq, dk " + tag)
+            names, got, want = names[2:], got[2:], want[2:]
+        for name, a, b in zip(names, got, want):
+            worst["grad"] = max(worst["grad"], flash_close(
+                torch, a, b, f"flash bwd {name} {tag}", grad=True))
+        n_checks += 1
+
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1, 7, 64, 128, 1000):
             for H, Hkv in ((8, 4), (8, 8), (8, 1)):
                 for D in (64, 128, 256):
-                    q = torch.randn((2, S, H, D), generator=gen, device=dev)
-                    k, v = (torch.randn((2, S, Hkv, D), generator=gen,
-                                        device=dev) for _ in range(2))
-                    do = torch.randn((2, S, H, D), generator=gen, device=dev)
-                    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+                    q, k, v, do = draw(2, S, S, H, Hkv, D, dtype)
                     for causal in (True, False):
                         for window in (None, 3, 100):
                             for cap in (None, FLASH_CAP):
                                 kw = dict(causal=causal, window=window,
                                           cap=cap)
-                                tag = (f"{dtype} S={S} H={H} Hkv={Hkv} D={D} "
-                                       f"{kw}")
-                                o, lse = fops.flash_attention_fwd(q, k, v, **kw)
-                                po, plse = fref.flash_attention_ref(q, k, v, **kw)
-                                worst["o"] = max(worst["o"], flash_close(
-                                    torch, o, po, "flash fwd o " + tag))
-                                worst["lse"] = max(worst["lse"], flash_close(
-                                    torch, lse, plse, "flash fwd lse " + tag))
-                                got = fops.flash_attention_bwd(
-                                    q, k, v, po, plse, do, **kw)
-                                want = fref.flash_attention_bwd_ref(
-                                    q, k, v, po, plse, do, **kw)
-                                if S == 1:
-                                    # one key: p = 1, so the exact dq and
-                                    # dk are 0 and both versions return
-                                    # the rounding of dp - delta
-                                    flash_zero(torch, got[:2], want[2],
-                                               "flash bwd dq, dk " + tag)
-                                    got, want = got[2:], want[2:]
-                                for name, a, b in zip(("dv",) if S == 1 else
-                                                      ("dq", "dk", "dv"), got,
-                                                      want):
-                                    worst["grad"] = max(worst["grad"], flash_close(
-                                        torch, a, b, f"flash bwd {name} {tag}",
-                                        grad=True))
-                                n_checks += 1
+                                check(q, k, v, do, kw,
+                                      f"{dtype} S={S} H={H} Hkv={Hkv} "
+                                      f"D={D} {kw}")
+    # the edges of the bf16 tensor-core kernels' tiles: S = T around the
+    # 64-row warpgroup tiles, the 128-row CTAs and the 32- and 64-key
+    # steps; T != S, with rows that see no key (S 300, T 40, window 100)
+    # and keys no row sees; GQA 8:4 and the MQA head split (10 over 1)
+    for S, T in ((63, 63), (65, 65), (129, 129), (192, 192), (300, 40),
+                 (40, 300), (200, 129)):
+        for H, Hkv in ((8, 4), (10, 1)):
+            for D in (64, 256):
+                q, k, v, do = draw(2, S, T, H, Hkv, D, torch.bfloat16)
+                for causal, window, cap in ((True, None, FLASH_CAP),
+                                            (True, 100, None),
+                                            (False, 3, FLASH_CAP),
+                                            (False, None, None)):
+                    kw = dict(causal=causal, window=window, cap=cap)
+                    check(q, k, v, do, kw, f"bf16 tile edge S={S} T={T} "
+                          f"H={H} Hkv={Hkv} D={D} {kw}")
     # the main path's shape: one agent's batch of phase 4 through a
-    # full-width global and local layer (bf16, its softcap and window)
-    from repro_torch.configs import get_config
-
-    cfg = get_config("gemma2-2b")
-    B, S = MAIN_BATCH // FULL_N, MAIN_SEQ
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    for window in (None, cfg.window):
-        kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
-        tag = f"main-path shape B={B} S={S} H={H} Hkv={Hkv} D={D} bf16 {kw}"
-        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
-        po, plse = fref.flash_attention_ref(q, k, v, **kw)
-        worst["o"] = max(worst["o"], flash_close(torch, o, po,
-                                                 "flash fwd o " + tag))
-        worst["lse"] = max(worst["lse"], flash_close(
-            torch, lse, plse, "flash fwd lse " + tag))
-        for name, a, b in zip(("dq", "dk", "dv"),
-                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
-                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
-            worst["grad"] = max(worst["grad"], flash_close(
-                torch, a, b, f"flash bwd {name} {tag}", grad=True))
-        n_checks += 1
-    main_shape = f"B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}, bf16, cap " \
-        f"{cfg.attn_softcap}, causal with window None and {cfg.window}"
+    # full-width global and local layer (bf16, its softcap and window);
     # recurrentgemma-2b's local layer in phase 10d: MQA, 10 heads over 1
-    cfg = get_config("recurrentgemma-2b")
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q, do = (torch.randn((B, S, H, D), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2))
-    for window in (None, cfg.window):
-        kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
-        tag = f"recurrentgemma shape B={B} S={S} H={H} Hkv={Hkv} D={D} " \
-            f"bf16 {kw}"
-        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
-        po, plse = fref.flash_attention_ref(q, k, v, **kw)
-        worst["o"] = max(worst["o"], flash_close(torch, o, po,
-                                                 "flash fwd o " + tag))
-        worst["lse"] = max(worst["lse"], flash_close(
-            torch, lse, plse, "flash fwd lse " + tag))
-        for name, a, b in zip(("dq", "dk", "dv"),
-                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
-                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
-            worst["grad"] = max(worst["grad"], flash_close(
-                torch, a, b, f"flash bwd {name} {tag}", grad=True))
-        n_checks += 1
-    main_shape += f"; recurrentgemma-2b's B {B}, S = T {S}, H {H}, Hkv " \
-        f"{Hkv}, D {D}, bf16, no cap, causal with window None and " \
-        f"{cfg.window}"
+    shapes = []
+    for arch in ("gemma2-2b", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        B, S = MAIN_BATCH // FULL_N, MAIN_SEQ
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k, v, do = draw(B, S, S, H, Hkv, D, torch.bfloat16)
+        for window in (None, cfg.window):
+            kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
+            check(q, k, v, do, kw, f"{arch} shape B={B} S={S} H={H} "
+                  f"Hkv={Hkv} D={D} bf16 {kw}")
+        shapes.append(f"{arch}'s B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}"
+                      f", bf16, cap {cfg.attn_softcap}, causal with window "
+                      f"None and {cfg.window}")
     # rows with no visible key (S > T + window - 1): the mean of v
-    q = torch.randn((2, 300, 8, 64), generator=gen, device=dev)
-    k, v = (torch.randn((2, 40, 4, 64), generator=gen, device=dev)
-            for _ in range(2))
-    do = torch.randn_like(q)
+    q, k, v, do = draw(2, 300, 40, 8, 4, 64, torch.float32)
     for causal in (True, False):
         kw = dict(causal=causal, window=100, cap=FLASH_CAP)
-        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
-        po, plse = fref.flash_attention_ref(q, k, v, **kw)
-        flash_close(torch, o, po, f"flash fwd o, dead rows {kw}")
-        flash_close(torch, lse, plse, f"flash fwd lse, dead rows {kw}")
-        for name, a, b in zip(("dq", "dk", "dv"),
-                              fops.flash_attention_bwd(q, k, v, po, plse, do, **kw),
-                              fref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)):
-            flash_close(torch, a, b, f"flash bwd {name}, dead rows {kw}",
-                        grad=True)
-        n_checks += 1
+        check(q, k, v, do, kw, f"dead rows {kw}")
     torch.cuda.synchronize()
     log(f"phase 9a: {n_checks} flash attention checks (forward o and lse, "
         f"backward dq, dk, dv) against the plain versions: fp32 and bf16, "
         f"S = T in (1, 7, 64, 128, 1000), (H, Hkv) in ((8, 4), (8, 8), "
         f"(8, 1)), D in (64, 128, 256), causal or not, window None / 3 / "
-        f"100, cap None / 50, the main path's shape ({main_shape}), and "
-        f"rows with no visible key (S 300, T 40, window 100); max abs err "
-        f"o {worst['o']:.3g}, lse {worst['lse']:.3g}, grads "
-        f"{worst['grad']:.3g}")
+        f"100, cap None / 50; bf16 tile edges (S, T) in (63, 63), (65, 65), "
+        f"(129, 129), (192, 192), (300, 40), (40, 300), (200, 129) with "
+        f"(H, Hkv) (8, 4) and (10, 1), D 64 and 256; the main path's shapes "
+        f"({'; '.join(shapes)}), and fp32 rows with no visible key (S 300, "
+        f"T 40, window 100); max abs err o {worst['o']:.3g}, lse "
+        f"{worst['lse']:.3g}, grads {worst['grad']:.3g}")
 
 
 def visible_pairs(S, T, causal, window):
@@ -1657,23 +1635,26 @@ def visible_pairs(S, T, causal, window):
 def flash_bounds(bw, B, S, H, Hkv, D, causal, window):
     """The least time of the bf16 flash forward and backward at a shape:
     the larger of the bytes (q, k, v, o, and dO, dq, dk, dv, once each,
-    with the float32 lse) over the memory rate and the operations, each
-    product at the rate of its operand types: q k^T and dO v^T multiply
-    two bf16 operands (bf16 tensor cores, fp32 accumulation); p v,
-    p^T dO, ds^T q and ds k carry the fp32 p or ds (the fp32 peak)."""
+    with the float32 lse) over the memory rate and the operations as the
+    tensor-core kernels run them, all at the bf16 tensor-core peak: q k^T
+    and dO v^T (two bf16 operands) once each, and p v, p^T dO, ds^T q and
+    ds k once per bf16 term of their float32 p or ds (NSPLIT terms)."""
+    from repro_torch.kernels.flash_attention.kernel import NSPLIT
+
     pairs = B * H * visible_pairs(S, S, causal, window)
     q_elts, kv_elts, lse_bytes = B * S * H * D, B * S * Hkv * D, B * H * S * 4
     out = {"pairs": pairs}
-    for name, f_bf16, f_fp32, bytes_ in (
-            ("fwd", 2 * D * pairs, 2 * D * pairs,
+    for name, f_bf16, f_split, bytes_ in (
+            ("fwd", 2 * D * pairs, NSPLIT * 2 * D * pairs,
              (2 * q_elts + 2 * kv_elts) * 2 + lse_bytes),
-            ("bwd", 4 * D * pairs, 6 * D * pairs,
+            ("bwd", 4 * D * pairs, NSPLIT * 6 * D * pairs,
              (4 * q_elts + 4 * kv_elts) * 2 + lse_bytes)):
-        ops_s = f_bf16 / BF16_PEAK + f_fp32 / FP32_PEAK
+        ops_s = (f_bf16 + f_split) / BF16_PEAK
         out[name] = dict(
             bound_ms=max(bytes_ / bw, ops_s) * 1e3,
             bound_by="bytes" if bytes_ / bw >= ops_s else "operations",
-            flops_bf16=f_bf16, flops_fp32=f_fp32, bytes=bytes_)
+            flops_bf16=f_bf16, flops_split=f_split, nsplit=NSPLIT,
+            bytes=bytes_)
     return out
 
 
@@ -1771,9 +1752,13 @@ def flash_full_shape(torch, bw):
             torch, q, k, v, o, lse, do, **kw), reps=3)
         torch.cuda.empty_cache()
 
-        # yardsticks: SDPA (no softcap, no window: a different function)
-        # and the plain PyTorch path that the kernel replaces, with autograd
+        # yardsticks: SDPA (no softcap, no window: a different function),
+        # flex_attention under torch.compile (the same function: the softcap
+        # as its score_mod, the mask as its block mask) and the plain
+        # PyTorch path that the kernel replaces, with autograd
         import torch.nn.functional as F
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
 
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
                       for t in (q, k, v))
@@ -1785,7 +1770,27 @@ def flash_full_shape(torch, bw):
         out = sdpa()
         sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True))
-        del out, qt, kt, vt, dot
+        del out
+
+        def mask_mod(b, h, qi, ki):
+            seen = qi >= ki
+            return seen if window is None else seen & (qi - ki < window)
+
+        def softcap(score, b, h, qi, ki):
+            return FLASH_CAP * torch.tanh(score / FLASH_CAP)
+
+        block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                       device="cuda")
+        flex = torch.compile(flex_attention)
+        flex_call = lambda: flex(qt, kt, vt, score_mod=softcap,
+                                 block_mask=block_mask, enable_gqa=True)
+        out = flex_call()
+        # a yardstick's own rounding (recorded, not held to 9a's tolerance)
+        flex_err = float((out.transpose(1, 2).float() - po.float()).abs().max())
+        flex_fwd_ms = cuda_ms(torch, flex_call)
+        flex_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt, dot, block_mask
         torch.cuda.empty_cache()
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         if kind == "global":
@@ -1805,27 +1810,32 @@ def flash_full_shape(torch, bw):
 
         bounds = flash_bounds(bw, B, S, H, Hkv, D, causal, window)
         rec = {"pairs": bounds["pairs"]}
-        for name, ms, pms, lib_ms, err in (
-                ("fwd", fwd_ms, pfwd_ms, sdpa_fwd_ms, max(err_o, err_lse)),
-                ("bwd", bwd_ms, pbwd_ms, sdpa_bwd_ms, err_g)):
+        for name, ms, pms, lib_ms, sdpa_ms, err in (
+                ("fwd", fwd_ms, pfwd_ms, flex_fwd_ms, sdpa_fwd_ms,
+                 max(err_o, err_lse)),
+                ("bwd", bwd_ms, pbwd_ms, flex_bwd_ms, sdpa_bwd_ms, err_g)):
             bd = bounds[name]
-            bound, f_bf16, f_fp32 = (bd[f] for f in ("bound_ms", "flops_bf16",
-                                                      "flops_fp32"))
+            bound, f_bf16, f_split = (bd[f] for f in ("bound_ms", "flops_bf16",
+                                                       "flops_split"))
             rec[name] = dict(ms=ms, plain_ms=pms, max_abs_err=err,
-                             library_ms=lib_ms, **bd)
+                             library_ms=lib_ms, sdpa_ms=sdpa_ms, **bd)
             log(f"phase 9b {kind} ({'causal' if window is None else f'window {window}'}"
                 f", cap {FLASH_CAP}, B {B} S {S} H {H} Hkv {Hkv} D {D} bf16) "
                 f"{name}: max_abs_err={err:.3g}; kernel {ms:.3f} ms, plain "
                 f"(head by head) {pms:.3f} ms, bound {bound:.3f} ms "
-                f"({f_bf16 / 1e9:.1f} GFLOP bf16 x bf16 at "
-                f"{BF16_PEAK / 1e12:.0f} TFLOP/s + {f_fp32 / 1e9:.1f} GFLOP "
-                f"with an fp32 operand at {FP32_PEAK / 1e12:.0f} TFLOP/s; "
-                f"{100 * bound / ms:.1f}% of it); yardstick SDPA is_causal "
-                f"{lib_ms:.3f} ms")
+                f"({f_bf16 / 1e9:.1f} GFLOP bf16 x bf16 + {f_split / 1e9:.1f} "
+                f"GFLOP in {bd['nsplit']} bf16 terms of p or ds, all at "
+                f"{BF16_PEAK / 1e12:.0f} TFLOP/s; {100 * bound / ms:.1f}% of "
+                f"it); yardsticks flex_attention (compiled, the same "
+                f"function) {lib_ms:.3f} ms, SDPA is_causal {sdpa_ms:.3f} ms")
+        rec["flex_max_abs_err"] = flex_err
         rec["sdpa_fwd_plus_bwd_ms"] = sdpa_fwd_ms + sdpa_bwd_ms
+        rec["flex_fwd_plus_bwd_ms"] = flex_fwd_ms + flex_bwd_ms
         rec["torch_path_fwd_ms"] = torch_fwd_ms
         rec["torch_path_fwd_plus_bwd_ms"] = torch_fb_ms
-        log(f"phase 9b {kind} yardsticks: SDPA fwd {sdpa_fwd_ms:.3f} + bwd "
+        log(f"phase 9b {kind} yardsticks: flex_attention fwd {flex_fwd_ms:.3f}"
+            f" + bwd {flex_bwd_ms:.3f} ms (its o against the plain one: max "
+            f"abs err {flex_err:.3g}); SDPA fwd {sdpa_fwd_ms:.3f} + bwd "
             f"{sdpa_bwd_ms:.3f} ms (no softcap{'' if window is None else ', no window'}: "
             f"another function); the plain PyTorch path it replaces "
             f"({'attn_chunked' if window is None else 'attn_block_local'}) "

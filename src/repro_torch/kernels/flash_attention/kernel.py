@@ -5,16 +5,31 @@ Replaces ``repro/kernels/flash_attention/kernel.py``'s
 the reference leaves to autodiff.  Bound by operations: per (query, key)
 pair a row sees, ``4 D`` floating-point operations forward (``q k`` and
 ``p v``) and ``10 D`` backward (the products ``s``, ``dp``, ``dV``,
-``dK``, ``dQ``); the source file's header says how the design meets
-that bound.
+``dK``, ``dQ``).
+
+bfloat16 runs on the tensor cores: every product is a ``wgmma`` with
+float32 accumulation; the float32 ``p`` (and ``ds``) is split into
+``NSPLIT = 2`` bf16 terms, one product per term, so ``p v``, ``p^T dO``,
+``ds^T q`` and ``ds k`` keep the reference's float32 ``p``; K/V (forward,
+dQ) or Q/dO (dK/dV) tiles stream through a 2-stage ring of TMA copies
+that one producer thread keeps ahead of two consumer warpgroups (64
+rows of one head each; 64-key steps, 32 in dQ; D padded to 64, 128 or
+256).  On the card the float32 elementwise work between the products
+(masks, the precise ``tanh`` softcap, ``exp``, the splits) takes about
+as long as the products, and at the trainer's 512 tokens the grid is
+short of the 132 SMs.  float32 keeps the CUDA-core kernels (tensor
+cores have no float32 product at float32 precision).  The source
+file's header gives the design in full.
 
 * forward: one launch reads q ``(B, S, H, D)`` and k, v ``(B, T, Hkv,
   D)`` once per q block and writes o ``(B, S, H, D)`` in their dtype and
   the float32 log-sum-exp ``(B, H, S)``.
-* backward: one call launches three kernels: ``delta = rowsum(dO * O)``
-  into a float32 ``(B, H, S)`` scratch, dK/dV (one CTA per (b, kv head,
-  kv block)) and dQ (one CTA per (b, h, q block)); it reads q, k, v, o,
-  dO, lse and writes dq, dk, dv in the inputs' dtype.
+* backward: one call launches ``delta = rowsum(dO * O)`` into a float32
+  ``(B, H, S)`` scratch, dK/dV and dQ; it reads q, k, v, o, dO, lse and
+  writes dq, dk, dv in the inputs' dtype.  In bfloat16 the dK/dV kernel
+  takes one query head a CTA: with ``H > Hkv`` it writes float32
+  partials into a ``(2, G, B, T, Hkv, D)`` scratch, summed in head order
+  by a fourth kernel (no atomics: two runs give the same bits).
 
 GQA is index mapping inside the kernels (query head ``h`` reads kv head
 ``h // G``); nothing is repeated.  q and k/v differ in their head count,
@@ -38,6 +53,7 @@ from repro_torch.kernels._cuda import (F32, I64, INT, PTR, check_launch, ptr,
 SOURCE = Path(__file__).parent / "csrc" / "flash_attention.cu"
 
 MAX_HEAD_DIM = 256        # the largest DP the kernels are built for
+NSPLIT = 2                # bf16 terms of p and ds (the source's NSPLIT)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -47,7 +63,7 @@ def _lib():
     lib.repro_flash_fwd.argtypes = [PTR] * 5 + [I64, I64, I64] + [INT] * 6 \
         + [F32, F32, PTR]
     lib.repro_flash_fwd.restype = INT
-    lib.repro_flash_bwd.argtypes = [PTR] * 10 + [I64, I64, I64] + [INT] * 6 \
+    lib.repro_flash_bwd.argtypes = [PTR] * 11 + [I64, I64, I64] + [INT] * 6 \
         + [F32, F32, PTR]
     lib.repro_flash_bwd.restype = INT
     return lib
@@ -56,10 +72,11 @@ def _lib():
 def check_attention(name: str, q, k, v, *, window, cap, **others) -> None:
     """Raise unless q ``(B, S, H, D)`` and k, v ``(B, T, Hkv, D)`` are
     contiguous CUDA tensors of one float32 or bfloat16 dtype with ``H``
-    a multiple of ``Hkv``, ``T >= 1`` and ``D`` a multiple of 4 up to
-    256, each operand aligned to 4 elements (the kernels load four
-    columns at once); ``others`` are checked against q's shape
-    (``(B, S, H, D)``), or ``(B, H, S)`` float32 for ``lse``."""
+    a multiple of ``Hkv``, ``T >= 1`` and ``D`` up to 256, a multiple of
+    4 in float32 (four columns a load) and of 8 in bfloat16 (TMA rows
+    are 16-byte multiples), each operand 16-byte aligned; ``others`` are
+    checked against q's shape (``(B, S, H, D)``), or ``(B, H, S)``
+    float32 for ``lse``."""
     if q.ndim != 4 or k.ndim != 4:
         raise ValueError(f"{name}: q must be (B, S, H, D) and k, v "
                          f"(B, T, Hkv, D)")
@@ -93,9 +110,12 @@ def check_attention(name: str, q, k, v, *, window, cap, **others) -> None:
     if q.dtype not in DTYPES:
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"not {q.dtype}")
+    if q.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8 "
+                         f"in bfloat16")
     for key, t in {"q": q, "k": k, "v": v, **others}.items():
-        if t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{name}: {key} is not aligned to 4 elements")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} is not aligned to 16 bytes")
     if q.device.type != "cuda":
         raise ValueError(f"{name}: kernel operands must be CUDA tensors")
 
@@ -124,16 +144,21 @@ def flash_fwd(q, k, v, *, causal: bool, window, cap):
 
 
 def flash_bwd(q, k, v, o, lse, do, *, causal: bool, window, cap):
-    """``(dq, dk, dv)`` from the three backward kernels (one call)."""
+    """``(dq, dk, dv)`` from the backward kernels (one call)."""
     check_attention("flash_attention_bwd", q, k, v, window=window, cap=cap,
                     o=o, lse=lse, do=do)
     B, S, H, _ = q.shape
+    G = H // k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    part = None
+    if q.dtype == torch.bfloat16 and G > 1:
+        part = torch.empty((2, G) + tuple(k.shape), dtype=torch.float32,
+                           device=q.device)
     check_launch("flash_attention_bwd", _lib().repro_flash_bwd(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(do), ptr(lse), ptr(delta),
-        ptr(dq), ptr(dk), ptr(dv),
+        ptr(dq), ptr(dk), ptr(dv), ptr(part),
         *_args(q, k, causal, window, cap), stream_of(q)))
     return dq, dk, dv

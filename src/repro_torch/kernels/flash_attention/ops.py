@@ -11,7 +11,8 @@ kernel that fails to build or launch raises.  The reference folds
 read the layout as it is and map query head ``h`` to kv head ``h // G``.
 
 ``flash_attention_fwd.launches`` counts forward launches and
-``flash_attention_bwd.launches`` backward calls (three kernels each).
+``flash_attention_bwd.launches`` backward calls (three kernels each, a
+fourth -- the head-order sum of dK, dV -- in bfloat16 with GQA).
 """
 
 from __future__ import annotations

@@ -27,9 +27,14 @@ Here, on the same numpy inputs:
   the reference model's loss and ``jax.grad``.
 * routing: the CPU op equals ``ref.py``, leaves both launch counters at
   0, and the transformer's CPU layers keep the reference's plain paths.
+* the bf16 tensor-core kernels' arithmetic, emulated in plain torch
+  (exact bf16 score products summed in float32, the float32 p and ds in
+  the kernels' NSPLIT bf16 terms), against the plain versions at phase
+  9a's bf16 tolerance; and one bf16 term shown to miss it.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -324,7 +329,8 @@ def test_suite_is_registered():
 
 @pytest.mark.parametrize("case", ["cpu", "head_dim", "head_dim_4", "heads",
                                   "window", "cap", "dtype", "lse",
-                                  "misaligned"])
+                                  "misaligned", "head_dim_8_bf16",
+                                  "misaligned_bf16"])
 def test_kernel_launchers_check_operands(case):
     """The launchers raise before any build on what the kernels do not
     take (the CPU case: the kernels take CUDA tensors only)."""
@@ -337,6 +343,15 @@ def test_kernel_launchers_check_operands(case):
     elif case == "misaligned":
         # contiguous, but one element past an aligned allocation
         k = torch.zeros(k.numel() + 1)[1:].view(k.shape)
+    elif case == "head_dim_8_bf16":
+        # the TMA copies of the bf16 kernels move 16-byte rows
+        q, k, v = (torch.zeros(t.shape[:3] + (12,), dtype=torch.bfloat16)
+                   for t in (q, k, v))
+    elif case == "misaligned_bf16":
+        # four bf16 elements (8 bytes) past an aligned allocation
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        k = torch.zeros(k.numel() + 4, dtype=torch.bfloat16)[4:].view(
+            k.shape)
     elif case == "heads":
         q = torch.zeros(2, 8, 3, 16)
     elif case == "window":
@@ -347,7 +362,9 @@ def test_kernel_launchers_check_operands(case):
         q, k, v = (t.double() for t in (q, k, v))
     match = {"cpu": "CUDA", "head_dim": "head_dim", "head_dim_4": "multiple",
              "heads": "Hkv", "window": "window", "cap": "softcap",
-             "dtype": "float32", "lse": "lse", "misaligned": "aligned"}[case]
+             "dtype": "float32", "lse": "lse", "misaligned": "aligned",
+             "head_dim_8_bf16": "multiple of 8",
+             "misaligned_bf16": "aligned"}[case]
     with pytest.raises((ValueError, TypeError), match=match):
         if case == "lse":
             tkernel.flash_bwd(q, k, v, q, torch.zeros(2, 4, 7), q, **kw)
@@ -392,3 +409,160 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
                                    rtol=tol)
     assert kernels.launch_counts()["flash_attention_fwd"] == 1
     assert kernels.launch_counts()["flash_attention_bwd"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 tensor-core kernels' arithmetic, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+# the kernels' number of bf16 terms of the float32 p and ds
+NSPLIT = int(re.search(r"constexpr int NSPLIT = (\d+);",
+                       tkernel.SOURCE.read_text()).group(1))
+KEY_STEP = 64            # keys of a forward step (the online softmax's blocks)
+
+
+def _bf16_terms(x, n):
+    """float32 ``x`` as ``n`` bf16 terms (each held in float32): term t is
+    bf16 of ``x`` less the terms before it."""
+    terms = []
+    for _ in range(n):
+        t = x.to(torch.bfloat16).float()
+        terms.append(t)
+        x = x - t
+    return terms
+
+
+def _split_einsum(eq, a, b, n):
+    """``einsum(eq, a, b)`` with the float32 ``a`` split into ``n`` bf16
+    terms, one float32 product per term (as one wgmma per term)."""
+    return sum(torch.einsum(eq, t, b) for t in _bf16_terms(a, n))
+
+
+def _emulated_fwd(q, k, v, n, *, causal, window, cap):
+    """The forward kernel's arithmetic on bf16 q, k, v: exact bf16 score
+    products summed in float32, the float32 online softmax over steps of
+    64 keys, ``p v`` with p in ``n`` bf16 terms; ``(o, lse)``."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    s, _ = tref._scores(q, k, cap)                       # (B, Hkv, G, S, T)
+    s = torch.where(tref.visible_mask(S, T, causal, window), s, tref.NEG_INF)
+    vf = v.float()
+    m = torch.full(s.shape[:-1] + (1,), tref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(s.shape[:-1] + (D,))
+    for k0 in range(0, T, KEY_STEP):
+        x = s[..., k0:k0 + KEY_STEP]
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _split_einsum("bhgst,bthd->bhgsd", p,
+                                         vf[:, k0:k0 + KEY_STEP], n)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    o = (acc / l).permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+    lse = (m + torch.log(l))[..., 0].reshape(B, H, S)
+    return o.to(q.dtype), lse
+
+
+def _emulated_bwd(q, k, v, o, lse, do, n, *, causal, window, cap):
+    """The backward kernels' arithmetic: p and ds in float32 from exact
+    bf16 score products, then ``p^T dO``, ``ds^T q`` and ``ds k`` with p
+    and ds in ``n`` bf16 terms; the heads of a group summed in float32."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    s, qg = tref._scores(q, k, cap)
+    mask = tref.visible_mask(S, T, causal, window)
+    dead = ~mask.any(dim=-1)[:, None]
+    p = torch.where(mask, torch.exp(s - lse.reshape(B, Hkv, G, S)[..., None]),
+                    0.0)
+    p = torch.where(dead, 1.0 / T, p)
+    dog = do.reshape(B, S, Hkv, G, D).float()
+    delta = (dog * o.reshape(B, S, Hkv, G, D).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]
+    dp = torch.einsum("bshgd,bthd->bhgst", dog, v.float())
+    ds = torch.where(mask, p * (dp - delta), 0.0)
+    if cap is not None:
+        ds = ds * (1.0 - (s / cap) ** 2)
+    ds = ds * D ** -0.5
+    dv = _split_einsum("bhgst,bshgd->bthd", p, dog, n)
+    dk = _split_einsum("bhgst,bshgd->bthd", ds, qg, n)
+    dq = _split_einsum("bhgst,bthd->bshgd", ds, k.float(), n)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _beyond_bf16_tolerance(port, want):
+    """Entries of ``port`` beyond phase 9a's bf16 tolerance of ``want``:
+    one bf16 ulp plus 1e-5 max|want| (as ``_assert_close``)."""
+    a, b = port.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp_min(
+        torch.finfo(torch.float32).tiny)
+    tol = torch.exp2(torch.floor(torch.log2(mag)) - 7) + 1e-5 * b.abs().max()
+    return int((~((a - b).abs() <= tol)).sum())
+
+
+def _emulated_errors(shape, n, kw, seed):
+    """{output: entries beyond the tolerance} of the emulated kernels with
+    ``n`` terms against the plain versions, on bf16 inputs of ``shape``
+    ``(B, S, T, H, Hkv, D)``; the backward of both gets the plain
+    forward's o and lse, as phase 9a gives them."""
+    B, S, T, H, Hkv, D = shape
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(S, H, Hkv, D, seed=seed, T=T, B=B))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=q.shape).astype(np.float32)).to(torch.bfloat16)
+    po, plse = tref.flash_attention_ref(q, k, v, **kw)
+    o, lse = _emulated_fwd(q, k, v, n, **kw)
+    # o at the bf16 tolerance; the float32 lse at 9a's 1e-5 max(1, |ref|)
+    out = {"o": _beyond_bf16_tolerance(o, po),
+           "lse": int((~((lse - plse).abs()
+                         <= 1e-5 * plse.abs().clamp_min(1.0))).sum())}
+    want = tref.flash_attention_bwd_ref(q, k, v, po, plse, do, **kw)
+    got = _emulated_bwd(q, k, v, po, plse, do, n, **kw)
+    out.update({name: _beyond_bf16_tolerance(g, w)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want)})
+    return out
+
+
+# (B, S, T, H, Hkv, D) and the masks: phase 9a's bf16 shapes (S = T up to
+# 1000, GQA 8:4 / 8:8 / 8:1, D 64-256), its dead rows (T < S), the main
+# path's global and local layer, recurrentgemma-2b's MQA layer
+EMULATED = [
+    ((2, 7, 7, 8, 4, 64), dict(causal=True, window=None, cap=50.0)),
+    ((2, 64, 64, 8, 8, 128), dict(causal=False, window=3, cap=None)),
+    ((2, 128, 128, 8, 1, 256), dict(causal=True, window=100, cap=50.0)),
+    ((2, 1000, 1000, 8, 4, 64), dict(causal=True, window=None, cap=50.0)),
+    ((2, 1000, 1000, 8, 1, 128), dict(causal=False, window=100, cap=None)),
+    ((2, 300, 40, 8, 4, 64), dict(causal=True, window=100, cap=50.0)),
+    ((2, 512, 512, 8, 4, 256), dict(causal=True, window=None, cap=50.0)),
+    ((2, 512, 512, 8, 4, 256), dict(causal=True, window=4096, cap=50.0)),
+    ((2, 512, 512, 10, 1, 256), dict(causal=True, window=2048, cap=None)),
+]
+
+
+@pytest.mark.parametrize("shape,kw", EMULATED,
+                         ids=[f"{'x'.join(map(str, s))}-{kw['window']}-"
+                              f"{kw['cap']}" for s, kw in EMULATED])
+def test_emulated_tensor_core_arithmetic_meets_the_bf16_tolerance(shape,
+                                                                   kw):
+    """The bf16 kernels' numerics (NSPLIT bf16 terms of p and ds) against
+    the plain versions at phase 9a's bf16 tolerance, unloosened."""
+    bad = _emulated_errors(shape, NSPLIT, kw, seed=sum(shape))
+    assert not any(bad.values()), f"{bad} beyond the tolerance"
+
+
+def test_launcher_names_the_kernels_term_count():
+    """kernel.NSPLIT (read by chip_smoke.py's bound) is the source's."""
+    assert tkernel.NSPLIT == NSPLIT
+
+
+def test_one_bf16_term_of_p_misses_the_bf16_tolerance():
+    """The split is needed: with p and ds rounded to one bf16 term the
+    main path's shape has entries beyond the tolerance."""
+    bad = _emulated_errors((2, 512, 512, 8, 4, 256), 1,
+                              dict(causal=True, window=None, cap=50.0),
+                              seed=1)
+    assert NSPLIT > 1
+    assert any(bad.values()), bad
