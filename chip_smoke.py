@@ -11,7 +11,7 @@ last line):
 1. Card: ``nvidia-smi`` name and power limit, torch / CUDA versions; the
    kernels are compiled from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, in parallel); the flash kernels' registers and
-   spills from ``-Xptxas -v`` (and the lru_scan kernels').
+   spills from ``-Xptxas -v`` (and the lru_scan and compress kernels').
 2. Kernels against their plain PyTorch versions on the card: every prox
    of the table, exact and lagged exchanges, with and without the noise
    operand, ragged widths (N=3, M=1000 and M=1001), a participation row
@@ -135,14 +135,19 @@ last line):
    ``segment_ranks_ref``): N in (1, 2, 3, 5, 100), M = 1000 and 1001,
    fp32 and bf16, no segments, one, and several with leading, interior
    and trailing gaps, tie-heavy, all-equal and all-zero rows, +-0.0,
-   +-inf and NaN, a misaligned view; and ``where(segment_ranks < k, x,
-   0)`` equal to the rank_select kernel's topk per segment.  11b: the
-   public op at the trainer's packed increment (4 x 745,549,056 bf16, 18
-   segments), launch counted, bit-equal to the plain version run row by
-   row, timed beside the byte bound (read x, write int32 ranks), the
-   plain version and ``torch.argsort(stable)`` per (row, interval) as a
-   yardstick.  11c: the paper's problem (N 100, q 250, n 5, eps 0.5)
-   through ``build_trainer(problem, FedSpec(rho=1, n_epochs=5))`` on the
+   +-inf and NaN, a misaligned view; N = 5 over three chunks (both dtypes,
+   two segments with gaps: randn with the edge values, a rounded row, an
+   all-equal and a zero row, a run of ties across chunk edges), also as
+   a misaligned view; and ``where(segment_ranks < k, x, 0)`` equal to
+   the rank_select kernel's topk per segment, the multi-chunk rows
+   included.  11b: the public op at the trainer's packed increment (4 x
+   745,549,056 bf16, 18 segments), launch counted, bit-equal to the plain
+   version run row by row, timed beside the byte bound (read x, write
+   int32 ranks), the plain version and ``torch.argsort(stable)`` per
+   (row, interval) as a yardstick, with one profiled call by stage
+   (hist, bases, rank).  11c: the paper's problem (N 100, q 250, n 5,
+   eps 0.5) through ``build_trainer(problem, FedSpec(rho=1,
+   n_epochs=5))`` on the
    card and on the CPU: 200 rounds (the same hitting round, states 1e-5),
    50% participation with a given ``u`` over 400 rounds, FedAvg's drift
    plateau (1e-3 relative), ``||x_bar - x*|| < 1e-4`` against ``solve()``.
@@ -161,11 +166,14 @@ Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
 int8, fp32 and bf16, N=3, M=1000 and 1001, one segment and several with
 gap columns, ratios 0.01/0.25/1.0, energies 0.5/0.95/1.0, tie-heavy,
-all-equal and all-zero rows, a misaligned view (the scalar path); then at
-the full ``(4, 745,549,056)`` bf16 shape with the trainer's 18 packed
-segments, the plain versions run row by row, timed beside the byte bound
-and, for topk, ``torch.topk`` per (row, segment) as a yardstick (its tie
-order differs).  And the robust-aggregation kernel, bit for bit (NaN
+all-equal and all-zero rows, a misaligned view (the scalar path), and N=5
+over three chunks with a rounded, an all-equal and a zero row and a tie
+run across chunk edges that holds the topk cut; then at the full
+``(4, 745,549,056)`` bf16 shape with the trainer's 18 packed segments,
+the plain versions run row by row, timed beside the byte bound and, for
+topk, ``torch.topk`` per (row, segment) as a yardstick (its tie order
+differs), rank_select with one profiled call by stage (hist, bin sums,
+select, ties, write).  And the robust-aggregation kernel, bit for bit (NaN
 results by position): N in {1, 2, 3, 4, 5, 8, 17, 33, 100, 128}, M = 1000
 (16-byte vectors) and 1001 (scalar), fp32 and bf16, every trim and
 coord_median, live rows all live, with evictions, with one live agent and
@@ -423,6 +431,34 @@ def full_shape(torch, bw):
     return recs
 
 
+def multi_chunk_input(torch, dtype, gen):
+    """``(x, segments)``: 5 rows over three float32 compress chunks (and
+    six bf16 key-histogram chunks), two segments with gaps before,
+    between and after them.  Rows: randn with +-0.0, +-inf and NaN;
+    randn rounded to integers (long tie runs); all equal; all zero; and
+    small values with a run of 2.0 over 45% of each segment across chunk
+    edges, so the topk cut (25%) falls inside a tie run that straddles
+    chunks."""
+    from repro_torch.kernels.compress import kernel as ckernel
+
+    dev = torch.device("cuda")
+    m = 3 * ckernel.CHUNK + 1001
+    segs = ((5, m // 2), (m // 2 + 7, m - 3))
+    x = torch.randn((5, m), generator=gen, device=dev)
+    specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
+                             -1.0], device=dev)
+    x[0, ::100_003] = specials[torch.arange(x[0, ::100_003].numel(),
+                                            device=dev) % 7]
+    x[1] = (x[1] * 3).round()
+    x[2] = -0.75
+    x[3] = 0.0
+    x[4] *= 0.1
+    for s0, s1 in segs:
+        a = s0 + (s1 - s0) // 8
+        x[4, a:a + 45 * (s1 - s0) // 100] = 2.0
+    return x.to(dtype), segs
+
+
 def compress_small_checks(torch):
     """The compress kernels against their plain versions, bit for bit."""
     from repro_torch.kernels.compress import ops as cops
@@ -435,21 +471,26 @@ def compress_small_checks(torch):
                    for e in (0.5, 0.95, 1.0)])
     n_checks = 0
 
-    def check(x, segs, tag):
+    def check(x, segs, tag, int8=True, settings=settings):
+        """rank_select copies the kept entries' bits, NaN and -0.0 alike:
+        its result is compared bit for bit."""
         nonlocal n_checks
         full = cops.check_segments(segs or ((0, x.shape[1]),), x.shape[1])
+        bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
         for mode, ratio, energy in settings:
             got = cops.rank_select(x, segments=segs, mode=mode, ratio=ratio,
-                                   energy=energy)
-            want = cref.rank_select_ref(x, full, mode, ratio, energy)
+                                   energy=energy).view(bits[x.dtype])
+            want = cref.rank_select_ref(x, full, mode, ratio,
+                                        energy).view(bits[x.dtype])
             if not torch.equal(got, want):
                 fail(f"rank_select {mode} ratio={ratio} energy={energy} "
                      f"{tag}: {int((got != want).sum())} entries differ")
             n_checks += 1
-        if not torch.equal(cops.int8_quantize(x, segments=segs),
-                           cref.int8_ref(x, full)):
-            fail(f"int8_quantize {tag}: differs from the plain version")
-        n_checks += 1
+        if int8:
+            if not torch.equal(cops.int8_quantize(x, segments=segs),
+                               cref.int8_ref(x, full)):
+                fail(f"int8_quantize {tag}: differs from the plain version")
+            n_checks += 1
 
     for dtype in (torch.float32, torch.bfloat16):
         for m in (1000, 1001):
@@ -464,11 +505,19 @@ def compress_small_checks(torch):
                 check(ties, segs, f"{dtype} m={m} ties segs={segs}")
             wide = torch.randn((4, m), generator=gen, device=dev).to(dtype)
             check(wide[1:], None, f"{dtype} m={m} misaligned view")
+        # inf and NaN: no int8.  No energy 1.0: over millions of entries
+        # the last prefix sums reach the total within float64 rounding,
+        # where the kernels' order of summation may pick another k_i than
+        # the plain cumsum (kernels/compress/ref.py)
+        x, segs = multi_chunk_input(torch, dtype, gen)
+        check(x, segs, f"{dtype} multi-chunk M={x.shape[1]}", int8=False,
+              settings=[t for t in settings if t[2] < 1.0])
     torch.cuda.synchronize()
     log(f"phase 2: {n_checks} small-shape compress checks bit-equal (topk, "
         f"adaptive_topk, int8; fp32 and bf16; N=3, M=1000 and 1001; one and "
         f"several segments with gaps; ties, all-equal, all-zero rows; a "
-        f"misaligned view)")
+        f"misaligned view; and N=5 over three chunks: rounded, all-equal "
+        f"and zero rows, a tie run across chunk edges holding the topk cut)")
 
 
 def compress_full_shape(torch, bw):
@@ -534,6 +583,8 @@ def compress_full_shape(torch, bw):
         del got
         torch.cuda.empty_cache()
         ms = cuda_ms(torch, run)
+        stages = (profile_stages(torch, run, RANK_SELECT_STAGES)
+                  if kw is not None else None)
         if time_plain:
             scratch = torch.empty_like(x)
             pms = cuda_ms(torch, lambda: rows(plain_fn, scratch), reps=3)
@@ -552,6 +603,8 @@ def compress_full_shape(torch, bw):
         recs[name] = dict(bytes=bytes_, ms=ms, plain_ms=pms, bound_ms=bound,
                           bound_by="bytes", max_abs_err=0.0,  # bit-equal
                           library_ms=lib_ms, kept=kept)
+        if stages is not None:
+            recs[name]["profiled_stages_ms"] = stages
         log(f"phase 2 full shape: {name} ({N}x{M} bf16) bit-equal to the "
             f"plain version; kept {kept:,} of {N * M:,}; kernel {ms:.3f} ms, "
             f"plain {pms:.3f} ms"
@@ -560,7 +613,10 @@ def compress_full_shape(torch, bw):
             f"{100 * bound / ms:.1f}% of bound"
             + ("" if lib_ms is None else
                f"; yardstick torch.topk per (row, segment) {lib_ms:.3f} ms "
-               f"(tie order differs)"))
+               f"(tie order differs)")
+            + ("" if stages is None else
+               f"; one profiled call by stage (ms): "
+               f"{ {k: round(v, 3) for k, v in stages.items()} }"))
         torch.cuda.empty_cache()
     del x
     torch.cuda.empty_cache()
@@ -793,17 +849,15 @@ def _kernel_group(name: str) -> str:
         return "round_downlink"
     if "update_kernel" in name:
         return "fedplt_update"
-    if any(k in name for k in ("hist_high_kernel", "hist_low_kernel",
-                                 "select_exact_kernel", "select_stage",
-                                 "count_ties_kernel", "write_select_kernel")):
+    if any(k in name for names in RANK_SELECT_STAGES.values()
+           for k in names):
         return "rank_select"
     if "absmax_kernel" in name or "quantize_kernel" in name:
         return "int8_quantize"
     if "sort_aggregate_kernel" in name:
         return "sort_aggregate"
-    if any(k in name for k in ("hist_kernel", "scan_reduce_kernel",
-                                 "scan_partials_kernel", "scan_apply_kernel",
-                                 "scatter_kernel")):
+    if any(k in name for names in SEGMENT_RANKS_STAGES.values()
+           for k in names):
         return "segment_ranks"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
         return "matmul"
@@ -2086,6 +2140,22 @@ def segment_ranks_small_checks(torch):
         n_checks += 1
         return got
 
+    def against_topk(x, segs, ranks, tag):
+        """where(ranks < k, x, 0) equal to the rank_select kernel's topk"""
+        nonlocal n_checks
+        for r in (0.01, 0.25):
+            top = cops.rank_select(x, segments=segs, mode="topk", ratio=r)
+            for s0, s1 in segs:
+                k = cref.seg_k(r, s1 - s0)
+                sel = torch.where(ranks[:, s0:s1] < k, x[:, s0:s1],
+                                  torch.zeros_like(x[:, s0:s1]))
+                kept = top[:, s0:s1]
+                same = (sel == kept) | (torch.isnan(sel) & torch.isnan(kept))
+                if not bool(same.all()):
+                    fail(f"segment_ranks vs rank_select {tag} ratio={r} "
+                         f"segment ({s0}, {s1})")
+            n_checks += 1
+
     for dtype in (torch.float32, torch.bfloat16):
         for n in RANK_NS:
             for m in (1000, 1001):
@@ -2109,28 +2179,24 @@ def segment_ranks_small_checks(torch):
                       f"misaligned view")
                 # kernel against kernel: where(rank < k, x, 0) is top-k
                 segs = seg_sets[2]
-                ranks = cops.segment_ranks(x, segments=segs)
-                for r in (0.01, 0.25):
-                    top = cops.rank_select(x, segments=segs, mode="topk",
-                                           ratio=r)
-                    for s0, s1 in segs:
-                        k = cref.seg_k(r, s1 - s0)
-                        sel = torch.where(ranks[:, s0:s1] < k, x[:, s0:s1],
-                                          torch.zeros_like(x[:, s0:s1]))
-                        kept = top[:, s0:s1]
-                        same = (sel == kept) | (torch.isnan(sel)
-                                                & torch.isnan(kept))
-                        if not bool(same.all()):
-                            fail(f"segment_ranks vs rank_select {dtype} N={n} "
-                                 f"M={m} ratio={r} segment ({s0}, {s1})")
-                    n_checks += 1
+                against_topk(x, segs, cops.segment_ranks(x, segments=segs),
+                             f"{dtype} N={n} M={m}")
+        x, segs = multi_chunk_input(torch, dtype, gen)
+        tag = f"{dtype} multi-chunk M={x.shape[1]}"
+        against_topk(x, segs, check(x, segs, tag), tag)
+        wide = torch.empty((x.shape[0] + 1, x.shape[1]), dtype=dtype,
+                           device=dev)
+        wide[1:] = x                      # M is odd: rows start unaligned
+        check(wide[1:], segs, f"{tag} misaligned view")
     torch.cuda.synchronize()
     log(f"phase 11a: {n_checks} segment_ranks checks bit-equal (fp32 and "
         f"bf16; N in {RANK_NS}; M = 1000 and 1001; no segments, one, and "
         f"several with leading, interior and trailing gaps; tie-heavy, "
         f"all-equal and all-zero rows, +-0.0, +-inf and NaN; a misaligned "
-        f"view), and where(segment_ranks < k, x, 0) equal to the rank_select "
-        f"kernel's topk per segment (ratios 0.01, 0.25)")
+        f"view; N=5 over three chunks: rounded, all-equal and zero rows, a "
+        f"tie run across chunk edges), and where(segment_ranks < k, x, 0) "
+        f"equal to the rank_select kernel's topk per segment (ratios 0.01, "
+        f"0.25)")
 
 
 def segment_ranks_full_shape(torch, bw):
@@ -2180,10 +2246,8 @@ def segment_ranks_full_shape(torch, bw):
     del scratch
     torch.cuda.empty_cache()
     ms = cuda_ms(torch, lambda: cops.segment_ranks(x, segments=segs))
-    _, _, kernels_ms = _profile(torch, lambda: (
-        cops.segment_ranks(x, segments=segs), torch.cuda.synchronize()))
-    stages = {stage: sum(v for k, v in kernels_ms.items() if stage in k)
-              for stage in ("hist_kernel", "scan_", "scatter_kernel")}
+    stages = profile_stages(torch, lambda: cops.segment_ranks(
+        x, segments=segs), SEGMENT_RANKS_STAGES)
     torch.cuda.empty_cache()
     ckey = 0x7FFFFFFF - cref.magnitude_key(x)
 
@@ -2210,9 +2274,44 @@ def segment_ranks_full_shape(torch, bw):
     return counts, {"segment_ranks": rec}
 
 
-def _profile(torch, fn):
+# kernel-name substrings of each stage of the two ops that rank magnitude
+# keys (bf16 and float32 kernels alike)
+RANK_SELECT_STAGES = {
+    "hist": ("hist_high_kernel", "hist_low_kernel", "select_hist_kernel"),
+    "bin_sums": ("select_sum_kernel",),
+    "select": ("select_exact_kernel", "select_stage"),
+    "ties": ("count_ties_kernel", "tie_prefix_kernel"),
+    "write": ("write_select_kernel", "select_write_kernel")}
+SEGMENT_RANKS_STAGES = {
+    "hist": ("rank_hist_kernel", "radix_hist_kernel"),
+    "bases": ("rank_sum_kernel", "rank_above_kernel", "scan_reduce_kernel",
+              "scan_partials_kernel", "scan_apply_kernel"),
+    "rank": ("rank_write_kernel", "scatter_kernel")}
+
+
+def profile_stages(torch, fn, stages):
+    """Device ms of one profiled call of ``fn`` (synchronised here) by
+    stage: ``{stage: ms}`` over the kernels whose names hold one of the
+    stage's substrings."""
+    _, _, kernels_ms = _profile(torch, lambda: (fn(),
+                                                torch.cuda.synchronize()),
+                                width=None)
+    split = {stage: sum(v for k, v in kernels_ms.items()
+                        if any(n in k for n in names))
+             for stage, names in stages.items()}
+    if not any(split.values()):
+        # seen in phase 11b of whole runs: the profile holds no device event
+        log(f"profile_stages: no kernel of {list(stages)} in the profile; "
+            f"it saw {[k[:80] for k in kernels_ms][:8]}")
+    return split
+
+
+def _profile(torch, fn, width=60):
     """``fn()`` under torch.profiler (it must end in a synchronize):
-    ``(wall ms, {kernel group: device ms}, {kernel: device ms})``."""
+    ``(wall ms, {kernel group: device ms}, {kernel: device ms})``, the
+    kernel names cut to ``width`` characters (None: whole; the profiler
+    may report a name mangled, where the cut can drop the kernel's own
+    name)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2229,7 +2328,8 @@ def _profile(torch, fn):
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + ms
-        kernels_ms[e.key[:60]] = kernels_ms.get(e.key[:60], 0.0) + ms
+        name = e.key[:width]
+        kernels_ms[name] = kernels_ms.get(name, 0.0) + ms
     return wall_ms, groups, kernels_ms
 
 
@@ -2566,7 +2666,7 @@ def main() -> int:
         f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
     for src, text in logs.items():
         if not any(k in str(src) for k in ("flash_attention", "lru_scan",
-                                           "segment_ranks")):
+                                           "compress")):
             continue
         for kname, regs, st, ld in build.ptxas_summary(text):
             log(f"phase 1 ptxas: {kname[:72]}: {regs} registers, spill "

@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` source of a kernel suite is compiled by ``nvcc`` into
 a shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``build/repro_torch_kernels/`` at the root of the
 checkout (``build/`` is git-ignored) under a name that carries a hash of
-the source and the flags, so an unchanged source is compiled once.
+the source, the headers beside it and the flags, so an unchanged source is
+compiled once.
 Nothing is built when a module is imported: the first launch builds,
 and :func:`build_all` compiles several sources in parallel (one ``nvcc``
 per source, all started together).
@@ -49,10 +50,15 @@ def nvcc_path() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    """Where ``source``'s library goes: the name carries a hash of the
+    source, of every ``.cuh`` header beside it (which it may include) and
+    of the flags, so an edit to any of them builds anew."""
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
 
 
 def _start(source: Path):

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels of repro/kernels/compress/kernel.py, all one pl.pallas_call
 // (_row_blocked_call, :374):
-//   rank_select    <- rank_select_2d (_rank_select_kernel :261, _select_k :247):
+//   rank_select    <- rank_select_2d (:384; _rank_select_kernel :261, _select_k :247):
 //                     per (agent, segment) exact-k magnitude selection, topk (static
 //                     k = max(1, int(ratio m))) and adaptive_topk (per-agent k_i from the
 //                     energy of the descending squared magnitudes, clipped to [k, m]);
@@ -13,26 +13,39 @@
 // bit for bit (--fmad=false: every float operation rounds alone).
 //
 // Bound: bytes.  The least possible traffic is one read and one write of (N, M): at the
-// trainer's shape (N = 4, M = 745,549,056, bf16) 11.93 GB, 3.56 ms at 3.35 TB/s.  This
-// first design reads x three times for rank_select (histogram, tie count, write) and twice
-// for int8 (max, write); a later PR fuses passes.
+// trainer's shape (N = 4, M = 745,549,056, bf16) 11.93 GB, 3.561 ms at 3.35 TB/s.
 //
 // rank_select is a radix SELECT, not the reference's sort (nor its bitonic network): the
 // key of an entry is the bit pattern of the float32 |x| (31 bits; NaN above inf), and the
 // mask only needs the k-th largest key T, #(key > T), and the position rank of each tie.
-//   (A) A per-(row, segment) histogram of key bits 30..16 (32,768 bins): a shared-memory
-//       histogram per block of columns (128 KB dynamic smem), flushed with atomics.  For
-//       bf16 these 15 bits are the whole |x|, so a bin is one value.
-//   (B) One block per (row, segment) walks the bins from the top.  topk: the bin holding
-//       the k-th entry (a block scan of counts).  adaptive_topk: one thread accumulates
-//       count x square over the bins in float64, from the top, to find k_i first.
-//       float32 needs a second level: a histogram of key bits 15..0 (65,536 bins, global
-//       atomics) of the entries in the chosen bin; the energy walk uses per-bin float64
-//       energy sums at the first level and exact values at the second.
-//   (C) Ties (key == T) counted per block of columns, when only some of them are kept.
-//   (D) Write x where key > T, or key == T and the tie's position rank < k - #above (the
-//       rank: ties of earlier column blocks, then a block scan in column order); 0
-//       elsewhere and in columns outside every segment.
+//
+// bf16: x is read twice and written once, 17.89 GB, plus the chunk histograms (about
+// 0.4 GB written, read twice): about 5.6 ms at 3.35 TB/s.  The earlier three-read design
+// took 17.8-18.2 ms on an H100 80GB HBM3 at 700 W (hist 2.43, ties 1.94, write 13.11 ms
+// of a profiled call), its write a block scan on every tile; this one 8.2-8.8 ms on the
+// same card (hist 2.73-2.79, write 4.34-4.44 ms).
+//   (A) select_hist_kernel: key_hist.cuh's histogram of every chunk (at most 2^20 columns
+//       of one segment) into its own row of H, 32,768 bins = every bf16 |x|.
+//   (A') select_sum_kernel: per (row, segment) the bins summed over its chunks.
+//   (B) select_exact_kernel: one block per (row, segment) walks the bins from the top.
+//       topk: the bin holding the k-th entry (a block scan of counts).  adaptive_topk: one
+//       thread accumulates count x square over the bins in float64, from the top, to
+//       find k_i first.  The bin is T; #above and #ties come with it.
+//   (C) tie_prefix_kernel: where only some ties are kept, each chunk's count of ties in
+//       the segment's earlier chunks, from H[c][T] (no read of x).
+//   (D) select_write_kernel: x where key > T, or key == T and the tie's position rank <
+//       k - #above; 0 elsewhere and in gap columns.  A chunk whose ties are all kept or
+//       all dropped (its tie prefix and H[c][T] say which) is elementwise; only the one
+//       chunk of a (row, segment) where the kept ties end ranks them: a block scan per
+//       step of 4 loads a thread, until the cut is passed.  Elsewhere eight 16-byte loads
+//       in flight a thread, held two bf16 to a register, 256 threads a block, 4 blocks an
+//       SM.
+// float32 keeps the first design's two levels: (A) a per-(row, segment) histogram of key
+// bits 30..16 per block of columns (128 KB dynamic smem), flushed with atomics; (B) the
+// chosen high bin's low-bit histogram (key bits 15..0, 65,536 bins, global atomics), the
+// energy walk using per-bin float64 energy sums at the first level and exact values at
+// the second; (C) ties counted per block of columns; (D) the masked write ranking ties by
+// a block scan of every tile.
 // The float64 energy sums run in another order than the plain version's cumsum; the two
 // choose the same k_i wherever energy * total is not within float64 rounding (~1e-16
 // relative) of a prefix sum.
@@ -50,14 +63,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "key_hist.cuh"
 
 namespace {
 
-constexpr int kHighBins = 1 << 15;  // key bits 30..16 (the sign bit of |x| is 0)
+constexpr int kHighBins = key_hist::kBins;  // key bits 30..16 (the sign bit of |x| is 0)
 constexpr int kLowBins = 1 << 16;   // key bits 15..0 (float32 only)
 constexpr int kBigThreads = 1024;   // histogram and select blocks
 constexpr int kThreads = 512;       // streaming blocks
+constexpr int kWriteThreads = 256;  // bf16 rank_select write blocks
+constexpr int kWriteLoads = 8;      // 16-byte loads in flight per thread there
+constexpr int kCutLoads = 4;        // and in the chunk where the kept ties end
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -96,6 +112,8 @@ struct Layout {
   const int64_t* chunk_hi;
   const int64_t* chunk_seg;    // segment index, -1 for a gap
   const int64_t* chunk_first;  // first chunk of the same segment
+  const int64_t* seg_first;    // each segment's first chunk
+  const int64_t* seg_count;    // and its number of chunks
   int64_t n_segs, n_chunks, n_cols;
 };
 
@@ -257,8 +275,8 @@ __device__ __forceinline__ long long clamp_k(long long k, long long lo, long lon
 // rank_select
 // ---------------------------------------------------------------------------
 
-// (A) High-bit histogram of one chunk of one row; with `energy` (float32 adaptive_topk)
-// also the float64 sum of the squares per bin.
+// (A, float32) High-bit histogram of one chunk of one row, added to its (row, segment)'s;
+// with `energy` (adaptive_topk) also the float64 sum of the squares per bin.
 template <typename T, int V>
 __global__ void __launch_bounds__(kBigThreads)
     hist_high_kernel(const T* x, Layout L, uint32_t* hist, double* energy) {
@@ -287,8 +305,8 @@ __global__ void __launch_bounds__(kBigThreads)
     if (sh[i]) atomicAdd(&h[i], sh[i]);
 }
 
-// (B) for bf16, where a high bin is one value: k (adaptive: one thread walks the bins
-// from the top in float64), then T's bin.
+// (B, bf16) where a high bin is one value, from the (row, segment)'s bin totals: k
+// (adaptive: one thread walks the bins from the top in float64), then T's bin.
 template <typename T>
 __global__ void __launch_bounds__(kBigThreads)
     select_exact_kernel(Layout L, const uint32_t* hist, RowSeg* st, int adaptive,
@@ -483,7 +501,7 @@ __device__ __forceinline__ bool ranks_ties(const RowSeg& s) {
   return need > 0 && need < s.ties;
 }
 
-// (C) entries equal to T in one chunk, where only some ties are kept.
+// (C, float32) entries equal to T in one chunk, where only some ties are kept.
 template <typename T, int V>
 __global__ void count_ties_kernel(const T* x, Layout L, const RowSeg* st, uint32_t* ties) {
   const int64_t chunk = blockIdx.x, row = blockIdx.y;
@@ -504,7 +522,7 @@ __global__ void count_ties_kernel(const T* x, Layout L, const RowSeg* st, uint32
   if (threadIdx.x == 0) ties[row * L.n_chunks + chunk] = total;
 }
 
-// (D) the masked write; gap chunks write zeros.
+// (D, float32) the masked write; gap chunks write zeros.
 template <typename T, int V>
 __global__ void write_select_kernel(const T* x, T* out, Layout L, const RowSeg* st,
                                     const uint32_t* ties) {
@@ -559,6 +577,165 @@ __global__ void write_select_kernel(const T* x, T* out, Layout L, const RowSeg* 
                         }
                         store_group<T, V>(orow, e0, lo, hi, o);
                       });
+}
+
+// (A, bf16) one chunk's histogram into its row of H (n_rows x n_chunks x kHighBins).
+template <int V>
+__global__ void __launch_bounds__(key_hist::kHistThreads)
+    select_hist_kernel(const __nv_bfloat16* x, Layout L, uint32_t* H) {
+  extern __shared__ uint32_t sh[];
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  if (L.chunk_seg[chunk] < 0) return;
+  const int64_t row_off = row * L.n_cols;
+  key_hist::chunk_histogram<V>(x + row_off, row_off, L.chunk_lo[chunk], L.chunk_hi[chunk], sh,
+                               H + (row * L.n_chunks + chunk) * kHighBins);
+}
+
+// (A', bf16) grid (segments x kSumBlocks, rows): each bin's total over the segment's
+// chunks, into tot (n_rows x n_segs x kHighBins).
+constexpr int kSumBlocks = kHighBins / key_hist::kSumThreads;
+__global__ void __launch_bounds__(key_hist::kSumThreads)
+    select_sum_kernel(Layout L, uint32_t* H, uint32_t* tot) {
+  const int64_t seg = blockIdx.x / kSumBlocks, row = blockIdx.y;
+  const int bin = (blockIdx.x % kSumBlocks) * key_hist::kSumThreads + threadIdx.x;
+  key_hist::interval_bin_sums<false>(H + row * L.n_chunks * kHighBins, L.seg_first[seg],
+                                     L.seg_count[seg], bin,
+                                     tot + (row * L.n_segs + seg) * kHighBins + bin);
+}
+
+// (C, bf16) grid (segments, rows): where only some ties are kept, each chunk's count of
+// ties in the segment's earlier chunks (H[c][T], scanned in chunk order).
+__global__ void __launch_bounds__(kBigThreads)
+    tie_prefix_kernel(Layout L, const uint32_t* H, const RowSeg* st, uint32_t* tie_pre) {
+  const int64_t seg = blockIdx.x, row = blockIdx.y;
+  const RowSeg& s = st[row * L.n_segs + seg];
+  if (!ranks_ties(s)) return;
+  const int64_t bin = s.key >> 16, first = L.seg_first[seg], count = L.seg_count[seg];
+  const uint32_t* h = H + (row * L.n_chunks + first) * kHighBins + bin;
+  uint32_t* pre = tie_pre + row * L.n_chunks + first;
+  uint32_t carry = 0;
+  for (int64_t c0 = 0; c0 < count; c0 += blockDim.x) {  // uniform over the block
+    const int64_t c = c0 + threadIdx.x;
+    const uint32_t v = c < count ? h[c * kHighBins] : 0u;
+    uint32_t total;
+    const uint32_t ex = block_exclusive_scan<uint32_t>(v, &total);
+    if (c < count) pre[c] = carry + ex;
+    carry += total;
+  }
+}
+
+// Columns [lo, hi) of one chunk: out = x where bin > t_bin, or bin == t_bin and the tie is
+// kept; else +0.0.  kRank: ties are ranked in column order from rank0 and kept while the
+// rank is below need (a block scan a step until the cut is passed; every thread of the
+// block calls it); otherwise ties are kept iff keep_ties.  The thread's u-th load of a step
+// covers columns base + (u * blockDim + thread) * V ..., so every load is coalesced and the
+// step's column order is (u, thread, k).
+template <int V, int U, bool kRank>
+__device__ __forceinline__ void write_steps(const uint16_t* xr, uint16_t* orow, int64_t row_off,
+                                            int64_t lo, int64_t hi, uint32_t t_bin,
+                                            bool keep_ties, long long rank0, long long need) {
+  static_assert(!kRank || U <= 4, "the ranked ties of a step fit one 64-bit scan");
+  const int64_t start = lo - (row_off + lo) % V;
+  const int64_t step = (int64_t)blockDim.x * V;
+  for (int64_t base = start; base < hi; base += U * step) {  // uniform over the block
+    const bool rank = kRank && rank0 < need;  // uniform: the cut is in this step or later
+    const bool hold = keep_ties || rank;      // ties stay until ranked
+    key_hist::Packed<V> v[U];
+    uint32_t tie[U];  // bit k: entry k of load u lies in the chunk and equals T
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t e0 = base + u * step + (int64_t)threadIdx.x * V;
+      uint32_t ok = (1u << V) - 1u;
+      if (V == 8 && e0 >= lo && e0 + V <= hi) {
+        v[u] = *reinterpret_cast<const key_hist::Packed<V>*>(xr + e0);
+      } else {  // the chunk's edges, and every column of an unaligned buffer
+#pragma unroll
+        for (int k = 0; k < (V + 1) / 2; ++k) v[u].w[k] = 0u;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int64_t c = e0 + k;
+          if (c >= lo && c < hi) v[u].w[k >> 1] |= (uint32_t)xr[c] << (16 * (k & 1));
+          else ok &= ~(1u << k);
+        }
+      }
+      tie[u] = 0;
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const uint32_t b = v[u].get(k) & 0x7FFFu;
+        if (kRank && b == t_bin) tie[u] |= 1u << k;
+        if (!(b > t_bin || (b == t_bin && hold))) v[u].clear(k);  // +0.0
+      }
+      tie[u] &= ok;
+    }
+    if (rank) {
+      // the thread's ties of load u in 16-bit field u (a field's block sum is at most
+      // blockDim x 8)
+      unsigned long long n_tie = 0, tot;
+#pragma unroll
+      for (int u = 0; u < U; ++u) n_tie += (unsigned long long)__popc(tie[u]) << (16 * u);
+      const unsigned long long ex = block_exclusive_scan<unsigned long long>(n_tie, &tot);
+      long long before = rank0;  // ties in this step's earlier loads, then the thread's own
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        long long r = before + (long long)((ex >> (16 * u)) & 0xFFFFu);
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          if (!(tie[u] >> k & 1u)) continue;
+          if (r >= need) v[u].clear(k);
+          ++r;
+        }
+        before += (long long)((tot >> (16 * u)) & 0xFFFFu);
+      }
+      rank0 = before;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t e0 = base + u * step + (int64_t)threadIdx.x * V;
+      if (V == 8 && e0 >= lo && e0 + V <= hi) {
+        *reinterpret_cast<key_hist::Packed<V>*>(orow + e0) = v[u];
+      } else {
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          const int64_t c = e0 + k;
+          if (c >= lo && c < hi) orow[c] = (uint16_t)v[u].get(k);
+        }
+      }
+    }
+  }
+}
+
+// (D, bf16) the masked write of one chunk; gap chunks write zeros.  A chunk keeps all its
+// ties or none, from its tie prefix and its own count H[c][T], except the one chunk of a
+// (row, segment) where the kept ties end: it ranks them, with fewer loads a step.
+template <int V>
+__global__ void __launch_bounds__(kWriteThreads, 4)
+    select_write_kernel(const __nv_bfloat16* x, __nv_bfloat16* out, Layout L, const RowSeg* st,
+                        const uint32_t* H, const uint32_t* tie_pre) {
+  static_assert(V == 1 || V == 8, "one bf16 or one 16-byte vector a load");
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  const int64_t lo = L.chunk_lo[chunk], hi = L.chunk_hi[chunk];
+  const int64_t row_off = row * L.n_cols;
+  if (seg < 0) {
+    zero_fill<__nv_bfloat16, V>(out + row_off, row_off, lo, hi);
+    return;
+  }
+  const RowSeg& s = st[row * L.n_segs + seg];
+  const uint32_t t_bin = (uint32_t)(s.key >> 16);
+  const long long need = s.k - s.above;
+  bool keep_ties = need >= s.ties;
+  const uint16_t* xr = reinterpret_cast<const uint16_t*>(x + row_off);
+  uint16_t* orow = reinterpret_cast<uint16_t*>(out + row_off);
+  if (ranks_ties(s)) {
+    const long long pre = tie_pre[row * L.n_chunks + chunk];
+    const long long here = H[(row * L.n_chunks + chunk) * kHighBins + t_bin];
+    if (pre < need && need < pre + here) {  // the cut
+      write_steps<V, kCutLoads, true>(xr, orow, row_off, lo, hi, t_bin, false, pre, need);
+      return;
+    }
+    keep_ties = pre + here <= need;
+  }
+  write_steps<V, kWriteLoads, false>(xr, orow, row_off, lo, hi, t_bin, keep_ties, 0, 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -630,41 +807,63 @@ __global__ void quantize_kernel(const T* x, T* out, Layout L, const uint32_t* am
     if (e_ != cudaSuccess) return (int)e_;       \
   } while (0)
 
-template <typename T, int V>
-int rank_select_launch(const T* x, T* out, int64_t n_rows, const Layout& L, int adaptive,
-                       double energy, uint32_t* hist_hi, uint32_t* hist_lo,
-                       double* energy_hi, RowSeg* st, uint32_t* ties, cudaStream_t s) {
+// float32: the two-level radix select.
+template <int V>
+int rank_select_f32_launch(const float* x, float* out, int64_t n_rows, const Layout& L,
+                           int adaptive, double energy, uint32_t* hist_hi, uint32_t* hist_lo,
+                           double* energy_hi, RowSeg* st, uint32_t* ties, cudaStream_t s) {
   const dim3 chunks((unsigned)L.n_chunks, (unsigned)n_rows);
   const dim3 segs((unsigned)L.n_segs, (unsigned)n_rows);
   const size_t hist_smem = kHighBins * sizeof(uint32_t);
-  constexpr bool kF32 = std::is_same<T, float>::value;
   if (L.n_segs > 0) {
-    cudaFuncSetAttribute(hist_high_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaFuncSetAttribute(hist_high_kernel<float, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)hist_smem);
-    hist_high_kernel<T, V><<<chunks, kBigThreads, hist_smem, s>>>(
-        x, L, hist_hi, (kF32 && adaptive) ? energy_hi : nullptr);
+    hist_high_kernel<float, V><<<chunks, kBigThreads, hist_smem, s>>>(
+        x, L, hist_hi, adaptive ? energy_hi : nullptr);
     RETURN_IF_ERROR();
-    if (kF32) {
-      select_stage1_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, energy_hi, st, adaptive,
-                                                         energy);
+    select_stage1_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, energy_hi, st, adaptive,
+                                                       energy);
+    RETURN_IF_ERROR();
+    for (int pass = 0; pass < 2; ++pass) {  // adaptive may inspect a second high bin
+      hist_low_kernel<float, V><<<chunks, kThreads, 0, s>>>(x, L, st, hist_lo);
       RETURN_IF_ERROR();
-      for (int pass = 0; pass < 2; ++pass) {  // adaptive may inspect a second high bin
-        hist_low_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, L, st, hist_lo);
-        RETURN_IF_ERROR();
-        select_stage2_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, hist_lo, st);
-        RETURN_IF_ERROR();
-      }
-    } else {
-      cudaFuncSetAttribute(select_exact_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)hist_smem);
-      select_exact_kernel<T><<<segs, kBigThreads, hist_smem, s>>>(L, hist_hi, st, adaptive,
-                                                                  energy);
+      select_stage2_kernel<<<segs, kBigThreads, 0, s>>>(L, hist_hi, hist_lo, st);
       RETURN_IF_ERROR();
     }
-    count_ties_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, L, st, ties);
+    count_ties_kernel<float, V><<<chunks, kThreads, 0, s>>>(x, L, st, ties);
     RETURN_IF_ERROR();
   }
-  write_select_kernel<T, V><<<chunks, kThreads, 0, s>>>(x, out, L, st, ties);
+  write_select_kernel<float, V><<<chunks, kThreads, 0, s>>>(x, out, L, st, ties);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
+// bf16: the chunk histograms, two reads of x.  tot: the per-(row, segment) bin totals;
+// H: the per-(row, chunk) histograms; tie_pre: per (row, chunk).
+template <int V>
+int rank_select_bf16_launch(const __nv_bfloat16* x, __nv_bfloat16* out, int64_t n_rows,
+                            const Layout& L, int adaptive, double energy, uint32_t* tot,
+                            uint32_t* H, RowSeg* st, uint32_t* tie_pre, cudaStream_t s) {
+  const dim3 chunks((unsigned)L.n_chunks, (unsigned)n_rows);
+  const dim3 segs((unsigned)L.n_segs, (unsigned)n_rows);
+  const size_t hist_smem = kHighBins * sizeof(uint32_t);
+  if (L.n_segs > 0) {
+    cudaFuncSetAttribute(select_hist_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)hist_smem);
+    select_hist_kernel<V><<<chunks, key_hist::kHistThreads, hist_smem, s>>>(x, L, H);
+    RETURN_IF_ERROR();
+    select_sum_kernel<<<dim3((unsigned)(L.n_segs * kSumBlocks), (unsigned)n_rows),
+                        key_hist::kSumThreads, 0, s>>>(L, H, tot);
+    RETURN_IF_ERROR();
+    cudaFuncSetAttribute(select_exact_kernel<__nv_bfloat16>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)hist_smem);
+    select_exact_kernel<__nv_bfloat16><<<segs, kBigThreads, hist_smem, s>>>(L, tot, st, adaptive,
+                                                                            energy);
+    RETURN_IF_ERROR();
+    tie_prefix_kernel<<<segs, kBigThreads, 0, s>>>(L, H, st, tie_pre);
+    RETURN_IF_ERROR();
+  }
+  select_write_kernel<V><<<chunks, kWriteThreads, 0, s>>>(x, out, L, st, H, tie_pre);
   RETURN_IF_ERROR();
   return 0;
 }
@@ -683,47 +882,51 @@ int int8_launch(const T* x, T* out, int64_t n_rows, const Layout& L, uint32_t* a
 }
 
 Layout make_layout(const int64_t* seg_lo, const int64_t* seg_hi, const int64_t* seg_k,
-                   int64_t n_segs, const int64_t* chunk_lo, const int64_t* chunk_hi,
-                   const int64_t* chunk_seg, const int64_t* chunk_first, int64_t n_chunks,
-                   int64_t n_cols) {
-  return Layout{seg_lo, seg_hi, seg_k, chunk_lo, chunk_hi, chunk_seg, chunk_first,
-                n_segs, n_chunks, n_cols};
+                   const int64_t* seg_first, const int64_t* seg_count, int64_t n_segs,
+                   const int64_t* chunk_lo, const int64_t* chunk_hi, const int64_t* chunk_seg,
+                   const int64_t* chunk_first, int64_t n_chunks, int64_t n_cols) {
+  return Layout{seg_lo,    seg_hi,    seg_k,    chunk_lo, chunk_hi, chunk_seg,
+                chunk_first, seg_first, seg_count, n_segs,  n_chunks, n_cols};
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; vec: 16-byte vectors allowed (both pointers aligned);
-// mode: 0 topk, 1 adaptive_topk.  Scratch comes zeroed from the caller: hist_hi
-// (N S 32768 u32), hist_lo (float32: N S 65536 u32), energy_hi (float32 adaptive:
-// N S 32768 f64), state (N S RowSeg), ties (N n_chunks u32).  Returns the first
-// launch's cudaGetLastError() that is not 0, -1 for an unknown dtype, else 0.
+// mode: 0 topk, 1 adaptive_topk.  seg_first / seg_count: each segment's chunks.  Scratch
+// from the caller.  float32, zeroed: hist_hi (N S 32768 u32), hist_lo (N S 65536 u32),
+// energy_hi (adaptive: N S 32768 f64), state (N S RowSeg), ties (N n_chunks u32).  bf16,
+// nothing zeroed: hist_hi (the bin totals, N S 32768 u32), chunk_hist (N n_chunks 32768
+// u32, 16-byte aligned), state (N S RowSeg), ties (the tie prefixes, N n_chunks u32).
+// Returns the first launch's cudaGetLastError() that is not 0, -1 for an unknown dtype,
+// else 0.
 extern "C" int repro_rank_select(const void* x, void* out, int64_t n_rows, int64_t n_cols,
                                  int dtype, int vec, int mode, double energy,
                                  const int64_t* seg_lo, const int64_t* seg_hi,
-                                 const int64_t* seg_k, int64_t n_segs, const int64_t* chunk_lo,
-                                 const int64_t* chunk_hi, const int64_t* chunk_seg,
-                                 const int64_t* chunk_first, int64_t n_chunks, void* hist_hi,
-                                 void* hist_lo, void* energy_hi, void* state, void* ties,
-                                 void* stream) {
-  const Layout L = make_layout(seg_lo, seg_hi, seg_k, n_segs, chunk_lo, chunk_hi, chunk_seg,
-                               chunk_first, n_chunks, n_cols);
+                                 const int64_t* seg_k, const int64_t* seg_first,
+                                 const int64_t* seg_count, int64_t n_segs,
+                                 const int64_t* chunk_lo, const int64_t* chunk_hi,
+                                 const int64_t* chunk_seg, const int64_t* chunk_first,
+                                 int64_t n_chunks, void* hist_hi, void* hist_lo, void* energy_hi,
+                                 void* chunk_hist, void* state, void* ties, void* stream) {
+  const Layout L = make_layout(seg_lo, seg_hi, seg_k, seg_first, seg_count, n_segs, chunk_lo,
+                               chunk_hi, chunk_seg, chunk_first, n_chunks, n_cols);
   cudaStream_t s = (cudaStream_t)stream;
   uint32_t *hh = (uint32_t*)hist_hi, *hl = (uint32_t*)hist_lo, *tc = (uint32_t*)ties;
+  uint32_t* ch = (uint32_t*)chunk_hist;
   double* eh = (double*)energy_hi;
   RowSeg* st = (RowSeg*)state;
+  const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
+  __nv_bfloat16* ob = (__nv_bfloat16*)out;
   switch (dtype) {
     case 0:
-      return vec ? rank_select_launch<float, 4>((const float*)x, (float*)out, n_rows, L, mode,
-                                                energy, hh, hl, eh, st, tc, s)
-                 : rank_select_launch<float, 1>((const float*)x, (float*)out, n_rows, L, mode,
-                                                energy, hh, hl, eh, st, tc, s);
+      return vec ? rank_select_f32_launch<4>((const float*)x, (float*)out, n_rows, L, mode,
+                                             energy, hh, hl, eh, st, tc, s)
+                 : rank_select_f32_launch<1>((const float*)x, (float*)out, n_rows, L, mode,
+                                             energy, hh, hl, eh, st, tc, s);
     case 1:
-      return vec ? rank_select_launch<__nv_bfloat16, 8>((const __nv_bfloat16*)x,
-                                                        (__nv_bfloat16*)out, n_rows, L, mode,
-                                                        energy, hh, hl, eh, st, tc, s)
-                 : rank_select_launch<__nv_bfloat16, 1>((const __nv_bfloat16*)x,
-                                                        (__nv_bfloat16*)out, n_rows, L, mode,
-                                                        energy, hh, hl, eh, st, tc, s);
+      return vec ? rank_select_bf16_launch<8>(xb, ob, n_rows, L, mode, energy, hh, ch, st, tc, s)
+                 : rank_select_bf16_launch<1>(xb, ob, n_rows, L, mode, energy, hh, ch, st, tc,
+                                              s);
   }
   return -1;
 }
@@ -736,8 +939,8 @@ extern "C" int repro_int8_quantize(const void* x, void* out, int64_t n_rows, int
                                    const int64_t* chunk_seg, const int64_t* chunk_first,
                                    int64_t n_chunks, void* amax, float inv127, float floor_,
                                    void* stream) {
-  const Layout L = make_layout(seg_lo, seg_hi, nullptr, n_segs, chunk_lo, chunk_hi, chunk_seg,
-                               chunk_first, n_chunks, n_cols);
+  const Layout L = make_layout(seg_lo, seg_hi, nullptr, nullptr, nullptr, n_segs, chunk_lo,
+                               chunk_hi, chunk_seg, chunk_first, n_chunks, n_cols);
   cudaStream_t s = (cudaStream_t)stream;
   uint32_t* am = (uint32_t*)amax;
   switch (dtype) {

@@ -29,6 +29,7 @@ from repro.fed import compress as jcompress
 from repro.kernels.compress import ops as jops
 from repro_torch import kernels
 from repro_torch.fed import api as tapi
+from repro_torch.kernels import build
 from repro_torch.fed import compress as tcompress
 from repro_torch.fed import engine as tengine
 from repro_torch.kernels.compress import kernel as tkernel
@@ -319,6 +320,249 @@ def test_chunk_table_covers_segments_and_gaps_in_order():
     assert [t[2] for t in table].count(1) == 3
 
 
+def test_key_chunks_cover_every_interval_in_order():
+    """The bf16 kernels' chunk table: every column once, in column order,
+    no chunk across an interval edge; each interval's chunks in order."""
+    C = tkernel.KEY_CHUNK
+    segs = ((3, 10), (10, 10 + 2 * C + 5), (10 + 2 * C + 9, 10 + 2 * C + 20))
+    width = segs[-1][1] + 7
+    chunks, intervals = tkernel.key_chunks(segs, width)
+    edges = tref.column_intervals(segs, width)
+    assert len(intervals) == len(edges) == 6
+    cursor = 0
+    for i, (lo, hi, iv, pad) in enumerate(chunks):
+        first, count = intervals[iv]
+        assert lo == cursor and 0 < hi - lo <= C and pad == 0
+        assert first <= i < first + count
+        assert edges[iv][0] <= lo and hi <= edges[iv][1]
+        cursor = hi
+    assert cursor == width
+    assert [c for _, c in intervals] == [1, 1, 3, 1, 1, 1]
+    assert [f for f, _ in intervals] == [0, 1, 2, 5, 6, 7]
+    assert sum(c for _, c in intervals) == len(chunks)
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' decomposition, emulated in plain PyTorch: the counting
+# rank of csrc/segment_ranks.cu and rank_select's tie prefix from H[c][T]
+# (csrc/compress.cu), step by step at small chunk and tile sizes
+# ---------------------------------------------------------------------------
+
+BINS = 1 << 15
+NO_BIN = 0x8000
+
+
+def _bins(x):
+    """The 15-bit magnitude bin of a bf16 buffer: the float32 key >> 16."""
+    b = (x.view(torch.int16).to(torch.int32) & 0x7FFF).long()
+    assert torch.equal(b, (tref.magnitude_key(x) >> 16).long())
+    return b
+
+
+def _key_rows(n=5, m=300, seed=9):
+    """Rows: randn with +-0.0, +-inf and NaN; randn rounded (tie runs);
+    all equal; all zero; small values with a run of 2.0 over cols 20-199,
+    across the edges of every chunk size below."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, m)).astype(np.float32)
+    x[0, ::13] = np.resize([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0],
+                           x[0, ::13].shape)
+    x[1] = np.round(x[1] * 3)
+    x[2] = -0.75
+    x[3] = 0.0
+    x[4] *= 0.1
+    x[4, 20:200] = 2.0
+    return torch.from_numpy(x).to(torch.bfloat16)
+
+
+KEY_SEGMENTS = ((3, 140), (150, 290))      # gaps before, between, after
+
+
+def _chunk_hist(b, lo, hi):
+    return torch.bincount(b[lo:hi], minlength=BINS)
+
+
+def _counting_ranks(x, segments, chunk, tile=4, pos_bits=2):
+    """segment_ranks' bf16 counting rank: per-chunk histograms; bases =
+    #(keys of the interval above the bin) + the bin's count in the
+    interval's earlier chunks; then each tile of the chunk sorted by
+    (bin << pos_bits | position) in two stable LSD passes of 8-bit digits,
+    each bin's run ranked from the running base, which the run's last entry
+    advances."""
+    n, m = x.shape
+    out = torch.full((n, m), -1, dtype=torch.int64)
+    chunks, intervals = tkernel.key_chunks(segments, m, chunk)
+    pos = torch.arange(tile)
+    for r in range(n):
+        b = _bins(x[r])
+        H = torch.stack([_chunk_hist(b, lo, hi) for lo, hi, _, _ in chunks])
+        for first, count in intervals:
+            hi_ = H[first:first + count]
+            tot = hi_.sum(0)
+            above = tot.flip(0).cumsum(0).flip(0) - tot
+            before = hi_.cumsum(0) - hi_
+            for c in range(first, first + count):
+                lo, hi, _, _ = chunks[c]
+                base = before[c - first] + above
+                for t0 in range(lo, hi, tile):
+                    cols = t0 + pos
+                    ok = cols < hi
+                    v = torch.where(ok, b[cols.clamp(max=m - 1)], NO_BIN)
+                    v = v << pos_bits | pos
+                    for shift in (pos_bits, pos_bits + 8):
+                        digit = (v >> shift) & 0xFF
+                        v = v[torch.sort(digit, stable=True).indices]
+                    key = v >> pos_bits
+                    s = torch.arange(tile)
+                    change = key[1:] != key[:-1]
+                    opens = torch.cat([torch.tensor([True]), change])
+                    closes = torch.cat([change, torch.tensor([True])])
+                    valid = key != NO_BIN
+                    o = opens & valid
+                    base[key[o]] -= s[o]
+                    rank = base[key.clamp(max=BINS - 1)] + s
+                    out[r, t0 + (v & (tile - 1))[valid]] = rank[valid]
+                    e = closes & valid
+                    base[key[e]] += s[e] + 1
+    assert bool((out >= 0).all())
+    return out.to(torch.int32)
+
+
+def _square(b, dtype):
+    """The kernel's square_of: |x| squared in float32, rounded to the
+    buffer dtype, as a float64."""
+    v = torch.tensor([b << 16], dtype=torch.int32).view(torch.float32)
+    return float((v * v).to(dtype).double())
+
+
+def _adaptive_k(tot, dtype, k_floor, m, energy):
+    """select_exact_kernel's float64 walk over the bins from the top."""
+    nz = [int(i) for i in torch.nonzero(tot).flatten().flip(0)]
+    total = 0.0
+    for b in nz:
+        total += float(tot[b]) * _square(b, dtype)
+    thr = energy * max(total, 1e-30)
+    s, below = 0.0, 0
+    for b in nz:
+        c, e = int(tot[b]), _square(b, dtype)
+        if s + c * e < thr:
+            s += c * e
+            below += c
+            continue
+        lo, hi = 0, c           # the largest j in [0, c] with s + j e < thr
+        while lo < hi and e != 0.0:
+            mid = lo + (hi - lo + 1) // 2
+            if s + mid * e < thr:
+                lo = mid
+            else:
+                hi = mid - 1
+        below += c if e == 0.0 else lo
+        break
+    return min(max(1 + below, k_floor), m)
+
+
+def _select_from_hists(x, segments, chunk, mode, ratio, energy):
+    """rank_select on bf16 from the chunk histograms: T, #above and #ties
+    from the segment's bin totals; each chunk's tie prefix from H[c][T];
+    a chunk keeps all its ties or none unless the kept ties end in it, and
+    only there are ties ranked in column order."""
+    n, m = x.shape
+    table = tkernel.chunk_table(segments, m, chunk)
+    out = torch.zeros_like(x)
+    for r in range(n):
+        b = _bins(x[r])
+        for j, (s0, s1) in enumerate(segments):
+            spans = [(lo, hi) for lo, hi, seg, _ in table if seg == j]
+            H = torch.stack([_chunk_hist(b, lo, hi) for lo, hi in spans])
+            tot = H.sum(0)
+            k = tref.seg_k(ratio, s1 - s0)
+            if mode == "adaptive_topk":
+                k = _adaptive_k(tot, x.dtype, k, s1 - s0, energy)
+            at_least = tot.flip(0).cumsum(0)   # entries in bins >= b, top first
+            t = BINS - 1 - int(torch.nonzero(at_least >= k)[0])
+            ties = int(tot[t])
+            need = k - (int(at_least[BINS - 1 - t]) - ties)
+            ranks_ties = 0 < need < ties
+            tie_pre = (H[:, t].cumsum(0) - H[:, t]).tolist()
+            for (lo, hi), pre, here in zip(spans, tie_pre, H[:, t].tolist()):
+                keep_ties, cut = need >= ties, False
+                if ranks_ties:
+                    keep_ties = pre + here <= need
+                    cut = pre < need < pre + here
+                tie = b[lo:hi] == t
+                keep = (b[lo:hi] > t) | (tie & keep_ties)
+                if cut:
+                    keep |= tie & (pre + tie.cumsum(0) - 1 < need)
+                out[r, lo:hi] = torch.where(keep, x[r, lo:hi],
+                                            torch.zeros_like(x[r, lo:hi]))
+    return out
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_counting_rank_decomposition_matches_the_plain_ranks(chunk):
+    x = _key_rows()
+    for segs in (KEY_SEGMENTS, ((0, 300),)):
+        want = tref.segment_ranks_ref(x, segs)
+        assert torch.equal(_counting_ranks(x, segs, chunk), want), segs
+    # and the plain ranks are the reference's (interpret mode)
+    if chunk == 7:
+        jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+        np.testing.assert_array_equal(
+            np.asarray(jops.segment_ranks(jx, segments=KEY_SEGMENTS,
+                                          interpret=True)),
+            tref.segment_ranks_ref(x, KEY_SEGMENTS).numpy())
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 64])
+def test_rank_select_tie_prefix_decomposition_matches_the_plain_version(
+        chunk):
+    x = _key_rows(seed=10)
+    for ratio in (0.01, 0.25, 0.5, 1.0):
+        want = tref.rank_select_ref(x, KEY_SEGMENTS, "topk", ratio)
+        got = _select_from_hists(x, KEY_SEGMENTS, chunk, "topk", ratio, 0.95)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    hot = torch.from_numpy(_hot_rows(4, 300, seed=13)).to(torch.bfloat16)
+    checked = 0
+    for ratio, energy in ((0.001, 0.5), (0.001, 0.95), (0.25, 0.8)):
+        want = tref.rank_select_ref(hot, KEY_SEGMENTS, "adaptive_topk", ratio,
+                                    energy)
+        got = _select_from_hists(hot, KEY_SEGMENTS, chunk, "adaptive_topk",
+                                 ratio, energy)
+        for i in range(hot.shape[0]):
+            for s0, s1 in KEY_SEGMENTS:
+                if _margin(hot.float().numpy()[i, s0:s1], "bf16",
+                           energy) <= 1e-2:
+                    continue
+                assert torch.equal(got[i, s0:s1].view(torch.int16),
+                                   want[i, s0:s1].view(torch.int16))
+                checked += 1
+    assert checked >= 12, f"only {checked} segments had the margin"
+    if chunk == 7:     # the plain version is the reference's (interpret mode)
+        jx = jnp.asarray(x.float().numpy(), jnp.bfloat16)
+        np.testing.assert_array_equal(
+            _np(jops.rank_select(jx, segments=KEY_SEGMENTS, mode="topk",
+                                 ratio=0.25, interpret=True)),
+            _np(tref.rank_select_ref(x, KEY_SEGMENTS, "topk", 0.25)))
+
+
+def test_library_path_covers_the_headers_beside_a_source(tmp_path):
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    (tmp_path / "notes.txt").write_text("x")
+    first = build.library_path(src)
+    assert build.library_path(src) == first
+    (tmp_path / "notes.txt").write_text("y")
+    assert build.library_path(src) == first
+    header.write_text("// two\n")
+    second = build.library_path(src)
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("")
+    assert build.library_path(src) not in (first, second)
+    assert tkernel.SOURCE.with_name("key_hist.cuh").exists()
+
+
 # ---------------------------------------------------------------------------
 # Increment compression: backends, packing, padding
 # ---------------------------------------------------------------------------
@@ -481,3 +725,28 @@ def test_compress_kernels_match_plain_versions_on_card(cuda_device, dtype):
             tref.rank_select_ref(x, segs, mode, 0.25, energy))
     assert torch.equal(tops.int8_quantize(x, segments=segs),
                        tref.int8_ref(x, segs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_over_several_chunks_match_plain_versions_on_card(
+        cuda_device, dtype):
+    """Both ranking kernels at a width over two chunks of either chunk
+    table, with a tie run across the chunk edges that holds the topk cut,
+    a rounded row and an all-zero row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    m = 2 * tkernel.CHUNK + 4321
+    x = torch.randn((4, m), generator=gen, device=cuda_device)
+    x[1] = (x[1] * 3).round()
+    x[2] = 0.0
+    x[3] *= 0.1
+    x[3, tkernel.KEY_CHUNK - 999:tkernel.KEY_CHUNK - 999 + m // 2] = 2.0
+    x = x.to(dtype)
+    segs = ((7, m // 3), (m // 3 + 5, m - 2))
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for ratio in (0.01, 0.25):
+        got = tops.rank_select(x, segments=segs, mode="topk", ratio=ratio)
+        want = tref.rank_select_ref(x, segs, "topk", ratio)
+        assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(tops.segment_ranks(x, segments=segs),
+                       tref.segment_ranks_ref(x, segs))
