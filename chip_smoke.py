@@ -472,8 +472,8 @@ def compress_small_checks(torch):
     n_checks = 0
 
     def check(x, segs, tag, int8=True, settings=settings):
-        """rank_select copies the kept entries' bits, NaN and -0.0 alike:
-        its result is compared bit for bit."""
+        """rank_select copies the kept entries' bits, NaN and -0.0 alike,
+        and int8's zero codes are +0.0: both are compared bit for bit."""
         nonlocal n_checks
         full = cops.check_segments(segs or ((0, x.shape[1]),), x.shape[1])
         bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
@@ -487,9 +487,11 @@ def compress_small_checks(torch):
                      f"{tag}: {int((got != want).sum())} entries differ")
             n_checks += 1
         if int8:
-            if not torch.equal(cops.int8_quantize(x, segments=segs),
-                               cref.int8_ref(x, full)):
-                fail(f"int8_quantize {tag}: differs from the plain version")
+            got = cops.int8_quantize(x, segments=segs).view(bits[x.dtype])
+            want = cref.int8_ref(x, full).view(bits[x.dtype])
+            if not torch.equal(got, want):
+                fail(f"int8_quantize {tag}: {int((got != want).sum())} "
+                     f"entries differ from the plain version")
             n_checks += 1
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -512,12 +514,51 @@ def compress_small_checks(torch):
         x, segs = multi_chunk_input(torch, dtype, gen)
         check(x, segs, f"{dtype} multi-chunk M={x.shape[1]}", int8=False,
               settings=[t for t in settings if t[2] < 1.0])
+    x, segs = int8_patterns_row(torch, gen)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    for view, tag in ((x, "aligned"), (shifted, "misaligned view")):
+        got = cops.int8_quantize(view, segments=segs)
+        same_bits(torch, got, cref.int8_ref(view, segs),
+                  f"int8_quantize every finite bf16 pattern, {tag}")
+        n_checks += 1
     torch.cuda.synchronize()
     log(f"phase 2: {n_checks} small-shape compress checks bit-equal (topk, "
         f"adaptive_topk, int8; fp32 and bf16; N=3, M=1000 and 1001; one and "
         f"several segments with gaps; ties, all-equal, all-zero rows; a "
-        f"misaligned view; and N=5 over three chunks: rounded, all-equal "
-        f"and zero rows, a tie run across chunk edges holding the topk cut)")
+        f"misaligned view; N=5 over three chunks: rounded, all-equal "
+        f"and zero rows, a tie run across chunk edges holding the topk cut; "
+        f"and int8 on a bf16 row of every finite pattern under the maxima "
+        f"{list(INT8_MAXIMA)}, aligned and as a misaligned view, +-0.0 by "
+        f"bits)")
+
+
+# int8's all-patterns row: one segment per maximum (Queue C's float32 amax
+# 1218.9414 rounds to 1216 in bf16; 1e-11 floors the scale at 1e-12; at
+# 0.171875 the maximum's own quotient rounds to 128: -0.171875 saturates)
+INT8_MAXIMA = {"1.0": 1.0, "1218.9414": 1218.9414, "1e-11": 1e-11,
+               "largest finite": 3.3895313892515355e38, "all zero": 0.0,
+               "0.171875": 0.171875}
+
+
+def int8_patterns_row(torch, gen):
+    """``(x, segments)``: one bf16 row with a segment per maximum M of
+    :data:`INT8_MAXIMA`, holding every finite bf16 pattern of magnitude at
+    most bf16(M) (M 0: +0.0 and -0.0) in a seeded order, and one gap
+    column after each segment."""
+    dev = torch.device("cuda")
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device=dev).to(
+        torch.int16).view(torch.bfloat16)
+    finite = every[torch.isfinite(every)]
+    parts, segs, col = [], [], 0
+    for m in INT8_MAXIMA.values():
+        top = torch.tensor(m, dtype=torch.bfloat16, device=dev)
+        seg = finite[finite.abs() <= top]
+        seg = seg[torch.randperm(seg.numel(), generator=gen, device=dev)]
+        parts += [seg, torch.ones(1, dtype=torch.bfloat16, device=dev)]
+        segs.append((col, col + seg.numel()))
+        col += seg.numel() + 1
+    return torch.cat(parts)[None], tuple(segs)
 
 
 def compress_full_shape(torch, bw):
@@ -558,9 +599,10 @@ def compress_full_shape(torch, bw):
         torch.cuda.synchronize()
         plain_s = time.time() - t0
         for i in range(N):
-            if not torch.equal(got[i], want[i]):
+            g, w = got[i].view(torch.int16), want[i].view(torch.int16)
+            if not torch.equal(g, w):
                 fail(f"{name} full shape row {i}: "
-                     f"{int((got[i] != want[i]).sum())} entries differ")
+                     f"{int((g != w).sum())} entries differ")
         return plain_s
 
     recs = {}
@@ -583,8 +625,8 @@ def compress_full_shape(torch, bw):
         del got
         torch.cuda.empty_cache()
         ms = cuda_ms(torch, run)
-        stages = (profile_stages(torch, run, RANK_SELECT_STAGES)
-                  if kw is not None else None)
+        stages = profile_stages(torch, run, INT8_STAGES if kw is None
+                                else RANK_SELECT_STAGES)
         if time_plain:
             scratch = torch.empty_like(x)
             pms = cuda_ms(torch, lambda: rows(plain_fn, scratch), reps=3)
@@ -600,11 +642,12 @@ def compress_full_shape(torch, bw):
                         torch.topk(x[i, a:b].abs(), cref.seg_k(0.25, b - a),
                                    sorted=False)
             lib_ms = cuda_ms(torch, lib, reps=3)
+        elif name == "int8_quantize":
+            lib_ms = int8_yardstick(torch, x, segs)
         recs[name] = dict(bytes=bytes_, ms=ms, plain_ms=pms, bound_ms=bound,
                           bound_by="bytes", max_abs_err=0.0,  # bit-equal
                           library_ms=lib_ms, kept=kept)
-        if stages is not None:
-            recs[name]["profiled_stages_ms"] = stages
+        recs[name]["profiled_stages_ms"] = stages
         log(f"phase 2 full shape: {name} ({N}x{M} bf16) bit-equal to the "
             f"plain version; kept {kept:,} of {N * M:,}; kernel {ms:.3f} ms, "
             f"plain {pms:.3f} ms"
@@ -613,14 +656,41 @@ def compress_full_shape(torch, bw):
             f"{100 * bound / ms:.1f}% of bound"
             + ("" if lib_ms is None else
                f"; yardstick torch.topk per (row, segment) {lib_ms:.3f} ms "
-               f"(tie order differs)")
-            + ("" if stages is None else
-               f"; one profiled call by stage (ms): "
-               f"{ {k: round(v, 3) for k, v in stages.items()} }"))
+               f"(tie order differs)" if kw is not None else
+               f"; yardstick amax + torch.fake_quantize_per_channel_affine "
+               f"per segment {lib_ms:.3f} ms (rounds x * (1/scale))")
+            + f"; one profiled call by stage (ms): "
+            f"{ {k: round(v, 3) for k, v in stages.items()} }")
         torch.cuda.empty_cache()
     del x
     torch.cuda.empty_cache()
     return recs
+
+
+def int8_yardstick(torch, x, segs):
+    """ms of int8's library yardstick on ``x``: per segment, the rows'
+    ``amax`` and ``torch.fake_quantize_per_channel_affine`` (rows as
+    channels, zero point 0, codes -128..127).  Another function's rounding:
+    it rounds ``x * (1 / scale)`` where the port divides.  None, logged,
+    where PyTorch refuses the bf16 buffer."""
+    from repro_torch.kernels.compress.ref import INV_127
+
+    zero = torch.zeros(x.shape[0], dtype=torch.int32, device=x.device)
+
+    def lib():
+        for a, b in segs:
+            seg = x[:, a:b]
+            scale = (seg.abs().amax(dim=1).float() * INV_127).clamp_min(1e-12)
+            torch.fake_quantize_per_channel_affine(seg, scale, zero, 0, -128,
+                                                   127)
+
+    try:
+        lib()
+    except RuntimeError as e:
+        log(f"phase 2: int8 yardstick refused ({str(e).splitlines()[0]}); "
+            f"library_ms stays none")
+        return None
+    return cuda_ms(torch, lib, reps=3)
 
 
 def same_bits(torch, got, want, what):
@@ -1663,6 +1733,13 @@ def flash_small_checks(torch):
     for causal in (True, False):
         kw = dict(causal=causal, window=100, cap=FLASH_CAP)
         check(q, k, v, do, kw, f"dead rows {kw}")
+    q, k, v, do = draw(1, 128, 128, 8, 4, 128, torch.bfloat16)
+    o, lse = fops.flash_attention_fwd(q, k, v, causal=True)
+    fresh_thread_launches(torch, {
+        "flash_attention_fwd bf16": lambda: fops.flash_attention_fwd(
+            q, k, v, causal=True),
+        "flash_attention_bwd bf16": lambda: fops.flash_attention_bwd(
+            q, k, v, o, lse, do, causal=True)})
     torch.cuda.synchronize()
     log(f"phase 9a: {n_checks} flash attention checks (forward o and lse, "
         f"backward dq, dk, dv) against the plain versions: fp32 and bf16, "
@@ -1673,7 +1750,8 @@ def flash_small_checks(torch):
         f"(H, Hkv) (8, 4) and (10, 1), D 64 and 256; the main path's shapes "
         f"({'; '.join(shapes)}), and fp32 rows with no visible key (S 300, "
         f"T 40, window 100); max abs err o {worst['o']:.3g}, lse "
-        f"{worst['lse']:.3g}, grads {worst['grad']:.3g}")
+        f"{worst['lse']:.3g}, grads {worst['grad']:.3g}; the bf16 kernels "
+        f"also launched from a fresh thread, bit-equal")
 
 
 def visible_pairs(S, T, causal, window):
@@ -1939,6 +2017,13 @@ def lru_bounds(bw, B, S, W, elt):
     return out
 
 
+# (B, W) of 10a's rows across the ring kernel's tiling on an H100 (132 SMs,
+# tiles of 32 columns and blocks of 32 steps: csrc/lru_scan.cu kTile,
+# kSteps): fewer CTAs than SMs, more, four an SM, and the Mamba scan's width
+LRU_TILING_BW = ((1, 1000), (3, 2560), (2, 8448), (2, 131072))
+LRU_RING_TILE = LRU_RING_STEPS = 32
+
+
 def lru_small_checks(torch):
     """Phase 10a: both scan kernels against their plain versions, bit for
     bit (NaN by position): B in (1, 2, 3), S in (1, 7, 128, 129, 1000), W
@@ -1969,20 +2054,24 @@ def lru_small_checks(torch):
                 for _ in range(2))
         return tuple(t.to(dtype) for t in (a, b, g))
 
+    def misaligned(ts):
+        return tuple(torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)[1:]
+                     .view(t.shape).copy_(t) for t in ts)
+
     for dtype in (torch.float32, torch.bfloat16):
         for B in (1, 2, 3):
             for S in (1, 7, 128, 129, 1000):
                 for W in (1, 5, 1000, 1001):
                     check(*draw((B, S, W), dtype), f"{dtype} B={B} S={S} W={W}")
                     n_checks += 1
-        a, b, g = draw((2, 129, 1001), dtype)
-        a[1, 3, 2] = float("nan")
-        check(a, b, g, f"{dtype} one NaN in a")
-        # one element past an aligned allocation (the kernels load
-        # scalars, so any element alignment is legal)
-        a, b, g = (torch.empty(t.numel() + 1, dtype=dtype, device=dev)[1:]
-                   .view(t.shape).copy_(t) for t in draw((3, 129, 1000), dtype))
-        check(a, b, g, f"{dtype} misaligned view")
+        for W in (1001, 1000):  # the per-column kernel, the ring kernel
+            a, b, g = draw((2, 129, W), dtype)
+            a[1, 3, 2] = float("nan")
+            check(a, b, g, f"{dtype} W={W} one NaN in a")
+        # one element past an aligned allocation: the per-column kernel
+        # (TMA needs 16-byte aligned operands)
+        check(*misaligned(draw((3, 129, 1000), dtype)),
+              f"{dtype} misaligned view")
         # 4-D through the op: the fold and LruScan's forward and backward
         a, b, g = draw((2, 129, 40, 16), dtype)
         la, lb = a.clone().requires_grad_(), b.clone().requires_grad_()
@@ -1997,14 +2086,98 @@ def lru_small_checks(torch):
             same_bits(torch, got, want.reshape(got.shape),
                       f"lru_scan 4-D bwd {dtype}")
         n_checks += 3
+    # the ring kernel's tiling: S one below, at and one above a block's
+    # steps, and 8193; B x W from fewer CTAs than SMs to the Mamba scan's
+    # width; each (B, W) also as a view one element past an aligned
+    # allocation, which the per-column kernel takes
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {}
+    steps = LRU_RING_STEPS
+
+    def on_kernel(want, ops, tag):
+        seen = lru_kernels_run(torch, lambda: check(*ops, tag))
+        if seen != {want}:
+            fail(f"phase 10a {tag}: a profile of the call saw the lru_scan "
+                 f"kernels {sorted(seen)}, want the {want} kernel alone")
+
+    for B, W in LRU_TILING_BW:
+        long = (8193,) if B * W < 1e5 else ()
+        for dtype in (torch.float32, torch.bfloat16):
+            for S in (steps - 1, steps, steps + 1) + long:
+                check(*draw((B, S, W), dtype), f"{dtype} B={B} S={S} W={W}")
+                n_checks += 1
+            on_kernel("ring", draw((B, steps, W), dtype),
+                      f"{dtype} B={B} S={steps} W={W}")
+            on_kernel("per-column", misaligned(draw((B, steps + 1, W), dtype)),
+                      f"{dtype} misaligned view B={B} S={steps + 1} W={W}")
+            n_checks += 2
+        ctas = B * -(-W // LRU_RING_TILE)
+        plans[(B, W)] = f"{ctas} CTAs ({ctas / sms:.2f} an SM)"
+    a, b, g = draw((2, 64, 256), torch.float32)
+    h = lops.lru_scan_fwd(a, b)
+    fresh_thread_launches(torch, {
+        "lru_scan_fwd": lambda: lops.lru_scan_fwd(a, b),
+        "lru_scan_bwd": lambda: lops.lru_scan_bwd(a, h, g)})
     torch.cuda.synchronize()
     log(f"phase 10a: {n_checks} lru_scan checks (forward h, backward da and "
         f"db) bit-equal to the plain versions: fp32 and bf16, B in (1, 2, "
-        f"3), S in (1, 7, 128, 129, 1000), W in (1, 5, 1000, 1001), a in "
+        f"3), S in (1, 7, 128, 129, 1000), W in (1, 5, 1000, 1001) (W 1, 5, "
+        f"1001 on the per-column kernel, 1000 on the ring kernel), a in "
         f"(0, 1) with a = 0, 1, 1.5, -0.7 at scattered entries, one NaN in "
-        f"a (propagated at the plain version's positions), a misaligned "
-        f"view, and a 4-D (2, 129, 40, 16) call through the autograd "
-        f"Function")
+        f"a on each kernel (propagated at the plain version's positions), "
+        f"a misaligned view, a 4-D (2, 129, 40, 16) call through the "
+        f"autograd Function; and across the ring kernel's tiling, (B, W): "
+        f"{plans} at S a block's steps -1, +0, +1 and 8193 (B x W < 1e5), "
+        f"each (S a block's steps) profiled on the ring kernel and, as a "
+        f"misaligned view, on the per-column kernel, fp32 and bf16; both "
+        f"ring kernels also launched from a fresh thread, bit-equal")
+
+
+def fresh_thread_launches(torch, calls):
+    """Runs each of ``calls`` (name: fn returning a tensor or a tuple of
+    them) in this thread, then in a new thread whose first CUDA work it is
+    (its outputs come from the allocator's cache), and fails unless that
+    launch succeeds with the same bits.  A thread that has made no runtime
+    call has no current context, which the TMA encoders need."""
+    import threading
+
+    for name, fn in calls.items():
+        want = fn()
+        torch.cuda.synchronize()
+        got = {}
+
+        def run():
+            try:
+                got["out"] = fn()
+            except Exception as e:  # reported below, in the main thread
+                got["error"] = e
+
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        torch.cuda.synchronize()
+        if "error" in got:
+            fail(f"{name} from a fresh thread: {got['error']}")
+        pairs = zip(want, got["out"]) if isinstance(want, tuple) else (
+            (want, got["out"]),)
+        for w, x in pairs:
+            same_bits(torch, x, w, f"{name} from a fresh thread")
+
+
+def lru_kernels_run(torch, fn, tries=3):
+    """Which lru_scan kernels ``fn`` launched, ``"ring"`` (named ``*_tma``)
+    or ``"per-column"``, from a profile of one call; the profile is taken
+    again (up to ``tries`` times) where it held no device event at all."""
+    for _ in range(tries):
+        _, _, kernels_ms = _profile(torch, lambda: (fn(),
+                                                    torch.cuda.synchronize()),
+                                    width=None)
+        if kernels_ms:
+            break
+    names = [k for k in kernels_ms if "lru_" in k]
+    ring = {k for k in names if "_tma" in k}
+    return ({"ring"} if ring else set()) | (
+        {"per-column"} if set(names) - ring else set())
 
 
 def lru_full_shape(torch, bw):
@@ -2282,6 +2455,8 @@ RANK_SELECT_STAGES = {
     "select": ("select_exact_kernel", "select_stage"),
     "ties": ("count_ties_kernel", "tie_prefix_kernel"),
     "write": ("write_select_kernel", "select_write_kernel")}
+INT8_STAGES = {"absmax": ("absmax_kernel",),
+               "quantize": ("quantize_kernel",)}
 SEGMENT_RANKS_STAGES = {
     "hist": ("rank_hist_kernel", "radix_hist_kernel"),
     "bases": ("rank_sum_kernel", "rank_above_kernel", "scan_reduce_kernel",

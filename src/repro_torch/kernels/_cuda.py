@@ -21,13 +21,15 @@ def check_operands(name: str, ref: torch.Tensor, **others) -> None:
         raise ValueError(f"{name}: kernel operands must be CUDA tensors")
     if ref.dtype not in DTYPE_CODES:
         raise TypeError(f"{name}: unsupported dtype {ref.dtype}")
-    for key, t in {"first operand": ref, **others}.items():
+    if not ref.is_contiguous():
+        raise ValueError(f"{name}: first operand must be contiguous")
+    for key, t in others.items():
         if t is None:
             continue
         if t.device != ref.device or t.dtype != ref.dtype:
             raise ValueError(f"{name}: {key} is {t.dtype} on {t.device}, "
                              f"want {ref.dtype} on {ref.device}")
-        if tuple(t.shape) != tuple(ref.shape):
+        if t.shape != ref.shape:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"want {tuple(ref.shape)}")
         if not t.is_contiguous():
@@ -43,7 +45,10 @@ def vector_ok(n_inner: int, *tensors) -> bool:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s card (the getter
+    behind ``torch.cuda.current_stream``, without building a Stream
+    object: a few microseconds a launch)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def ptr(t) -> int:

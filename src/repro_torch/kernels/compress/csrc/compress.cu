@@ -53,7 +53,20 @@
 // int8: (A) per-(row, segment) max|x|: a block reduction, then atomicMax on the bits of
 // the non-negative float.  (B) scale = dtype(max * fl32(1/127)) floored at the dtype's
 // 1e-12, dtype(x / scale), rintf (half to even), saturated to [-128, 127], times the
-// scale, rounded to the dtype: the plain version's operations one for one.
+// scale, rounded to the dtype: the plain version's operations one for one; a zero code
+// gives +0.0, as the plain version's int8 cast does.  float32 runs them per entry.  bf16
+// reads x twice and writes it once (17.89 GB, 5.34 ms at 3.35 TB/s) in chunks of 2^20
+// columns: (A) absmax_kernel_packed, a packed unsigned max (__vmaxu2) on the |x| patterns,
+// eight 16-byte loads a thread in flight; (B) quantize_kernel_table: each block builds its
+// segment's code table -- the code of every |x| pattern up to the max, 32 KB of shared
+// memory -- with the plain version's operations, then streams a gather, the sign, the
+// clamp, one multiply and one rounding an entry, four 16-byte loads a thread in flight
+// (eight spill at 64 registers).  Measured (chip_smoke.py phase 2, (4, 745,549,056) bf16, 18
+// segments, on an "NVIDIA H100 80GB HBM3, 700.00 W"): 7.23-7.26 ms a call by CUDA events,
+// 49% of the 3.561 ms bound, 6.0-6.1 ms of it in the kernels (a profiled call: absmax
+// 1.86-1.88 ms at 3.2 TB/s, quantize 4.13-4.19 ms at 2.9 TB/s); the earlier design, an IEEE
+// division an entry and one 16-byte load a thread in flight, took 15.90-16.10 ms in the same
+// call (quantize 13.67 ms of a profiled call, on the same card in another run).
 //
 // Columns come in blocks of a chunk table built by the launcher (block -> segment or gap,
 // column range); every offset is 64-bit (N * M > 2^31 at the trainer's shape).  Loads and
@@ -74,6 +87,7 @@ constexpr int kThreads = 512;       // streaming blocks
 constexpr int kWriteThreads = 256;  // bf16 rank_select write blocks
 constexpr int kWriteLoads = 8;      // 16-byte loads in flight per thread there
 constexpr int kCutLoads = 4;        // and in the chunk where the kept ties end
+constexpr int kInt8Loads = 4;       // and in the bf16 int8 write (8 spill at 64 registers)
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -742,7 +756,7 @@ __global__ void __launch_bounds__(kWriteThreads, 4)
 // int8_quantize
 // ---------------------------------------------------------------------------
 
-// (A) per-(row, segment) max|x| as the bits of the non-negative float
+// (A, float32) per-(row, segment) max|x| as the bits of the non-negative float
 template <typename T, int V>
 __global__ void absmax_kernel(const T* x, Layout L, uint32_t* amax) {
   __shared__ uint32_t warp_max[32];
@@ -768,7 +782,7 @@ __global__ void absmax_kernel(const T* x, Layout L, uint32_t* amax) {
   }
 }
 
-// (B) quantize-dequantize; gap chunks write zeros
+// (B, float32) quantize-dequantize; gap chunks write zeros
 template <typename T, int V>
 __global__ void quantize_kernel(const T* x, T* out, Layout L, const uint32_t* amax,
                                 float inv127, float floor_) {
@@ -790,12 +804,143 @@ __global__ void quantize_kernel(const T* x, T* out, Layout L, const uint32_t* am
 #pragma unroll
                         for (int k = 0; k < V; ++k) {
                           const float d = to_f(from_f<T>(to_f(v[k]) / scale));
-                          const float q = fminf(fmaxf(rintf(d), -128.f), 127.f);
+                          // + 0: a zero code is +0.0, as the plain version's int8 cast
+                          const float q = fminf(fmaxf(rintf(d), -128.f), 127.f) + 0.0f;
                           o[k] = from_f<T>(q * scale);
                         }
                         store_group<T, V>(orow, e0, lo, hi, o);
                       });
 }
+
+// One load of V bf16 patterns at columns e0 .. e0 + V - 1 of a row: a 16-byte vector inside
+// [lo, hi) when V = 8, else scalars, 0 outside [lo, hi).
+template <int V>
+__device__ __forceinline__ key_hist::Packed<V> load_packed(const uint16_t* r, int64_t e0,
+                                                           int64_t lo, int64_t hi) {
+  key_hist::Packed<V> v;
+  if (V == 8 && e0 >= lo && e0 + V <= hi) return *reinterpret_cast<const key_hist::Packed<V>*>(r + e0);
+#pragma unroll
+  for (int k = 0; k < (V + 1) / 2; ++k) v.w[k] = 0u;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int64_t c = e0 + k;
+    if (c >= lo && c < hi) v.w[k >> 1] |= (uint32_t)r[c] << (16 * (k & 1));
+  }
+  return v;
+}
+
+template <int V>
+__device__ __forceinline__ void store_packed(uint16_t* r, int64_t e0, int64_t lo, int64_t hi,
+                                             const key_hist::Packed<V>& v) {
+  if (V == 8 && e0 >= lo && e0 + V <= hi) {
+    *reinterpret_cast<key_hist::Packed<V>*>(r + e0) = v;
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int64_t c = e0 + k;
+    if (c >= lo && c < hi) r[c] = (uint16_t)v.get(k);
+  }
+}
+
+// (A, bf16) per-(row, segment) max|x|: a packed unsigned max of the |x| patterns (bits &
+// 0x7fff, ordered as key_of orders them), kWriteLoads 16-byte loads a thread in flight; one
+// atomicMax a block on the key (pattern << 16).
+template <int V>
+__global__ void __launch_bounds__(kWriteThreads, 4)
+    absmax_kernel_packed(const __nv_bfloat16* x, Layout L, uint32_t* amax) {
+  static_assert(V == 1 || V == 8, "one bf16 or one 16-byte vector a load");
+  __shared__ uint32_t warp_max[kWriteThreads / 32];
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  if (seg < 0) return;
+  const int64_t lo = L.chunk_lo[chunk], hi = L.chunk_hi[chunk];
+  const int64_t row_off = row * L.n_cols;
+  const uint16_t* xr = reinterpret_cast<const uint16_t*>(x + row_off);
+  const int64_t start = lo - (row_off + lo) % V;
+  const int64_t step = (int64_t)blockDim.x * V;
+  uint32_t mx = 0;  // two |x| patterns, one a half word
+  for (int64_t base = start; base < hi; base += kWriteLoads * step) {
+    key_hist::Packed<V> v[kWriteLoads];
+#pragma unroll
+    for (int u = 0; u < kWriteLoads; ++u)
+      v[u] = load_packed<V>(xr, base + u * step + (int64_t)threadIdx.x * V, lo, hi);
+#pragma unroll
+    for (int u = 0; u < kWriteLoads; ++u)
+#pragma unroll
+      for (int k = 0; k < (V + 1) / 2; ++k) mx = __vmaxu2(mx, v[u].w[k] & 0x7FFF7FFFu);
+  }
+  mx = __reduce_max_sync(0xffffffffu, max(mx & 0xFFFFu, mx >> 16));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = mx;
+  __syncthreads();
+  if (warp == 0) {
+    mx = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0u;
+    mx = __reduce_max_sync(0xffffffffu, mx);
+    if (lane == 0) atomicMax(&amax[row * L.n_segs + seg], mx << 16);
+  }
+}
+
+// (B, bf16) quantize-dequantize through the (row, segment)'s code table; gap chunks write
+// zeros.  The block first builds, in shared memory, the code of every |x| pattern p up to
+// the segment's max with the plain version's operations -- bf16(p / scale), rint, saturated
+// at 128 (a NaN quotient: 0, as the plain version's int8 cast gives on the card) -- then
+// streams: q = -code for a negative x, min(code, 127) otherwise (the clamp after the sign;
+// an integer, so a zero code is +0), out = bf16(q * scale).  kInt8Loads 16-byte loads a
+// thread in flight, two bf16 a register, 256 threads a block, 4 blocks an SM.
+template <int V>
+__global__ void __launch_bounds__(kWriteThreads, 4)
+    quantize_kernel_table(const __nv_bfloat16* x, __nv_bfloat16* out, Layout L,
+                          const uint32_t* amax, float inv127, float floor_) {
+  static_assert(V == 1 || V == 8, "one bf16 or one 16-byte vector a load");
+  __shared__ uint8_t code[kHighBins];
+  const int64_t chunk = blockIdx.x, row = blockIdx.y;
+  const int64_t seg = L.chunk_seg[chunk];
+  const int64_t lo = L.chunk_lo[chunk], hi = L.chunk_hi[chunk];
+  const int64_t row_off = row * L.n_cols;
+  if (seg < 0) {
+    zero_fill<__nv_bfloat16, V>(out + row_off, row_off, lo, hi);
+    return;
+  }
+  const uint32_t a_key = amax[row * L.n_segs + seg];
+  float scale = __bfloat162float(__float2bfloat16_rn(__uint_as_float(a_key) * inv127));
+  scale = scale < floor_ ? floor_ : scale;
+  for (uint32_t p = threadIdx.x; p <= (a_key >> 16); p += blockDim.x) {
+    const float v = __bfloat162float(__ushort_as_bfloat16((unsigned short)p));
+    const float r = rintf(__bfloat162float(__float2bfloat16_rn(v / scale)));
+    code[p] = r >= 128.f ? 128 : (r >= 1.f ? (uint8_t)r : 0);
+  }
+  __syncthreads();
+  const uint16_t* xr = reinterpret_cast<const uint16_t*>(x + row_off);
+  uint16_t* orow = reinterpret_cast<uint16_t*>(out + row_off);
+  const int64_t start = lo - (row_off + lo) % V;
+  const int64_t step = (int64_t)blockDim.x * V;
+  for (int64_t base = start; base < hi; base += kInt8Loads * step) {
+    key_hist::Packed<V> v[kInt8Loads];
+#pragma unroll
+    for (int u = 0; u < kInt8Loads; ++u)
+      v[u] = load_packed<V>(xr, base + u * step + (int64_t)threadIdx.x * V, lo, hi);
+#pragma unroll
+    for (int u = 0; u < kInt8Loads; ++u) {
+#pragma unroll
+      for (int k = 0; k < (V + 1) / 2; ++k) {
+        float f[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t b = (v[u].w[k] >> (16 * h)) & 0xFFFFu;
+          const int c = code[b & 0x7FFFu];
+          f[h] = (float)((b & 0x8000u) ? -c : min(c, 127)) * scale;
+        }
+        const __nv_bfloat162 o = __floats2bfloat162_rn(f[0], f[1]);
+        v[u].w[k] = *reinterpret_cast<const uint32_t*>(&o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kInt8Loads; ++u)
+      store_packed<V>(orow, base + u * step + (int64_t)threadIdx.x * V, lo, hi, v[u]);
+  }
+}
+
 
 // ---------------------------------------------------------------------------
 // Launchers
@@ -881,6 +1026,20 @@ int int8_launch(const T* x, T* out, int64_t n_rows, const Layout& L, uint32_t* a
   return 0;
 }
 
+template <int V>
+int int8_bf16_launch(const __nv_bfloat16* x, __nv_bfloat16* out, int64_t n_rows,
+                     const Layout& L, uint32_t* amax, float inv127, float floor_,
+                     cudaStream_t s) {
+  const dim3 chunks((unsigned)L.n_chunks, (unsigned)n_rows);
+  if (L.n_segs > 0) {
+    absmax_kernel_packed<V><<<chunks, kWriteThreads, 0, s>>>(x, L, amax);
+    RETURN_IF_ERROR();
+  }
+  quantize_kernel_table<V><<<chunks, kWriteThreads, 0, s>>>(x, out, L, amax, inv127, floor_);
+  RETURN_IF_ERROR();
+  return 0;
+}
+
 Layout make_layout(const int64_t* seg_lo, const int64_t* seg_hi, const int64_t* seg_k,
                    const int64_t* seg_first, const int64_t* seg_count, int64_t n_segs,
                    const int64_t* chunk_lo, const int64_t* chunk_hi, const int64_t* chunk_seg,
@@ -950,10 +1109,10 @@ extern "C" int repro_int8_quantize(const void* x, void* out, int64_t n_rows, int
                  : int8_launch<float, 1>((const float*)x, (float*)out, n_rows, L, am, inv127,
                                          floor_, s);
     case 1:
-      return vec ? int8_launch<__nv_bfloat16, 8>((const __nv_bfloat16*)x, (__nv_bfloat16*)out,
-                                                 n_rows, L, am, inv127, floor_, s)
-                 : int8_launch<__nv_bfloat16, 1>((const __nv_bfloat16*)x, (__nv_bfloat16*)out,
-                                                 n_rows, L, am, inv127, floor_, s);
+      return vec ? int8_bf16_launch<8>((const __nv_bfloat16*)x, (__nv_bfloat16*)out, n_rows, L,
+                                       am, inv127, floor_, s)
+                 : int8_bf16_launch<1>((const __nv_bfloat16*)x, (__nv_bfloat16*)out, n_rows, L,
+                                       am, inv127, floor_, s);
   }
   return -1;
 }

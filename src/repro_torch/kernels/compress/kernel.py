@@ -13,8 +13,10 @@ arrays with each segment's range and static keep-count, and a chunk
 table that cuts every segment and every gap between segments into
 blocks of at most :data:`CHUNK` columns (one CUDA block per chunk and
 row), or :data:`KEY_CHUNK` for the bf16 kernels, which keep a
-32,768-bin histogram of every chunk.  Scratch (histograms, per-(row,
-segment) state, tie counts) is allocated here and freed with the call.
+32,768-bin histogram of every chunk (rank_select, segment_ranks) or a
+32,768-entry code table in each block (int8).  Scratch (histograms,
+per-(row, segment) state, tie counts) is allocated here and freed with
+the call.
 The library is compiled on the first launch
 (:mod:`repro_torch.kernels.build`).
 """
@@ -170,8 +172,11 @@ def rank_select(x: torch.Tensor, segments: tuple, mode: str, ratio: float,
 
 
 def int8_quantize(x: torch.Tensor, segments: tuple) -> torch.Tensor:
-    """The int8 quantize-dequantize kernel on a CUDA ``(N, M)`` buffer."""
-    out, vec, lay = _prepare("int8_quantize", x, segments)
+    """The int8 quantize-dequantize kernel on a CUDA ``(N, M)`` buffer
+    (bf16 in chunks of :data:`KEY_CHUNK` columns, each building its
+    segment's code table)."""
+    out, vec, lay = _prepare("int8_quantize", x, segments,
+                             KEY_CHUNK if x.dtype == torch.bfloat16 else CHUNK)
     n, m = x.shape
     if m == 0:
         return out

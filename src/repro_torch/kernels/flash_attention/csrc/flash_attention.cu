@@ -1420,14 +1420,15 @@ int make_map(CUtensorMap* map, const void* base, int B, int64_t L, int heads, in
 template <int DP>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int B,
                   const Geom& g, cudaStream_t st) {
+  // a runtime call before the encoder, which needs a context current on this thread
+  const size_t smem = tc_smem_bytes<DP>();
+  cudaError_t e = allow_smem(flash_fwd_kernel_wgmma<DP>, smem);
+  if (e != cudaSuccess) return (int)e;
   CUtensorMap mq, mk, mv;
   int r = make_map(&mq, q, B, g.S, g.H, g.D, TR);
   if (r == 0) r = make_map(&mk, k, B, g.T, g.Hkv, g.D, TR);
   if (r == 0) r = make_map(&mv, v, B, g.T, g.Hkv, g.D, TR);
   if (r != 0) return r;
-  const size_t smem = tc_smem_bytes<DP>();
-  cudaError_t e = allow_smem(flash_fwd_kernel_wgmma<DP>, smem);
-  if (e != cudaSuccess) return (int)e;
   const dim3 grid((g.S + kConsumers * TR - 1) / (kConsumers * TR), g.H, B);
   flash_fwd_kernel_wgmma<DP><<<grid, kTcThreads, smem, st>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, g);
   return (int)cudaGetLastError();

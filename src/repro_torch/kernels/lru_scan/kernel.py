@@ -9,6 +9,14 @@ file's header says how the design meets that bound.
 Every operand is a contiguous ``(B, S, W)`` CUDA tensor of one dtype,
 float32 or bfloat16 (the TPU kernel's types); anything else raises.
 The library is compiled on the first launch (:mod:`repro_torch.kernels.build`).
+
+Two kernels walk each ``(b, channel)`` column in time order with the same
+rounded operations; the C launcher picks one from the operands.  The ring
+kernel gives a CTA, one warp, a tile of 32 columns of one batch row and
+cuts time into blocks of 32 steps, which TMA copies into a ring in shared
+memory ahead of the walk and back out of it; it takes 16-byte aligned
+operands whose rows are a multiple of 16 bytes.  The per-column kernel
+gives a thread one column and takes any others.
 """
 
 from __future__ import annotations

@@ -545,6 +545,64 @@ def test_rank_select_tie_prefix_decomposition_matches_the_plain_version(
             _np(tref.rank_select_ref(x, KEY_SEGMENTS, "topk", 0.25)))
 
 
+# int8's bf16 code table (csrc/compress.cu quantize_kernel_table), emulated:
+# the maxima of chip_smoke.py's all-patterns row (Queue C's float32 amax
+# 1218.9414 is 1216 in bf16; 1e-11 floors the scale at 1e-12; at 0.171875
+# the maximum's own quotient rounds to 128, so -0.171875 saturates at -128)
+INT8_MAXIMA = {"1.0": 1.0, "1218.9414": 1218.9414, "1e-11": 1e-11,
+               "largest-finite": float(torch.finfo(torch.bfloat16).max),
+               "all-zero": 0.0, "0.171875": 0.171875}
+SATURATES = 0.171875
+
+
+def _finite_patterns(top):
+    """Every finite bf16 pattern of magnitude at most bf16(top), shuffled:
+    a (1, m) row."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    finite = every[torch.isfinite(every)]
+    row = finite[finite.abs() <= torch.tensor(top, dtype=torch.bfloat16)]
+    gen = torch.Generator().manual_seed(0)
+    return row[torch.randperm(row.numel(), generator=gen)][None]
+
+
+def _int8_by_code_table(x):
+    """The kernel's design on one (1, m) bf16 segment: the scale from the
+    largest |x| pattern; the code of every pattern up to it with
+    ``int8_ref``'s operations, saturated at 128; then, per entry, the sign
+    before the clamp (``-code`` for a negative x, ``min(code, 127)``
+    otherwise, an integer) and ``bf16(q * scale)``."""
+    bits = x.view(torch.int16).to(torch.int32)
+    mag = bits & 0x7FFF
+    top = int(mag.max())
+    scale = torch.tensor([[top << 16]], dtype=torch.int32).view(torch.float32)
+    scale = (scale * tref.INV_127).to(torch.bfloat16)
+    scale = torch.maximum(scale, torch.full_like(scale, 1e-12))
+    p = torch.arange(top + 1, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)[None]
+    code = torch.round(p / scale).clamp(max=128.0).to(torch.int32)[0]
+    c = code[mag]
+    q = torch.where(bits < 0, -c, c.clamp(max=127))
+    return q.to(torch.bfloat16) * scale, q
+
+
+@pytest.mark.parametrize("top", list(INT8_MAXIMA.values()),
+                         ids=list(INT8_MAXIMA))
+def test_int8_code_table_matches_the_plain_version_on_every_pattern(top):
+    """Bit for bit (+0.0 and -0.0 apart) on every finite bf16 pattern under
+    each maximum; the codes reach the sign-and-clamp order's edge cases."""
+    x = _finite_patterns(top)
+    got, q = _int8_by_code_table(x)
+    want = tref.int8_ref(x)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # the code 128: -128 for the negative maximum, 127 for the positive
+    assert bool((q == -128).any()) == (top == SATURATES)
+    # negative entries whose code is 0 (the +0.0 rule), where there are any
+    small = (x < 0) & (want == 0)
+    assert bool(small.any()) == (top > 0)
+    assert not bool(torch.signbit(want[small]).any())
+
+
 def test_library_path_covers_the_headers_beside_a_source(tmp_path):
     src = tmp_path / "k.cu"
     src.write_text('#include "h.cuh"\n')

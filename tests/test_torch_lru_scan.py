@@ -205,6 +205,28 @@ def test_kernel_launchers_check_operands(case):
         tkernel.lru_bwd(a, a, b)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_plain_takes_misaligned_views(dtype):
+    """Operands one element past an aligned allocation, which the card's
+    per-column kernel takes where TMA cannot copy them, at widths and
+    lengths on both sides of the ring kernel's 32-column, 32-step tiles:
+    the plain forward and backward give the oracle's result, and the same
+    bits as on aligned copies."""
+    for shape in ((2, 31, 33), (1, 33, 32), (3, 32, 1)):
+        a, b = (_pair(x, dtype) for x in _inputs(shape, sum(shape)))
+        g = torch.from_numpy(np.random.default_rng(5).normal(
+            size=shape).astype(np.float32)).to(a[0].dtype)
+        views = [torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(shape)
+                 .copy_(t) for t in (a[0], b[0], g)]
+        assert all(v.data_ptr() % 16 != 0 for v in views)
+        h = tref.lru_scan_ref(*views[:2])
+        _assert_close(h, jref(a[1], b[1]), dtype, f"{shape}")
+        assert torch.equal(h, tref.lru_scan_ref(a[0], b[0]))
+        for got, want in zip(tref.lru_scan_bwd_ref(views[0], h, views[2]),
+                             tref.lru_scan_bwd_ref(a[0], h, g)):
+            assert torch.equal(got, want)
+
+
 # ---------------------------------------------------------------------------
 # On the card (skipped without one; chip_smoke.py phase 10 is the full check)
 # ---------------------------------------------------------------------------
