@@ -162,6 +162,41 @@ last line):
    pipeline (Lemma 7's stabilizer, Prop. 4's noise calibration, noisy GD
    with ``dp_init``, the (eps, delta) report, Corollary 1's bound).
 
+12. ``sort_aggregate`` above 128 agents and the model mesh axis.  12a:
+   the kernel's tile path bit-equal to its plain version (NaN by
+   position): (N, M) in (129, 1000), (129, 1001), (200, 1000), (1000,
+   1001) in shared memory and (20000, 40) on the global scratch path,
+   fp32 and bf16, trims 0 / 1 / N/3 / max and coord_median, all live /
+   evictions / one live / all dead, ties and special values; then timed
+   at N 1000 over 2^20 bf16 columns beside the byte bound, the plain
+   version (in column slabs) and ``torch.sort(x, dim=0)``.  12b: reduced
+   gemma2-2b fp32 (N 4, participation 0.75, 3 rounds; packed, fused
+   backend and update) under ``mesh_shape`` 1x2 and 2x2 on 2 and 4 gloo
+   ranks spawned on the one card, against the unsharded card run (rtol
+   1e-5, atol 1e-6; topk and int8 with the near-tie allowance of
+   ``tests/test_torch_rounds_sharded.py``): mean, topk, int8,
+   trimmed_mean f=1 (guards, a sign flip, an eviction), norm_clip_mean
+   (guards, a sign flip), noisy GD with clip 1; and the edges alone: on
+   the same z, t, w, x, u the 1x2 ranks' blocks of y, v, x, z, the topk
+   and int8 ``q`` and the trimmed mean equal the 1x1 mesh's columns bit
+   for bit.  12c: the main path at full width (gemma2-2b, 2 layers, bf16,
+   N 4, batch 8, seq 512, N_e 2, gd) under ``mesh_shape="1x2"`` on two
+   gloo ranks on the card, 2 rounds: finite, equal losses on both ranks;
+   per rank and round partial 1, presummed 1, fedplt_update 2, flash 16
+   forward and 16 backward, unsharded edges 0; each rank's state block
+   (4, 372,774,528) and peak memory; round seconds (gloo-staged), beside
+   the dtypes gloo's all_reduce takes on CUDA tensors and the seconds of
+   one all_reduce of 512 MB between the two ranks.  12d:
+   the dense front end (the paper's problem and Table 5's n 100) under
+   2x1, 1x2 and 2x2 meshes: Fed-PLT N_e 5 over 200 rounds and 50%
+   participation (given rows) over 400 reach the unsharded card run's
+   hitting round with a final criterion within a factor 10 (or both
+   below 1e-8, the criterion's float32 floor);
+   trimmed_mean f=5 with guards at N 100 (2x2) and N 200 (2x1: the
+   kernel's tile path on the gathered agent column), 20 sort_aggregate
+   launches each.  Only gloo's refusal of CUDA tensors drops 12b-12d, as
+   it drops 8e.
+
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
 int8, fp32 and bf16, N=3, M=1000 and 1001, one segment and several with
@@ -191,6 +226,7 @@ Then one JSON line per kernel table, and the last line
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import math
 import os
@@ -762,13 +798,6 @@ def robust_small_checks(torch):
                                       f"sort_aggregate {dtype} N={n} M={m} "
                                       f"{lname}{vname} {stat} trim={trim}")
                             n_checks += 1
-    try:
-        rops.robust_aggregate(torch.zeros((129, 8), device=dev),
-                              stat="coord_median")
-    except ValueError as e:
-        log(f"phase 2: N=129 on the card raises: {e}")
-    else:
-        fail("sort_aggregate took 129 rows (the kernel's limit is 128)")
     torch.cuda.synchronize()
     log(f"phase 2: {n_checks} small-shape sort_aggregate checks bit-equal "
         f"(NaN by position): N in {ROBUST_NS}, M=1000 and 1001, fp32 and "
@@ -984,7 +1013,7 @@ def profile_round(torch, trainer, state, gen, cfg, label):
                      if f"flash_{name}_" in k)
             bound = n * bounds[name]["bound_ms"]
             rec[f"flash_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
-                                        share_of_bound=bound / ms)
+                                        share_of_bound=bound / ms if ms else None)
     lru_ms = {k: v for k, v in kernels_ms.items()
               if _kernel_group(k) == "lru_scan"}
     if lru_ms:
@@ -996,7 +1025,7 @@ def profile_round(torch, trainer, state, gen, cfg, label):
             ms = sum(v for k, v in lru_ms.items() if f"lru_{name}_kernel" in k)
             bound = n * bounds[name]["bound_ms"]
             rec[f"lru_scan_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
-                                           share_of_bound=bound / ms)
+                                           share_of_bound=bound / ms if ms else None)
     log(f"{label} profile: one round {wall_ms:.1f} ms wall under the "
         f"profiler, device busy {busy:.1f} ms"
         + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
@@ -2097,8 +2126,8 @@ def lru_small_checks(torch):
     def on_kernel(want, ops, tag):
         seen = lru_kernels_run(torch, lambda: check(*ops, tag))
         if seen != {want}:
-            fail(f"phase 10a {tag}: a profile of the call saw the lru_scan "
-                 f"kernels {sorted(seen)}, want the {want} kernel alone")
+            fail(f"phase 10a {tag}: the call launched the lru_scan kernels "
+                 f"{sorted(seen)}, want the {want} kernel alone")
 
     for B, W in LRU_TILING_BW:
         long = (8193,) if B * W < 1e5 else ()
@@ -2128,7 +2157,7 @@ def lru_small_checks(torch):
         f"a misaligned view, a 4-D (2, 129, 40, 16) call through the "
         f"autograd Function; and across the ring kernel's tiling, (B, W): "
         f"{plans} at S a block's steps -1, +0, +1 and 8193 (B x W < 1e5), "
-        f"each (S a block's steps) profiled on the ring kernel and, as a "
+        f"each (S a block's steps) run on the ring kernel and, as a "
         f"misaligned view, on the per-column kernel, fp32 and bf16; both "
         f"ring kernels also launched from a fresh thread, bit-equal")
 
@@ -2164,20 +2193,18 @@ def fresh_thread_launches(torch, calls):
             same_bits(torch, x, w, f"{name} from a fresh thread")
 
 
-def lru_kernels_run(torch, fn, tries=3):
-    """Which lru_scan kernels ``fn`` launched, ``"ring"`` (named ``*_tma``)
-    or ``"per-column"``, from a profile of one call; the profile is taken
-    again (up to ``tries`` times) where it held no device event at all."""
-    for _ in range(tries):
-        _, _, kernels_ms = _profile(torch, lambda: (fn(),
-                                                    torch.cuda.synchronize()),
-                                    width=None)
-        if kernels_ms:
-            break
-    names = [k for k in kernels_ms if "lru_" in k]
-    ring = {k for k in names if "_tma" in k}
-    return ({"ring"} if ring else set()) | (
-        {"per-column"} if set(names) - ring else set())
+def lru_kernels_run(torch, fn):
+    """Which lru_scan kernels ``fn`` launched, ``"ring"`` or
+    ``"per-column"``, from the C launcher's own tallies of the launches
+    that succeeded (a profile of the call can hold no device event at
+    all, as whole runs have shown)."""
+    from repro_torch.kernels.lru_scan import kernel as lkernel
+
+    before = lkernel.route_counts()
+    fn()
+    torch.cuda.synchronize()
+    after = lkernel.route_counts()
+    return {k for k in after if after[k] > before[k]}
 
 
 def lru_full_shape(torch, bw):
@@ -2812,6 +2839,660 @@ def private_pipeline(torch):
                 corollary1_bound=bound)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the model mesh axis, and sort_aggregate beyond 128 agents
+# ---------------------------------------------------------------------------
+
+# 12a: (N, M) of the tile path's checks: shared memory from 256 padded rows
+# up, and 20,000 rows (32,768 padded) past it, on the global scratch path
+ROBUST_TILE_NM = ((129, 1000), (129, 1001), (200, 1000), (1000, 1001),
+                  (20000, 40))
+ROBUST_TILE_TIMED = (1000, 1 << 20)      # N, M of the timed call
+
+
+def robust_tile_checks(torch, bw):
+    """Phase 12a: sort_aggregate above 128 agents bit-equal to its plain
+    version (NaN by position), then timed at N 1000; returns ``{name:
+    record}`` for the kernel table's variants."""
+    from repro_torch.kernels.robust_agg import kernel as rkernel
+    from repro_torch.kernels.robust_agg import ops as rops
+    from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
+                             -1.0, 2.5], device=dev)
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m in ROBUST_TILE_NM:
+            x = torch.randn((n, m), generator=gen, device=dev)
+            idx = torch.randint(0, len(specials), (n, 32), generator=gen,
+                                device=dev)
+            x[:, :32] = specials[idx]
+            x[:, 32:36] = 0.75                   # whole tied columns
+            x = x.to(dtype)
+            ev = torch.ones(n, device=dev)
+            ev[::3] = 0.0
+            one = torch.zeros(n, device=dev)
+            one[n // 2] = 1.0
+            lives = {"all live": None, "evictions": ev, "one live": one,
+                     "all dead": torch.zeros(n, device=dev)}
+            stats = (("trimmed_mean", 0), ("trimmed_mean", 1),
+                     ("trimmed_mean", (n - 1) // 3),
+                     ("trimmed_mean", (n - 1) // 2), ("coord_median", 0))
+            for lname, live in lives.items():
+                for stat, trim in stats:
+                    got = rops.robust_aggregate(x, live, stat=stat, trim=trim)
+                    want = robust_aggregate_ref(x, live, stat=stat, trim=trim)
+                    same_bits(torch, got, want,
+                              f"phase 12a sort_aggregate {dtype} N={n} M={m} "
+                              f"{lname} {stat} trim={trim}")
+                    n_checks += 1
+    torch.cuda.synchronize()
+    log(f"phase 12a: {n_checks} sort_aggregate checks above 128 agents "
+        f"bit-equal (NaN by position): (N, M) in {ROBUST_TILE_NM} (tile "
+        f"plans {[rkernel.tile_plan(n, m) for n, m in ROBUST_TILE_NM]}: "
+        f"shared memory, then the global scratch path at N 20,000), fp32 "
+        f"and bf16, trims 0 / 1 / N/3 / max and coord_median, all live / "
+        f"evictions / one live / all dead, ties, +-0.0, +-inf, NaN; phase "
+        f"2 holds N <= 128 as before")
+
+    n, m = ROBUST_TILE_TIMED
+    x = torch.randn((n, m), generator=gen, device=dev, dtype=torch.bfloat16)
+    live = torch.ones(n, device=dev)
+    run = lambda: rops.robust_aggregate(x, live, stat="trimmed_mean",
+                                        trim=100)
+    got = run()
+    want = torch.empty_like(got)
+    slab = 1 << 16
+
+    def plain():
+        for c in range(0, m, slab):
+            want[:, c:c + slab] = robust_aggregate_ref(
+                x[:, c:c + slab], live, stat="trimmed_mean", trim=100)
+
+    plain()
+    same_bits(torch, got, want, "phase 12a timed call")
+    ms = cuda_ms(torch, run, reps=5)
+    pms = cuda_ms(torch, plain, reps=3)
+    sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=0), reps=3)
+    bytes_ = (n * m + m) * 2
+    # per column the least a comparison sort needs, N log2 N compares,
+    # then N selects and N adds
+    ops = m * (n * math.log2(n) + 2 * n)
+    bound = max(bytes_ / bw, ops / FP32_PEAK) * 1e3
+    rec = dict(ms=ms, plain_ms=pms, bound_ms=bound,
+               bound_by="bytes" if bytes_ / bw >= ops / FP32_PEAK
+               else "operations", max_abs_err=0.0, library_ms=None,
+               sort_yardstick_ms=sort_ms,
+               plan=list(rkernel.tile_plan(n, m)))
+    log(f"phase 12a timed: sort_aggregate trimmed_mean f=100 ({n}x{m} bf16, "
+        f"tile path {rkernel.tile_plan(n, m)}) bit-equal to the plain "
+        f"version; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
+        f"{bound:.3f} ms ({bytes_ / 1e9:.3f} GB), {100 * bound / ms:.2f}% "
+        f"of bound; yardstick torch.sort(x, dim=0) {sort_ms:.3f} ms")
+    del x, got, want
+    torch.cuda.empty_cache()
+    return {f"sort_aggregate[N={n}]": rec}
+
+
+# 12b: the model-axis cases (reduced gemma2-2b, fp32, N 4, 3 rounds);
+# name -> (spec kwargs, step kwargs, compressor of the near-tie allowance)
+MODEL_AXIS_CASES = {
+    "mean": ({}, {}, None),
+    "topk": ({"compression": ("topk", 0.25)}, {}, "topk"),
+    "int8": ({"compression": ("int8", 0.25)}, {}, "int8"),
+    "trimmed_mean": (dict(aggregator="trimmed_mean", aggregator_param=1,
+                          guard_increments=True),
+                     {"corrupt": "flip", "live": [1.0, 1.0, 1.0, 0.0]},
+                     None),
+    "norm_clip_mean": (dict(aggregator="norm_clip_mean",
+                            aggregator_param=0.5, guard_increments=True),
+                       {"corrupt": "flip"}, None),
+    "noisy_gd clip 1": ({"privacy": (0.05, 1.0)}, {}, None),
+}
+MODEL_MESHES = {2: "1x2", 4: "2x2"}
+
+
+def _model_axis_rounds(torch, case, device, mesh_shape=None):
+    """3 rounds of reduced gemma2-2b (fp32, N 4, participation 0.75) on
+    ``device`` under one of :data:`MODEL_AXIS_CASES`: returns ``(state,
+    launch counts, losses, increments)`` (this rank's block under a mesh;
+    the increments ``z_r - t_{r-1}`` of a compressed run)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    spec_kw, step_kw, _ = MODEL_AXIS_CASES[case]
+    spec_kw = dict(spec_kw)
+    if "compression" in spec_kw:
+        name, ratio = spec_kw.pop("compression")
+        spec_kw["compression"] = api.CompressionSpec(name, ratio=ratio)
+    if "privacy" in spec_kw:
+        tau, clip = spec_kw.pop("privacy")
+        spec_kw["privacy"] = api.PrivacySpec(tau=tau, clip=clip)
+    step_kw = dict(step_kw)
+    if step_kw.get("corrupt") == "flip":
+        flip = torch.zeros((FULL_N, 2))
+        flip[1, 0] = -1.0
+        step_kw["corrupt"] = flip
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batches = [make_batch_for(cfg, InputShape("small", 64, 8, "train"), gen,
+                              n_agents=FULL_N) for _ in range(3)]
+    tr = api.build_trainer(model, api.FedSpec(
+        n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+        participation=0.75, state_layout="packed", engine_backend="fused",
+        use_fused_update=True, mesh_shape=mesh_shape, **spec_kw), device)
+    st, tgen = tr.init(0, params=params)
+    kernels.reset_launch_counts()
+    losses, increments = [], []
+    for b in batches:
+        t_prev = None if st.t is None else st.t.clone()
+        st, m = tr.step(st, b, tgen, **step_kw)
+        losses.append(float(m["loss"]))
+        if t_prev is not None:
+            increments.append((st.z - t_prev).cpu())
+    return st, kernels.launch_counts(), losses, increments
+
+
+def _near_tie_columns(torch, increments, segments, compressor):
+    """The ``(1, width)`` columns where an increment entry sat on a
+    near-tie of the compressor in some round: topk, a magnitude rank
+    within 3 of its (agent, segment)'s kept count; int8, ``|x| / scale``
+    within 0.01 of a half (``tests/test_torch_rounds_sharded.py``)."""
+    from repro_torch.kernels.compress.ref import INV_127, seg_k
+
+    near = None
+    for dz in increments:
+        cur = torch.zeros(dz.shape, dtype=torch.bool)
+        for a, b in segments:
+            mag = dz[:, a:b].abs()
+            if compressor == "int8":
+                r = mag / (mag.amax(dim=1, keepdim=True) * INV_127).clamp_min(
+                    1e-30)
+                cur[:, a:b] = (r - torch.floor(r) - 0.5).abs() < 0.01
+                continue
+            k = seg_k(0.25, b - a)
+            desc = torch.sort(mag, dim=1, descending=True).values
+            cur[:, a:b] = ((mag <= desc[:, max(k - 4, 0)][:, None])
+                           & (mag >= desc[:, min(k + 2, b - a - 1)][:, None]))
+        near = cur if near is None else near | cur
+    return near.any(dim=0, keepdim=True)
+
+
+EDGE_TREE = {"a": (1000,), "b": (37, 3), "c": (555,)}
+
+
+def model_axis_edges(torch, mesh, dtype, device):
+    """The round's column-local pieces on this rank's column block of
+    seeded full-width inputs (N 4, three leaves with alignment gaps):
+    the lagged uplink's ``y`` and ``v``, the downlink's ``x`` and ``z``,
+    the compressors' ``q`` (topk, int8) and the trimmed mean's broadcast
+    row, each as the launched kernels give it.  Returns them on the CPU."""
+    from repro_torch.core import prox as prox_lib
+    from repro_torch.fed import compress as fcompress
+    from repro_torch.fed import engine, robust, sharding
+
+    meta = fcompress.packed_meta({k: torch.empty((FULL_N,) + s, dtype=dtype,
+                                                 device="meta")
+                                  for k, s in EDGE_TREE.items()})
+    g = torch.Generator().manual_seed(12)
+    z, t, w, x = (torch.randn((FULL_N, meta.width), generator=g).to(dtype)
+                  for _ in range(4))
+    cols = sharding.model_cols(mesh, meta.width)
+    blk = lambda a: a[:, cols].contiguous().to(device)
+    u = torch.tensor([1.0, 0.0, 1.0, 1.0], device=device)
+    live = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    prox = prox_lib.make_prox("weight_decay", weight=0.01)
+    out = {}
+    for comp in ("topk", "int8"):
+        cfg = engine.RoundConfig(n_agents=FULL_N, damping=0.65,
+                                 engine_backend="fused",
+                                 state_layout="packed", compression=comp,
+                                 compress_backend="fused")
+        y, v = engine.coordinator_edge_packed(cfg, blk(z), blk(t), meta, prox,
+                                              mesh)
+        xn, zn = engine.agent_edge_packed(cfg, u, blk(w), blk(x), blk(z), y,
+                                          blk(t), prox, mesh)
+        out.update(y=y, v=v, x=xn, z=zn)
+        out[f"q {comp}"] = fcompress.compress_increment_packed(
+            zn - blk(t), meta, cfg, mesh)
+    out["trimmed_mean"] = robust.robust_seen_packed(
+        blk(z), live, name="trimmed_mean", param=1, meta=meta,
+        backend="fused", mesh=mesh)
+    return {k: v.cpu() for k, v in out.items()}, (cols.start, cols.stop)
+
+
+# 12d: the dense front end on meshes of gloo ranks
+DENSE_MESHES = {2: ("2x1", "1x2"), 4: ("2x2",)}
+DENSE_MESH_RUNS = {
+    # name -> (problem, spec kwargs, rounds, given participation rows)
+    "Fed-PLT N_e 5, n 5": (PAPER_PROBLEM, {}, 200, None),
+    "Fed-PLT N_e 5, n 100": (TABLE5_PROBLEM, {}, 200, None),
+    "50% participation, n 5": (PAPER_PROBLEM, {"participation": 0.5}, 400,
+                               0.5),
+}
+
+
+def _dense_mesh_run(torch, label, device, mesh_shape=None):
+    """One of :data:`DENSE_MESH_RUNS` (packed, fused edges): returns the
+    criterion history (global) and the seconds a round."""
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, build_trainer
+
+    prob_kw, kw, rounds, p = DENSE_MESH_RUNS[label]
+    draws = {}
+    if p is not None:
+        draws["u"] = (torch.rand((rounds, prob_kw["n_agents"]),
+                                 generator=torch.Generator().manual_seed(7))
+                      < p).float()
+    tr = build_trainer(make_logreg_problem(**prob_kw, device="cpu"), FedSpec(
+        rho=1.0, n_epochs=5, state_layout="packed", engine_backend="fused",
+        mesh_shape=mesh_shape, **kw), device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, crit = tr.run(0, rounds, **draws)
+    crit = crit.cpu().numpy()
+    return crit, (time.perf_counter() - t0) / rounds
+
+
+def _dense_robust_mesh(torch, device, mesh_shape, n_agents, trim):
+    """20 rounds of trimmed_mean f=``trim`` with guards (the
+    sort_aggregate kernel on the gathered agent column) on ``n_agents``
+    agents of the paper's problem: returns the last criterion and the
+    launch counts."""
+    from repro_torch import kernels
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, build_trainer
+
+    tr = build_trainer(make_logreg_problem(**dict(PAPER_PROBLEM,
+                                                  n_agents=n_agents),
+                                           device="cpu"),
+                       FedSpec(rho=1.0, n_epochs=5, gamma=0.1,
+                               state_layout="packed", engine_backend="fused",
+                               aggregator="trimmed_mean",
+                               aggregator_param=trim, guard_increments=True,
+                               mesh_shape=mesh_shape), device=device)
+    kernels.reset_launch_counts()
+    _, crit = tr.run(0, DENSE_R)
+    return float(crit[-1]), kernels.launch_counts()
+
+
+def _full_width_rank(torch, mesh_shape):
+    """12c on one rank: gemma2-2b at published width, 2 layers, bf16, the
+    main path's spec under ``mesh_shape``, 2 rounds; per round the loss,
+    the seconds and the launch counts, then the peak memory and the state
+    block's shape."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b"), n_layers=N_LAYERS)
+    tr = api.build_trainer(build_model(cfg), api.FedSpec(
+        n_agents=FULL_N, n_epochs=N_EPOCHS, gamma=0.05, weight_decay=0.01,
+        state_layout="packed", engine_backend="fused", use_fused_update=True,
+        mesh_shape=mesh_shape), "cuda:0")
+    st, gen = tr.init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shape = InputShape("cli", MAIN_SEQ, MAIN_BATCH, "train")
+    rounds = []
+    for _ in range(2):
+        b = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device=tr.device)
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        st, m = tr.step(st, b, gen)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rounds.append(dict(loss=loss, s=time.time() - t0,
+                           counts=kernels.launch_counts()))
+    finite = bool(torch.isfinite(st.x).all())
+    return dict(rounds=rounds, peak=torch.cuda.max_memory_allocated(),
+                shape=tuple(st.x.shape), finite=finite)
+
+
+def _gloo_staging(torch, device):
+    """What gloo takes on this device's tensors (all_reduce of float32,
+    bf16, int32, int16) and the seconds of one all_reduce of a 512 MB
+    bf16 buffer and of its int32 view between the ranks."""
+    import torch.distributed as dist
+
+    takes = {}
+    for dt in (torch.float32, torch.bfloat16, torch.int32, torch.int16):
+        try:
+            dist.all_reduce(torch.ones(8, dtype=dt, device=device))
+            takes[str(dt)] = True
+        except RuntimeError:    # gloo's refusal of a dtype is the record
+            takes[str(dt)] = False
+    x = torch.zeros(1 << 28, dtype=torch.bfloat16, device=device)
+    secs = {}
+    for name, t in (("bf16", x), ("int32 view", x.view(torch.int32))):
+        dist.all_reduce(t)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(t)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    return {"takes": takes, "all_reduce_512MB_s": secs}
+
+
+def _mesh_rank_worker(rank, world, store, out_dir, device):
+    """12b-12d on one of ``world`` gloo ranks spawned on the one card
+    (``device`` "cuda:0"; a rehearsal on the CPU passes "cpu" and skips
+    12c)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    if device != "cpu":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # a rank that waits on a dead peer fails within minutes, not hours
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        from repro_torch.launch.mesh import make_fed_mesh
+
+        res = {"rounds": {}, "dense": {}}
+        shape = MODEL_MESHES[world]
+        for case in MODEL_AXIS_CASES:
+            st, counts, losses, _ = _model_axis_rounds(torch, case, device,
+                                                       shape)
+            res["rounds"][case] = dict(
+                x=st.x.cpu(), z=st.z.cpu(),
+                t=None if st.t is None else st.t.cpu(), counts=counts,
+                losses=losses)
+        if world == 2:
+            res["gloo"] = _gloo_staging(torch, device)
+            mesh = make_fed_mesh(1, 2, device=device)
+            res["edges"] = {str(d): model_axis_edges(torch, mesh, d, device)
+                            for d in (torch.float32, torch.bfloat16)}
+        for dshape in DENSE_MESHES[world]:
+            for label in DENSE_MESH_RUNS:
+                res["dense"][dshape, label] = _dense_mesh_run(
+                    torch, label, device, dshape)
+        if world == 4:
+            res["dense robust"] = _dense_robust_mesh(torch, device, "2x2",
+                                                     100, 5)
+        else:
+            res["dense robust"] = _dense_robust_mesh(torch, device, "2x1",
+                                                     200, 5)
+            if device != "cpu":
+                torch.cuda.empty_cache()
+                res["full width"] = _full_width_rank(torch, "1x2")
+        torch.save(res, os.path.join(out_dir, f"mesh{world}-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh_ranks(torch, world, out, device):
+    """Spawn ``world`` gloo ranks on the card; returns None, or the
+    reason gloo refused a CUDA tensor (the one allowed drop)."""
+    import torch.multiprocessing as mp
+
+    try:
+        mp.start_processes(_mesh_rank_worker,
+                           args=(world, os.path.join(out, f"store{world}"),
+                                 out, device),
+                           nprocs=world, join=True, start_method="spawn")
+    except Exception as e:
+        text = str(e)
+        last = (text.strip().splitlines() or [type(e).__name__])[-1]
+        if not GLOO_REFUSES_CUDA.search(text):
+            fail(f"phase 12: a rank of the {world}-rank run failed: {last}")
+        return last
+    return None
+
+
+def _assemble(torch, blocks, model, width):
+    """The global ``(N, width)`` state from the ranks' blocks (rank
+    ``r * model + c`` holds agent block r, model block c)."""
+    rows = []
+    for r in range(len(blocks) // model):
+        own = blocks[r * model:(r + 1) * model]
+        rows.append(own[0] if own[0].shape[1] == width
+                    else torch.cat(own, 1))
+    return torch.cat(rows)
+
+
+def _full_width_checks(fw):
+    """12c's checks of the two ranks' full-width runs; returns their
+    record."""
+    for k, r in enumerate(fw):
+        if not r["finite"]:
+            fail(f"phase 12c: rank {k} has a non-finite state")
+        if r["shape"] != (FULL_N, FULL_M // 2):
+            fail(f"phase 12c: rank {k} holds {r['shape']}, want "
+                 f"{(FULL_N, FULL_M // 2)}")
+        for i, rd in enumerate(r["rounds"]):
+            want_c = expected_counts(1, round_uplink_partial=1,
+                                     round_downlink_presummed=1,
+                                     fedplt_update=N_EPOCHS)
+            if rd["counts"] != want_c:
+                fail(f"phase 12c: rank {k} round {i} launches {rd['counts']}, "
+                     f"want {want_c}")
+            if not math.isfinite(rd["loss"]) or rd["loss"] != fw[0]["rounds"][
+                    i]["loss"]:
+                fail(f"phase 12c: rank {k} round {i} loss {rd['loss']} (rank "
+                     f"0: {fw[0]['rounds'][i]['loss']})")
+    rec = dict(
+        losses=[rd["loss"] for rd in fw[0]["rounds"]],
+        round_s=[[rd["s"] for rd in r["rounds"]] for r in fw],
+        peak_gb=[r["peak"] / 1e9 for r in fw], block=list(fw[0]["shape"]))
+    log(f"phase 12c: gemma2-2b ({N_LAYERS} layers, {FULL_M:,} parameters, "
+        f"bf16, N {FULL_N}, batch {MAIN_BATCH}, seq {MAIN_SEQ}, N_e "
+        f"{N_EPOCHS}, gd) under mesh_shape 1x2 on two gloo ranks on the "
+        f"card, 2 rounds: losses {rec['losses']} on both ranks; each "
+        f"rank holds the state block {fw[0]['shape']} and launches per round "
+        f"partial 1, presummed 1, fedplt_update {N_EPOCHS}, flash "
+        f"{FULL_N * N_EPOCHS * N_LAYERS} forward and "
+        f"{FULL_N * N_EPOCHS * N_LAYERS} backward, unsharded edges 0; peak "
+        f"device memory per rank {[round(v, 2) for v in rec['peak_gb']]} "
+        f"GB; round seconds {[[round(s, 2) for s in v] for v in rec['round_s']]} "
+        f"(gloo stages every model-group collective through host memory: a "
+        f"correctness cell, not a speed figure)")
+    return rec
+
+
+def model_mesh_phase(torch, device="cuda"):
+    """Phase 12b-12d: the unsharded references in this process, then the
+    2- and 4-rank spawns on the card, each held to them.  Returns a
+    record for the JSON line.  (``device="cpu"`` rehearses it on gloo
+    ranks of the CPU, without 12c.)"""
+    import tempfile
+
+    from repro_torch.core.metrics import hitting_round
+    from repro_torch.fed import compress as fcompress
+    from repro_torch.fed import sharding
+    from repro_torch.fed.api import FedSpec
+
+    want = {c: _model_axis_rounds(torch, c, device) for c in MODEL_AXIS_CASES}
+    one = FedSpec(mesh_shape="1x1").build_mesh(device)
+    edges = {str(d): model_axis_edges(torch, one, d, device)[0]
+             for d in (torch.float32, torch.bfloat16)}
+    dense = {label: _dense_mesh_run(torch, label, device)
+             for label in DENSE_MESH_RUNS}
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    out = tempfile.mkdtemp()
+    worker_device = "cpu" if device == "cpu" else "cuda:0"
+    rec = {"12b": {}, "12d": {}}
+    got = {}
+    for world in (2, 4):
+        t0 = time.time()
+        dropped = _spawn_mesh_ranks(torch, world, out, worker_device)
+        if dropped is not None:
+            log(f"phase 12 dropped: gloo on this build refuses CUDA tensors: "
+                f"{dropped}")
+            return {"dropped": dropped}
+        got[world] = [torch.load(os.path.join(out, f"mesh{world}-rank{r}.pt"),
+                                 weights_only=False)
+                      for r in range(world)]
+        log(f"phase 12: {world} gloo ranks on the card ran in "
+            f"{time.time() - t0:.1f} s")
+
+    # 12b: whole rounds against the unsharded card run
+    for world, ranks in got.items():
+        shape = MODEL_MESHES[world]
+        agents, model = (int(e) for e in shape.split("x"))
+        for case, (_, _, comp) in MODEL_AXIS_CASES.items():
+            st, c0, losses, incr = want[case]
+            meta_segments = None
+            worst, flips = 0.0, 0
+            for var in ("x", "z", "t"):
+                w = getattr(st, var)
+                if w is None:
+                    continue
+                w = w.cpu()
+                blocks = [r["rounds"][case][var] for r in ranks]
+                if {b.shape for b in blocks} != {(FULL_N // agents,
+                                                  w.shape[1] // model)}:
+                    fail(f"phase 12b {shape} {case}: {var} blocks "
+                         f"{[tuple(b.shape) for b in blocks]}")
+                g = _assemble(torch, blocks, model, w.shape[1])
+                bad = ~((g - w).abs() <= 1e-6 + 1e-5 * w.abs())
+                if comp is not None and bool(bad.any()):
+                    if meta_segments is None:
+                        meta_segments = _reduced_segments(torch)
+                    near = _near_tie_columns(torch, incr, meta_segments, comp)
+                    if bool((bad & ~near).any()) or int(
+                            bad.any(0).sum()) > w.shape[1] // 500:
+                        fail(f"phase 12b {shape} {case}: {var} differs off "
+                             f"the near-ties ({int((bad & ~near).sum())}) or "
+                             f"in {int(bad.any(0).sum())} columns")
+                    flips = max(flips, int(bad.any(0).sum()))
+                    g = torch.where(bad, w, g)
+                elif bool(bad.any()):
+                    fail(f"phase 12b {shape} {case}: {var} differs from the "
+                         f"unsharded card run beyond rtol 1e-5 / atol 1e-6 "
+                         f"(max abs {float((g - w).abs().max())})")
+                worst = max(worst, float((g - w).abs().max()))
+            for r in ranks:
+                if not all(abs(a - b) <= 1e-5 * abs(b) for a, b in
+                           zip(r["rounds"][case]["losses"], losses)):
+                    fail(f"phase 12b {shape} {case}: losses "
+                         f"{r['rounds'][case]['losses']} vs {losses}")
+            counts = ranks[0]["rounds"][case]["counts"]
+            if device != "cpu" and (
+                    counts["round_uplink_partial"],
+                    counts["round_downlink_presummed"],
+                    counts["round_uplink"], counts["round_downlink"]) != (
+                        3, 3, 0, 0):
+                fail(f"phase 12b {shape} {case}: launches {counts}")
+            for k in ("rank_select", "int8_quantize", "sort_aggregate"):
+                if counts[k] != c0[k]:
+                    fail(f"phase 12b {shape} {case}: {k} {counts[k]} launches, "
+                         f"the unsharded run {c0[k]}")
+            rec["12b"][f"{shape} {case}"] = dict(max_abs=worst,
+                                                 flipped_columns=flips)
+            log(f"phase 12b {shape} {case}: reduced gemma2-2b fp32, 3 rounds, "
+                f"{world} gloo ranks on the card against the unsharded card "
+                f"run: max abs {worst:.3g} (rtol 1e-5, atol 1e-6"
+                + (f"; {flips} columns on a {comp} near-tie" if comp else "")
+                + f"); rank 0 launches partial={counts['round_uplink_partial']}, "
+                f"presummed={counts['round_downlink_presummed']}, "
+                f"rank_select={counts['rank_select']}, "
+                f"int8={counts['int8_quantize']}, "
+                f"sort_aggregate={counts['sort_aggregate']}")
+
+    # 12b: the edges alone, bit for bit against the 1x1 mesh's columns
+    for dtype, full in edges.items():
+        for r in got[2]:
+            blocks, (c0, c1) = r["edges"][dtype]
+            for k, v in full.items():
+                if not torch.equal(blocks[k].view(torch.int16 if
+                                                  v.dtype == torch.bfloat16
+                                                  else torch.int32),
+                                   v[:, c0:c1].contiguous().view(
+                                       torch.int16 if v.dtype == torch.bfloat16
+                                       else torch.int32)):
+                    fail(f"phase 12b edges {dtype}: the 1x2 rank's {k} block "
+                         f"(columns {c0}:{c1}) differs from the 1x1 mesh's")
+    log(f"phase 12b edges: on the same z, t, w, x and u the two 1x2 ranks' "
+        f"blocks of y, v, x, z (round_uplink_partial, round_downlink_presummed), "
+        f"q (rank_select topk, int8_quantize) and the trimmed mean "
+        f"(sort_aggregate) equal the 1x1 mesh's columns bit for bit, fp32 "
+        f"and bf16, {FULL_N} agents, three leaves with alignment gaps")
+
+    # 12c: the main path at full width on two ranks, beside what gloo's
+    # host staging costs between them
+    gloo = got[2][0]["gloo"]
+    rec["gloo"] = gloo
+    log(f"phase 12c gloo between two ranks on the card: all_reduce takes "
+        f"{gloo['takes']}; 512 MB all-reduced in "
+        f"{ {k: round(v, 3) for k, v in gloo['all_reduce_512MB_s'].items()} } s "
+        f"(the model group's collectives at full width are 1.49 GB each)")
+    fw = [r["full width"] for r in got[2] if "full width" in r]
+    if device != "cpu" and len(fw) != 2:
+        fail("phase 12c: the two ranks returned no full-width run")
+    if fw:
+        rec["12c"] = _full_width_checks(fw)
+
+    # 12d: the dense front end against the unsharded card run
+    for world, ranks in got.items():
+        for (dshape, label), (crit, s) in ranks[0]["dense"].items():
+            base_crit = dense[label][0]
+            for r in ranks[1:]:
+                if not (r["dense"][dshape, label][0] == crit).all():
+                    fail(f"phase 12d {dshape} {label}: ranks disagree on the "
+                         f"criterion")
+            hit, base_hit = hitting_round(crit), hitting_round(base_crit)
+            ratio = float(crit[-1] / base_crit[-1])
+            # the same order, unless both sit at the criterion's float32
+            # floor (a squared norm of a sum that cancels: ~1e-10)
+            floor = max(crit[-1], base_crit[-1]) <= 1e-8
+            if hit != base_hit or not (floor or 0.1 <= ratio <= 10.0):
+                fail(f"phase 12d {dshape} {label}: hitting round {hit} "
+                     f"(unsharded {base_hit}), final criterion {crit[-1]:.3e} "
+                     f"(unsharded {base_crit[-1]:.3e})")
+            rec["12d"][f"{dshape} {label}"] = dict(
+                hitting_round=hit, final_crit=float(crit[-1]),
+                unsharded_final_crit=float(base_crit[-1]), s_per_round=s)
+            log(f"phase 12d {dshape} {label}: hitting round {hit} (unsharded "
+                f"card run {base_hit}), final criterion {crit[-1]:.3e} "
+                f"(unsharded {base_crit[-1]:.3e}); {1e3 * s:.2f} ms a round "
+                f"(gloo-staged collectives)")
+        crit, counts = ranks[0]["dense robust"]
+        n_agents = 200 if world == 2 else 100
+        if (device != "cpu" and counts["sort_aggregate"] != DENSE_R
+                or not math.isfinite(crit)):
+            fail(f"phase 12d robust N {n_agents}: launches {counts}, last "
+                 f"criterion {crit}")
+        rec["12d"][f"robust N {n_agents}"] = dict(final_crit=crit,
+                                                  counts=counts)
+        log(f"phase 12d trimmed_mean f=5 with guards, N {n_agents}, "
+            f"{'2x1' if world == 2 else '2x2'} mesh: sort_aggregate "
+            f"{counts['sort_aggregate']} launches in {DENSE_R} rounds on the "
+            f"gathered agent column ({'the tile path above 128 agents' if n_agents > 128 else 'the register path'}), "
+            f"last criterion {crit:.3e}")
+    return rec
+
+
+def _reduced_segments(torch):
+    """The packed segments of 12b's reduced gemma2-2b state."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed import api
+    from repro_torch.fed.runtime import packed_layout
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    return packed_layout(build_model(cfg),
+                         api.FedSpec(n_agents=FULL_N)).segments
+
+
 def main() -> int:
     import torch
 
@@ -2948,6 +3629,10 @@ def main() -> int:
              "kernel_path": dense_kernel_path(torch),
              "private": private_pipeline(torch)}
 
+    # phase 12: sort_aggregate above 128 agents; the model mesh axis
+    recs.update(robust_tile_checks(torch, bw))
+    model_mesh = model_mesh_phase(torch)
+
     table = []
     meta = {
         "round_uplink": ("src/repro_torch/kernels/round_edge/csrc/round_edge.cu",
@@ -3028,7 +3713,7 @@ def main() -> int:
                     "flash_attention_full_shape": flash,
                     "ssm_rglru": ssm,
                     "segment_ranks_full_shape": rank_recs["segment_ranks"],
-                    "dense": dense}))
+                    "dense": dense, "model_mesh": model_mesh}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

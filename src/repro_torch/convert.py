@@ -11,7 +11,9 @@ the same way.
 A dense problem crosses as its arrays: :func:`problem_from_arrays` and
 :func:`quadratic_from_arrays` build the port's problem from the
 reference's ``(A, b)`` or ``(Q, c)`` (as numpy), so that both packages
-solve the same problem.
+solve the same problem.  :func:`rank_block` cuts a reference state or a
+problem's per-agent arrays to one rank's block of an ``(agent, model)``
+mesh, by the port's row and column rules.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.problem import LogRegProblem, QuadraticProblem
+from repro_torch.fed.sharding import block_cols, block_rows
 from repro_torch.models.model import build_model
 
 
@@ -100,3 +103,18 @@ def quadratic_from_arrays(Q, c, device="cpu") -> QuadraticProblem:
     ``(N, n, n)`` and ``c`` ``(N, n)``."""
     return QuadraticProblem(Q=_to_tensor(Q).to(device),
                             c=_to_tensor(c).to(device))
+
+
+def rank_block(a, mesh_shape, coord, *, cols: bool = True) -> torch.Tensor:
+    """The block of an agent-stacked array ``a`` (numpy, ``(N, ...)``)
+    that the rank at mesh coordinate ``coord = (r, c)`` of an
+    ``mesh_shape = (agents, model)`` mesh holds: agents ``[r N / agents,
+    (r + 1) N / agents)`` and, with ``cols``, the column block of the
+    last axis (:func:`repro_torch.fed.sharding.block_cols`: replicated
+    where ``model`` does not divide it).  ``cols=False`` keeps whole rows,
+    as for a problem's ``A_i`` and ``b_i``."""
+    t = _to_tensor(a)
+    t = t[block_rows(t.shape[0], mesh_shape[0], coord[0])]
+    if cols:
+        t = t[..., block_cols(t.shape[-1], mesh_shape[1], coord[1])]
+    return t.contiguous()

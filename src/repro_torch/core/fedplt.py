@@ -25,9 +25,26 @@ participation row ``u`` ``(N,)``, sgd minibatch indices ``batch_idx``
 (scaled here by ``sqrt(2 gamma) tau``); ``run`` takes them stacked over
 rounds.  What is not given is drawn from the state's ``torch.Generator``.
 
+Under a ``mesh`` (the reference's ``FedPLT(mesh=)``; one process per
+rank, :mod:`repro_torch.launch.mesh`) the dense ``(N, n)`` state follows
+the engine's row and column rules (:mod:`repro_torch.fed.sharding`): each
+rank holds its agents' rows and, where the model extent divides ``n``
+(Table 5's n 100 over 2), its columns -- at the paper's n 5 the columns
+are replicated.  The gradients use this rank's agents' ``A_i``, ``b_i``
+and moduli; the oracle gathers ``w``'s rows over the model group (at
+most a few hundred numbers) and keeps its columns of the closed-form
+gradient.  The draws stay global: the participation row, the sgd
+``batch_idx`` and the noise are drawn (or given) for all N agents and
+sliced per rank, so a sharded run takes the unsharded run's draws.  The
+criterion ``|| sum_i grad f_i(x_bar) ||^2`` and ``x_bar`` come from the
+consensus all-reduced over the agent group and gathered over the model
+group, on every rank.  The state's ``x``, ``z``, ``t`` and ``y`` are this
+rank's block.  The tree layout takes an agent axis only (a model axis
+needs ``state_layout="packed"``).
+
 Not ported here (each raises naming its slice): heterogeneous solver
-groups and per-agent participation tuples, async rounds (``arrival``,
-``replay``), and a mesh.
+groups and per-agent participation tuples, and async rounds
+(``arrival``, ``replay``).
 """
 
 from __future__ import annotations
@@ -38,14 +55,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import prox as prox_lib
-from repro_torch.core.solvers import SolverConfig
+from repro_torch.core.solvers import SolverConfig, StateBlock
 from repro_torch.fed import api
 from repro_torch.fed import compress as compress_lib
-from repro_torch.fed import engine
+from repro_torch.fed import engine, sharding
 from repro_torch.fed import solvers as solver_registry
 
 
 class FedPLTState(NamedTuple):
+    # under a mesh each of x, z, y and t is this rank's block
     x: torch.Tensor                 # (N, n) local models
     z: torch.Tensor                 # (N, n) auxiliary (PRS) variables
     y: torch.Tensor                 # (n,) coordinator model (last broadcast)
@@ -120,7 +138,8 @@ class FedPLT:
     problem's device.
 
     ``prox_h`` overrides the coordinator regularizer resolved from
-    ``config.prox_h`` (the front door's weight-decay shorthand)."""
+    ``config.prox_h`` (the front door's weight-decay shorthand).
+    ``mesh`` shards the rounds (module docstring)."""
 
     def __init__(self, problem, config: FedPLTConfig, prox_h=None,
                  solver_groups=None, participation=None, mesh=None):
@@ -129,9 +148,8 @@ class FedPLT:
                          "participation", "heterogeneous solver groups")
         if config.async_mode != "off" or config.max_staleness != 0:
             raise api._later("bounded-staleness async rounds", "async runtime")
-        if mesh is not None:
-            raise api._later("a mesh for the dense trainer", "dense mesh")
         self.problem = problem
+        self.mesh = mesh
         self.cfg = config
         self.device = problem.device
         self.mu = (config.mu if config.mu is not None
@@ -146,10 +164,24 @@ class FedPLT:
         else:
             mu_i = torch.full((N,), self.mu)
             L_i = torch.full((N,), self.L)
+        # this rank's block of the (N, n) state, and its agents' data
+        self._rows, self._cols, self._block = slice(0, N), slice(0, n), None
+        self.local = problem
+        if mesh is not None:
+            self._rows = sharding.agent_rows(mesh, N)
+            self._cols = sharding.model_cols(mesh, n)
+            self._block = StateBlock(self._rows, N)
+            if sharding.cols_split(mesh, n):
+                self._block = self._block._replace(
+                    cols=self._cols, width=n,
+                    row_sum=lambda t: sharding.model_sum(t, mesh))
+            self.local = problem.agent_block(self._rows)
         # float32 (N, 1) columns: the step size is computed from them in
         # float32, as the reference computes it from its vmapped moduli
-        self.mu_i = mu_i.to(self.device, torch.float32).reshape(N, 1)
-        self.L_i = L_i.to(self.device, torch.float32).reshape(N, 1)
+        self.mu_i = mu_i.to(self.device, torch.float32).reshape(
+            N, 1)[self._rows]
+        self.L_i = L_i.to(self.device, torch.float32).reshape(
+            N, 1)[self._rows]
         self.prox_h = (prox_h if prox_h is not None
                        else prox_lib.make_prox(config.prox_h))
         self._ecfg = config.to_spec(N).round_config()
@@ -165,12 +197,20 @@ class FedPLT:
                                        self.L_i + 1.0 / rho)
         self._noise_scale = torch.sqrt(torch.as_tensor(
             2.0 * gamma, dtype=torch.float32)).to(self.device) * scfg.tau
+        if self._noise_scale.ndim == 2:
+            self._noise_scale = self._noise_scale[self._rows]
 
     # ------------------------------------------------------------------
+    def _own(self, a: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a global ``(..., N, n)`` draw."""
+        return a[..., self._rows, self._cols]
+
     def init(self, seed: int = 0, x0=None) -> FedPLTState:
         """A fresh state: ``x = z = x0`` (zeros, or under ``dp_init`` a
         draw of ``N(0, 2 tau^2 / mu)``, unless ``x0`` is given) and a
-        generator seeded with ``seed`` on the problem's device."""
+        generator seeded with ``seed`` on the problem's device.  ``x0``
+        and the draw are global ``(N, n)``; a sharded state keeps its
+        block."""
         N, n = self.problem.n_agents, self.problem.dim
         gen = torch.Generator(device=self.device).manual_seed(seed)
         tau = self.cfg.solver.tau
@@ -182,8 +222,9 @@ class FedPLT:
                 (N, n), generator=gen, device=self.device)
         else:
             x0 = torch.zeros((N, n), device=self.device)
+        x0 = self._own(x0).contiguous()
         return FedPLTState(x=x0, z=x0.clone(),
-                           y=torch.zeros(n, device=self.device),
+                           y=torch.zeros(x0.shape[1], device=self.device),
                            generator=gen, k=0,
                            t=x0.clone() if self._ecfg.compressed else None)
 
@@ -191,38 +232,45 @@ class FedPLT:
     def _solver(self, gen, batch_idx, noise):
         """The round's engine solver ``(x, v) -> (w, None)`` with its
         draws: sgd minibatch rows ``(N_e, N, batch)`` and noisy_gd noise
-        ``(N_e, N, n)``, given or drawn from ``gen``."""
+        ``(N_e, N, n)``, given or drawn from ``gen`` (global; a sharded
+        round takes its block)."""
         scfg = self.cfg.solver
         N, n, dev = self.problem.n_agents, self.problem.dim, self.device
+        local, mesh, cols = self.local, self.mesh, self._cols
+
+        def full_rows(w):
+            return w if mesh is None else sharding.model_gather(w, mesh, n)
         if scfg.name == "sgd" and self.cfg.batch_size is not None:
             if batch_idx is None:
                 batch_idx = torch.randint(
                     0, self.problem.q,
                     (scfg.n_epochs, N, self.cfg.batch_size),
                     generator=gen, device=dev)
-            idx = torch.as_tensor(batch_idx).to(dev)
+            idx = torch.as_tensor(batch_idx).to(dev)[:, self._rows]
 
             def fgrad(w, epoch):
-                return self.problem.minibatch_grads(w, idx[epoch])
+                return local.minibatch_grads(full_rows(w), idx[epoch])[:, cols]
         else:
             def fgrad(w, epoch):
-                return self.problem.grads(w)
+                return local.grads(full_rows(w))[:, cols]
 
         if scfg.name not in solver_registry.CORE_SOLVERS:
             return solver_registry.make_local_solver(
-                scfg, fgrad, self.cfg.rho, self.mu, self.L, generator=gen)
+                scfg, fgrad, self.cfg.rho, self.mu, self.L, generator=gen,
+                block=self._block)
         noise_fn = None
         if scfg.name == "noisy_gd":
             if noise is None:
                 noise = torch.randn((scfg.n_epochs, N, n), generator=gen,
                                     device=dev)
-            noise = torch.as_tensor(noise, dtype=torch.float32).to(dev)
+            noise = self._own(torch.as_tensor(noise, dtype=torch.float32)
+                              .to(dev))
 
             def noise_fn(epoch, w):
                 return self._noise_scale * noise[epoch]
         return solver_registry.make_local_solver(
             scfg, fgrad, self.cfg.rho, self.mu_i, self.L_i, generator=gen,
-            noise=noise_fn)
+            noise=noise_fn, block=self._block)
 
     def _round_core(self, state: FedPLTState, u=None, batch_idx=None,
                     noise=None, corrupt=None, live=None):
@@ -237,16 +285,18 @@ class FedPLT:
             res = engine.packed_round_step(
                 self._ecfg, self._meta, state.x, state.z, t, solver,
                 prox_h=self.prox_h, generator=gen, u=u, corrupt=corrupt,
-                live=live)
+                live=live, mesh=self.mesh)
             y = res.y.reshape(-1)   # (1, n) coordinator buffer -> (n,)
         else:
             res = engine.round_step(self._ecfg, state.x, state.z, t, solver,
                                     prox_h=self.prox_h, generator=gen, u=u,
-                                    corrupt=corrupt, live=live)
+                                    corrupt=corrupt, live=live,
+                                    mesh=self.mesh)
             y = res.y
+        u = sharding.agent_gather(res.u, self.mesh, self.problem.n_agents)
         return FedPLTState(x=res.x, z=res.z, y=y, generator=gen,
                            k=state.k + 1,
-                           t=res.t if compressed else None), res.u
+                           t=res.t if compressed else None), u
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -260,7 +310,8 @@ class FedPLT:
     def round_with_faults(self, state: FedPLTState, arrival=None,
                           corrupt=None, live=None, *, u=None,
                           batch_idx=None, noise=None):
-        """One round returning ``(next_state, u)`` under fault rows:
+        """One round returning ``(next_state, u)`` (``u`` the global
+        participation row) under fault rows:
         ``corrupt`` (per-agent corruption multipliers or ``[mult, add]``
         pairs applied to the solver output) and ``live`` (0/1 survivor
         mask).  All None reproduces :meth:`round`."""
@@ -291,10 +342,24 @@ class FedPLT:
         for r in range(n_rounds):
             state, ur = self._round_core(state, _row(u, r),
                                          _row(batch_idx, r), _row(noise, r))
-            crit[r] = self.problem.criterion(state.x)
+            crit[r] = self.criterion(state)
             sched[r] = ur
         return state, crit, sched
 
     # convenience -------------------------------------------------------
     def x_bar(self, state: FedPLTState) -> torch.Tensor:
-        return torch.mean(state.x, dim=0)
+        """The consensus ``mean_i x_i``, ``(n,)`` on every rank."""
+        if self.mesh is None:
+            return torch.mean(state.x, dim=0)
+        s = sharding.agent_sum(torch.sum(state.x, dim=0, keepdim=True),
+                               self.mesh).div_(self.problem.n_agents)
+        return sharding.model_gather(s, self.mesh, self.problem.dim)[0]
+
+    def criterion(self, state: FedPLTState) -> torch.Tensor:
+        """The paper's ``|| sum_i grad f_i(x_bar) ||^2`` (a 0-d tensor on
+        the problem's device): under a mesh each rank sums its agents'
+        gradients at the consensus and the sums are all-reduced."""
+        if self.mesh is None:
+            return self.problem.criterion(state.x)
+        g = torch.sum(self.local.grads(self.x_bar(state)), dim=0)
+        return torch.sum(sharding.agent_sum(g, self.mesh) ** 2)

@@ -98,6 +98,11 @@ class LogRegProblem:
     def agent_data(self) -> tuple:
         return (self.A, self.b)
 
+    def agent_block(self, rows: slice) -> "LogRegProblem":
+        """The agents ``rows`` alone (one rank's block of a sharded
+        run): views of their data."""
+        return dataclasses.replace(self, A=self.A[rows], b=self.b[rows])
+
     # -- losses ------------------------------------------------------------
     def _reg(self, x: torch.Tensor) -> torch.Tensor:
         return reg_nonconvex(x) if self.nonconvex else reg_l2sq(x)
@@ -277,6 +282,10 @@ class QuadraticProblem:
 
     def agent_data(self) -> tuple:
         return (self.Q, self.c)
+
+    def agent_block(self, rows: slice) -> "QuadraticProblem":
+        """The agents ``rows`` alone (views of their data)."""
+        return dataclasses.replace(self, Q=self.Q[rows], c=self.c[rows])
 
     def local_loss(self, i_data, x):
         Q_i, c_i = i_data

@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -64,24 +64,45 @@ class SolverConfig:
         return 2.0 / (L_d + mu_d)
 
 
-def grad_norm(g: Any, *, batched: bool = False) -> torch.Tensor:
+class StateBlock(NamedTuple):
+    """Where one rank's stacked state ``w`` sits in the global ``(N, W)``
+    state of a sharded round: agent rows ``rows`` of ``n_rows`` and, under
+    a model axis that splits the columns, columns ``cols`` of ``width``
+    (None: whole rows), with ``row_sum`` summing per-row partials over the
+    ranks that share a row (the model group).  A plain ``(rows, n_rows)``
+    pair is a block of whole rows."""
+
+    rows: slice
+    n_rows: int
+    cols: Optional[slice] = None
+    width: Optional[int] = None
+    row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+
+def grad_norm(g: Any, *, batched: bool = False,
+              row_sum=None) -> torch.Tensor:
     """l2 norm across all leaves; per agent (leading axis) when
-    ``batched``."""
+    ``batched``.  ``row_sum`` completes the per-agent squares of a column
+    block over the ranks that hold the rest of each row."""
     leaves = pytree.tree_leaves(g)
     if batched:
         sq = sum(torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
                            dim=-1) for l in leaves)
+        if row_sum is not None:
+            sq = row_sum(sq)
     else:
         sq = sum(torch.sum(torch.square(l.float())) for l in leaves)
     return torch.sqrt(sq)
 
 
-def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False) -> Any:
+def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False,
+              row_sum=None) -> Any:
     """Norm clipping ``g * min(1, C / ||g||)`` over the whole gradient
-    (per agent when ``batched``), in place."""
+    (per agent when ``batched``; a column block's norm is completed by
+    ``row_sum``, so an agent's norm is over its whole row), in place."""
     if clip is None:
         return g
-    nrm = grad_norm(g, batched=batched)
+    nrm = grad_norm(g, batched=batched, row_sum=row_sum)
     factor = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
     for l in pytree.tree_leaves(g):
         f = factor.reshape((-1,) + (1,) * (l.ndim - 1)) if batched \
@@ -91,33 +112,41 @@ def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False) -> Any:
 
 
 def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
-               agent_rows: Optional[Tuple[slice, int]] = None) -> Any:
+               block=None) -> Any:
     """Gaussian noise ``scale * N(0, I)`` shaped like ``w``, drawn in
     float32 and stored in each leaf's dtype (the fused op casts it there
     anyway).  Drawn row by row so the float32 temporaries stay at one
     agent row.
 
-    ``agent_rows = (rows, n_total)`` says that ``w`` holds the agents
-    ``rows`` of ``n_total`` (one rank's block of a sharded round): every
-    leaf then draws all ``n_total`` rows in agent order and keeps its
-    own.  Each agent then gets the noise that an unsharded run draws for
-    it from the same generator, and no two agents share theirs, at the
-    cost of ``n_total / len(rows)`` times the draws."""
+    ``block`` (a :class:`StateBlock`, or a ``(rows, n_total)`` pair) says
+    that ``w`` holds the agents ``rows`` of ``n_total`` (one rank's block
+    of a sharded round): every leaf then draws all ``n_total`` rows in
+    agent order and keeps its own; with ``block.cols`` each row is drawn
+    at its full ``block.width`` and cut to the rank's columns.  Each
+    agent then gets the noise that an unsharded run draws for it from
+    the same generator, and no two agents (and no two column blocks)
+    share theirs, at the cost of the unsharded run's draws on every
+    rank."""
+    block = None if block is None else StateBlock(*block)
+
     def draw(shape, device):
         return scale * torch.randn(shape, generator=generator, device=device)
 
     def leaf(l):
         if l.ndim < 2:
-            if agent_rows is None:
+            if block is None:
                 return draw(l.shape, l.device).to(l.dtype)
-            rows, n = agent_rows
-            return draw((n,) + l.shape[1:], l.device)[rows].to(l.dtype)
-        rows, n = agent_rows or (slice(0, l.shape[0]), l.shape[0])
+            return draw((block.n_rows,) + l.shape[1:],
+                        l.device)[block.rows].to(l.dtype)
+        rows, n = ((slice(0, l.shape[0]), l.shape[0]) if block is None
+                   else block[:2])
+        cols = None if block is None else block.cols
+        row_shape = l.shape[1:] if cols is None else (block.width,)
         out = torch.empty_like(l)
         for r in range(n):
-            d = draw(l.shape[1:], l.device)
+            d = draw(row_shape, l.device)
             if rows.start <= r < rows.stop:
-                out[r - rows.start] = d
+                out[r - rows.start] = d if cols is None else d[cols]
         return out
     return tree_map(leaf, w)
 
@@ -131,15 +160,16 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
                 has_aux: bool = False, use_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Callable[[int, Any], Any]] = None,
-                agent_rows: Optional[Tuple[slice, int]] = None):
+                block: Optional[StateBlock] = None):
     """Run ``cfg.n_epochs`` epochs of the chosen solver on d(w).
 
     ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both): floats,
     or ``(N, 1)`` tensors of per-agent moduli.  Returns ``w_{N_e}`` (and
     the per-epoch oracle aux stacked on a leading axis when ``has_aux``).
     ``noise(epoch, w)`` overrides the noisy_gd draw (required with
-    per-agent moduli); ``agent_rows`` places a sharded ``w`` among all
-    agents (:func:`draw_noise`).
+    per-agent moduli); ``block`` places a sharded ``w`` in the global
+    state, for the noise (:func:`draw_noise`) and the clip norm
+    (:func:`clip_grad`).
     """
     mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
     gamma = cfg.resolve_step_size(mu_d, L_d)
@@ -155,7 +185,9 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     def dgrad(w, epoch):
         out = fgrad(w, epoch)
         g, aux = out if has_aux else (out, None)
-        return clip_grad(g, cfg.clip, batched=batched), aux
+        return clip_grad(g, cfg.clip, batched=batched,
+                         row_sum=None if block is None
+                         else StateBlock(*block).row_sum), aux
 
     def step_leaf(wl, gl, vl, tl):
         """w - gamma (g + inv_rho (w - v)) [+ t], float32 accumulation,
@@ -176,7 +208,7 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
             if cfg.name == "noisy_gd":
                 t = (noise(e, w) if noise is not None
                      else draw_noise(w, math.sqrt(2.0 * gamma) * cfg.tau,
-                                     generator, agent_rows))
+                                     generator, block))
             if t is None:
                 tree_map(lambda wl, gl, vl: step_leaf(wl, gl, vl, None),
                          w, g, v)

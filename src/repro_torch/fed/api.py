@@ -19,9 +19,10 @@ aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.
 ``agent_shards`` / ``mesh_shape`` shard the agent axis over an
 ``("agent", "model")`` mesh of processes (:mod:`repro_torch.launch.mesh`,
 one process per rank under torchrun; a 1x1 mesh runs in the caller's
-process); the model extent must be 1.  Fields whose features are later
-slices of the port raise a ``ValueError`` naming the slice in
-:meth:`FedSpec.validate`.
+process); a model extent above 1 (``"AxM"``) also splits the packed
+state's columns and each agent's batch over the model ranks, and needs
+``state_layout="packed"``.  Fields whose features are later slices of the
+port raise a ``ValueError`` naming the slice in :meth:`FedSpec.validate`.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -198,8 +199,10 @@ class FedSpec:
              "process each (n-agents must divide evenly; 1 = unsharded)"))
     mesh_shape: Optional[str] = dataclasses.field(default=None, metadata=_cli(
         flag="--mesh-shape", arg_type=str,
-        help="explicit AGENTSxMODEL device mesh, e.g. '2x1' (default: "
-             "agent-shards x 1; the model extent must be 1)"))
+        help="explicit AGENTSxMODEL device mesh, e.g. '2x1', or '1x2' / "
+             "'2x2' with a model axis (packed layout: each model rank "
+             "holds a column block of the state and a share of each "
+             "agent's batch); default agent-shards x 1"))
 
     # ------------------------------------------------------------------
     # Resolution
@@ -382,10 +385,11 @@ class FedSpec:
             raise _later("heterogeneous agent_groups",
                          "heterogeneous solver groups")
         axes = self.mesh_axes()     # parses and checks mesh_shape
-        if axes is not None and axes[1] > 1:
-            raise _later(f"a model mesh extent above 1 (mesh_shape="
-                         f"{self.mesh_shape!r}: the tensor-parallel forward "
-                         f"pass)", "tensor-parallel model axis")
+        if axes is not None and axes[1] > 1 and self.state_layout != "packed":
+            raise _later(f"a model mesh extent above 1 in the tree layout "
+                         f"(mesh_shape={self.mesh_shape!r}: per-leaf "
+                         f"parameter specs; the packed layout takes it)",
+                         "tensor-parallel model axis (tree layout)")
 
     # ------------------------------------------------------------------
     # Legacy-config bridge
@@ -488,7 +492,10 @@ class DenseTrainer:
     (``init / step / run / consensus / privacy_report``), on ``device``
     (CUDA unless ``device='cpu'``; the problem's data is moved there).
     The curvature moduli come from the problem unless the spec sets them;
-    a weight decay overrides ``prox_h`` with the weight-decay prox."""
+    a weight decay overrides ``prox_h`` with the weight-decay prox.  A
+    sharded spec builds its mesh (``self.mesh``), as :class:`ModelTrainer`
+    does; the state then holds this rank's block, while the draws, the
+    criterion and the consensus are global."""
 
     def __init__(self, problem, spec: FedSpec, device=None):
         if spec.n_agents not in (None, problem.n_agents):
@@ -497,10 +504,7 @@ class DenseTrainer:
         from repro_torch.core.fedplt import FedPLT
 
         self.device = resolve_device(device)
-        self.problem = problem.to(self.device)
         self.spec = dataclasses.replace(spec, n_agents=problem.n_agents)
-        if self.spec.mesh_axes() is not None:
-            raise _later("a mesh for the dense trainer", "dense mesh")
         # the spec with the problem's curvature filled in: validation and
         # privacy accounting both need the real moduli
         self._resolved = dataclasses.replace(
@@ -509,10 +513,16 @@ class DenseTrainer:
             else float(problem.strong_convexity()),
             L=spec.L if spec.L is not None
             else float(problem.smoothness())).validate()
+        self.mesh = self.spec.build_mesh(self.device)
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import mesh_device
+
+            self.device = mesh_device(self.device)
+        self.problem = problem.to(self.device)
         prox_override = (self.spec.resolve_prox_h()
                          if self.spec.weight_decay != 0.0 else None)
         self.algo = FedPLT(self.problem, self.spec.to_dense_config(),
-                           prox_h=prox_override)
+                           prox_h=prox_override, mesh=self.mesh)
 
     def init(self, seed: int = 0, x0=None):
         return self.algo.init(seed, x0)
@@ -555,9 +565,11 @@ class ModelTrainer:
     """:mod:`repro_torch.fed.runtime` behind one handle: ``init / step /
     run / consensus / privacy_report``.  Runs on the model's device
     (CUDA unless ``device='cpu'``).  A sharded spec builds its mesh
-    (``self.mesh``); the state then holds this rank's agent rows, on
-    ``cuda:LOCAL_RANK`` for a CUDA run, while ``step`` takes the global
-    batch and rows and the consensus averages over every rank."""
+    (``self.mesh``); the state then holds this rank's agent rows -- and,
+    under a model axis, its column block of them -- on ``cuda:LOCAL_RANK``
+    for a CUDA run (or the device given with its index), while ``step``
+    takes the global batch and rows and the consensus averages over
+    every rank."""
 
     def __init__(self, model, spec: FedSpec, device=None):
         if spec.n_agents is None:

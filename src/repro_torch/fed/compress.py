@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.fed import sharding
 from repro_torch.kernels.compress import ops as compress_ops
 from repro_torch.kernels.compress import ref as compress_ref
 
@@ -282,13 +283,23 @@ def compress_increment(dz: Any, cfg) -> Any:
 
 
 def compress_increment_packed(dz_buf: torch.Tensor, meta: PackedMeta,
-                              cfg) -> torch.Tensor:
+                              cfg, mesh=None) -> torch.Tensor:
     """The configured compressor on a resident packed ``(N, width)``
     increment.  Fused: one kernel launch with ``meta.segments``.  Torch:
     the registry function per segment, written into a zero buffer.
     Columns outside every segment (the alignment gaps between leaves and
     the padded tail) come back zero under both, so ``t``'s padding stays
-    zero across rounds."""
+    zero across rounds.
+
+    With a ``mesh`` whose model axis splits the columns, ``dz_buf`` is
+    this rank's column block: the segments are leaves of the global
+    layout (keep-counts and scales per (row, global segment)), so the
+    block's rows are gathered over the model group, compressed whole and
+    cut back to the block -- bit-equal to the unsplit run."""
+    if mesh is not None and sharding.cols_split(mesh, meta.width):
+        full = sharding.model_gather(dz_buf, mesh, meta.width)
+        return sharding.col_block(
+            compress_increment_packed(full, meta, cfg), mesh).contiguous()
     if _use_fused(cfg):
         return _fused_rows(dz_buf, cfg, meta.segments)
     fn = get_compressor(cfg.compression)

@@ -74,10 +74,27 @@ is rounded to bf16 before the division, as in the reference.  Several
 ranks agree with one to float32 rounding (the all-reduce reorders the
 sum).  A non-elementwise prox under a mesh all-reduces the sums, applies
 the prox to the whole coordinator tree on every rank, and reflects
-locally.  An order-statistic aggregator all-gathers the row blocks first
+locally.  An order-statistic aggregator gathers the row blocks first
 (:func:`repro_torch.fed.robust.robust_seen_packed`); the survivor mean
-scales by the global ``N / n_live``.  The ``model`` axis (tensor-parallel
-forward) is not ported yet: a model extent above 1 raises.
+scales by the global ``N / n_live``.
+
+The ``model`` axis (packed layout; the reference's ``_mesh_col_axis``):
+with model extent ``m > 1`` dividing the packed width, each rank holds
+the ``(N / agent_shards, width / m)`` column block of every state buffer
+(:func:`repro_torch.fed.sharding.model_cols`; otherwise the columns are
+replicated).  Every edge is per-column arithmetic, so the uplink's
+partial sum, its all-reduce over the AGENT group only, ``/ N -> prox ->
+reflection`` and the downlink run unchanged on the block: on the same
+inputs a ``1 x m`` mesh gives the ``1 x 1`` mesh's ``y``, ``x`` and
+``z`` columns bit for bit.  What couples columns reaches over the model
+group: the guard's row norms and ``norm_clip_mean``'s residual norms sum
+their partials, the compressor gathers the rows (its segments are leaves
+of the global layout), and a non-elementwise prox gathers the ``(1,
+width)`` coordinator row, applies the prox to the tree, and keeps the
+block (the reference's fall-through to the unsharded formula).  The
+gradient oracle's model-axis work is :mod:`repro_torch.fed.runtime`'s.
+The tree layout under a model axis (per-leaf specs) is not ported and
+raises.
 
 Not ported yet (later slices): bounded-staleness async rounds and
 heterogeneous solver groups.
@@ -362,12 +379,22 @@ def apply_corruption(w: Any, corrupt) -> Any:
     return w
 
 
-def _row_sq_norms(w: Any, meta=None) -> torch.Tensor:
+def _row_sq_norms(w: Any, meta=None, mesh=None) -> torch.Tensor:
     """Per-agent squared l2 norm over the non-agent axes, in float32.
     For a resident packed buffer pass ``meta``: only the real columns
-    count (padding may have drifted, even to NaN)."""
+    count (padding may have drifted, even to NaN).  Under a ``mesh``
+    whose model axis splits the columns, ``w`` is this rank's column
+    block: the partial squares are summed over the model group, so the
+    norm is over the whole row."""
     if meta is not None:
-        return robust_lib.row_sq_norms(w, meta.segments)
+        if mesh is None:
+            return robust_lib.row_sq_norms(w, meta.segments)
+        segs = sharding.block_segments(
+            meta.segments, sharding.model_cols(mesh, meta.width))
+        sq = robust_lib.row_sq_norms(w, segs)
+        if sharding.cols_split(mesh, meta.width):
+            sharding.model_sum(sq, mesh)
+        return sq
     total = None
     for l in pytree.tree_leaves(w):
         sq = robust_lib.row_sq_norms(l.reshape(l.shape[0], -1))
@@ -375,17 +402,18 @@ def _row_sq_norms(w: Any, meta=None) -> torch.Tensor:
     return total
 
 
-def increment_guard(cfg: RoundConfig, w: Any, u: torch.Tensor, meta=None
-                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def increment_guard(cfg: RoundConfig, w: Any, u: torch.Tensor, meta=None,
+                    mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The uplink screen: returns ``(u_guarded, ok)``, ``ok`` the
     per-agent ``(N,)`` bool clean mask (None when guards are off).  A
     row that is non-finite, or whose l2 norm exceeds
     ``cfg.guard_norm_bound``, becomes a non-arrival (``u_i -> 0``), and
     the NaN-safe selects downstream keep it out of ``(x, z, t)``.  With
-    every row clean ``u * ok`` multiplies by ones."""
+    every row clean ``u * ok`` multiplies by ones.  ``mesh``: see
+    :func:`_row_sq_norms`."""
     if not cfg.guard_increments:
         return u, None
-    sq = _row_sq_norms(w, meta)
+    sq = _row_sq_norms(w, meta, mesh)
     ok = torch.isfinite(sq)
     if math.isfinite(cfg.guard_norm_bound):
         bound = torch.tensor(cfg.guard_norm_bound, dtype=torch.float32)
@@ -460,12 +488,13 @@ def _uniform_stack(*trees) -> bool:
 # Mesh plumbing (the mesh contract in the module docstring)
 # ---------------------------------------------------------------------------
 
-def validate_mesh(cfg: RoundConfig, mesh) -> None:
+def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False) -> None:
     """Screening of a sharded round: the mesh's agent axis must evenly
-    partition the agent axis, agree with ``cfg.agent_shards`` when that
-    was pinned, and have model extent 1 (the tensor-parallel axis is not
-    ported yet).  Solver groups are not ported yet either
-    (:func:`run_solvers` takes one), so no group boundary is screened."""
+    partition the agent axis and agree with ``cfg.agent_shards`` when
+    that was pinned; a model extent above 1 needs the ``packed`` layout
+    (the tree layout's per-leaf specs are not ported).  Solver groups are
+    not ported yet (:func:`run_solvers` takes one), so no group boundary
+    is screened."""
     shards = mesh_agent_shards(mesh)
     if cfg.n_agents % shards:
         raise ValueError(
@@ -478,24 +507,31 @@ def validate_mesh(cfg: RoundConfig, mesh) -> None:
             f"RoundConfig.agent_shards={cfg.agent_shards} but the mesh "
             f"has {shards} agent shards: drop one of the two or make "
             f"them agree")
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("model", 1) > 1:
+    m = sharding.model_shards(mesh)
+    if m > 1 and not packed:
         raise ValueError(
-            f"a mesh with model extent {sizes['model']} shards the "
-            f"per-agent forward pass (tensor parallel), which is not "
-            f"ported yet: use a model extent of 1")
+            f"a mesh with model extent {m} needs the packed state layout: "
+            f"the tensor-parallel model axis of the tree layout (per-leaf "
+            f"specs) is not ported yet")
 
 
-def _packed_prox(zbar: torch.Tensor, meta, prox_h: ProxH, rho_eff: float):
+def _packed_prox(zbar: torch.Tensor, meta, prox_h: ProxH, rho_eff: float,
+                 mesh=None):
     """``y = prox(zbar)`` on the ``(1, width)`` coordinator buffer; a
-    non-elementwise prox sees the coordinator-sized tree."""
+    non-elementwise prox sees the coordinator-sized tree.  Under a
+    ``mesh`` whose model axis splits the columns, ``zbar`` is this rank's
+    column block: such a prox gathers the row over the model group and
+    the result is cut back to the block."""
     if prox_h is None:
         return zbar
     if getattr(prox_h, "elementwise", False):
         return prox_h(zbar, rho_eff)
-    return compress_lib.pack_coord(
+    full = (zbar if mesh is None
+            else sharding.model_gather(zbar, mesh, meta.width))
+    y = compress_lib.pack_coord(
         tree_map(lambda l: prox_h(l, rho_eff),
-                 compress_lib.unpack_coord(zbar, meta)), meta)
+                 compress_lib.unpack_coord(full, meta)), meta)
+    return y if mesh is None else sharding.col_block(y, mesh).contiguous()
 
 
 def _uplink_sharded_torch(cfg: RoundConfig, z: torch.Tensor,
@@ -507,7 +543,7 @@ def _uplink_sharded_torch(cfg: RoundConfig, z: torch.Tensor,
     reflection.  Also the path of a non-elementwise prox under a mesh."""
     zbar = sharding.agent_sum(torch.sum(z_seen, dim=0, keepdim=True),
                               mesh).div_(cfg.n_agents)
-    y = _packed_prox(zbar, meta, prox_h, cfg.rho / cfg.n_agents)
+    y = _packed_prox(zbar, meta, prox_h, cfg.rho / cfg.n_agents, mesh)
     return y, 2.0 * y - z
 
 
@@ -682,10 +718,11 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     out by ``meta``); mirrors :func:`round_step`.  ``u`` replays a given
     ``(N,)`` participation row instead of drawing one; ``corrupt`` and
     ``live`` are fault rows (see :func:`round_step`).  With a ``mesh`` the
-    buffers are this rank's row block and the rows stay global (mesh
+    buffers are this rank's block -- its agent rows and, where the model
+    axis splits them, its columns -- and the rows stay global (mesh
     contract: module docstring)."""
     if mesh is not None:
-        validate_mesh(cfg, mesh)
+        validate_mesh(cfg, mesh, packed=True)
     z_seen = t if cfg.compressed else z
     z_seen = robust_seen(cfg, z_seen, live, meta, mesh)
     y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h, mesh)
@@ -694,13 +731,14 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     u, corrupt = _round_rows(cfg, mesh, u, corrupt, live, x.device,
                              generator)
     w = apply_corruption(w, corrupt)
-    u, _ok = increment_guard(cfg, w, u, meta)
+    u, _ok = increment_guard(cfg, w, u, meta, mesh)
     x_new, z_new = agent_edge_packed(cfg, u, w, x, z, y, z_seen, prox_h,
                                      mesh)
     del w
     t_new = z_new
     if cfg.compressed:
-        q = compress_lib.compress_increment_packed(z_new - t, meta, cfg)
+        q = compress_lib.compress_increment_packed(z_new - t, meta, cfg,
+                                                   mesh)
         t_new = t.addcmul_(u.to(q.dtype).reshape(-1, 1), q)
     return RoundResult(x=x_new, z=z_new, t=t_new, y=y, u=u, aux=aux)
 

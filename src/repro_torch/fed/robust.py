@@ -9,12 +9,15 @@ increment still steers the consensus.  This module is the registry of
 robust aggregators that replace the agent mean at the uplink, selected by
 ``RoundConfig.aggregator`` / ``FedSpec.aggregator``.
 
-An aggregator is ``fn(z, live, *, param, colmask=None, backend="torch")
--> (1, M)`` over the agent-stacked ``(N, M)`` buffer.  ``live`` is the
-0/1 eviction row (None = every agent live); dead rows are left out of the
-order statistics.  ``colmask`` marks the real columns of a packed buffer
-for aggregators whose arithmetic couples columns (``norm_clip_mean``'s row
-norms); per-column order statistics ignore it.
+An aggregator is ``fn(z, live, *, param, colmask=None, backend="torch",
+model_mesh=None) -> (1, M)`` over the agent-stacked ``(N, M)`` buffer.
+``live`` is the 0/1 eviction row (None = every agent live); dead rows are
+left out of the order statistics.  ``colmask`` marks the real columns of
+a packed buffer for aggregators whose arithmetic couples columns
+(``norm_clip_mean``'s row norms); per-column order statistics ignore it.
+``model_mesh`` is the mesh whose model axis splits the columns (None when
+``z`` holds whole rows): a row norm then sums its partials over the model
+group, as the reference's ``psum(partial, model_axis)``.
 
 Built-ins: ``mean`` (the engine never routes it here: ``robust_seen``
 keeps the survivor-mean path for ``mean`` and for ``trimmed_mean`` at
@@ -46,13 +49,15 @@ Differences from the reference:
   the trainer's full width.
 * The aggregate is cast to the buffer's dtype (``norm_clip_mean``
   computes in float32): the fused edges take operands of one dtype.
-* Under a mesh the gather is ``dist.all_gather`` over the agent group
-  into the row blocks of one ``(N, M)`` buffer, and on a 1-rank agent
-  group it is skipped (the gather of
-  one block is the identity: no second ``(N, M)`` copy at full width).
-  The gathered column is aggregated with the configured backend -- on
-  the card the ``sort_aggregate`` kernel, bit-equal to the oracle the
-  reference takes there.
+* Under a mesh the gather is :func:`repro_torch.fed.sharding.agent_gather`
+  over the agent group (an ``all_reduce`` of the bits of one zero-filled
+  ``(N, M)`` buffer, which gloo takes on the card too), and on a 1-rank
+  agent group it is skipped (the gather of one block is the identity: no
+  second ``(N, M)`` copy at full width).  Under a model axis each rank
+  aggregates its column block: order statistics are per column.  The
+  gathered block is aggregated with the configured backend -- on the card
+  the ``sort_aggregate`` kernel, bit-equal to the oracle the reference
+  takes there.
 * Row norms are ``torch.linalg.vector_norm`` per segment and the live
   mean runs in column slabs of :data:`SLAB`, so that a bf16 state never
   gets a whole float32 copy; the float32 sums therefore associate
@@ -65,7 +70,6 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.fed import compress as compress_lib
 from repro_torch.fed import sharding
@@ -194,25 +198,29 @@ def _mean_live(rows: torch.Tensor, lv: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 @register_aggregator("mean")
-def _mean(z, live, *, param, colmask=None, backend="torch"):
+def _mean(z, live, *, param, colmask=None, backend="torch",
+          model_mesh=None):
     """Survivor mean -- the registry form of the engine default (the
     engine itself short-circuits to ``survivor_mean_input``)."""
     return _mean_live(z, live_row(live, z.shape[0], z.device))
 
 
 @register_aggregator("trimmed_mean")
-def _trimmed_mean(z, live, *, param, colmask=None, backend="torch"):
+def _trimmed_mean(z, live, *, param, colmask=None, backend="torch",
+                  model_mesh=None):
     return robust_aggregate_ref(z, live, stat="trimmed_mean",
                                 trim=int(param))
 
 
 @register_aggregator("coord_median")
-def _coord_median(z, live, *, param, colmask=None, backend="torch"):
+def _coord_median(z, live, *, param, colmask=None, backend="torch",
+                  model_mesh=None):
     return robust_aggregate_ref(z, live, stat="coord_median")
 
 
 @register_aggregator("norm_clip_mean")
-def _norm_clip_mean(z, live, *, param, colmask=None, backend="torch"):
+def _norm_clip_mean(z, live, *, param, colmask=None, backend="torch",
+                    model_mesh=None):
     """Centered clipping: recentre at the coordinate-wise median, clip
     each live row's residual to l2 radius ``param``, average.  The
     residual's gap columns are multiplied by zero first (``colmask``), so
@@ -225,7 +233,7 @@ def _norm_clip_mean(z, live, *, param, colmask=None, backend="torch"):
     if colmask is not None:
         for a, b in _gaps(colmask, r.shape[1]):
             r[:, a:b].mul_(0.0)
-    norms = torch.sqrt(row_sq_norms(r))
+    norms = torch.sqrt(sharding.model_sum(row_sq_norms(r), model_mesh))
     radius = torch.tensor(param, dtype=torch.float32, device=z.device)
     scale = torch.clamp(radius / torch.clamp(norms, min=1e-12), max=1.0)
     r.mul_(scale.to(r.dtype).reshape(-1, 1))
@@ -237,7 +245,8 @@ def _norm_clip_mean(z, live, *, param, colmask=None, backend="torch"):
 # ---------------------------------------------------------------------------
 
 def aggregate_rows(z: torch.Tensor, live, *, name: str, param: float,
-                   colmask=None, backend: str = "torch") -> torch.Tensor:
+                   colmask=None, backend: str = "torch",
+                   model_mesh=None) -> torch.Tensor:
     """Aggregate the agent-stacked ``(N, M)`` buffer to ``(1, M)``.
 
     ``backend="fused"`` routes :data:`FUSED_AGGREGATORS` through
@@ -249,33 +258,22 @@ def aggregate_rows(z: torch.Tensor, live, *, name: str, param: float,
             z, live, stat=name,
             trim=int(param) if name == "trimmed_mean" else 0)
     return get_aggregator(name)(z, live, param=param, colmask=colmask,
-                                backend=backend)
+                                backend=backend, model_mesh=model_mesh)
 
 
-def _segment_colmask(meta):
-    """The real (in-segment) columns of a packing, as its tuple of
-    ``(start, stop)`` segments; None when no column is padding."""
-    covered = sum(b - a for a, b in meta.segments)
-    return None if covered == meta.width else tuple(meta.segments)
+def _segment_colmask(meta, cols: Optional[slice] = None):
+    """The real (in-segment) columns of a packing, or of its column
+    block ``cols``, as a tuple of ``(start, stop)`` segments in the
+    block's coordinates; None when no column there is padding."""
+    cols = slice(0, meta.width) if cols is None else cols
+    segs = sharding.block_segments(meta.segments, cols)
+    covered = sum(b - a for a, b in segs)
+    return None if covered == cols.stop - cols.start else segs
 
 
 # ---------------------------------------------------------------------------
 # Engine entry points: the z_seen input transforms
 # ---------------------------------------------------------------------------
-
-def _gather_rows(block: torch.Tensor, mesh) -> torch.Tensor:
-    """The full ``(N, width)`` agent column from every rank's row block
-    (rank order is agent order); one rank's block is returned as it is."""
-    group = sharding.agent_group(mesh)
-    shards = group.size()
-    if shards == 1:
-        return block
-    full = torch.empty((shards * block.shape[0],) + tuple(block.shape[1:]),
-                       dtype=block.dtype, device=block.device)
-    dist.all_gather(list(full.chunk(shards)), block.contiguous(),
-                    group=group)
-    return full
-
 
 def robust_seen_packed(z_seen: torch.Tensor, live, *, name: str,
                        param: float, meta, backend: str,
@@ -283,12 +281,22 @@ def robust_seen_packed(z_seen: torch.Tensor, live, *, name: str,
     """Robust ``z_seen`` transform on the resident packed buffer:
     aggregate the live rows, broadcast back to a contiguous
     ``(N, width)`` buffer of ``z_seen``'s dtype.  With a ``mesh``
-    ``z_seen`` is this rank's row block: the blocks are all-gathered on
-    the agent axis, the full column aggregated with the global ``live``
-    row, and this rank's block of the broadcast returned."""
-    full = z_seen if mesh is None else _gather_rows(z_seen, mesh)
+    ``z_seen`` is this rank's block: the row blocks are gathered on the
+    agent axis, this rank's columns of the full agent column aggregated
+    with the global ``live`` row, and this rank's block of the broadcast
+    returned."""
+    full = z_seen
+    cols = slice(0, meta.width)
+    model_mesh = None
+    if mesh is not None:
+        full = sharding.agent_gather(
+            z_seen, mesh, sharding.mesh_agent_shards(mesh) * z_seen.shape[0])
+        cols = sharding.model_cols(mesh, meta.width)
+        if sharding.cols_split(mesh, meta.width):
+            model_mesh = mesh
     agg = aggregate_rows(full, live, name=name, param=param,
-                         colmask=_segment_colmask(meta), backend=backend)
+                         colmask=_segment_colmask(meta, cols),
+                         backend=backend, model_mesh=model_mesh)
     return agg.to(z_seen.dtype).expand_as(z_seen).contiguous()
 
 

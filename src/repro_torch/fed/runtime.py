@@ -22,7 +22,19 @@ alike, so all ranks draw the same participation row; the DP noise is
 drawn for all N agents in agent order on every rank, which keeps each
 agent's own (:func:`repro_torch.core.solvers.draw_noise`), so agents on
 different ranks never share noise and the draws are the unsharded run's.
-An injected ``noise(epoch, w)`` is handed this rank's rows.
+An injected ``noise(epoch, w)`` is handed this rank's block.
+
+Under a model axis (packed layout) the state is this rank's
+``(N / shards, width / m)`` column block where ``m`` divides the width
+(replicated columns otherwise).  The gradient oracle then takes each of
+its agents in turn: it gathers the agent's row over the model group,
+runs ``model.loss_fn`` on this rank's contiguous share ``b_r`` of the
+agent's ``b`` batch rows (the loss is a mean over tokens), weights the
+gradient by ``b_r / b``, sums it over the model group and keeps this
+rank's columns; the loss metric is the same weighted sum.  So the model
+axis divides both the state and the per-agent forward; a rank with an
+empty share contributes zeros.  The clip norm and the noise are over
+whole rows (:class:`repro_torch.core.solvers.StateBlock`).
 """
 
 from __future__ import annotations
@@ -32,6 +44,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core.solvers import StateBlock
 from repro_torch.fed import compress as compress_lib
 from repro_torch.fed import engine, sharding
 from repro_torch.fed.solvers import (make_local_solver,
@@ -69,7 +82,7 @@ def init_state(model, spec, device, generator=None,
     """Every agent starts from the same parameters: ``params`` when
     given (e.g. converted from the reference), else ``model.init``.
     Under a ``mesh`` only this rank's ``N / shards`` agent rows are
-    allocated."""
+    allocated, and of a packed state only this rank's columns."""
     if params is None:
         params = model.init(generator, device)
     params = {n: params[n].to(device) for n in model.param_shapes()}
@@ -77,12 +90,12 @@ def init_state(model, spec, device, generator=None,
     compressed = spec.compression.name != "none"
     if spec.state_layout == "packed":
         meta = packed_layout(model, spec)
-        x = torch.zeros((A, meta.width), dtype=meta.dtype, device=device)
-        for row in range(A):
-            for dst, src in zip(
-                    pytree.tree_leaves(compress_lib.unpack_row(x[row], meta)),
-                    params.values()):
-                dst.copy_(src)
+        row = torch.zeros((meta.width,), dtype=meta.dtype, device=device)
+        for dst, src in zip(
+                pytree.tree_leaves(compress_lib.unpack_row(row, meta)),
+                params.values()):
+            dst.copy_(src)
+        x = sharding.col_block(row, mesh).expand(A, -1).clone()
         return FedState(x=x, z=x.clone(), step=0,
                         t=x.clone() if compressed else None)
     x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
@@ -92,33 +105,58 @@ def init_state(model, spec, device, generator=None,
                     else None)
 
 
-def _gradient_oracle(model, batch: dict, g, meta=None):
+def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
     """``fgrad(w, epoch) -> (g, losses)``: per-agent loss gradients at the
     stacked state ``w`` (packed buffer when ``meta`` is given, else a
     dict of ``(A, ...)`` tensors), written into ``g`` (same layout as
-    ``w``) every epoch."""
+    ``w``) every epoch.  Under a ``mesh`` with a model axis ``w`` and
+    ``g`` are this rank's column blocks and each agent's gradient is
+    split over the model ranks by batch rows (module docstring)."""
     names = list(model.param_shapes())
+    split = meta is not None and sharding.model_shards(mesh) > 1
 
     def rows(w, i):
         if meta is not None:
             return pytree.tree_leaves(compress_lib.unpack_row(w[i], meta))
         return [w[n][i] for n in names]
 
+    def agent_grad(leaves, batch_i, dst):
+        """``dst`` <- the gradient of the agent's loss; returns the loss."""
+        with torch.enable_grad():
+            loss = model.loss_fn(dict(zip(names, leaves)), batch_i)
+            grads = torch.autograd.grad(loss, leaves)
+        for d, src in zip(dst, grads):
+            d.copy_(src)
+        return loss.detach()
+
     def fgrad(w, epoch):
         del epoch  # the local batch is fixed within a round
         A = batch["tokens"].shape[0]
         losses = torch.empty((A,), dtype=torch.float32,
                              device=batch["tokens"].device)
+        if not split:
+            for i in range(A):
+                leaves = [p.detach().requires_grad_() for p in rows(w, i)]
+                losses[i] = agent_grad(leaves, {k: b[i] for k, b in
+                                                batch.items()}, rows(g, i))
+            return g, losses
+        b = batch["tokens"].shape[1]
+        share = sharding.batch_share(mesh, b)
+        weight = (share.stop - share.start) / b
         for i in range(A):
-            leaves = [p.detach().requires_grad_() for p in rows(w, i)]
-            batch_i = {k: b[i] for k, b in batch.items()}
-            with torch.enable_grad():
-                loss = model.loss_fn(dict(zip(names, leaves)), batch_i)
-                grads = torch.autograd.grad(loss, leaves)
-            for dst, src in zip(rows(g, i), grads):
-                dst.copy_(src)
-            losses[i] = loss.detach()
-        return g, losses
+            full = sharding.model_gather(w[i:i + 1], mesh, meta.width)
+            g_full = torch.zeros_like(full)
+            losses[i] = 0.0
+            if weight > 0:
+                leaves = [p.detach().requires_grad_() for p in
+                          rows(full, 0)]
+                losses[i] = agent_grad(leaves, {k: v[i, share] for k, v in
+                                                batch.items()},
+                                       rows(g_full, 0)) * weight
+                g_full.mul_(weight)
+            sharding.model_sum(g_full, mesh)
+            g[i].copy_(sharding.col_block(g_full[0], mesh, meta.width))
+        return g, sharding.model_sum(losses, mesh)
 
     return fgrad
 
@@ -140,17 +178,23 @@ def make_train_step(model, spec, mesh=None):
     meta = packed_layout(model, spec) if spec.state_layout == "packed" \
         else None
     # every rank draws all N agents' noise and keeps its block's
-    agent_rows = (None if mesh is None else
-                  (sharding.agent_rows(mesh, spec.n_agents), spec.n_agents))
+    block = None
+    if mesh is not None:
+        block = StateBlock(sharding.agent_rows(mesh, spec.n_agents),
+                           spec.n_agents)
+        if meta is not None and sharding.cols_split(mesh, meta.width):
+            block = block._replace(
+                cols=sharding.model_cols(mesh, meta.width), width=meta.width,
+                row_sum=lambda t: sharding.model_sum(t, mesh))
 
     def train_step(state: FedState, batch: dict, *, generator=None, u=None,
                    noise=None, corrupt=None, live=None):
         batch = sharding.fed_batch_specs(batch, mesh, spec.n_agents)
         # padding columns of a packed gradient stay zero
         g = tree_map(torch.zeros_like, state.x)
-        fgrad = _gradient_oracle(model, batch, g, meta)
+        fgrad = _gradient_oracle(model, batch, g, meta, mesh)
         kw = dict(use_fused=spec.use_fused_update, has_aux=True,
-                  generator=generator, noise=noise, agent_rows=agent_rows)
+                  generator=generator, noise=noise, block=block)
         t = state.t if rcfg.compressed else state.z
         if meta is not None:
             solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
@@ -182,11 +226,17 @@ def consensus_model(state: FedState, meta=None, mesh=None,
                     n_agents: Optional[int] = None) -> dict:
     """The deployable model: the agent average of the local states
     (``meta`` required for a packed state).  Under a ``mesh`` the state
-    is this rank's row block of ``n_agents`` agents: the row sums are
-    all-reduced over the agent axis and divided by N, on every rank."""
-    x = state.x if meta is None else compress_lib.unpack_leaves(state.x,
-                                                                meta)
+    is this rank's block of ``n_agents`` agents: the row sums are
+    all-reduced over the agent axis and divided by N, and a column block
+    is gathered over the model axis, on every rank."""
     if mesh is None:
+        x = state.x if meta is None else compress_lib.unpack_leaves(state.x,
+                                                                    meta)
         return {n: torch.mean(l, dim=0) for n, l in x.items()}
-    return {n: sharding.agent_sum(torch.sum(l, dim=0), mesh).div_(n_agents)
-            for n, l in x.items()}
+    if meta is None:
+        return {n: sharding.agent_sum(torch.sum(l, dim=0), mesh).div_(
+            n_agents) for n, l in state.x.items()}
+    mean = sharding.agent_sum(torch.sum(state.x, dim=0, keepdim=True),
+                              mesh).div_(n_agents)
+    mean = sharding.model_gather(mean, mesh, meta.width)
+    return compress_lib.unpack_row(mean[0], meta)

@@ -2,7 +2,7 @@
 ``repro/fed/solvers.py``).
 
 A name maps to a factory ``(scfg, fgrad, rho, mu, L, *, use_fused,
-has_aux, generator, noise, agent_rows) -> solver`` and the solver maps
+has_aux, generator, noise, block) -> solver`` and the solver maps
 the stacked states ``(x, v) -> (w, aux)``, warm-started at ``x``.  The core solvers
 gd / agd / sgd / noisy_gd are served by
 :func:`repro_torch.core.solvers.local_train`.
@@ -56,16 +56,17 @@ def available_solvers() -> list[str]:
 def make_local_solver(solver_cfg, fgrad, rho: float, mu: float = 0.0,
                       L: float = 0.0, *, use_fused: bool = False,
                       has_aux: bool = False, generator=None,
-                      noise=None, agent_rows=None) -> LocalSolver:
+                      noise=None, block=None) -> LocalSolver:
     """Build the solver registered under ``solver_cfg.name``;
     ``fgrad(w_stack, epoch)`` returns the stacked gradient (``(grad,
-    aux)`` with ``has_aux``).  ``agent_rows = (rows, n_total)`` places a
-    sharded round's row block among all agents, for the random draws
-    (:func:`repro_torch.core.solvers.draw_noise`)."""
+    aux)`` with ``has_aux``).  ``block`` (a
+    :class:`repro_torch.core.solvers.StateBlock`) places a sharded round's
+    row and column block in the global state, for the random draws
+    (:func:`repro_torch.core.solvers.draw_noise`) and the clip norm."""
     factory = get_solver(solver_cfg.name)
     return factory(solver_cfg, fgrad, rho, mu, L, use_fused=use_fused,
                    has_aux=has_aux, generator=generator, noise=noise,
-                   agent_rows=agent_rows)
+                   block=block)
 
 
 CORE_SOLVERS = ("gd", "agd", "sgd", "noisy_gd")
@@ -75,14 +76,14 @@ PACKED_DIRECT_SOLVERS = CORE_SOLVERS
 
 
 def _core_local_train(scfg, fgrad, rho, mu, L, *, use_fused, has_aux,
-                      generator, noise, agent_rows):
+                      generator, noise, block):
     from repro_torch.core.solvers import local_train
 
     def solver(x, v):
         out = local_train(fgrad, x, v, rho, scfg, mu, L, batched=True,
                           has_aux=has_aux, use_fused=use_fused,
                           generator=generator, noise=noise,
-                          agent_rows=agent_rows)
+                          block=block)
         return out if has_aux else (out, None)
 
     return solver
@@ -108,7 +109,7 @@ def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
                              mu: float = 0.0, L: float = 0.0, *, meta,
                              use_fused: bool = False, has_aux: bool = False,
                              generator=None, noise=None,
-                             agent_rows=None) -> LocalSolver:
+                             block=None) -> LocalSolver:
     """A solver on the resident ``(N, width)`` buffer.  ``fgrad_buf`` is
     the buffer oracle ``(w_buf, epoch) -> g_buf`` (``(g_buf, aux)`` with
     ``has_aux``).  Core solvers run on the buffer directly; a custom
@@ -117,7 +118,7 @@ def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
         return make_local_solver(solver_cfg, fgrad_buf, rho, mu, L,
                                  use_fused=use_fused, has_aux=has_aux,
                                  generator=generator, noise=noise,
-                                 agent_rows=agent_rows)
+                                 block=block)
 
     def fgrad_tree(w_tree, epoch):
         out = fgrad_buf(pack_leaves(w_tree, meta)[0], epoch)
@@ -129,4 +130,4 @@ def make_packed_local_solver(solver_cfg, fgrad_buf, rho: float,
         make_local_solver(solver_cfg, fgrad_tree, rho, mu, L,
                           use_fused=use_fused, has_aux=has_aux,
                           generator=generator, noise=noise,
-                          agent_rows=agent_rows), meta)
+                          block=block), meta)

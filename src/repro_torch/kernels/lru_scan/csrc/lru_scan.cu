@@ -62,6 +62,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <initializer_list>
 
 namespace {
@@ -493,19 +494,29 @@ bool ring_ok(int64_t W, std::initializer_list<const void*> operands) {
   return true;
 }
 
+// Launches by kernel, counted where each launch succeeds: [0] the ring kernels, [1] the
+// per-column ones (forward and backward together).  Read by repro_lru_scan_routes.
+std::atomic<int64_t> g_routes[2];
+
+int counted(int route, int err) {
+  if (err == 0) g_routes[route].fetch_add(1, std::memory_order_relaxed);
+  return err;
+}
+
 template <typename T>
 int fwd_launch(const T* a, const T* b, T* h, int64_t B, int64_t S, int64_t W, cudaStream_t s) {
-  if (ring_ok<T>(W, {a, b, h})) return fwd_tma<T>(a, b, h, B, S, W, s);
+  if (ring_ok<T>(W, {a, b, h})) return counted(0, fwd_tma<T>(a, b, h, B, S, W, s));
   lru_fwd_kernel<T><<<blocks_for(B * W), kThreads, 0, s>>>(a, b, h, S, W, B * W);
-  return (int)cudaGetLastError();
+  return counted(1, (int)cudaGetLastError());
 }
 
 template <typename T>
 int bwd_launch(const T* a, const T* h, const T* g, T* da, T* db, int64_t B, int64_t S,
                int64_t W, cudaStream_t s) {
-  if (ring_ok<T>(W, {a, h, g, da, db})) return bwd_tma<T>(a, h, g, da, db, B, S, W, s);
+  if (ring_ok<T>(W, {a, h, g, da, db}))
+    return counted(0, bwd_tma<T>(a, h, g, da, db, B, S, W, s));
   lru_bwd_kernel<T><<<blocks_for(B * W), kThreads, 0, s>>>(a, h, g, da, db, S, W, B * W);
-  return (int)cudaGetLastError();
+  return counted(1, (int)cudaGetLastError());
 }
 
 }  // namespace
@@ -524,6 +535,12 @@ extern "C" int repro_lru_scan_fwd(const void* a, const void* b, void* h, int64_t
                                        (__nv_bfloat16*)h, B, S, W, s);
   }
   return -1;
+}
+
+// out[0]: launches of the ring kernels so far, out[1]: of the per-column kernels.
+extern "C" void repro_lru_scan_routes(int64_t* out) {
+  out[0] = g_routes[0].load();
+  out[1] = g_routes[1].load();
 }
 
 extern "C" int repro_lru_scan_bwd(const void* a, const void* h, const void* g, void* da,

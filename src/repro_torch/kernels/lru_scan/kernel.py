@@ -21,6 +21,7 @@ gives a thread one column and takes any others.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from pathlib import Path
 
@@ -42,7 +43,18 @@ def _lib():
     lib.repro_lru_scan_fwd.restype = INT
     lib.repro_lru_scan_bwd.argtypes = [PTR] * 5 + [I64] * 3 + [INT, PTR]
     lib.repro_lru_scan_bwd.restype = INT
+    lib.repro_lru_scan_routes.argtypes = [PTR]
+    lib.repro_lru_scan_routes.restype = None
     return lib
+
+
+def route_counts() -> dict[str, int]:
+    """Launches so far of the ring kernels (``"ring"``) and of the
+    per-column kernels (``"per-column"``), forward and backward together,
+    as the C launcher counts them where each launch succeeds."""
+    out = (ctypes.c_int64 * 2)()
+    _lib().repro_lru_scan_routes(out)
+    return {"ring": out[0], "per-column": out[1]}
 
 
 def check_scan(name: str, a: torch.Tensor, **others) -> None:

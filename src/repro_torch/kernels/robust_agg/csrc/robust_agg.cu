@@ -16,15 +16,26 @@
 // 6 for the bitonic one used here), far below the card's operations-per-byte ridge.
 //
 // Design.  Not the Pallas kernel's structure (a 256-column block transposed in VMEM and
-// bitonic-sorted along the lanes): here one thread owns V whole columns.  It walks the N rows
-// itself, so every column's N keys sit in its registers and the sort is a compare-exchange
-// network over the padded power of two P >= N, fully unrolled (a template on P in
-// {1, 2, ..., 128}: the wrapper rejects N > 128).  Threads of a warp read neighbouring columns
+// bitonic-sorted along the lanes): for P <= 128 (the register path) one thread owns V whole
+// columns.  It walks the N rows itself, so every column's N keys sit in its registers and the
+// sort is a compare-exchange network over the padded power of two P >= N, fully unrolled (a
+// template on P in {1, 2, ..., 128}).  Threads of a warp read neighbouring columns
 // of each row: 16-byte vectors (V = 8 bf16 or 4 fp32 columns a thread) when the width and
 // the pointers allow it and P V <= 64 keys fit the registers, one column a thread
 // otherwise.  Each block copies the (N,) live row to shared memory once and counts n_live
 // itself: no host synchronisation.  The column loads are issued before the live row is
 // read, so a block's two trips to device memory overlap.
+//
+// Above 128 rows (the tile path, sort_aggregate_tile_kernel) a block of 512 threads owns a
+// tile of T neighbouring columns and sorts their P keys in a (P, T) array, position-major (the
+// T keys of one position side by side): a bitonic network of log2(P) (log2(P) + 1) / 2
+// stages, each one compare-exchange for every pair of every column, a barrier between stages.
+// The array lives in shared memory while P T 4 bytes fit kTileBytes (T = kTileBytes / 4P,
+// from 64 columns at P = 256 down to 1 at P = 16,384); above that in a global scratch buffer
+// the wrapper allocates (kGlobalTile columns a block, a grid the scratch bounds).  The pairwise
+// sums run in the same array: the selected values replace the keys and the halving
+// v[i] += v[i + h] walks down the positions.  Such a tile is bound by its shared-memory
+// compare-exchanges (P log2(P)^2 / 4 a column), not by the bytes: correctness first.
 //
 // Keys.  bf16 widens to float32 by a 16-bit shift of its bits, so NaN payloads, +-inf and -0.0
 // keep their order; the int32 key is b ^ ((b >> 31) & 0x7FFFFFFF) with an arithmetic shift
@@ -189,6 +200,124 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------------------------
+// The tile path (P > 128): a (P, T) key array in shared memory or in a global scratch buffer
+// ---------------------------------------------------------------------------------------------
+
+constexpr int kTileThreads = 512;
+constexpr int kTileBytes = 64 * 1024;  // the shared-memory array of one block
+constexpr int kGlobalTile = 8;         // columns a block on the scratch path
+
+// s[p * tile + c] summed over p by the plain version's pairwise tree; the sum lands in s[c]
+__device__ void tile_tree_sum(float* s, int64_t pow2, int tile) {
+  for (int64_t h = pow2 / 2; h >= 1; h >>= 1) {
+    for (int64_t q = threadIdx.x; q < h * tile; q += blockDim.x) s[q] = s[q] + s[q + h * tile];
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads)
+    sort_aggregate_tile_kernel(const T* __restrict__ x, const float* __restrict__ live,
+                               T* __restrict__ out, int n_rows, int64_t n_cols, int64_t pow2,
+                               int tile, int stat, int trim, uint32_t* __restrict__ scratch) {
+  extern __shared__ uint32_t s_keys[];
+  __shared__ int s_live, s_kept;
+  if (threadIdx.x == 0) s_live = s_kept = 0;
+  __syncthreads();
+  int nl = 0, nk = 0;
+  for (int i = threadIdx.x; i < n_rows; i += blockDim.x) {
+    const float l = live ? live[i] : 1.f;
+    nl += (int)l;
+    nk += l != 0.f;
+  }
+  atomicAdd(&s_live, nl);
+  atomicAdd(&s_kept, nk);
+  __syncthreads();
+  const int n_live = s_live;
+  const bool all_dead = s_kept == 0;
+  uint32_t* keys = scratch ? scratch + (int64_t)blockIdx.x * pow2 * tile : s_keys;
+  float* vals = reinterpret_cast<float*>(keys);
+  const int64_t n_keys = pow2 * tile;
+  const int64_t n_tiles = (n_cols + tile - 1) / tile;
+  const int lo = floor_half(n_live - 1), hi = n_live / 2;
+
+  const int log_tile = __ffs(tile) - 1;  // tile is a power of two
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int64_t col0 = t * tile;
+    for (int64_t q = threadIdx.x; q < n_keys; q += blockDim.x) {
+      const int64_t p = q >> log_tile, col = col0 + (q & (tile - 1));
+      uint32_t k = kLast;
+      if (p < n_rows && col < n_cols && (all_dead || !live || live[p] != 0.f))
+        k = order_key(bits_of(x[p * n_cols + col]));
+      keys[q] = k;
+    }
+    __syncthreads();
+    for (int64_t size = 2; size <= pow2; size <<= 1) {
+      for (int64_t stride = size >> 1; stride > 0; stride >>= 1) {
+        const int log_stride = __ffsll(stride) - 1;
+        for (int64_t q = threadIdx.x; q < n_keys / 2; q += blockDim.x) {
+          const int64_t pp = q >> log_tile, c = q & (tile - 1);
+          const int64_t i = ((pp >> log_stride) << (log_stride + 1)) | (pp & (stride - 1));
+          const int64_t a = (i << log_tile) + c, b = ((i + stride) << log_tile) + c;
+          const uint32_t ka = keys[a], kb = keys[b];
+          const uint32_t kl = min(ka, kb), kh = max(ka, kb);
+          const bool up = (i & size) == 0;
+          keys[a] = up ? kl : kh;
+          keys[b] = up ? kh : kl;
+        }
+        __syncthreads();
+      }
+    }
+    const int c = threadIdx.x;
+    const int64_t col = col0 + c;
+    if (stat == TRIMMED_MEAN) {
+      for (int64_t q = threadIdx.x; q < n_keys; q += blockDim.x) {
+        const int64_t p = q >> log_tile;
+        vals[q] = (p >= trim && p < n_live - trim) ? order_val(keys[q]) : 0.f;
+      }
+      __syncthreads();
+      tile_tree_sum(vals, pow2, tile);
+      const int d = n_live - 2 * trim;
+      const float inv = 1.f / (float)(d > 1 ? d : 1);
+      if (c < tile && col < n_cols) out[col] = from_f<T>(vals[c] * inv);
+    } else {
+      // the two selected values, each summed alone over the zero-padded positions
+      float v[2];
+      const uint32_t k_lo = (c < tile && lo >= 0) ? keys[(int64_t)lo * tile + c] : 0u;
+      const uint32_t k_hi = c < tile ? keys[(int64_t)hi * tile + c] : 0u;
+      for (int r = 0; r < 2; ++r) {
+        const int pos = r == 0 ? lo : hi;
+        __syncthreads();
+        for (int64_t q = threadIdx.x; q < n_keys; q += blockDim.x) vals[q] = 0.f;
+        __syncthreads();
+        if (c < tile && pos >= 0) vals[(int64_t)pos * tile + c] = order_val(r == 0 ? k_lo : k_hi);
+        __syncthreads();
+        tile_tree_sum(vals, pow2, tile);
+        v[r] = c < tile ? vals[c] : 0.f;
+      }
+      if (c < tile && col < n_cols) out[col] = from_f<T>(0.5f * (v[0] + v[1]));
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_tile(const void* x, const float* live, void* out, int n_rows, int64_t n_cols,
+                int64_t pow2, int tile, int grid, int stat, int trim, void* scratch,
+                cudaStream_t stream) {
+  const size_t smem = scratch ? 0 : (size_t)pow2 * tile * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(sort_aggregate_tile_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kTileBytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sort_aggregate_tile_kernel<T><<<grid, kTileThreads, smem, stream>>>(
+      (const T*)x, live, (T*)out, n_rows, n_cols, pow2, tile, stat, trim, (uint32_t*)scratch);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int P, int V>
 int launch(const void* x, const float* live, void* out, int n_rows, int64_t n_cols, int stat,
            int trim, cudaStream_t stream) {
@@ -228,7 +357,8 @@ int dispatch(const void* x, const float* live, void* out, int n_rows, int64_t n_
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  live: (n_rows,) float32 or null (every row live).
-// pow2: the power of two P >= n_rows the sort runs over (1 ... 128).  stat: 0 trimmed_mean,
+// pow2: the power of two P >= n_rows the sort runs over (1 ... 128; larger P take
+// repro_sort_aggregate_tile).  stat: 0 trimmed_mean,
 // 1 coord_median.  Returns the launch's cudaGetLastError() (0 = launched), -1 for an unknown
 // dtype, -2 for an unsupported pow2.
 extern "C" int repro_sort_aggregate(const void* x, const void* live, void* out, int64_t n_rows,
@@ -241,6 +371,30 @@ extern "C" int repro_sort_aggregate(const void* x, const void* live, void* out, 
       return dispatch<float>(x, lv, out, (int)n_rows, n_cols, pow2, vec, stat, trim, s);
     case 1:
       return dispatch<__nv_bfloat16>(x, lv, out, (int)n_rows, n_cols, pow2, vec, stat, trim, s);
+  }
+  return -1;
+}
+
+// The tile path for pow2 > 128: tile columns a block over grid blocks; scratch is null (the
+// (pow2, tile) key array in shared memory: pow2 * tile * 4 <= kTileBytes) or a uint32 buffer
+// of grid * pow2 * tile keys.  Returns as repro_sort_aggregate does; -3 for a tile that does
+// not fit (more columns than threads, or a shared-memory array above kTileBytes).
+extern "C" int repro_sort_aggregate_tile(const void* x, const void* live, void* out,
+                                         int64_t n_rows, int64_t n_cols, int dtype, int64_t pow2,
+                                         int tile, int grid, int stat, int trim, void* scratch,
+                                         void* stream) {
+  if (tile < 1 || tile > kTileThreads || (tile & (tile - 1)) || grid < 1 ||
+      (!scratch && pow2 * tile * (int64_t)sizeof(uint32_t) > kTileBytes))
+    return -3;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* lv = (const float*)live;
+  switch (dtype) {
+    case 0:
+      return launch_tile<float>(x, lv, out, (int)n_rows, n_cols, pow2, tile, grid, stat, trim,
+                                scratch, s);
+    case 1:
+      return launch_tile<__nv_bfloat16>(x, lv, out, (int)n_rows, n_cols, pow2, tile, grid, stat,
+                                        trim, scratch, s);
   }
   return -1;
 }

@@ -1,10 +1,9 @@
 """Public robust-aggregation op (counterpart of
 ``repro/kernels/robust_agg/ops.py``).
 
-A CUDA tensor goes to the CUDA kernel (:mod:`.kernel`), a CPU tensor to
-the plain version (:mod:`.ref`); no fallback: a kernel that fails to
-build or launch raises, and so does a stack of more than
-:data:`~.kernel.MAX_ROWS` agents on the card.  No column padding is
+A CUDA tensor goes to the CUDA kernel (:mod:`.kernel`, any number of
+agents), a CPU tensor to the plain version (:mod:`.ref`); no fallback: a
+kernel that fails to build or launch raises.  No column padding is
 needed (the reference pads to its TPU column block).
 ``robust_aggregate.launches`` counts kernel launches.
 """

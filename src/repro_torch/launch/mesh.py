@@ -2,14 +2,20 @@
 ``repro/launch/mesh.py``, reduced to what the port runs).
 
 A mesh is a :class:`torch.distributed.device_mesh.DeviceMesh` with dims
-``("agent", "model")`` over one process per rank: NCCL on ``cuda`` (one
-rank per card, ``cuda:LOCAL_RANK``) and gloo on ``cpu``.  Processes come
-from ``python -m torch.distributed.run`` (torchrun), whose environment
-names the world; a caller may also create the default process group
-itself before asking for a mesh (the multi-process tests do, over a
-``FileStore``).  A 1x1 mesh needs neither: without a process group one
-single-process group is created on an in-memory store, with no port and
-no file.
+``("agent", "model")`` over one process per rank; its dims' process
+groups are the agent group (the ranks that hold one row block each) and
+the model group (the ranks that split one row block's columns and each
+agent's batch: :mod:`repro_torch.fed.sharding`).  The backend is NCCL on
+``cuda`` (one rank per card, ``cuda:LOCAL_RANK``) and gloo on ``cpu``.
+Processes come from ``python -m torch.distributed.run`` (torchrun), whose
+environment names the world; a caller may also create the default
+process group itself before asking for a mesh, and then its backend is
+the mesh's: the multi-process tests do so over a ``FileStore`` with gloo
+on the CPU, and ``chip_smoke.py`` puts several gloo ranks on its one
+card, each passing ``device="cuda:0"`` (an explicit index is kept).  A
+1x1 mesh needs neither: without a process group one single-process group
+is created on an in-memory store, with no port and no file.  Meshes are
+cached per (shape, device), so every trainer of a run shares one.
 
 The reference's production meshes (256 and 512 TPU chips, ``pod`` /
 ``data`` axes) are TPU layouts and are not carried over.
@@ -60,12 +66,20 @@ def _ensure_world(agents: int, model: int, device: torch.device) -> None:
 
 
 def mesh_device(device) -> torch.device:
-    """This rank's device: ``cuda:LOCAL_RANK`` for a CUDA run, else the
-    device itself."""
+    """This rank's device: a CUDA device with an explicit index as it is
+    (ranks that share a card name it), else ``cuda:LOCAL_RANK`` for a
+    CUDA run -- one rank per card, so a local rank without a card of its
+    own raises -- and the device itself otherwise."""
     device = torch.device(device)
-    if device.type != "cuda":
+    if device.type != "cuda" or device.index is not None:
         return device
-    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    rank = int(os.environ.get("LOCAL_RANK", 0))
+    if rank >= torch.cuda.device_count():
+        raise ValueError(
+            f"local rank {rank} has no card of its own ({torch.cuda.device_count()} "
+            f"visible): a CUDA mesh runs one rank per card (start at most "
+            f"that many processes per node)")
+    return torch.device("cuda", rank)
 
 
 def make_fed_mesh(agents: int = 1, model: int = 1, *, device="cuda"):

@@ -30,11 +30,26 @@ per round; ``--aggregator coord_median|norm_clip_mean`` likewise):
 Sharded rounds: one process per rank of the ``(agent, model)`` mesh,
 started by torchrun (``--mesh-shape 1x1`` runs in one process, without
 it); every rank draws the same global batch and keeps its agents, and
-only rank 0 prints.  Two gloo ranks on the CPU:
+only rank 0 prints.  On cards torchrun starts one rank per card (NCCL).
+Two gloo ranks on the CPU:
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
       --smoke --n-agents 4 --agent-shards 2 --state-layout packed \\
       --engine-backend fused --use-fused-update --device cpu
+The model axis (``--mesh-shape AxM``, M > 1; packed layout): each model
+rank holds a column block of the state and runs a share of each agent's
+batch:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --n-agents 4 --mesh-shape 1x2 --state-layout packed \\
+      --engine-backend fused --use-fused-update --device cpu
+The paper's dense front end (``--problem logreg``: N agents, ``--dim``
+features, ``--q`` samples each; one criterion line a round), sharded the
+same way:
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --problem logreg \\
+      --n-agents 100 --dim 100 --mesh-shape 2x2 --state-layout packed \\
+      --steps 20 --device cpu
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core.problem import make_logreg_problem
 from repro_torch.data.synthetic import make_batch_for
 from repro_torch.fed import api
 from repro_torch.models.model import build_model
@@ -62,13 +78,7 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
     device = resolve_device(device)
     spec.validate()
     trainer = api.build_trainer(build_model(cfg), spec, device)
-    mesh = trainer.mesh
-    if mesh is not None:
-        if dist.get_rank() != 0:
-            log = _silent
-        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        log(f"mesh: {sizes} over {mesh.size()} devices (agent axis "
-            f"sharded)")
+    log = _mesh_log(trainer.mesh, log)
     if spec.privacy.tau > 0:
         q = local_dataset_size or max(1, batch // spec.n_agents)
         rep = trainer.privacy_report(steps, q)
@@ -98,9 +108,49 @@ def _silent(*args, **kwargs):
     """The log of ranks other than 0."""
 
 
+def _mesh_log(mesh, log):
+    """The log of this rank (silent but on rank 0 of a mesh), after the
+    reference's mesh line."""
+    if mesh is None:
+        return log
+    if dist.get_rank() != 0:
+        log = _silent
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    log(f"mesh: {sizes} over {mesh.size()} devices (agent axis sharded)")
+    return log
+
+
+def run_dense(spec: api.FedSpec, *, steps: int, dim: int, q: int,
+              device=None, seed: int = 0, log=print):
+    """``steps`` Fed-PLT rounds of the paper's logistic-regression
+    federation (``spec.n_agents`` agents, ``dim`` features, ``q`` samples
+    each, seeded); logs the criterion ``||sum_i grad f_i(x_bar)||^2`` a
+    round.  Returns ``(trainer, state, criterion history)``."""
+    device = resolve_device(device)
+    problem = make_logreg_problem(n_agents=spec.n_agents, q=q, dim=dim,
+                                  seed=seed, device=device)
+    trainer = api.build_trainer(problem, spec.validate(), device)
+    log = _mesh_log(trainer.mesh, log)
+    t0 = time.time()
+    state, crit = trainer.run(seed, steps)
+    crit = crit.tolist()                      # waits for the device
+    dt = (time.time() - t0) / max(steps, 1)
+    for i, c in enumerate(crit):
+        log(f"round {i:4d} criterion={c:.4e}")
+    log(f"{dt * 1e3:.2f} ms a round")
+    return trainer, state, crit
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="model architecture (or --problem)")
+    ap.add_argument("--problem", default=None, choices=["logreg"],
+                    help="the paper's dense front end instead of a model")
+    ap.add_argument("--dim", type=int, default=5,
+                    help="--problem: features n")
+    ap.add_argument("--q", type=int, default=250,
+                    help="--problem: samples a agent q_i")
     ap.add_argument("--mode", default="fed", choices=["fed"],
                     help="fed only (standard training is a later slice)")
     ap.add_argument("--smoke", action="store_true",
@@ -117,8 +167,16 @@ def main(argv=None):
     api.add_spec_args(ap)
     args = ap.parse_args(argv)
 
+    if (args.arch is None) == (args.problem is None):
+        ap.error("give one of --arch and --problem")
     device = resolve_device(args.device)
     spec = api.spec_from_args(args).validate()
+    if args.problem is not None:
+        trainer, _, _ = run_dense(spec, steps=args.steps, dim=args.dim,
+                                  q=args.q, device=device, seed=args.seed)
+        if trainer.mesh is not None:
+            dist.destroy_process_group()
+        return
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()

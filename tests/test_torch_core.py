@@ -194,12 +194,13 @@ def test_fedspec_defaults_and_cli_match_reference():
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(mesh_shape="1x2"), "tensor-parallel"),
+    (dict(state_layout="tree", mesh_shape="1x2"), "tensor-parallel"),
     (dict(async_mode="stale"), "async"),
     (dict(max_staleness=2), "async"),
-    (dict(mesh_shape="2x2"), "tensor-parallel"),
+    (dict(state_layout="tree", mesh_shape="2x2"), "tensor-parallel"),
     (dict(agent_groups="2*gd,2*agd"), "groups"),
-    (dict(agent_shards=2, mesh_shape="2x2"), "tensor-parallel"),
+    (dict(state_layout="tree", agent_shards=2, mesh_shape="2x2"),
+     "tensor-parallel"),
 ])
 def test_unported_fields_raise_naming_the_slice(kw, slice_name):
     with pytest.raises(ValueError, match=slice_name):

@@ -231,12 +231,35 @@ def test_ops_rejects_bad_inputs_and_launches_nothing_on_cpu():
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
-    """The launcher's checks run before any build: a CPU tensor, float16
-    and more than MAX_ROWS agents are refused (on the card, N > 128
-    raises instead of falling back to the plain version)."""
+    """The launcher's checks run before any build: a CPU tensor is
+    refused.  No agent count is: up to REGISTER_ROWS the sort runs in
+    registers, above it the tile path plans a shared-memory tile or, past
+    TILE_BYTES, a global scratch buffer, as the reference pads any N."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.sort_aggregate(torch.zeros((4, 8)), None, "coord_median", 0)
-    assert tkernel.MAX_ROWS == 128
+    assert tkernel.REGISTER_ROWS == 128
+    assert tkernel.tile_plan(129, 1000) == (256, 64, 16, 0)
+    assert tkernel.tile_plan(1000, 1001) == (1024, 16, 63, 0)
+    assert tkernel.tile_plan(16384, 5) == (16384, 1, 5, 0)
+    pow2, tile, grid, keys = tkernel.tile_plan(20000, 40)
+    assert (pow2, tile, grid, keys) == (32768, 8, 5, 5 * 32768 * 8)
+
+
+@pytest.mark.parametrize("live_kind", ("all", "evict", "dead"))
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [129, 200])
+def test_plain_matches_reference_above_128_agents(n, dtype, live_kind):
+    """Above 128 agents (the card's tile path; the plain version has no
+    cap) the plain version equals the reference's oracle bit for bit,
+    with dead rows, ties and special values: no trim, one, the largest,
+    and the median."""
+    bits = _bits(n, 67, dtype, seed=300 + n, special=True)
+    live = _live(live_kind, n)
+    for stat, trim in (("trimmed_mean", 0), ("trimmed_mean", 1),
+                       ("trimmed_mean", (n - 1) // 2), ("coord_median", 0)):
+        got = tops.robust_aggregate(_port(bits), live, stat=stat, trim=trim)
+        want = jref(_ref(bits), live, stat=stat, trim=trim)
+        _assert_same(got, want, f"{stat} trim={trim}")
 
 
 @pytest.fixture
@@ -259,9 +282,24 @@ def test_kernel_matches_plain_version_on_card(cuda_device, n, dtype):
             got = tops.robust_aggregate(x, live, stat=stat, trim=trim)
             want = tref.robust_aggregate_ref(x, live, stat=stat, trim=trim)
             _assert_same(got.cpu(), want.cpu(), f"{stat} trim={trim}")
-    with pytest.raises(ValueError, match="128"):
-        tops.robust_aggregate(torch.zeros((129, 8), device=cuda_device),
-                              stat="coord_median")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [129, 200, 1000, 20000])
+def test_tile_kernel_matches_plain_version_on_card(cuda_device, n, dtype):
+    """The tile path (shared memory up to 16,384 agents, a global
+    scratch buffer at 20,000) against the plain version, bit for bit."""
+    bits = _bits(n, 40 if n > 1000 else 1001, dtype, seed=n, special=True)
+    x = _port(bits).to(cuda_device)
+    for live_kind in LIVES:
+        live = _live(live_kind, n)
+        for stat, trim in (("trimmed_mean", 0), ("trimmed_mean", 1),
+                           ("trimmed_mean", (n - 1) // 2),
+                           ("coord_median", 0)):
+            got = tops.robust_aggregate(x, live, stat=stat, trim=trim)
+            want = tref.robust_aggregate_ref(x, live, stat=stat, trim=trim)
+            _assert_same(got.cpu(), want.cpu(), f"{stat} trim={trim}")
 
 
 # ---------------------------------------------------------------------------

@@ -245,7 +245,10 @@ def test_fedplt_config_round_trips_through_the_spec(problems):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    (dict(mesh_shape="1x1"), "dense mesh"),
+    # a dense mesh runs since the model-axis slice; its tree layout under
+    # a model axis is what still raises
+    pytest.param(dict(state_layout="tree", mesh_shape="1x2"),
+                 "tensor-parallel model axis", id="kw0-dense mesh"),
     (dict(agent_groups="4*gd,4*agd"), "groups"),
     (dict(async_mode="stale", max_staleness=1), "async"),
 ])

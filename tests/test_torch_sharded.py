@@ -211,6 +211,112 @@ def test_sharded_noise_draws_are_each_agents_own(shards):
     assert not torch.equal(blocks[0]["buf"][0], blocks[1]["buf"][0])
 
 
+class _FakeMesh:
+    """The parts of a ``DeviceMesh`` the placement rules read: dim
+    names, shape and this rank's coordinates (no process group)."""
+
+    mesh_dim_names = ("agent", "model")
+
+    def __init__(self, shape, coord):
+        self.shape, self._coord = shape, dict(zip(self.mesh_dim_names, coord))
+
+    def get_local_rank(self, name):
+        return self._coord[name]
+
+
+def test_column_rule_splits_a_divisible_width_and_replicates_the_rest():
+    """The rank at model coordinate c owns [c W/m, (c+1) W/m) when m
+    divides W, every column otherwise (the reference's
+    ``fed_state_specs(packed=True)`` / ``_mesh_col_axis``); the blocks of
+    a divisible width tile it."""
+    from repro_torch.convert import rank_block
+    from repro_torch.fed import sharding
+
+    assert [sharding.block_cols(12, 2, c) for c in range(2)] == [
+        slice(0, 6), slice(6, 12)]
+    assert sharding.block_cols(5, 2, 1) == slice(0, 5)
+    assert sharding.block_cols(12, 1, 0) == slice(0, 12)
+    for shape, width, split in (((2, 2), 12, True), ((1, 2), 5, False),
+                                ((2, 1), 12, False)):
+        blocks = {}
+        for r in range(shape[0]):
+            for c in range(shape[1]):
+                mesh = _FakeMesh(shape, (r, c))
+                assert sharding.cols_split(mesh, width) is split
+                t = torch.arange(4 * width).reshape(4, width)
+                blocks[r, c] = sharding.col_block(t, mesh)[
+                    sharding.agent_rows(mesh, 4)]
+                assert torch.equal(blocks[r, c], rank_block(
+                    t.numpy(), shape, (r, c)))
+        rows = [torch.cat([blocks[r, c] for c in range(shape[1])], 1)
+                if split else blocks[r, 0] for r in range(shape[0])]
+        assert torch.equal(torch.cat(rows),
+                           torch.arange(4 * width).reshape(4, width))
+    # a packing's segments cut to a block, in its coordinates
+    assert sharding.block_segments(((0, 10), (64, 100), (128, 130)),
+                                   slice(64, 128)) == ((0, 36),)
+    assert sharding.fed_axes({"agent": 2, "model": 2}) == ("agent", None)
+    assert sharding.fed_axes({"data": 8}) == ("data", None)
+    # each agent's batch rows over the model ranks: contiguous, covering
+    shares = [sharding.batch_share(_FakeMesh((1, 3), (0, c)), 8)
+              for c in range(3)]
+    assert shares == [slice(0, 3), slice(3, 6), slice(6, 8)]
+    assert sharding.batch_share(_FakeMesh((1, 4), (0, 3)), 2) == slice(2, 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (4, 1)])
+def test_sharded_noise_blocks_are_the_unsharded_draw(shape):
+    """Under a model axis each rank draws every agent's full row and
+    keeps its rows and columns: concatenated over rows and columns the
+    blocks are the unsharded draw bit for bit, so no two column blocks
+    (and no two agents) share noise."""
+    from repro_torch.core.solvers import StateBlock, draw_noise
+    from repro_torch.fed import sharding
+
+    n, width = 4, 10
+    want = draw_noise(torch.zeros((n, width)), 0.5,
+                      torch.Generator().manual_seed(1))
+    rows = []
+    for r in range(shape[0]):
+        blocks = []
+        for c in range(shape[1]):
+            mesh = _FakeMesh(shape, (r, c))
+            ag, cols = sharding.agent_rows(mesh, n), sharding.model_cols(
+                mesh, width)
+            w = torch.zeros((ag.stop - ag.start, cols.stop - cols.start))
+            blocks.append(draw_noise(
+                w, 0.5, torch.Generator().manual_seed(1),
+                StateBlock(ag, n, cols, width)))
+        rows.append(torch.cat(blocks, 1))
+    torch.testing.assert_close(torch.cat(rows), want, rtol=0, atol=0)
+    if shape[1] > 1:
+        assert not torch.equal(rows[0][:, :width // 2],
+                               rows[0][:, width // 2:])
+
+
+def test_clipped_norm_under_a_model_axis_is_the_whole_rows():
+    """``clip_grad`` on two column blocks, each completing its per-agent
+    squares with the other's (the model group's sum), clips exactly as
+    the whole rows are clipped."""
+    from repro_torch.core.solvers import clip_grad
+
+    g = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(4, 12)).astype(np.float32))
+    g[2] *= 1e-3                        # one row below the clip
+    want = clip_grad(g.clone(), 1.0, batched=True)
+    halves = [g[:, :6].clone(), g[:, 6:].clone()]
+    sq = [torch.sum(h * h, dim=1) for h in halves]
+    got = [clip_grad(h, 1.0, batched=True,
+                     row_sum=lambda s, other=sq[1 - i]: s + other)
+           for i, h in enumerate(halves)]
+    torch.testing.assert_close(torch.cat(got, 1), want, rtol=1e-6,
+                               atol=1e-7)
+    assert torch.equal(want[2], g[2])
+    # without the model group's sum each block would clip its own norm
+    alone = clip_grad(g[:, :6].clone(), 1.0, batched=True)
+    assert not torch.allclose(alone, want[:, :6])
+
+
 # ---------------------------------------------------------------------------
 # Mesh of one: the port's 1x1 trainer against its unsharded trainer
 # ---------------------------------------------------------------------------
@@ -374,10 +480,17 @@ def test_mesh_larger_than_the_world_raises_naming_torchrun():
 
 
 def test_model_extent_above_one_is_not_ported_yet():
+    """The tree layout under a model axis (per-leaf specs) still raises;
+    the packed layout takes it."""
     with pytest.raises(ValueError, match="not ported yet"):
-        tapi.FedSpec(n_agents=4, mesh_shape="2x2").validate()
+        tapi.FedSpec(n_agents=4, state_layout="tree",
+                     mesh_shape="2x2").validate()
     with pytest.raises(ValueError, match="not ported yet"):
-        tapi.FedSpec(n_agents=4, mesh_shape="1x2").validate()
+        tapi.FedSpec(n_agents=4, state_layout="tree",
+                     mesh_shape="1x2").validate()
+    for shape in ("1x2", "2x2"):
+        assert tapi.FedSpec(n_agents=4, state_layout="packed",
+                            mesh_shape=shape).validate().mesh_axes()[1] == 2
 
 
 def test_round_config_rejects_bad_shards():
