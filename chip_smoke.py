@@ -11,7 +11,8 @@ last line):
 1. Card: ``nvidia-smi`` name and power limit, torch / CUDA versions; the
    kernels are compiled from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, in parallel); the flash kernels' registers and
-   spills from ``-Xptxas -v`` (and the lru_scan and compress kernels').
+   spills from ``-Xptxas -v`` (and the lru_scan, compress and robust_agg
+   kernels').
 2. Kernels against their plain PyTorch versions on the card: every prox
    of the table, exact and lagged exchanges, with and without the noise
    operand, ragged widths (N=3, M=1000 and M=1001), a participation row
@@ -163,13 +164,18 @@ last line):
    with ``dp_init``, the (eps, delta) report, Corollary 1's bound).
 
 12. ``sort_aggregate`` above 128 agents and the model mesh axis.  12a:
-   the kernel's tile path bit-equal to its plain version (NaN by
-   position): (N, M) in (129, 1000), (129, 1001), (200, 1000), (1000,
-   1001) in shared memory and (20000, 40) on the global scratch path,
-   fp32 and bf16, trims 0 / 1 / N/3 / max and coord_median, all live /
-   evictions / one live / all dead, ties and special values; then timed
-   at N 1000 over 2^20 bf16 columns beside the byte bound, the plain
-   version (in column slabs) and ``torch.sort(x, dim=0)``.  12b: reduced
+   the kernel bit-equal to its plain version (NaN by position) on each
+   route above 128 agents, both sides of every boundary: (N, M) in
+   (129, 1000), (129, 1001), (200, 1000), (256, 1000), (257, 1001),
+   (1000, 1001), (1024, 1000) on the warp route, (1025, 1001), (4096,
+   64), (16384, 16) on the block route and (16385, 8), (40000, 8) on the
+   global scratch route, fp32 and bf16, trims 0 / 1 / N/3 / max and
+   coord_median, all live / evictions / one live / all dead, ties and
+   special values, each call's route read from the C launcher's tallies;
+   then timed at N 100 over 2^24 columns and N 1000 over 2^20, bf16 and
+   fp32, trimmed_mean (f N/10) and coord_median, beside the byte bound,
+   the network's operation bound, the plain version (in column slabs)
+   and ``torch.sort(x, dim=0)``.  12b: reduced
    gemma2-2b fp32 (N 4, participation 0.75, 3 rounds; packed, fused
    backend and update) under ``mesh_shape`` 1x2 and 2x2 on 2 and 4 gloo
    ranks spawned on the one card, against the unsharded card run (rtol
@@ -192,8 +198,8 @@ last line):
    participation (given rows) over 400 reach the unsharded card run's
    hitting round with a final criterion within a factor 10 (or both
    below 1e-8, the criterion's float32 floor);
-   trimmed_mean f=5 with guards at N 100 (2x2) and N 200 (2x1: the
-   kernel's tile path on the gathered agent column), 20 sort_aggregate
+   trimmed_mean f=5 with guards at N 100 (2x2) and N 200 (2x1), the
+   kernel's warp route on the gathered agent column, 20 sort_aggregate
    launches each.  Only gloo's refusal of CUDA tensors drops 12b-12d, as
    it drops 8e.
 
@@ -209,10 +215,13 @@ the plain versions run row by row, timed beside the byte bound and, for
 topk, ``torch.topk`` per (row, segment) as a yardstick (its tie order
 differs), rank_select with one profiled call by stage (hist, bin sums,
 select, ties, write).  And the robust-aggregation kernel, bit for bit (NaN
-results by position): N in {1, 2, 3, 4, 5, 8, 17, 33, 100, 128}, M = 1000
-(16-byte vectors) and 1001 (scalar), fp32 and bf16, every trim and
-coord_median, live rows all live, with evictions, with one live agent and
-all dead, columns of ties, +-0.0, +-inf and NaN, and a misaligned view;
+results by position), each call on the route its N takes (the register
+route up to 32 agents, the warp route above; the C launcher's tallies):
+N in {1, 2, 3, 4, 5, 8, 17, 32, 33, 64, 65, 100, 128}, M = 1000 (16-byte
+vectors) and 1001 (scalar), fp32 and bf16, every trim and coord_median,
+live rows all live, with evictions, with one live agent and all dead,
+columns of ties, +-0.0, +-inf and NaN, and a misaligned view at N 4 and
+100;
 then at the full ``(4, 745,549,056)`` bf16 shape (trimmed_mean f=1, the
 robust main path's statistic) against its plain version run in column
 slabs, timed beside the byte bound and, as a yardstick of the sort alone,
@@ -221,6 +230,12 @@ and 2 robust rounds (N=4, trimmed_mean f=1, one sign-flipped agent).
 
 Then one JSON line per kernel table, and the last line
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --sort-aggregate-times [--src DIR]`` builds only
+``robust_agg.cu`` of the ``repro_torch`` under ``DIR`` (default this
+checkout's ``src``) and prints phase 12a's timed calls without the plain
+version, as one JSON line: run once for each of two trees, in turns, to
+compare them on one card.
 """
 
 from __future__ import annotations
@@ -251,6 +266,12 @@ def log(*a):
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def short_kernel_name(mangled: str) -> str:
+    """A mangled kernel name without its anonymous namespace, cut to 72
+    characters (the template arguments stay: they tell instances apart)."""
+    return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", mangled)[:72]
 
 
 def card_bandwidth(name: str) -> float:
@@ -744,19 +765,71 @@ def same_bits(torch, got, want, what):
         fail(f"{what}: {int(bad.sum())} of {bad.numel()} entries differ")
 
 
-ROBUST_NS = (1, 2, 3, 4, 5, 8, 17, 33, 100, 128)
+# N of phase 2's checks: the register route (P <= 32) and the warp route's
+# lane groups of 2 and 4 threads (P 64, 128), each boundary from both sides
+ROBUST_NS = (1, 2, 3, 4, 5, 8, 17, 32, 33, 64, 65, 100, 128)
 
 
-def robust_small_checks(torch):
-    """The sort_aggregate kernel against its plain version, bit for bit."""
+def robust_routes_run(torch, fn):
+    """``(fn(), routes)``: the sort_aggregate routes ``fn`` launched, from
+    the C launcher's own tallies of the launches that succeeded."""
+    from repro_torch.kernels.robust_agg import kernel as rkernel
+
+    before = rkernel.route_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = rkernel.route_counts()
+    return out, {k for k in after if after[k] > before[k]}
+
+
+def robust_checks(torch, gen, shapes, stats_of, lives_of, tag, views_of=None):
+    """Each (N, M) of ``shapes`` in fp32 and bf16, seeded with ties and
+    special values, through ``robust_aggregate`` bit-equal to the plain
+    version (NaN by position), and on the route :func:`route_of` names
+    (the launcher's tallies); returns the number of checks."""
+    from repro_torch.kernels.robust_agg import kernel as rkernel
     from repro_torch.kernels.robust_agg import ops as rops
     from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(4)
     specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
                              -1.0, 2.5], device=dev)
     n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n, m in shapes:
+            x = torch.randn((n, m), generator=gen, device=dev)
+            w = min(64, m // 2)
+            idx = torch.randint(0, len(specials), (n, w), generator=gen,
+                                device=dev)
+            x[:, :w] = specials[idx]
+            x[:, w:w + 8] = 0.75                   # whole tied columns
+            x = x.to(dtype)
+            views = views_of(x) if views_of else {"": x}
+            route = rkernel.route_of(n)[0]
+            for vname, xv in views.items():
+                for lname, live in lives_of(n).items():
+                    for stat, trim in stats_of(n):
+                        got, ran = robust_routes_run(
+                            torch, lambda: rops.robust_aggregate(
+                                xv, live, stat=stat, trim=trim))
+                        what = (f"{tag} sort_aggregate {dtype} N={n} M={m} "
+                                f"{lname}{vname} {stat} trim={trim}")
+                        if ran != {route}:
+                            fail(f"{what}: ran the routes {sorted(ran)}, "
+                                 f"not {route!r}")
+                        want = robust_aggregate_ref(xv, live, stat=stat,
+                                                    trim=trim)
+                        same_bits(torch, got, want, what)
+                        n_checks += 1
+    torch.cuda.synchronize()
+    return n_checks
+
+
+def robust_small_checks(torch):
+    """The sort_aggregate kernel against its plain version, bit for bit,
+    at N <= 128 (the register route and the warp route's small groups)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
 
     def lives(n):
         out = {"all live": None}
@@ -770,39 +843,26 @@ def robust_small_checks(torch):
         out["all dead"] = torch.zeros(n, device=dev)
         return out
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for m in (1000, 1001):
-            for n in ROBUST_NS:
-                x = torch.randn((n, m), generator=gen, device=dev)
-                idx = torch.randint(0, len(specials), (n, 64), generator=gen,
-                                    device=dev)
-                x[:, :64] = specials[idx]
-                x[:, 64:72] = 0.75                 # whole tied columns
-                x = x.to(dtype)
-                views = {"": x}
-                if n == 4:
-                    flat = torch.empty(n * m + 1, device=dev, dtype=dtype)
-                    mis = flat[1:].view(n, m)
-                    mis.copy_(x)
-                    views[" misaligned view"] = mis
-                stats = ([("trimmed_mean", f) for f in range((n - 1) // 2 + 1)]
-                         + [("coord_median", 0)])
-                for vname, xv in views.items():
-                    for lname, live in lives(n).items():
-                        for stat, trim in stats:
-                            got = rops.robust_aggregate(xv, live, stat=stat,
-                                                        trim=trim)
-                            want = robust_aggregate_ref(xv, live, stat=stat,
-                                                        trim=trim)
-                            same_bits(torch, got, want,
-                                      f"sort_aggregate {dtype} N={n} M={m} "
-                                      f"{lname}{vname} {stat} trim={trim}")
-                            n_checks += 1
-    torch.cuda.synchronize()
+    def views(x):
+        out = {"": x}
+        if x.shape[0] in (4, 100):
+            n, m = x.shape
+            flat = torch.empty(n * m + 1, device=dev, dtype=x.dtype)
+            mis = flat[1:].view(n, m)
+            mis.copy_(x)
+            out[" misaligned view"] = mis
+        return out
+
+    n_checks = robust_checks(
+        torch, gen, [(n, m) for m in (1000, 1001) for n in ROBUST_NS],
+        lambda n: ([("trimmed_mean", f) for f in range((n - 1) // 2 + 1)]
+                   + [("coord_median", 0)]), lives, "phase 2", views)
     log(f"phase 2: {n_checks} small-shape sort_aggregate checks bit-equal "
-        f"(NaN by position): N in {ROBUST_NS}, M=1000 and 1001, fp32 and "
-        f"bf16, every trim and coord_median, all live / evictions / one "
-        f"live / all dead, ties, +-0.0, +-inf, NaN, a misaligned view")
+        f"(NaN by position) on the route each N takes (register up to 32 "
+        f"agents, warp above; the launcher's tallies): N in {ROBUST_NS}, "
+        f"M=1000 and 1001, fp32 and bf16, every trim and coord_median, all "
+        f"live / evictions / one live / all dead, ties, +-0.0, +-inf, NaN, "
+        f"a misaligned view at N 4 and 100")
 
 
 def robust_full_shape(torch, bw):
@@ -953,7 +1013,7 @@ def _kernel_group(name: str) -> str:
         return "rank_select"
     if "absmax_kernel" in name or "quantize_kernel" in name:
         return "int8_quantize"
-    if "sort_aggregate_kernel" in name:
+    if "sort_aggregate_" in name:     # every route's kernel
         return "sort_aggregate"
     if any(k in name for names in SEGMENT_RANKS_STAGES.values()
            for k in names):
@@ -2843,97 +2903,127 @@ def private_pipeline(torch):
 # Phase 12: the model mesh axis, and sort_aggregate beyond 128 agents
 # ---------------------------------------------------------------------------
 
-# 12a: (N, M) of the tile path's checks: shared memory from 256 padded rows
-# up, and 20,000 rows (32,768 padded) past it, on the global scratch path
-ROBUST_TILE_NM = ((129, 1000), (129, 1001), (200, 1000), (1000, 1001),
-                  (20000, 40))
-ROBUST_TILE_TIMED = (1000, 1 << 20)      # N, M of the timed call
+# 12a: (N, M) of the checks above 128 agents, each route's boundaries from
+# both sides: the warp route's lane groups of 8 to 32 threads (N 129-1024),
+# the block route's groups of 2 to 16 warps (N 1025-16,384), and the global
+# scratch route past it (N 16,385 and 40,000)
+ROBUST_TILE_NM = ((129, 1000), (129, 1001), (200, 1000), (256, 1000),
+                  (257, 1001), (1000, 1001), (1024, 1000), (1025, 1001),
+                  (4096, 64), (16384, 16), (16385, 8), (40000, 8))
+# the timed calls: (N, M) at the paper's N 100 (P 128, the warp route's
+# 4-lane groups; 3.39 GB in bf16) and at 1000 agents (P 1024, a whole warp
+# a column); trimmed_mean trims N / 10 a side
+ROBUST_TIMED = ((100, 1 << 24), (1000, 1 << 20))
+INT32_PEAK = 132 * 64 * 1.755e9     # H100 SXM: 64 INT32 lanes an SM, 1.755 GHz
 
 
-def robust_tile_checks(torch, bw):
+def robust_tile_checks(torch, bw, timed=True):
     """Phase 12a: sort_aggregate above 128 agents bit-equal to its plain
-    version (NaN by position), then timed at N 1000; returns ``{name:
-    record}`` for the kernel table's variants."""
+    version (NaN by position) on the route each N takes, then (``timed``)
+    the timed records; returns ``{name: record}`` for the kernel table's
+    variants."""
     from repro_torch.kernels.robust_agg import kernel as rkernel
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+
+    def lives(n):
+        ev = torch.ones(n, device=dev)
+        ev[::3] = 0.0
+        one = torch.zeros(n, device=dev)
+        one[n // 2] = 1.0
+        return {"all live": None, "evictions": ev, "one live": one,
+                "all dead": torch.zeros(n, device=dev)}
+
+    n_checks = robust_checks(
+        torch, gen, ROBUST_TILE_NM,
+        lambda n: (("trimmed_mean", 0), ("trimmed_mean", 1),
+                   ("trimmed_mean", (n - 1) // 3),
+                   ("trimmed_mean", (n - 1) // 2), ("coord_median", 0)),
+        lives, "phase 12a")
+    routes = {n: rkernel.route_of(n)[0] for n, _ in ROBUST_TILE_NM}
+    log(f"phase 12a: {n_checks} sort_aggregate checks above 128 agents "
+        f"bit-equal (NaN by position), each on its route (the launcher's "
+        f"tallies): {routes}, fp32 and bf16, trims 0 / 1 / N/3 / max and "
+        f"coord_median, all live / evictions / one live / all dead, ties, "
+        f"+-0.0, +-inf, NaN; phase 2 holds N <= 128")
+    return robust_timed(torch, bw) if timed else {}
+
+
+def network_ops(n: int, m: int, dtype) -> float:
+    """Integer min/max operations (two a compare-exchange) of the network
+    the kernel runs over ``m`` columns of ``n`` rows: the register route's
+    bitonic network up to 32 rows; above, each thread's 32 registers by
+    Batcher's odd-even merge sort (191 compare-exchanges) and bitonic
+    merges of sizes 64 ... P, log2(size) stages of P/2 each; a packed 16x2
+    operation of the bf16 lane routes counts once for its two columns."""
+    pow2 = 1 << max(0, (n - 1).bit_length())
+    lg = pow2.bit_length() - 1
+    if pow2 <= 32:
+        return 2 * m * pow2 * lg * (lg + 1) / 4
+    ce = 191 * pow2 // 32 + sum(pow2 // 2 * s for s in range(6, lg + 1))
+    packed = str(dtype).endswith("bfloat16")
+    return 2 * m * ce / (2 if packed else 1)
+
+
+def robust_timed(torch, bw, plain=True, shapes=ROBUST_TIMED):
+    """sort_aggregate timed at ``shapes``, bf16 and fp32, trimmed_mean (f
+    N/10) and coord_median, all rows live: kernel ms (CUDA events, median
+    of 7) beside the byte bound and the network's operation bound; with
+    ``plain``, each result bit-equal to the plain version (column slabs),
+    its time, and ``torch.sort(x, dim=0)`` as the yardstick of the sort
+    alone.  Runs against whichever ``repro_torch`` is imported (the parent
+    tree's too: it reads no route tally)."""
     from repro_torch.kernels.robust_agg import ops as rops
     from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(12)
-    specials = torch.tensor([0.0, -0.0, math.inf, -math.inf, math.nan, 1.0,
-                             -1.0, 2.5], device=dev)
-    n_checks = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for n, m in ROBUST_TILE_NM:
-            x = torch.randn((n, m), generator=gen, device=dev)
-            idx = torch.randint(0, len(specials), (n, 32), generator=gen,
-                                device=dev)
-            x[:, :32] = specials[idx]
-            x[:, 32:36] = 0.75                   # whole tied columns
-            x = x.to(dtype)
-            ev = torch.ones(n, device=dev)
-            ev[::3] = 0.0
-            one = torch.zeros(n, device=dev)
-            one[n // 2] = 1.0
-            lives = {"all live": None, "evictions": ev, "one live": one,
-                     "all dead": torch.zeros(n, device=dev)}
-            stats = (("trimmed_mean", 0), ("trimmed_mean", 1),
-                     ("trimmed_mean", (n - 1) // 3),
-                     ("trimmed_mean", (n - 1) // 2), ("coord_median", 0))
-            for lname, live in lives.items():
-                for stat, trim in stats:
-                    got = rops.robust_aggregate(x, live, stat=stat, trim=trim)
-                    want = robust_aggregate_ref(x, live, stat=stat, trim=trim)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    recs = {}
+    for n, m in shapes:
+        slab = 1 << (18 if n <= 128 else 16)
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            x = torch.randn((n, m), generator=gen, device=dev, dtype=dtype)
+            live = torch.ones(n, device=dev)
+            sort_ms = (cuda_ms(torch, lambda: torch.sort(x, dim=0), reps=3)
+                       if plain else None)
+            torch.cuda.empty_cache()
+            for stat, f in (("trimmed_mean", n // 10), ("coord_median", 0)):
+                run = lambda: rops.robust_aggregate(x, live, stat=stat, trim=f)
+                pms = None
+                if plain:
+                    got = run()
+                    want = torch.empty_like(got)
+
+                    def plain_fn():
+                        for c in range(0, m, slab):
+                            want[:, c:c + slab] = robust_aggregate_ref(
+                                x[:, c:c + slab], live, stat=stat, trim=f)
+
+                    plain_fn()
                     same_bits(torch, got, want,
-                              f"phase 12a sort_aggregate {dtype} N={n} M={m} "
-                              f"{lname} {stat} trim={trim}")
-                    n_checks += 1
-    torch.cuda.synchronize()
-    log(f"phase 12a: {n_checks} sort_aggregate checks above 128 agents "
-        f"bit-equal (NaN by position): (N, M) in {ROBUST_TILE_NM} (tile "
-        f"plans {[rkernel.tile_plan(n, m) for n, m in ROBUST_TILE_NM]}: "
-        f"shared memory, then the global scratch path at N 20,000), fp32 "
-        f"and bf16, trims 0 / 1 / N/3 / max and coord_median, all live / "
-        f"evictions / one live / all dead, ties, +-0.0, +-inf, NaN; phase "
-        f"2 holds N <= 128 as before")
-
-    n, m = ROBUST_TILE_TIMED
-    x = torch.randn((n, m), generator=gen, device=dev, dtype=torch.bfloat16)
-    live = torch.ones(n, device=dev)
-    run = lambda: rops.robust_aggregate(x, live, stat="trimmed_mean",
-                                        trim=100)
-    got = run()
-    want = torch.empty_like(got)
-    slab = 1 << 16
-
-    def plain():
-        for c in range(0, m, slab):
-            want[:, c:c + slab] = robust_aggregate_ref(
-                x[:, c:c + slab], live, stat="trimmed_mean", trim=100)
-
-    plain()
-    same_bits(torch, got, want, "phase 12a timed call")
-    ms = cuda_ms(torch, run, reps=5)
-    pms = cuda_ms(torch, plain, reps=3)
-    sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=0), reps=3)
-    bytes_ = (n * m + m) * 2
-    # per column the least a comparison sort needs, N log2 N compares,
-    # then N selects and N adds
-    ops = m * (n * math.log2(n) + 2 * n)
-    bound = max(bytes_ / bw, ops / FP32_PEAK) * 1e3
-    rec = dict(ms=ms, plain_ms=pms, bound_ms=bound,
-               bound_by="bytes" if bytes_ / bw >= ops / FP32_PEAK
-               else "operations", max_abs_err=0.0, library_ms=None,
-               sort_yardstick_ms=sort_ms,
-               plan=list(rkernel.tile_plan(n, m)))
-    log(f"phase 12a timed: sort_aggregate trimmed_mean f=100 ({n}x{m} bf16, "
-        f"tile path {rkernel.tile_plan(n, m)}) bit-equal to the plain "
-        f"version; kernel {ms:.3f} ms, plain {pms:.3f} ms, bound "
-        f"{bound:.3f} ms ({bytes_ / 1e9:.3f} GB), {100 * bound / ms:.2f}% "
-        f"of bound; yardstick torch.sort(x, dim=0) {sort_ms:.3f} ms")
-    del x, got, want
-    torch.cuda.empty_cache()
-    return {f"sort_aggregate[N={n}]": rec}
+                              f"sort_aggregate timed N={n} M={m} {dt} {stat}")
+                    pms = cuda_ms(torch, plain_fn, reps=3)
+                    del got, want
+                ms = cuda_ms(torch, run)
+                bytes_ = (n * m + m) * x.element_size()
+                byte_ms = bytes_ / bw * 1e3
+                net_ms = network_ops(n, m, dtype) / INT32_PEAK * 1e3
+                name = f"sort_aggregate[N={n},{dt},{stat}]"
+                recs[name] = dict(
+                    ms=ms, plain_ms=pms, bound_ms=byte_ms, bound_by="bytes",
+                    network_bound_ms=net_ms, max_abs_err=0.0,  # bit-equal
+                    library_ms=None, sort_yardstick_ms=sort_ms)
+                log(f"sort_aggregate timed: {stat} f={f} ({n}x{m} {dt}) "
+                    f"kernel {ms:.3f} ms, plain {pms} ms, byte bound "
+                    f"{byte_ms:.3f} ms ({bytes_ / 1e9:.3f} GB; "
+                    f"{100 * byte_ms / ms:.1f}%), network bound {net_ms:.3f} "
+                    f"ms ({100 * net_ms / ms:.1f}%); torch.sort(x, dim=0) "
+                    f"{sort_ms} ms")
+            del x
+            torch.cuda.empty_cache()
+    return recs
 
 
 # 12b: the model-axis cases (reduced gemma2-2b, fp32, N 4, 3 rounds);
@@ -3318,6 +3408,7 @@ def model_mesh_phase(torch, device="cuda"):
     from repro_torch.fed import compress as fcompress
     from repro_torch.fed import sharding
     from repro_torch.fed.api import FedSpec
+    from repro_torch.kernels.robust_agg.kernel import route_of
 
     want = {c: _model_axis_rounds(torch, c, device) for c in MODEL_AXIS_CASES}
     one = FedSpec(mesh_shape="1x1").build_mesh(device)
@@ -3476,7 +3567,8 @@ def model_mesh_phase(torch, device="cuda"):
         log(f"phase 12d trimmed_mean f=5 with guards, N {n_agents}, "
             f"{'2x1' if world == 2 else '2x2'} mesh: sort_aggregate "
             f"{counts['sort_aggregate']} launches in {DENSE_R} rounds on the "
-            f"gathered agent column ({'the tile path above 128 agents' if n_agents > 128 else 'the register path'}), "
+            f"gathered agent column (the {route_of(n_agents)[0]} route on a "
+            f"card), "
             f"last criterion {crit:.3e}")
     return rec
 
@@ -3493,6 +3585,29 @@ def _reduced_segments(torch):
                          api.FedSpec(n_agents=FULL_N)).segments
 
 
+def sort_aggregate_times(torch, src: str) -> int:
+    """``--sort-aggregate-times [--src DIR]``: build ``robust_agg.cu`` of the
+    ``repro_torch`` under ``DIR`` (default this checkout's ``src``), print
+    its ptxas lines, and time :data:`ROBUST_TIMED` without the plain
+    version: one JSON line.  Two trees are compared in one call by running
+    this once for each, in turns."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.robust_agg import kernel as rkernel
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    for text in build.build_all([rkernel.SOURCE]).values():
+        for kname, regs, st, ld in build.ptxas_summary(text):
+            log(f"ptxas: {short_kernel_name(kname)}: {regs} registers, "
+                f"spill stores {st} B, loads {ld} B")
+    recs = robust_timed(torch, card_bandwidth(torch.cuda.get_device_name(0)),
+                        plain=False)
+    log(json.dumps({"sort_aggregate_times": recs, "src": src, "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3500,7 +3615,12 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False -- this "
               "script needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+    args = sys.argv[1:]
+    src = (args[args.index("--src") + 1] if "--src" in args
+           else os.path.join(ROOT, "src"))
+    sys.path.insert(0, src)
+    if "--sort-aggregate-times" in args:
+        return sort_aggregate_times(torch, src)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -3522,11 +3642,11 @@ def main() -> int:
         f"({', '.join(str(build.library_path(s).name) for s in kernels.kernel_sources())})")
     for src, text in logs.items():
         if not any(k in str(src) for k in ("flash_attention", "lru_scan",
-                                           "compress")):
+                                           "compress", "robust_agg")):
             continue
         for kname, regs, st, ld in build.ptxas_summary(text):
-            log(f"phase 1 ptxas: {kname[:72]}: {regs} registers, spill "
-                f"stores {st} B, loads {ld} B")
+            log(f"phase 1 ptxas: {short_kernel_name(kname)}: {regs} "
+                f"registers, spill stores {st} B, loads {ld} B")
 
     # phase 2: kernels against plain versions
     small_checks(torch)
@@ -3688,7 +3808,8 @@ def main() -> int:
                       "bound_by": r["bound_by"],
                       "library_ms": r.get("library_ms")})
     variants = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                      "max_abs_err")}
+                                      "max_abs_err", "network_bound_ms",
+                                      "sort_yardstick_ms") if f in v}
                 for k, v in recs.items() if "[" in k}
     variants["round_uplink[lagged]"]["launches_compressed_path"] = \
         comp_counts["round_uplink"]

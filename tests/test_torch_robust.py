@@ -233,26 +233,201 @@ def test_ops_rejects_bad_inputs_and_launches_nothing_on_cpu():
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """The launcher's checks run before any build: a CPU tensor is
     refused.  No agent count is: up to REGISTER_ROWS the sort runs in
-    registers, above it the tile path plans a shared-memory tile or, past
-    TILE_BYTES, a global scratch buffer, as the reference pads any N."""
+    one thread's registers, then over a lane group of a warp, then over
+    the warps of a block, and past BLOCK_ROWS in a global scratch buffer,
+    as the reference pads any N."""
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.sort_aggregate(torch.zeros((4, 8)), None, "coord_median", 0)
-    assert tkernel.REGISTER_ROWS == 128
-    assert tkernel.tile_plan(129, 1000) == (256, 64, 16, 0)
-    assert tkernel.tile_plan(1000, 1001) == (1024, 16, 63, 0)
-    assert tkernel.tile_plan(16384, 5) == (16384, 1, 5, 0)
-    pow2, tile, grid, keys = tkernel.tile_plan(20000, 40)
-    assert (pow2, tile, grid, keys) == (32768, 8, 5, 5 * 32768 * 8)
+    assert tkernel.REGISTER_ROWS == 32
+    assert tkernel.route_plan(129, 1000) == ("warp", 256, 32, 8, 64, 16, 0)
+    assert tkernel.route_plan(1000, 1001) == ("warp", 1024, 32, 32, 16, 63,
+                                              0)
+    assert tkernel.route_plan(16384, 5) == ("block", 16384, 32, 512, 2, 3,
+                                            0)
+    plan = tkernel.route_plan(20000, 40)
+    assert plan == ("scratch", 32768, 32768, 1, 8, 5, 5 * 32768 * 8)
+
+
+# (N, route, P, threads a column) on both sides of every route boundary
+ROUTE_EDGES = [(1, "register", 1, 1), (32, "register", 32, 1),
+               (33, "warp", 64, 2), (64, "warp", 64, 2),
+               (65, "warp", 128, 4), (128, "warp", 128, 4),
+               (129, "warp", 256, 8), (1024, "warp", 1024, 32),
+               (1025, "block", 2048, 64), (16384, "block", 16384, 512),
+               (16385, "scratch", 32768, 1), (40000, "scratch", 65536, 1)]
+
+
+@pytest.mark.parametrize("n,route,pow2,lanes", ROUTE_EDGES)
+def test_route_plans_at_every_boundary(n, route, pow2, lanes):
+    """The route of each N, its padded rows and threads a column; the
+    lane routes' tile (columns a block: 256 threads, or one group where G
+    is larger, two bf16 columns or one float32 column a group) and the
+    persistent grid (every tile, capped at the blocks that fit the card),
+    the register route's 16-byte vectors only up to 64 keys a thread, and
+    the scratch route's buffer under SCRATCH_BYTES."""
+    assert tkernel.route_of(n) == (route, pow2)
+    for dtype, cols in ((torch.bfloat16, 2), (torch.float32, 1)):
+        for m in (1, 1000, 1 << 20):
+            plan = tkernel.route_plan(n, m, dtype, sms=132, blocks_per_sm=3)
+            assert (plan.route, plan.pow2, plan.lanes) == (route, pow2, lanes)
+            if route in ("warp", "block"):
+                assert plan.keys == tkernel.KEYS == pow2 // lanes
+                assert plan.tile == cols * max(256, lanes) // lanes
+                assert plan.grid == min(-(-m // plan.tile), 132 * 3)
+            elif route == "register":
+                per = 8 if dtype == torch.bfloat16 else 4
+                v = per if pow2 * per <= 64 else 1
+                assert plan.tile == 256 * v
+                assert plan.grid == -(-m // plan.tile)
+                assert tkernel.route_plan(n, m, dtype, vec=False).tile == 256
+            else:
+                assert plan.tile == tkernel.GLOBAL_TILE
+                assert plan.grid == min(-(-m // 8), tkernel.SCRATCH_BYTES
+                                        // (4 * pow2 * 8))
+                assert plan.scratch_keys == plan.grid * pow2 * plan.tile
+                assert 4 * plan.scratch_keys <= tkernel.SCRATCH_BYTES
+
+
+def _emulate_network(k, t, K):
+    """The lane kernel's network on ``k[t, j]`` (thread ``t`` of the
+    group, register ``j``, position ``t K + j``): each thread's K registers
+    by Batcher's odd-even merge sort, then bitonic merges of sizes 2K ...
+    P, each a mirror stage (p against p ^ (size - 1)) and strides size/4
+    ... 1, the smaller key to the lower position; spans below K within a
+    thread, the others against thread ``t ^ D`` (the kernel's shuffle or
+    shared-memory round), the mirror's registers reversed."""
+    G = k.shape[0]
+
+    def exchange(i, j):
+        a, b = k[:, i].clone(), k[:, j].clone()
+        k[:, i] = torch.minimum(a, b)
+        k[:, j] = torch.maximum(a, b)
+
+    p = 1
+    while p < K:
+        d = p
+        while d >= 1:
+            r = d % p
+            for i in range(K):
+                if (i + d < K and i >= r and ((i - r) // d) % 2 == 0
+                        and i // (2 * p) == (i + d) // (2 * p)):
+                    exchange(i, i + d)
+            d //= 2
+        p *= 2
+    size = 2 * K
+    while size <= K * G:
+        stages = [(size - 1, True)]
+        stride = size // 4
+        while stride >= 1:
+            stages.append((stride, False))
+            stride //= 2
+        for span, mirror in stages:
+            if span < K:
+                for i in range(K):
+                    if i ^ span > i:
+                        exchange(i, i ^ span)
+                continue
+            D = span // K
+            bit = size // K // 2 if mirror else D
+            lower = ((t & bit) == 0)[:, None, None]
+            other = k[t ^ D]
+            if mirror:
+                other = other.flip(1)
+            k = torch.where(lower, torch.minimum(k, other),
+                            torch.maximum(k, other))
+        size *= 2
+    return k
+
+
+def _emulate_lane_kernel(bits, live, stat, trim):
+    """The warp and block routes' arithmetic in plain torch on the CPU:
+    keys (bf16 as 16-bit keys; dead rows and the padding the largest key),
+    row ``j G + t`` to thread ``t``'s register ``j``, the network, then the
+    trimmed mean's tree in the lane layout as the kernel runs it (the
+    levels across threads, D = G/2 ... 1, then thread 0's registers spread
+    over a group's lanes: the levels h >= W in registers, the levels h < W
+    across lanes) or the median's two values each plus 0.0."""
+    n, m = bits.shape
+    route, pow2 = tkernel.route_of(n)
+    assert route in ("warp", "block")
+    K = tkernel.KEYS
+    G = pow2 // K
+    b = torch.from_numpy(bits.astype(np.int64))
+    if bits.dtype == np.uint16:
+        key = b ^ torch.where(b >= 0x8000, 0x7FFF, 0) ^ 0x8000
+        last = 0xFFFF
+    else:
+        key = torch.where(b >= 1 << 31, b ^ 0xFFFFFFFF, b ^ 0x80000000)
+        last = 0xFFFFFFFF
+    lv = np.ones(n, np.float32) if live is None else live
+    n_live = int(lv.astype(np.int32).sum())
+    keep = torch.from_numpy((lv != 0) | bool((lv != 0).sum() == 0))
+    key = torch.where(keep[:, None], key, last)
+    key = torch.cat([key, torch.full((pow2 - n, m), last)])
+    t = torch.arange(G)
+    k = _emulate_network(key.reshape(K, G, m).permute(1, 0, 2).clone(), t, K)
+    if bits.dtype == np.uint16:
+        u = k ^ 0x8000
+        u = u ^ torch.where(u >= 0x8000, 0x7FFF, 0)
+        u = u << 16
+    else:
+        u = torch.where(k >= 1 << 31, k ^ 0x80000000, k ^ 0xFFFFFFFF)
+    val = (u - ((u >> 31) << 32)).to(torch.int32).view(torch.float32)
+    if stat == "trimmed_mean":
+        p = (t[:, None] * K + torch.arange(K)[None, :])[:, :, None]
+        v = torch.where((p >= trim) & (p < n_live - trim), val,
+                        torch.zeros((), dtype=torch.float32))
+        D = G // 2
+        while D >= 1:
+            v = torch.cat([v[:D] + v[D:2 * D], v[2 * D:]])
+            D //= 2
+        # thread 0's registers j: the kernel's lane u of a W-lane group
+        # holds j = u + W i; levels h >= W pair i and i + h / W in its
+        # registers, then levels h < W pair lanes u and u + h by shuffles
+        W = min(G, 32)
+        u = v[0].reshape(K // W, W, m)             # u[i, lane] = v[lane + W i]
+        while u.shape[0] > 1:
+            u = u[:u.shape[0] // 2] + u[u.shape[0] // 2:]
+        u = u[0]
+        while u.shape[0] > 1:
+            u = u[:u.shape[0] // 2] + u[u.shape[0] // 2:]
+        v = u
+        d = torch.tensor(float(max(n_live - 2 * trim, 1)))
+        res = v[0] * (torch.tensor(1.0) / d)
+    else:
+        flat = val.reshape(pow2, m)
+        lo, hi = (n_live - 1) // 2, n_live // 2
+        v_lo = flat[lo] + 0.0 if lo >= 0 else torch.zeros(m)
+        res = 0.5 * (v_lo + (flat[hi] + 0.0))
+    return res.reshape(1, m).to(_port(bits).dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [129, 200, 256, 1000, 1025])
+def test_lane_kernel_emulation_matches_reference(n, dtype):
+    """The lane routes' network and pairwise tree in their layout,
+    emulated on the CPU, bit-equal to the reference's oracle: every live
+    kind, no trim, one, N/3, the largest, and the median."""
+    bits = _bits(n, 24, dtype, seed=500 + n, special=True)
+    for live_kind in LIVES:
+        live = _live(live_kind, n)
+        for stat, trim in (("trimmed_mean", 0), ("trimmed_mean", 1),
+                           ("trimmed_mean", (n - 1) // 3),
+                           ("trimmed_mean", (n - 1) // 2),
+                           ("coord_median", 0)):
+            got = _emulate_lane_kernel(bits, live, stat, trim)
+            want = jref(_ref(bits), live, stat=stat, trim=trim)
+            _assert_same(got, want, f"{live_kind} {stat} trim={trim}")
 
 
 @pytest.mark.parametrize("live_kind", ("all", "evict", "dead"))
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [129, 200])
+@pytest.mark.parametrize("n", [129, 200, 256, 1024, 1025])
 def test_plain_matches_reference_above_128_agents(n, dtype, live_kind):
-    """Above 128 agents (the card's tile path; the plain version has no
-    cap) the plain version equals the reference's oracle bit for bit,
-    with dead rows, ties and special values: no trim, one, the largest,
-    and the median."""
+    """Above 128 agents (the card's warp, block and scratch routes; the
+    plain version has no cap) the plain version equals the reference's
+    oracle bit for bit, with dead rows, ties and special values: no trim,
+    one, the largest, and the median."""
     bits = _bits(n, 67, dtype, seed=300 + n, special=True)
     live = _live(live_kind, n)
     for stat, trim in (("trimmed_mean", 0), ("trimmed_mean", 1),
@@ -270,36 +445,45 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _on_card_matches_plain(x, n, stats):
+    """Every live kind and stat through the kernel bit-equal to the plain
+    version, each launch on the route ``route_of(n)`` names (the C
+    launcher's tallies)."""
+    route = tkernel.route_of(n)[0]
+    for live_kind in LIVES:
+        live = _live(live_kind, n)
+        for stat, trim in stats:
+            before = tkernel.route_counts()
+            got = tops.robust_aggregate(x, live, stat=stat, trim=trim)
+            torch.cuda.synchronize()
+            after = tkernel.route_counts()
+            assert {r for r in after if after[r] > before[r]} == {route}
+            want = tref.robust_aggregate_ref(x, live, stat=stat, trim=trim)
+            _assert_same(got.cpu(), want.cpu(), f"{stat} trim={trim}")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 4, 17, 128])
+@pytest.mark.parametrize("n", [1, 4, 17, 32, 33, 64, 65, 128])
 def test_kernel_matches_plain_version_on_card(cuda_device, n, dtype):
+    """The register route (N <= 32) and the warp route's groups of 2 and
+    4 lanes, every trim and the median."""
     bits = _bits(n, 1001, dtype, seed=n, special=True)
-    x = _port(bits).to(cuda_device)
-    for live_kind in LIVES:
-        live = _live(live_kind, n)
-        for stat, trim in _stats(n):
-            got = tops.robust_aggregate(x, live, stat=stat, trim=trim)
-            want = tref.robust_aggregate_ref(x, live, stat=stat, trim=trim)
-            _assert_same(got.cpu(), want.cpu(), f"{stat} trim={trim}")
+    _on_card_matches_plain(_port(bits).to(cuda_device), n, _stats(n))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [129, 200, 1000, 20000])
+@pytest.mark.parametrize("n", [129, 200, 256, 1000, 1024, 1025, 20000])
 def test_tile_kernel_matches_plain_version_on_card(cuda_device, n, dtype):
-    """The tile path (shared memory up to 16,384 agents, a global
-    scratch buffer at 20,000) against the plain version, bit for bit."""
-    bits = _bits(n, 40 if n > 1000 else 1001, dtype, seed=n, special=True)
-    x = _port(bits).to(cuda_device)
-    for live_kind in LIVES:
-        live = _live(live_kind, n)
-        for stat, trim in (("trimmed_mean", 0), ("trimmed_mean", 1),
-                           ("trimmed_mean", (n - 1) // 2),
-                           ("coord_median", 0)):
-            got = tops.robust_aggregate(x, live, stat=stat, trim=trim)
-            want = tref.robust_aggregate_ref(x, live, stat=stat, trim=trim)
-            _assert_same(got.cpu(), want.cpu(), f"{stat} trim={trim}")
+    """The warp route (up to 1024 agents), the block route (1025) and the
+    global scratch route (20,000) against the plain version, bit for
+    bit."""
+    bits = _bits(n, 40 if n > 1025 else 1001, dtype, seed=n, special=True)
+    _on_card_matches_plain(_port(bits).to(cuda_device), n,
+                           (("trimmed_mean", 0), ("trimmed_mean", 1),
+                            ("trimmed_mean", (n - 1) // 2),
+                            ("coord_median", 0)))
 
 
 # ---------------------------------------------------------------------------
