@@ -90,7 +90,12 @@ last line):
    shape (B 2, S = T 512, H 8, Hkv 4, D 256, bf16, cap 50, causal with
    window None and 4096) and recurrentgemma-2b's local layer of phase
    10d (B 2, S = T 512, H 10, Hkv 1, D 256, bf16, no cap, causal with
-   window None and 2048).  Tolerance: fp32 o and lse 1e-5 max(1, |ref|)
+   window None and 2048); the head shapes of phase 13's configs, fp32
+   and bf16, S = T in (64, 129, 512), causal, no cap: (H, Hkv, D) (24,
+   8, 128), (96, 8, 192), (8, 1, 192) -- D 192 padded to 256 by the
+   launcher -- and (16, 8, 256) with window 1024; and their published
+   layers at B 2, S = T 512, bf16 (phi4-mini-3.8b, gemma3-12b's local
+   layer, nemotron-4-340b).  Tolerance: fp32 o and lse 1e-5 max(1, |ref|)
    elementwise, fp32 gradients 1e-4 max|ref|, bf16 one ulp of the plain
    result plus 1e-5 max|ref|; at S = T = 1 the exact dq and dk are 0
    (one key, p = 1), held to 1e-5 max|dv|.  9b: gemma2-2b's attention
@@ -187,7 +192,7 @@ last line):
    and int8 ``q`` and the trimmed mean equal the 1x1 mesh's columns bit
    for bit.  12c: the main path at full width (gemma2-2b, 2 layers, bf16,
    N 4, batch 8, seq 512, N_e 2, gd) under ``mesh_shape="1x2"`` on two
-   gloo ranks on the card, 2 rounds: finite, equal losses on both ranks;
+   gloo ranks on the card, one round: finite, equal losses on both ranks;
    per rank and round partial 1, presummed 1, fedplt_update 2, flash 16
    forward and 16 backward, unsharded edges 0; each rank's state block
    (4, 372,774,528) and peak memory; round seconds (gloo-staged), beside
@@ -202,6 +207,25 @@ last line):
    kernel's warp route on the gathered agent column, 20 sort_aggregate
    launches each.  Only gloo's refusal of CUDA tensors drops 12b-12d, as
    it drops 8e.
+
+13. The untied LM head, the vocab-chunked loss and the configs that bring
+   them (no new kernel).  13a: the reduced phi4-mini-3.8b (chunked_loss
+   128: 4 chunks of the 512-token vocab), gemma3-12b (6 layers: five
+   local, one global) and nemotron-4-340b (untied head, head_dim 192,
+   chunked_loss 128), float32, N 4, packed, fused backend and update, 2
+   rounds and one topk 0.25 round on the card and on the CPU: launch
+   counts, states within 1e-4 (phase 3's rule for the near-tie top-k
+   swaps).  13b: phi4-mini-3.8b at published width cut to 2 layers
+   (815,938,560 parameters: the tied embedding 614,596,608, 2 x
+   100,669,440 and the final norm's 3,072), phase 4's spec, 3 rounds
+   through ``run_fed``: uplink 3, downlink 3, fedplt_update 6, flash 48
+   forward and 48 backward; finite losses and state; peak memory; one
+   profiled round.  13c: 13b with ``chunked_loss`` 25,008 and phase 4's
+   gemma2-2b with 32,000 (8 chunks each, asserted), the same counts;
+   the first-round loss against the full-logit run's (1e-3 relative for
+   phi4, 2^-8 for gemma2, whose full-logit path softcaps in bf16), round
+   ms, peak memory and the profiled round's matmul and elementwise
+   groups beside the full-logit run's.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -228,7 +252,8 @@ slabs, timed beside the byte bound and, as a yardstick of the sort alone,
 ``torch.sort(x, dim=0)``.  Phase 3 also runs 2 compressed (topk) rounds
 and 2 robust rounds (N=4, trimmed_mean f=1, one sign-flipped agent).
 
-Then one JSON line per kernel table, and the last line
+Then the seconds of each phase, one JSON line per kernel table, and the
+last line
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --sort-aggregate-times [--src DIR]`` builds only
@@ -913,6 +938,28 @@ def robust_full_shape(torch, bw):
 # Phases 3-6: the trainer
 # ---------------------------------------------------------------------------
 
+def card_vs_cpu(torch, states, what):
+    """``(max abs err, flips)`` of the card's x, z (and t) against the
+    CPU's; fails beyond 1e-4, or beyond 24 flips."""
+    compressed = states["cpu"].t is not None
+    err, flips = 0.0, 0
+    for var in ("x", "z", "t") if compressed else ("x", "z"):
+        d = (getattr(states["cuda"], var).cpu()
+             - getattr(states["cpu"], var)).abs()
+        if compressed:
+            # a float32-rounding difference in z_new - t may swap two
+            # near-equal magnitudes at the k-th position: a few entries
+            # of t then differ by a whole transmitted value, and x and
+            # z follow at those entries in the next round
+            flips += int((d > 1e-4).sum())
+            d = torch.where(d > 1e-4, torch.zeros_like(d), d)
+        err = max(err, float(d.max()))
+    if not err <= 1e-4 or flips > 24:
+        fail(f"{what}: card vs CPU max abs err {err}, {flips} entries "
+             f"beyond 1e-4")
+    return err, flips
+
+
 def small_input_parity(torch):
     """Two reduced-gemma2 rounds (float32) on the card and on the CPU."""
     from repro_torch.configs import get_config
@@ -942,21 +989,7 @@ def small_input_parity(torch):
                 st, _ = tr.step(st, b, u=torch.ones(2))
             states[dev] = st
         compressed = states["cpu"].t is not None
-        err, flips = 0.0, 0
-        for var in ("x", "z", "t") if compressed else ("x", "z"):
-            d = (getattr(states["cuda"], var).cpu()
-                 - getattr(states["cpu"], var)).abs()
-            if compressed:
-                # a float32-rounding difference in z_new - t may swap two
-                # near-equal magnitudes at the k-th position: a few entries
-                # of t then differ by a whole transmitted value, and x and
-                # z follow at those entries in the next round
-                flips += int((d > 1e-4).sum())
-                d = torch.where(d > 1e-4, torch.zeros_like(d), d)
-            err = max(err, float(d.max()))
-        if not err <= 1e-4 or flips > 24:
-            fail(f"small-input check{label}: card vs CPU max abs err {err}, "
-                 f"{flips} entries beyond 1e-4")
+        err, flips = card_vs_cpu(torch, states, f"small-input check{label}")
         log(f"phase 3{label}: reduced gemma2-2b fp32, 2 rounds, card (kernels) "
             f"vs CPU (plain versions): max abs err {err:.3g} (tolerance 1e-4)"
             + (f" on x, z and t apart from {flips} entries (of "
@@ -1091,6 +1124,7 @@ def profile_round(torch, trainer, state, gen, cfg, label):
         + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
            " (the profiler saw no device time)"))
     log(json.dumps({"profile": rec}))
+    return rec
 
 
 MAIN_SEQ, MAIN_BATCH = 512, 8     # the main path's tokens per sequence, batch
@@ -1114,18 +1148,28 @@ class Cell:
 
 
 GEMMA = Cell("gemma2-2b", N_LAYERS, 745_549_056, 18, FULL_M, N_LAYERS)
+# tied embedding 614,596,608 + 2 x 100,669,440 + the final norm's 3,072;
+# one global layer a pattern unit, so ten leaves stacked over 2 units
+PHI4 = Cell("phi4-mini-3.8b", N_LAYERS, 815_938_560, 10, 815_938_560,
+            N_LAYERS)
 # one pattern unit (rec, rec, local), and two Mamba layers, both bf16 with
 # float32 leaves (dt_bias, A_log, D; lam): tree layout
 RGEMMA = Cell("recurrentgemma-2b", 3, 912_309_760, 34, None, 1, 2)
 MAMBA = Cell("falcon-mamba-7b", 2, 476_966_912, 12, None, 0, 2)
 
 
-def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA):
+def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
+                cfg_kw=None, profile_out=None):
+    """``steps`` rounds of ``cell`` (its config with ``cfg_kw`` replaced)
+    through ``run_fed``, checked; returns ``(counts, history, peak)`` and,
+    with ``profile``, puts the profiled round's record in
+    ``profile_out``."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run_fed
 
-    cfg = dataclasses.replace(get_config(cell.arch), n_layers=cell.n_layers)
+    cfg = dataclasses.replace(get_config(cell.arch), n_layers=cell.n_layers,
+                              **(cfg_kw or {}))
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
@@ -1167,8 +1211,10 @@ def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA):
     log(f"{label}: {n_params:,} params, {layout}; launches {counts}; peak "
         f"device memory {peak / 1e9:.2f} GB; {wall:.1f} s wall")
     if profile:
-        profile_round(torch, trainer, state, trainer_gen, cfg,
-                      " ".join(label.split()[:2]))
+        rec = profile_round(torch, trainer, state, trainer_gen, cfg,
+                            " ".join(label.split()[:2]))
+        if profile_out is not None:
+            profile_out.update(rec)
     del trainer, state, x
     torch.cuda.empty_cache()
     return counts, hist, peak
@@ -1694,6 +1740,10 @@ def sharded_robust_round(torch, base):
 BF16_PEAK = 989e12                  # H100 SXM bf16 tensor-core FLOP/s, dense
 FLASH_FULL = dict(B=1, S=8192, H=8, Hkv=4, D=256)   # gemma2-2b at 8192 tokens
 FLASH_CAP, FLASH_WINDOW = 50.0, 4096
+# (H, Hkv, D, window) of phi4-mini-3.8b, nemotron-4-340b (and MQA at its
+# D 192) and gemma3-12b's local layer
+NEW_HEADS = ((24, 8, 128, None), (96, 8, 192, None), (8, 1, 192, None),
+             (16, 8, 256, 1024))
 
 
 def flash_close(torch, got, want, what, grad=False):
@@ -1817,6 +1867,29 @@ def flash_small_checks(torch):
         shapes.append(f"{arch}'s B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}"
                       f", bf16, cap {cfg.attn_softcap}, causal with window "
                       f"None and {cfg.window}")
+    # the head shapes of phi4-mini-3.8b (GQA groups of 3), nemotron-4-340b
+    # (groups of 12, D 192: the launcher pads to 256, the fourth 64-column
+    # panel wholly out of bounds) and gemma3-12b's local layer
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (64, 129, 512):
+            for H, Hkv, D, window in NEW_HEADS:
+                q, k, v, do = draw(2, S, S, H, Hkv, D, dtype)
+                kw = dict(causal=True, window=window, cap=None)
+                check(q, k, v, do, kw, f"{dtype} S={S} H={H} Hkv={Hkv} "
+                      f"D={D} {kw}")
+    # the published layers of the three configs at the trainer's shape
+    for arch in ("phi4-mini-3.8b", "gemma3-12b", "nemotron-4-340b"):
+        cfg = get_config(arch)
+        B, S = MAIN_BATCH // FULL_N, MAIN_SEQ
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        window = cfg.window if "local" in cfg.pattern else None
+        q, k, v, do = draw(B, S, S, H, Hkv, D, torch.bfloat16)
+        kw = dict(causal=True, window=window, cap=cfg.attn_softcap)
+        check(q, k, v, do, kw, f"{arch} shape B={B} S={S} H={H} "
+              f"Hkv={Hkv} D={D} bf16 {kw}")
+        shapes.append(f"{arch}'s B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}"
+                      f", bf16, cap {cfg.attn_softcap}, causal, window "
+                      f"{window}")
     # rows with no visible key (S > T + window - 1): the mean of v
     q, k, v, do = draw(2, 300, 40, 8, 4, 64, torch.float32)
     for causal in (True, False):
@@ -1836,7 +1909,9 @@ def flash_small_checks(torch):
         f"(8, 1)), D in (64, 128, 256), causal or not, window None / 3 / "
         f"100, cap None / 50; bf16 tile edges (S, T) in (63, 63), (65, 65), "
         f"(129, 129), (192, 192), (300, 40), (40, 300), (200, 129) with "
-        f"(H, Hkv) (8, 4) and (10, 1), D 64 and 256; the main path's shapes "
+        f"(H, Hkv) (8, 4) and (10, 1), D 64 and 256; fp32 and bf16, S = T "
+        f"in (64, 129, 512), causal, cap None at (H, Hkv, D, window) in "
+        f"{NEW_HEADS}; the trainers' shapes "
         f"({'; '.join(shapes)}), and fp32 rows with no visible key (S 300, "
         f"T 40, window 100); max abs err o {worst['o']:.3g}, lse "
         f"{worst['lse']:.3g}, grads {worst['grad']:.3g}; the bf16 kernels "
@@ -3215,11 +3290,16 @@ def _dense_robust_mesh(torch, device, mesh_shape, n_agents, trim):
     return float(crit[-1]), kernels.launch_counts()
 
 
+# 12c's rounds: each is 22-30 s of gloo staging through host memory (the
+# full-width rounds on one rank run in phases 4-8 and 13)
+FW_ROUNDS = 1
+
+
 def _full_width_rank(torch, mesh_shape):
     """12c on one rank: gemma2-2b at published width, 2 layers, bf16, the
-    main path's spec under ``mesh_shape``, 2 rounds; per round the loss,
-    the seconds and the launch counts, then the peak memory and the state
-    block's shape."""
+    main path's spec under ``mesh_shape``, :data:`FW_ROUNDS` rounds; per
+    round the loss, the seconds and the launch counts, then the peak
+    memory and the state block's shape."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -3237,7 +3317,7 @@ def _full_width_rank(torch, mesh_shape):
     torch.cuda.reset_peak_memory_stats()
     shape = InputShape("cli", MAIN_SEQ, MAIN_BATCH, "train")
     rounds = []
-    for _ in range(2):
+    for _ in range(FW_ROUNDS):
         b = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device=tr.device)
         kernels.reset_launch_counts()
         t0 = time.time()
@@ -3385,7 +3465,8 @@ def _full_width_checks(fw):
     log(f"phase 12c: gemma2-2b ({N_LAYERS} layers, {FULL_M:,} parameters, "
         f"bf16, N {FULL_N}, batch {MAIN_BATCH}, seq {MAIN_SEQ}, N_e "
         f"{N_EPOCHS}, gd) under mesh_shape 1x2 on two gloo ranks on the "
-        f"card, 2 rounds: losses {rec['losses']} on both ranks; each "
+        f"card, {FW_ROUNDS} round(s): losses {rec['losses']} on both "
+        f"ranks; each "
         f"rank holds the state block {fw[0]['shape']} and launches per round "
         f"partial 1, presummed 1, fedplt_update {N_EPOCHS}, flash "
         f"{FULL_N * N_EPOCHS * N_LAYERS} forward and "
@@ -3573,6 +3654,145 @@ def model_mesh_phase(torch, device="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the untied LM head, the vocab-chunked loss, the new configs
+# ---------------------------------------------------------------------------
+
+# 13a: (arch, layers, config changes) of the reduced models; 128 is 4
+# chunks of the reduced 512-token vocab; gemma3-12b's 6 layers run its
+# global layer; nemotron's head dim at its published 192
+LM_REDUCED = (("phi4-mini-3.8b", 2, dict(chunked_loss=128)),
+              ("gemma3-12b", 6, {}),
+              ("nemotron-4-340b", 2, dict(head_dim=192, chunked_loss=128)))
+# 13c: (cell, chunk, chunks, first-round loss tolerance).  phi4 has no
+# final softcap: both paths round the same bf16 products, so 1e-3
+# relative.  gemma2's full-logit path softcaps the bf16 logits in bf16,
+# the chunked path in float32: each softcapped logit moves by at most
+# 2^-9 of its magnitude, which moves the gold logit and the log-sum-exp
+# by at most 2^-9 max|z| each; at the random init max|z| is below the
+# loss (ln 256,000 = 12.45), so 2^-8 relative
+CHUNKED = ((PHI4, 25_008, 8, 1e-3), (GEMMA, 32_000, 8, 2.0 ** -8))
+
+
+def chunks_of(torch, vocab: int, chunk: int, want: int) -> int:
+    """The number of vocab chunks a loss takes (a chunk that does not
+    divide the vocab is one chunk); fails unless it is ``want``."""
+    from repro_torch.models.layers import vocab_chunk
+
+    n = vocab // vocab_chunk(vocab, chunk)
+    if n != want:
+        fail(f"chunked_loss {chunk} over a vocab of {vocab}: {n} chunks, "
+             f"want {want}")
+    return n
+
+
+def lm_head_parity(torch):
+    """Phase 13a: the reduced phi4-mini-3.8b, gemma3-12b and nemotron-4-340b
+    (float32), 2 rounds and one topk round, N 4, packed, fused backend
+    and update, on the card (kernels) and the CPU (plain versions)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    base = dict(n_agents=FULL_N, n_epochs=N_EPOCHS, gamma=0.05,
+                weight_decay=0.01, state_layout="packed",
+                engine_backend="fused", use_fused_update=True)
+    out = {}
+    for arch, n_layers, kw in LM_REDUCED:
+        cfg = dataclasses.replace(get_config(arch).reduced(n_layers=n_layers),
+                                  **kw)
+        if cfg.chunked_loss:
+            chunks_of(torch, cfg.vocab, cfg.chunked_loss, 4)
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        shape = InputShape("small", 64, 2 * FULL_N, "train")
+        batches = [make_batch_for(cfg, shape, gen, n_agents=FULL_N)
+                   for _ in range(2)]
+        topk = api.CompressionSpec("topk", ratio=0.25)
+        for label, spec, rounds, extra in (
+                ("", api.FedSpec(**base), 2, {}),
+                (" topk 0.25", api.FedSpec(**base, compression=topk), 1,
+                 dict(rank_select=1))):
+            states, counts, losses = {}, {}, {}
+            for dev in ("cuda", "cpu"):
+                tr = api.build_trainer(model, spec, dev)
+                st, _ = tr.init(0, params=params)
+                kernels.reset_launch_counts()
+                losses[dev] = []
+                for b in batches[:rounds]:
+                    st, m = tr.step(st, b, u=torch.ones(FULL_N))
+                    losses[dev].append(float(m["loss"]))
+                states[dev], counts[dev] = st, kernels.launch_counts()
+            what = f"phase 13a {arch}{label}"
+            flash = rounds * FULL_N * N_EPOCHS * n_layers
+            want = expected_counts(
+                round_uplink=rounds, round_downlink=rounds,
+                fedplt_update=rounds * N_EPOCHS, flash_attention_fwd=flash,
+                flash_attention_bwd=flash, **extra)
+            if counts["cuda"] != want or set(counts["cpu"].values()) != {0}:
+                fail(f"{what}: launches card {counts['cuda']}, CPU "
+                     f"{counts['cpu']}; want {want} and none")
+            if not all(map(math.isfinite, losses["cuda"])):
+                fail(f"{what}: losses {losses['cuda']}")
+            err, flips = card_vs_cpu(torch, states, what)
+            out[f"{arch}{label}"] = dict(max_abs_err=err, flips=flips,
+                                         losses=losses["cuda"])
+            log(f"{what}: reduced ({n_layers} layers {cfg.layer_kinds()}, "
+                f"head dim {cfg.resolved_head_dim}, "
+                f"{'tied' if cfg.tie_embeddings else 'untied'} head, "
+                f"chunked_loss {cfg.chunked_loss}) fp32, {rounds} rounds, "
+                f"card (kernels: {want['flash_attention_fwd']} flash "
+                f"launches each way) vs CPU: max abs err {err:.3g} "
+                f"(tolerance 1e-4)" + (f", {flips} entries that follow a "
+                                       f"near-tie top-k swap" if flips
+                                       else ""))
+    return out
+
+
+def chunked_variant(torch, spec, cell, chunk, n_chunks, tol, plain):
+    """Phase 13c: ``cell``'s full-width run with ``chunked_loss = chunk``
+    beside its full-logit run ``plain`` (``(history, peak, profile)`` of
+    the same script run)."""
+    from repro_torch.configs import get_config
+
+    chunks_of(torch, get_config(cell.arch).vocab, chunk, n_chunks)
+    prof = {}
+    label = f"phase 13c {cell.arch} chunked_loss {chunk} ({n_chunks} chunks)"
+    _, hist, peak = train_phase(
+        torch, label, spec, 3,
+        expected_counts(3, cell, round_uplink=3, round_downlink=3,
+                        fedplt_update=6), profile=True, cell=cell,
+        cfg_kw=dict(chunked_loss=chunk), profile_out=prof)
+    p_hist, p_peak, p_prof = plain
+    first, p_first = hist[0]["loss"], p_hist[0]["loss"]
+    rel = abs(first - p_first) / abs(p_first)
+    if not rel <= tol:
+        fail(f"{label}: first-round loss {first} against the full logits' "
+             f"{p_first} (relative {rel:.3g} > {tol:.3g})")
+    groups = ("other elementwise/reduction", "matmul")
+    rec = {"chunk": chunk, "chunks": n_chunks,
+           "first_loss": first, "unchunked_first_loss": p_first,
+           "first_loss_rel": rel, "tolerance": tol,
+           "round_ms": [1e3 * h["dt"] for h in hist],
+           "unchunked_round_ms": [1e3 * h["dt"] for h in p_hist],
+           "peak_gb": peak / 1e9, "unchunked_peak_gb": p_peak / 1e9,
+           "groups_ms": {g: prof.get("groups_ms", {}).get(g)
+                         for g in groups},
+           "unchunked_groups_ms": {g: p_prof.get("groups_ms", {}).get(g)
+                                   for g in groups}}
+    log(f"{label}: first-round loss {first:.6f} (full logits {p_first:.6f}, "
+        f"relative {rel:.3g}, tolerance {tol:.3g}); steady rounds "
+        f"{[round(v, 2) for v in rec['round_ms'][1:]]} ms (full logits "
+        f"{[round(v, 2) for v in rec['unchunked_round_ms'][1:]]}); peak "
+        f"{peak / 1e9:.2f} GB (full logits {p_peak / 1e9:.2f}); profiled "
+        f"round {rec['groups_ms']} (full logits {rec['unchunked_groups_ms']})")
+    return rec
+
+
 def _reduced_segments(torch):
     """The packed segments of 12b's reduced gemma2-2b state."""
     from repro_torch.configs import get_config
@@ -3625,6 +3845,14 @@ def main() -> int:
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
 
+    # seconds of each phase (the last line of every run reads them)
+    phase_s, last = {}, [time.time()]
+
+    def stamp(phase):
+        now = time.time()
+        phase_s[phase] = round(now - last[0], 1)
+        last[0] = now
+
     # phase 1: the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3648,6 +3876,7 @@ def main() -> int:
             log(f"phase 1 ptxas: {short_kernel_name(kname)}: {regs} "
                 f"registers, spill stores {st} B, loads {ld} B")
 
+    stamp(1)
     # phase 2: kernels against plain versions
     small_checks(torch)
     compress_small_checks(torch)
@@ -3656,25 +3885,31 @@ def main() -> int:
     robust_small_checks(torch)
     recs.update(robust_full_shape(torch, bw))
 
+    stamp(2)
     # phase 3: small-input agreement of the whole round
     small_input_parity(torch)
 
+    stamp(3)
     # phase 4: the main path
     base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
                 state_layout="packed", engine_backend="fused",
                 use_fused_update=True)
+    main_prof = {}
     main_counts, hist, main_peak = train_phase(
         torch, "phase 4 main path", FedSpec(**base), 3,
         expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6),
-        profile=True)
+        profile=True, profile_out=main_prof)
     round_ms = [1e3 * h["dt"] for h in hist]
+    main_run = (hist, main_peak, main_prof)      # 13c's full-logit gemma2
 
+    stamp(4)
     # phase 5: the DP path
     train_phase(torch, "phase 5 DP path",
                 FedSpec(**base, privacy=PrivacySpec(tau=0.01, clip=1.0)), 1,
                 expected_counts(1, round_uplink=1, round_downlink=1,
                                 fedplt_update=2))
 
+    stamp(5)
     # phase 6: the compressed z-exchange on the main path
     comp_counts, comp_hist, comp_peak = train_phase(
         torch, "phase 6 compressed main path (topk 0.25)",
@@ -3693,9 +3928,11 @@ def main() -> int:
         expected_counts(1, round_uplink=1, round_downlink=1, fedplt_update=2,
                         rank_select=1))
 
+    stamp(6)
     # phase 7: the byzantine-robust, fault-screened round
     robust_counts, robust_variants = robust_phase(torch, base)
 
+    stamp(7)
     # phase 8: agent-sharded rounds on a 1-rank NCCL mesh
     sharded_small_checks(torch)
     recs.update(sharded_full_shape(torch, bw))
@@ -3716,12 +3953,14 @@ def main() -> int:
     mesh_robust = sharded_robust_round(torch, base)
     two_ranks = two_ranks_over_gloo(torch, one_rank)
 
+    stamp(8)
     # phase 9: flash attention, forward and backward
     flash_small_checks(torch)
     flash = flash_full_shape(torch, bw)
     for kname in ("flash_attention_fwd", "flash_attention_bwd"):
         recs[kname] = flash["global"][kname[-3:]]
 
+    stamp(9)
     # phase 10: the SSM and RG-LRU kinds through the lru_scan kernels
     lru_small_checks(torch)
     recs.update(lru_full_shape(torch, bw))
@@ -3741,6 +3980,7 @@ def main() -> int:
                           "losses": [h["loss"] for h in hist]}
     lru_counts = ssm[MAMBA.arch]["counts"]
 
+    stamp(10)
     # phase 11: segment_ranks, and the dense front end on the card
     segment_ranks_small_checks(torch)
     rank_counts, rank_recs = segment_ranks_full_shape(torch, bw)
@@ -3749,9 +3989,33 @@ def main() -> int:
              "kernel_path": dense_kernel_path(torch),
              "private": private_pipeline(torch)}
 
+    stamp(11)
     # phase 12: sort_aggregate above 128 agents; the model mesh axis
     recs.update(robust_tile_checks(torch, bw))
     model_mesh = model_mesh_phase(torch)
+
+    stamp(12)
+    # phase 13: the untied head, the chunked loss, phi4-mini at full width
+    lm_head = {"13a": lm_head_parity(torch)}
+    phi_prof = {}
+    phi_counts, phi_hist, phi_peak = train_phase(
+        torch, "phase 13b phi4-mini-3.8b (2 layers)", FedSpec(**base), 3,
+        expected_counts(3, PHI4, round_uplink=3, round_downlink=3,
+                        fedplt_update=6), profile=True, cell=PHI4,
+        profile_out=phi_prof)
+    lm_head["13b"] = {"counts": phi_counts, "peak_gb": phi_peak / 1e9,
+                      "round_ms": [1e3 * h["dt"] for h in phi_hist],
+                      "losses": [h["loss"] for h in phi_hist],
+                      "profile": phi_prof}
+    plain = {PHI4.arch: (phi_hist, phi_peak, phi_prof),
+             GEMMA.arch: main_run}
+    lm_head["13c"] = {
+        cell.arch: chunked_variant(torch, FedSpec(**base), cell, chunk, n,
+                                   tol, plain[cell.arch])
+        for cell, chunk, n, tol in CHUNKED}
+
+    stamp(13)
+    log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
     meta = {
@@ -3834,7 +4098,8 @@ def main() -> int:
                     "flash_attention_full_shape": flash,
                     "ssm_rglru": ssm,
                     "segment_ranks_full_shape": rank_recs["segment_ranks"],
-                    "dense": dense, "model_mesh": model_mesh}))
+                    "dense": dense, "model_mesh": model_mesh,
+                    "lm_head": lm_head, "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -1,8 +1,9 @@
 """Carry parameters and problems between the reference and the port.
 
 The reference's parameter tree (as numpy arrays) is
-``{"stages": [{"0": {...}, "1": {...}}, ...], "embed", "final_norm"}``
-with each stage's units stacked on axis 0; the port's parameters are
+``{"stages": [{"0": {...}, "1": {...}}, ...], "embed", "final_norm"}``,
+with ``"lm_head"`` ``(d_model, vocab)`` when the head is untied, and
+each stage's units stacked on axis 0; the port's parameters are
 ``{dotted name: tensor}`` named after the same paths
 (``stages.0.1.attn.wq``).  The mapping is by name only, so any tree of
 that structure -- agent-stacked states, gradients, noise draws -- converts

@@ -2,7 +2,9 @@
 
 Plain functions on tensors.  Two details follow the reference exactly:
 RMSNorm scales by ``(1 + w)`` in float32, and the gated ``geglu`` uses
-the tanh-approximate GELU (``jax.nn.gelu``'s default).
+the tanh-approximate GELU (``jax.nn.gelu``'s default).  The vocab-chunked
+loss (:func:`chunked_cross_entropy`) is an ``autograd.Function`` that
+keeps no ``(B, S, V)`` logits for its backward.
 """
 
 from __future__ import annotations
@@ -126,6 +128,98 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def vocab_chunk(V: int, chunk: int) -> int:
+    """The reference's rule: a chunk that does not divide the vocab
+    becomes one chunk of the whole vocab."""
+    return V if V % chunk else chunk
+
+
+class ChunkedCrossEntropy(torch.autograd.Function):
+    """Mean token cross-entropy of ``softcap(x @ head)`` over vocab chunks.
+
+    The forward is the reference's online log-sum-exp: each chunk's
+    product in the parameter dtype, cast to float32, softcapped in
+    float32.  It saves ``x``, ``head``, the labels and the per-token
+    log-sum-exp only; the backward recomputes each chunk's logits and
+    takes ``(softmax - onehot) / (B S)``, times ``1 - tanh^2(z / cap)``
+    under a softcap, cast to the head's dtype (the cotangent through the
+    reference's ``astype``) before the two products.  ``dhead`` is
+    written chunk by chunk (each chunk's own product, as the reference's
+    scan writes its per-chunk cotangent); ``dx`` is summed in ``x``'s
+    dtype from the last chunk to the first, the order of the reference's
+    scan transpose."""
+
+    @staticmethod
+    def forward(ctx, x, head, labels, chunk, cap):
+        V = head.shape[1]
+        chunk = vocab_chunk(V, chunk)
+        m = torch.full(labels.shape, -1e30, dtype=torch.float32,
+                       device=x.device)
+        l = torch.zeros(labels.shape, dtype=torch.float32, device=x.device)
+        gold = torch.zeros(labels.shape, dtype=torch.float32,
+                           device=x.device)
+        labels = labels.long()
+        for c0 in range(0, V, chunk):
+            z = softcap(torch.matmul(x, head[:, c0:c0 + chunk]).float(), cap)
+            m_new = torch.maximum(m, z.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + torch.exp(
+                z - m_new[..., None]).sum(dim=-1)
+            m = m_new
+            local = labels - c0
+            valid = (local >= 0) & (local < chunk)
+            picked = torch.gather(z, -1, local.clamp(0, chunk - 1)[..., None])
+            gold = torch.where(valid, picked[..., 0], gold)
+        lse = m + torch.log(l)
+        ctx.save_for_backward(x, head, labels, lse)
+        ctx.chunk, ctx.cap = chunk, cap
+        return torch.mean(lse - gold)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head, labels, lse = ctx.saved_tensors
+        chunk, cap = ctx.chunk, ctx.cap
+        V = head.shape[1]
+        scale = g / labels.numel()
+        x2 = x.reshape(-1, x.shape[-1])
+        # dhead is built as (V, d) rows, each chunk's product written in
+        # place: a tied head's gradient in its embedding's layout, an
+        # untied head's as a transposed view
+        dhead_rows = torch.empty((V, x.shape[-1]), dtype=head.dtype,
+                                 device=head.device)
+        dx = torch.zeros_like(x)
+        for c0 in reversed(range(0, V, chunk)):
+            h = head[:, c0:c0 + chunk]
+            z = torch.matmul(x, h).float()
+            if cap is not None:
+                t = torch.tanh(z / cap)
+                s = cap * t
+            else:
+                s = z
+            p = torch.exp(s - lse[..., None])
+            local = labels - c0
+            valid = (local >= 0) & (local < chunk)
+            p.scatter_add_(-1, local.clamp(0, chunk - 1)[..., None],
+                           -valid[..., None].float())
+            dz = p * scale
+            if cap is not None:
+                dz = dz * (1.0 - t * t)
+            dz = dz.to(head.dtype)
+            dx = dx + torch.matmul(dz, h.t())
+            torch.matmul(dz.reshape(-1, dz.shape[-1]).t(), x2,
+                         out=dhead_rows[c0:c0 + chunk])
+        return dx, dhead_rows.t(), None, None, None
+
+
+def chunked_cross_entropy(x: torch.Tensor, head: torch.Tensor,
+                          labels: torch.Tensor, chunk: int,
+                          cap=None) -> torch.Tensor:
+    """Token cross-entropy without the ``(B, S, V)`` logits (the
+    reference's ``chunked_cross_entropy``): ``x`` ``(B, S, d)``, ``head``
+    ``(d, V)``; a ``chunk`` that does not divide ``V`` becomes one chunk.
+    """
+    return ChunkedCrossEntropy.apply(x, head, labels, chunk, cap)
 
 
 def embed_scale(d_model: int, dtype) -> float:

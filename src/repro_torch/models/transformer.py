@@ -14,11 +14,12 @@ parameters passed in -- views of a packed state buffer in the federated
 trainer -- so the module itself holds no weights.
 
 The ``global`` / ``local`` attention kinds, the ``ssm`` (Mamba-1) and
-``rec`` (RG-LRU) kinds are ported; MoE, enc-dec and multimodal frontends
-raise.  On a CUDA tensor the attention kinds run the hand-written
-flash-attention kernels and the ``ssm`` / ``rec`` kinds the hand-written
-``lru_scan`` kernels (forward and backward); on the CPU they run the
-reference's plain paths (``attn_block_local`` / ``attn_chunked``, the
+``rec`` (RG-LRU) kinds, the untied LM head (``lm_head``, ``(d_model,
+vocab)``) and the vocab-chunked loss (``chunked_loss > 0``) are ported;
+MoE, enc-dec and multimodal frontends raise.  On a CUDA tensor the
+attention kinds run the hand-written flash-attention kernels and the
+``ssm`` / ``rec`` kinds the hand-written ``lru_scan`` kernels (forward
+and backward); on the CPU they run the reference's plain paths (``attn_block_local`` / ``attn_chunked``, the
 chunked associative scan).  An ``ssm`` layer has no FFN (``ln1`` and
 ``mamba`` only), as in the reference; its ``dt_bias``, ``A_log`` and
 ``D`` and an RG-LRU's ``lam`` are float32 whatever the model's dtype.
@@ -36,9 +37,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import (apply_rope, cross_entropy,
-                                       embed_scale, init_mlp, mlp,
-                                       mlp_shapes, rms_norm, softcap)
+from repro_torch.models.layers import (apply_rope, chunked_cross_entropy,
+                                       cross_entropy, embed_scale, init_mlp,
+                                       mlp, mlp_shapes, rms_norm, softcap)
 
 _PORTED_KINDS = ("global", "local", "ssm", "rec")
 
@@ -78,10 +79,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         raise _not_ported("the MoE FFN")
     if cfg.frontend:
         raise _not_ported(f"the {cfg.frontend} frontend")
-    if not cfg.tie_embeddings:
-        raise _not_ported("an untied LM head")
-    if cfg.chunked_loss:
-        raise _not_ported("the vocab-chunked loss")
     for kind in cfg.layer_kinds():
         if kind not in _PORTED_KINDS:
             raise _not_ported(f"the {kind!r} layer kind")
@@ -188,8 +185,9 @@ class Stage(nn.ModuleDict):
 
 
 class Transformer(nn.Module):
-    """``forward(batch)`` is the mean token cross-entropy;
-    ``forward(batch, logits=True)`` the softcapped logits."""
+    """``forward(batch)`` is the mean token cross-entropy (over vocab
+    chunks when ``cfg.chunked_loss > 0``); ``forward(batch, logits=True)``
+    the softcapped logits."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -200,6 +198,8 @@ class Transformer(nn.Module):
             [Stage(s, cfg, dtype) for s in build_stages(cfg)])
         self.embed = _param((cfg.vocab, cfg.d_model), dtype)
         self.final_norm = _param((cfg.d_model,), dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = _param((cfg.d_model, cfg.vocab), dtype)
 
     def forward_hidden(self, tokens):
         """Embedding (scaled by sqrt(d) in the param dtype) -> stages ->
@@ -211,9 +211,19 @@ class Transformer(nn.Module):
             x = stage(x, positions)
         return rms_norm(x, self.final_norm, cfg.norm_eps)
 
+    def _head(self):
+        return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+
     def forward(self, batch: dict, logits: bool = False):
+        cfg = self.cfg
         x = self.forward_hidden(batch["tokens"])
-        out = softcap(x @ self.embed.t(), self.cfg.final_softcap)
+        if cfg.chunked_loss and not logits:
+            # the softcap in float32, after the cast (the reference's
+            # order on this path; the full logits take the param dtype's)
+            return chunked_cross_entropy(x, self._head(), batch["labels"],
+                                         cfg.chunked_loss,
+                                         cap=cfg.final_softcap)
+        out = softcap(x @ self._head(), cfg.final_softcap)
         if logits:
             return out
         return cross_entropy(out, batch["labels"])
@@ -272,4 +282,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         device=device)).to(dtype)
     tree["final_norm"] = torch.zeros((cfg.d_model,), dtype=dtype,
                                      device=device)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = (cfg.d_model ** -0.5 * torch.randn(
+            (cfg.d_model, cfg.vocab), generator=generator,
+            device=device)).to(dtype)
     return _flatten(tree)

@@ -171,7 +171,6 @@ def test_loss_gradient_matches(cfgs, params, batch):
 
 def test_unported_model_kinds_raise(cfgs):
     _, tcfg = cfgs
-    for kw in (dict(n_experts=4, top_k=2), dict(tie_embeddings=False),
-               dict(n_enc_layers=2)):
+    for kw in (dict(n_experts=4, top_k=2), dict(n_enc_layers=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(dataclasses.replace(tcfg, **kw))

@@ -39,7 +39,9 @@ rounding.  Cases: mean (fused and torch backends), topk, int8,
 trimmed_mean f = 1 with guards, a sign flip and an eviction,
 norm_clip_mean (radius 0.5) with guards and a sign flip, and noisy GD
 (tau 0.05, clip 1: the clip norm is over whole rows, the noise each
-agent's unsharded draw); all held to the unsharded run at rtol 1e-5 /
+agent's unsharded draw), and at 1x2 the model with an untied LM head
+(the port's own init; its ``lm_head`` a packed segment split over the
+model ranks); all held to the unsharded run at rtol 1e-5 /
 atol 1e-6 with the near-tie allowance for the compressors (see
 ``_close``), and the unsharded run of each spec to the reference's
 ``build_trainer`` run on the same start and batches
@@ -106,6 +108,11 @@ for _mesh, _ranks in (("1x2", 2), ("2x2", 4)):
             state_layout="packed", mesh_shape=_mesh, participation=1.0,
             ref=True, **_kw), _step)
 del _mesh, _ranks, _k, _kw, _step
+# the untied LM head under the model axis: its (d, vocab) leaf is one
+# more packed segment, split over the model ranks with the others
+CASES["1x2-untied"] = (2, 4, dict(state_layout="packed", mesh_shape="1x2",
+                                  participation=1.0, untied=True, **FUSED),
+                       {})
 
 # the dense front end: the reference's problem (N 8, q 20, n 12 or 5),
 # packed, fused backend (plain on the CPU), N_e 2, DENSE_ROUNDS rounds;
@@ -134,6 +141,7 @@ def _spec(n_agents, kw, shards=1):
 
     kw = {**BASE, **kw}
     kw.pop("ref", None)
+    kw.pop("untied", None)
     mesh = kw.pop("mesh_shape", None)
     if shards > 1:
         kw.update(mesh_shape=mesh) if mesh else kw.update(agent_shards=shards)
@@ -154,11 +162,12 @@ def _batches(vocab, n_agents):
     return out
 
 
-def _model():
+def _model(untied=False):
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2,
+                              tie_embeddings=not untied)
     return cfg, build_model(cfg)
 
 
@@ -169,7 +178,7 @@ def _run(n_agents, spec_kw, step_kw, shards=1, params=None):
     compressed increment ``z_r - t_{r-1}`` (packed, when compressed)."""
     from repro_torch.fed import api
 
-    cfg, model = _model()
+    cfg, model = _model(spec_kw.get("untied", False))
     tr = api.build_trainer(model, _spec(n_agents, spec_kw, shards), "cpu")
     state, gen = tr.init(0, params=params)
     hist, increments = [], []
