@@ -226,6 +226,31 @@ last line):
    phi4, 2^-8 for gemma2, whose full-logit path softcaps in bf16), round
    ms, peak memory and the profiled round's matmul and elementwise
    groups beside the full-logit run's.
+14. The SSM block's fused output through the selective-scan kernels
+   (``kernels/lru_scan/csrc/ssm_scan.cu``: ``a = exp(dt A)``, ``bx = dt u
+   B``, ``h = a h + bx`` and ``y = <h, C> + D u`` inside the time loop,
+   forward and backward).  14a: both kernels bit-equal to their plain
+   versions (``kernels/lru_scan/ref.py`` ``ssm_scan_ref``,
+   ``ssm_scan_bwd_ref``: y; ddt, du, dB, dC, dA, dD) at (B, S, d_in, n)
+   in {1, 2} x {1, 7, 513} x {5, 100} x {4, 16}, u and scan dtype
+   float32 and bfloat16, checkpoint spans 128 and 7; n 1, 5, 17 and 32;
+   every backward run twice with the same bits; the autograd Function;
+   both kernels from a fresh thread.  14b: falcon-mamba-7b's scan (B 2, S
+   512, d_in 8192, n 16, bf16 u), float32 and bfloat16 scan dtype,
+   bit-equal and timed beside the bound (bytes, float operations, one
+   exponential a state entry at the MUFU rate) and the plain versions;
+   no PyTorch call computes the function.  14c: reduced falcon-mamba-7b
+   with ``ssm_fused_output`` in float32, 2 rounds in the tree layout,
+   card (ssm_scan 16 / 16, lru_scan 0) against the CPU (the reference's
+   associative path); 1e-4.  14d: falcon-mamba-7b at published width cut
+   to 2 layers, phase 10d's spec with the fused output, 3 rounds each in
+   three forms: float32 scan, float32 with ``ssm_inner="seq"`` (the same
+   kernel on the card: its losses and counts must equal the first's) and
+   bfloat16 scan: ssm_scan 48 / 48, lru_scan 0, fedplt_update 72; finite
+   losses and states, peak under 80 GB; one profiled round each.  Then a
+   probe: one full-width block's forward and backward (B 2, S 512, bf16)
+   must add less peak memory than one (B, S, d_in, n) float32 tensor
+   (0.537 GB) with the fused output; the unfused number is printed.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -1031,6 +1056,9 @@ def _kernel_group(name: str) -> str:
         return "flash_attention"
     if "lru_fwd_kernel" in name or "lru_bwd_kernel" in name:
         return "lru_scan"
+    if any(k in name for k in ("ssm_fwd_kernel", "ssm_bwd_kernel",
+                               "ssm_reduce_kernel")):
+        return "ssm_scan"
     if "partial_sum_kernel" in name:
         return "round_uplink_partial"
     if "downlink_presummed_kernel" in name:
@@ -1118,6 +1146,18 @@ def profile_round(torch, trainer, state, gen, cfg, label):
             ms = sum(v for k, v in lru_ms.items() if f"lru_{name}_kernel" in k)
             bound = n * bounds[name]["bound_ms"]
             rec[f"lru_scan_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
+                                           share_of_bound=bound / ms if ms else None)
+    ssm_ms = {k: v for k, v in kernels_ms.items()
+              if _kernel_group(k) == "ssm_scan"}
+    if ssm_ms:
+        bounds = ssm_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.d_inner,
+                            cfg.ssm_state, 2)
+        for name in ("fwd", "bwd"):
+            n = counts[f"ssm_scan_{name}"]
+            ms = sum(v for k, v in ssm_ms.items() if f"ssm_{name}_kernel" in k
+                     or (name == "bwd" and "ssm_reduce_kernel" in k))
+            bound = n * bounds[name]["bound_ms"]
+            rec[f"ssm_scan_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
                                            share_of_bound=bound / ms if ms else None)
     log(f"{label} profile: one round {wall_ms:.1f} ms wall under the "
         f"profiler, device busy {busy:.1f} ms"
@@ -2396,11 +2436,15 @@ def lru_full_shape(torch, bw):
     return recs
 
 
-def ssm_small_input_parity(torch, spec_kw):
+def ssm_small_input_parity(torch, spec_kw, cells=None, cfg_kw=None,
+                           tag="10c"):
     """Phase 10c: reduced falcon-mamba (2 layers) and recurrentgemma (3
     layers), float32, 2 rounds in the tree layout on the card (the scan,
     flash, edge and update kernels) and on the CPU (plain versions); the
-    states agree to 1e-4.  Returns ``{arch: max abs err}``."""
+    states agree to 1e-4.  Phase 14c: the same for falcon-mamba with
+    ``cfg_kw`` (the fused output: the selective-scan kernels on the card,
+    the reference's associative ``ssm_mix_fused`` on the CPU).  Returns
+    ``{arch: max abs err}``."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.configs.base import InputShape
@@ -2409,8 +2453,10 @@ def ssm_small_input_parity(torch, spec_kw):
     from repro_torch.models.model import build_model
 
     out = {}
-    for cell in (MAMBA, RGEMMA):
-        cfg = get_config(cell.arch).reduced(n_layers=cell.n_layers)
+    for cell in cells or (MAMBA, RGEMMA):
+        cfg = dataclasses.replace(
+            get_config(cell.arch).reduced(n_layers=cell.n_layers),
+            **(cfg_kw or {}))
         spec = api.FedSpec(**dict(spec_kw, n_agents=2))
         model = build_model(cfg)
         params = model.init(torch.Generator().manual_seed(0), "cpu")
@@ -2431,15 +2477,17 @@ def ssm_small_input_parity(torch, spec_kw):
                   for v in ("x", "z") for n in states["cpu"].x)
         scans = 2 * 2 * N_EPOCHS * cell.scan_layers
         flash = 2 * 2 * N_EPOCHS * cell.attn_layers
-        got = {k: counts["cuda"][k] for k in ("lru_scan_fwd", "lru_scan_bwd",
-                                               "flash_attention_fwd",
-                                               "flash_attention_bwd")}
-        want = dict(lru_scan_fwd=scans, lru_scan_bwd=scans,
-                    flash_attention_fwd=flash, flash_attention_bwd=flash)
+        scan = "ssm_scan" if cfg.ssm_fused_output else "lru_scan"
+        want = {"lru_scan_fwd": 0, "lru_scan_bwd": 0, "ssm_scan_fwd": 0,
+                "ssm_scan_bwd": 0, f"{scan}_fwd": scans,
+                f"{scan}_bwd": scans, "flash_attention_fwd": flash,
+                "flash_attention_bwd": flash}
+        got = {k: counts["cuda"][k] for k in want}
         if not err <= 1e-4 or got != want or set(counts["cpu"].values()) != {0}:
-            fail(f"phase 10c {cell.arch}: card vs CPU max abs err {err}, "
+            fail(f"phase {tag} {cell.arch}: card vs CPU max abs err {err}, "
                  f"card launches {got} (want {want}), CPU {counts['cpu']}")
-        log(f"phase 10c: reduced {cell.arch} ({cfg.layer_kinds()}) fp32, "
+        log(f"phase {tag}: reduced {cell.arch} ({cfg.layer_kinds()}"
+            f"{', fused output' if cfg.ssm_fused_output else ''}) fp32, "
             f"tree layout, 2 rounds, card (kernels: {got}) vs CPU (plain "
             f"versions): max abs err {err:.3g} (tolerance 1e-4)")
         out[cell.arch] = err
@@ -3793,6 +3841,279 @@ def chunked_variant(torch, spec, cell, chunk, n_chunks, tol, plain):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the SSM block's fused output (the selective-scan kernels)
+# ---------------------------------------------------------------------------
+
+# falcon-mamba-7b's scan in the full-width trainer: B (8 sequences over 4
+# agents), S, d_inner, state
+SSM_FULL = (MAIN_BATCH // FULL_N, MAIN_SEQ, 8192, 16)
+# the exponential's rate: 16 MUFU results a clock an SM on compute
+# capability 9.0 (CUDA C Programming Guide, arithmetic instructions), 132
+# SMs at the H100 SXM's 1.98 GHz boost clock
+EXP_RATE = 16 * 132 * 1.98e9
+# 14a: (B, S, d_in, n) -- S 1, 7 and 513 over 128-step spans; d_in 5 and
+# 100 not a multiple of a block's channels (16 at n 16, 64 at n 4)
+SSM_SMALL = tuple((B, S, d, n) for B, S in ((1, 1), (2, 7), (2, 513))
+                  for d in (5, 100) for n in (4, 16))
+# 14d: (label, config changes) of the three full-width forms
+SSM_FORMS = (("float32", dict(ssm_fused_output=True)),
+             ("float32 seq", dict(ssm_fused_output=True, ssm_inner="seq")),
+             ("bfloat16", dict(ssm_fused_output=True,
+                               ssm_scan_dtype="bfloat16")))
+
+
+def ssm_inputs(torch, gen, B, S, d_in, n, u_dtype):
+    """``(dt, u, B, C, A, D, gy)`` on the card: dt in (1e-3, 0.2) as the
+    softplus gives it, A = -exp(A_log) near the init's -(1..n)."""
+    dev = torch.device("cuda")
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = 0.2 * torch.rand((B, S, d_in), generator=gen, device=dev) + 1e-3
+    A = -torch.exp(torch.log(torch.arange(1, n + 1, device=dev,
+                                          dtype=torch.float32))
+                   + 0.1 * rnd(d_in, n))
+    return (dt, rnd(B, S, d_in).to(u_dtype), rnd(B, S, n), rnd(B, S, n), A,
+            rnd(d_in), rnd(B, S, d_in))
+
+
+def ssm_bounds(bw, B, S, d_in, n, u_elt, chunk=128):
+    """The least time of the selective scan at a shape: the bytes (forward
+    reads dt, u, B, C, A, D and writes y; backward reads those, gy and the
+    checkpoints and writes the six gradients; each once) over the memory
+    rate, the float operations over the float32 peak and one exponential
+    a (b, t, d, i) over :data:`EXP_RATE`, whichever is largest."""
+    rows, elems = B * S * d_in, B * S * d_in * n
+    small = 2 * B * S * n * 4 + d_in * n * 4 + d_in * 4
+    ckpt = B * -(-S // chunk) * d_in * n * 4
+    out = {}
+    for name, bytes_, flops in (
+            ("fwd", rows * (4 + u_elt + 4) + small, 6 * elems + 3 * rows),
+            ("bwd", rows * (4 + u_elt + 4 + 4 + 4) + 2 * small + ckpt,
+             18 * elems + 6 * rows)):
+        times = {"bytes": bytes_ / bw, "flops": flops / FP32_PEAK,
+                 "exp": elems / EXP_RATE}
+        worst = max(times, key=times.get)
+        out[name] = dict(bytes=bytes_, flops=flops, exps=elems,
+                         bound_ms=times[worst] * 1e3,
+                         bound_by="bytes" if worst == "bytes"
+                         else "operations")
+    return out
+
+
+def ssm_check(torch, ins, scan_dtype, chunk, tag):
+    """The kernels against their plain versions on ``ins``, bit for bit
+    (y; ddt, du, dB, dC, dA, dD), and the backward twice with the same
+    bits; returns ``{"fwd": .., "bwd": ..}``, the max abs errors."""
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    dt, u, Bm, Cm, A, D, gy = ins
+    y, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype, chunk)
+    want_y = lref.ssm_scan_ref(dt, u, Bm, Cm, A, D, scan_dtype)
+    same_bits(torch, y, want_y, f"ssm_scan fwd {tag}")
+    err = {"fwd": float((y - want_y).abs().max()), "bwd": 0.0}
+    grads = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype,
+                              chunk)
+    want = lref.ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy, scan_dtype)
+    again = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype,
+                              chunk)
+    for name, g, w, g2 in zip(("ddt", "du", "dB", "dC", "dA", "dD"), grads,
+                              want, again):
+        same_bits(torch, g, w, f"ssm_scan bwd {name} {tag}")
+        same_bits(torch, g2, g, f"ssm_scan bwd {name} {tag}, second run")
+        err["bwd"] = max(err["bwd"], float((g - w).abs().max()))
+    return err
+
+
+def ssm_small_checks(torch):
+    """Phase 14a: the selective-scan kernels bit-equal to their plain
+    versions (``kernels/lru_scan/ref.py``): :data:`SSM_SMALL` shapes, u
+    float32 and bfloat16, scan dtype float32 and bfloat16, checkpoint spans
+    128, 7 and 1; n 1, 5, 17 and 32 (lane groups of 1, 8, 32 and 32); the
+    backward twice with the same bits; the block width the library reports
+    against ``ref.block_channels``; the autograd Function; both kernels
+    launched from a fresh thread."""
+    from repro_torch.kernels.lru_scan import kernel as lkernel
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    for n in range(1, lkernel.SSM_MAX_STATE + 1):
+        if lkernel.ssm_block_channels(n) != lref.block_channels(n):
+            fail(f"phase 14a: the library's block at n {n} has "
+                 f"{lkernel.ssm_block_channels(n)} channels, ref.py "
+                 f"{lref.block_channels(n)}")
+    n_checks = 0
+    f32, bf16 = torch.float32, torch.bfloat16
+    for shape in SSM_SMALL:
+        for u_dtype in (f32, bf16):
+            for scan in (f32, bf16):
+                ins = ssm_inputs(torch, gen, *shape, u_dtype)
+                for chunk in ((128, 7) if shape[1] > 7 else (128,)):
+                    ssm_check(torch, ins, scan, chunk,
+                              f"{shape} u {u_dtype} scan {scan} span {chunk}")
+                    n_checks += 1
+    for n, chunk in ((1, 1), (5, 3), (17, 128), (32, 64)):
+        for scan in (f32, bf16):
+            ins = ssm_inputs(torch, gen, 2, 37, 70, n, bf16)
+            ssm_check(torch, ins, scan, chunk, f"n {n} scan {scan} span "
+                      f"{chunk}")
+            n_checks += 1
+    # the autograd Function on a bf16 u, as the model calls it
+    dt, u, Bm, Cm, A, D, gy = ssm_inputs(torch, gen, 2, 129, 48, 16, bf16)
+    leaves = [t.clone().requires_grad_() for t in (dt, u, Bm, Cm, A, D)]
+    y = lops.ssm_scan(*leaves, f32, 128)
+    got = torch.autograd.grad(y, leaves, gy)
+    same_bits(torch, y.detach(), lref.ssm_scan_ref(dt, u, Bm, Cm, A, D),
+              "SsmScan forward")
+    want = lref.ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy)
+    for name, g, w in zip(("dt", "u", "B", "C", "A", "D"), got, want):
+        same_bits(torch, g, w.to(g.dtype), f"SsmScan grad {name}")
+    y, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D)
+    fresh_thread_launches(torch, {
+        "ssm_scan_fwd": lambda: lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D)[0],
+        "ssm_scan_bwd": lambda: lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt,
+                                                  gy)})
+    torch.cuda.synchronize()
+    log(f"phase 14a: {n_checks} ssm_scan checks bit-equal to the plain "
+        f"versions (y; ddt, du, dB, dC, dA, dD), each backward twice with "
+        f"the same bits: (B, S, d_in, n) in {list(SSM_SMALL)}, u and scan "
+        f"dtype float32 and bfloat16, spans 128 and 7; n 1, 5, 17, 32; the "
+        f"autograd Function (B 2, S 129, d_in 48, bf16 u); both kernels "
+        f"from a fresh thread")
+
+
+def ssm_full_shape(torch, bw):
+    """Phase 14b: the kernels at falcon-mamba-7b's scan (B 2, S 512, d_in
+    8192, n 16, bf16 u), scan dtype float32 and bfloat16, bit-equal to the
+    plain versions and timed (CUDA events, median of 7; plain median of 3)
+    beside the bound.  No PyTorch call computes the function."""
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    B, S, d_in, n = SSM_FULL
+    ins = ssm_inputs(torch, gen, B, S, d_in, n, torch.bfloat16)
+    dt, u, Bm, Cm, A, D, gy = ins
+    bounds = ssm_bounds(bw, B, S, d_in, n, 2)
+    recs = {}
+    for scan in (torch.float32, torch.bfloat16):
+        err = ssm_check(torch, ins, scan, 128, f"14b {scan}")
+        _, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan)
+        ms = {"fwd": cuda_ms(torch, lambda: lops.ssm_scan_fwd(
+                  dt, u, Bm, Cm, A, D, scan)),
+              "bwd": cuda_ms(torch, lambda: lops.ssm_scan_bwd(
+                  dt, u, Bm, Cm, A, D, ckpt, gy, scan))}
+        plain = {"fwd": cuda_ms(torch, lambda: lref.ssm_scan_ref(
+                     dt, u, Bm, Cm, A, D, scan), reps=3),
+                 "bwd": cuda_ms(torch, lambda: lref.ssm_scan_bwd_ref(
+                     dt, u, Bm, Cm, A, D, gy, scan), reps=3)}
+        tag = str(scan).replace("torch.", "")
+        for name in ("fwd", "bwd"):
+            bd = bounds[name]
+            rec = dict(shape=list(SSM_FULL), scan_dtype=tag, ms=ms[name],
+                       plain_ms=plain[name], max_abs_err=err[name],
+                       library_ms=None, **bd)
+            key = (f"ssm_scan_{name}" if scan == torch.float32 else
+                   f"ssm_scan_{name}[bf16 scan]")
+            recs[key] = rec
+            log(f"phase 14b (B {B}, S {S}, d_in {d_in}, n {n}, bf16 u, "
+                f"{tag} scan) {name}: bit-equal to the plain version; "
+                f"kernel {ms[name]:.4f} ms, plain {plain[name]:.2f} ms, "
+                f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({bd['bytes'] / 1e6:.1f} MB, {bd['exps']:,} exp), "
+                f"{100 * bd['bound_ms'] / ms[name]:.1f}% of bound; no "
+                f"PyTorch call computes the function")
+        del ckpt
+    del ins, dt, u, Bm, Cm, A, D, gy
+    torch.cuda.empty_cache()
+    return recs
+
+
+def ssm_block_memory(torch):
+    """Phase 14d's probe: the peak device memory that one full-width
+    falcon-mamba-7b block's forward and backward (B 2, S 512, bf16; the
+    gradients of x and of every parameter) add to what is allocated before,
+    fused output and not; the fused one must stay under one (B, S, d_in,
+    n) float32 tensor."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as tssm
+
+    cfg = get_config("falcon-mamba-7b")
+    B, S, d_in, n = SSM_FULL
+    state = B * S * d_in * n * 4
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    params = {k: v.requires_grad_() for k, v in tssm.init_mamba(
+        gen, cfg, torch.bfloat16, device="cuda").items()}
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    out = {}
+    for fused in (True, False):
+        c = dataclasses.replace(cfg, ssm_fused_output=fused)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = tssm.mamba_forward(params, x, c)
+        grads = torch.autograd.grad(y, [x, *params.values()],
+                                    torch.ones_like(y))
+        torch.cuda.synchronize()
+        out["fused" if fused else "unfused"] = (
+            torch.cuda.max_memory_allocated() - before)
+        del y, grads
+    del params, x
+    torch.cuda.empty_cache()
+    log(f"phase 14d probe: one block's forward + backward adds "
+        f"{out['fused'] / 1e9:.3f} GB of peak memory with the fused output, "
+        f"{out['unfused'] / 1e9:.3f} GB without (one (B, S, d_in, n) float32 "
+        f"state is {state / 1e9:.3f} GB)")
+    if not out["fused"] < state:
+        fail(f"phase 14d probe: the fused block adds {out['fused']:,} bytes, "
+             f"not under the state's {state:,}")
+    return {k: v / 1e9 for k, v in out.items()} | {"state_gb": state / 1e9}
+
+
+def ssm_fused_phase(torch, ssm_base):
+    """Phase 14c and 14d; returns ``(counts of the float32 form, record)``."""
+    from repro_torch.fed.api import FedSpec
+
+    rec = {"14c": ssm_small_input_parity(
+        torch, ssm_base, cells=(MAMBA,), cfg_kw=dict(ssm_fused_output=True),
+        tag="14c")}
+    scans = 3 * FULL_N * N_EPOCHS * MAMBA.scan_layers
+    runs = {}
+    for form, kw in SSM_FORMS:
+        label = f"phase 14d/{MAMBA.arch} fused output, {form} scan"
+        prof = {}
+        counts, hist, peak = train_phase(
+            torch, label, FedSpec(**ssm_base), 3,
+            expected_counts(3, MAMBA, fedplt_update=3 * N_EPOCHS *
+                            MAMBA.n_leaves, lru_scan_fwd=0, lru_scan_bwd=0,
+                            ssm_scan_fwd=scans, ssm_scan_bwd=scans),
+            profile=True, cell=MAMBA, cfg_kw=kw, profile_out=prof)
+        if peak > 80e9:
+            fail(f"{label}: peak device memory {peak / 1e9:.2f} GB")
+        runs[form] = {"counts": counts, "peak_gb": peak / 1e9,
+                      "round_ms": [1e3 * h["dt"] for h in hist],
+                      "losses": [h["loss"] for h in hist],
+                      "profile": {k: prof.get(k) for k in (
+                          "wall_ms", "device_busy_ms", "idle_share",
+                          "groups_ms", "ssm_scan_fwd", "ssm_scan_bwd")}}
+    seq, assoc = runs["float32 seq"], runs["float32"]
+    if seq["losses"] != assoc["losses"] or seq["counts"] != assoc["counts"]:
+        fail(f"phase 14d: ssm_inner seq gave losses {seq['losses']} and "
+             f"counts {seq['counts']}, assoc {assoc['losses']} and "
+             f"{assoc['counts']}: one kernel on the card, so they must agree")
+    log(f"phase 14d: seq and assoc gave the same losses "
+        f"{assoc['losses']} (one kernel on the card)")
+    rec["14d"] = runs
+    rec["14d_memory_probe"] = ssm_block_memory(torch)
+    return assoc["counts"], rec
+
+
 def _reduced_segments(torch):
     """The packed segments of 12b's reduced gemma2-2b state."""
     from repro_torch.configs import get_config
@@ -4015,6 +4336,12 @@ def main() -> int:
         for cell, chunk, n, tol in CHUNKED}
 
     stamp(13)
+    # phase 14: the SSM block's fused output through the selective scan
+    ssm_small_checks(torch)
+    recs.update(ssm_full_shape(torch, bw))
+    ssm_counts, ssm_fused = ssm_fused_phase(torch, ssm_base)
+
+    stamp(14)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -4062,6 +4389,14 @@ def main() -> int:
         "lru_scan_bwd": ("src/repro_torch/kernels/lru_scan/csrc/lru_scan.cu",
                          "src/repro/kernels/lru_scan/kernel.py:52",
                          lru_counts),
+        # no Pallas kernel: the reference's XLA stand-ins ssm_mix_seq and
+        # ssm_mix_fused (and their autodiff)
+        "ssm_scan_fwd": ("src/repro_torch/kernels/lru_scan/csrc/ssm_scan.cu",
+                         "src/repro/models/ssm.py:96 (ssm_mix_seq; :123 "
+                         "ssm_mix_fused), no Pallas kernel", ssm_counts),
+        "ssm_scan_bwd": ("src/repro_torch/kernels/lru_scan/csrc/ssm_scan.cu",
+                         "src/repro/models/ssm.py:96 (ssm_mix_seq; :123 "
+                         "ssm_mix_fused), no Pallas kernel", ssm_counts),
     }
     for kname, (source, replaces, path_counts) in meta.items():
         r = recs[kname]
@@ -4099,7 +4434,8 @@ def main() -> int:
                     "ssm_rglru": ssm,
                     "segment_ranks_full_shape": rank_recs["segment_ranks"],
                     "dense": dense, "model_mesh": model_mesh,
-                    "lm_head": lm_head, "phase_seconds": phase_s}))
+                    "lm_head": lm_head, "ssm_fused_output": ssm_fused,
+                    "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

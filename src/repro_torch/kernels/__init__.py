@@ -29,7 +29,10 @@ plain version.
   lru_scan       -- the SSM / RG-LRU time mixing: the diagonal linear
                     recurrence ``h_t = a_t h_{t-1} + b_t`` (forward) and
                     its reverse scan (backward), behind a
-                    ``torch.autograd.Function``.
+                    ``torch.autograd.Function``; and the Mamba block's
+                    fused output, the selective scan from ``(dt, u, B, C)``
+                    to ``y = <h, C> + D u`` with its backward
+                    (``ssm_scan``), behind another.
 
 Every ops wrapper counts its kernel launches; :func:`launch_counts` and
 :func:`reset_launch_counts` read and clear them all.
@@ -56,7 +59,9 @@ def _wrappers() -> dict:
             "flash_attention_fwd": flash_ops.flash_attention_fwd,
             "flash_attention_bwd": flash_ops.flash_attention_bwd,
             "lru_scan_fwd": lru_ops.lru_scan_fwd,
-            "lru_scan_bwd": lru_ops.lru_scan_bwd}
+            "lru_scan_bwd": lru_ops.lru_scan_bwd,
+            "ssm_scan_fwd": lru_ops.ssm_scan_fwd,
+            "ssm_scan_bwd": lru_ops.ssm_scan_bwd}
 
 
 def launch_counts() -> dict:
@@ -79,4 +84,4 @@ def kernel_sources() -> list:
 
     return [edge_kernel.SOURCE, update_kernel.SOURCE, compress_kernel.SOURCE,
             compress_kernel.RANKS_SOURCE, robust_kernel.SOURCE,
-            flash_kernel.SOURCE, lru_kernel.SOURCE]
+            flash_kernel.SOURCE, lru_kernel.SOURCE, lru_kernel.SSM_SOURCE]

@@ -16,10 +16,30 @@ CPU it is the reference's chunked scan (:func:`ssm_scan_chunked`: an
 associative scan within a chunk, in the order ``jax.lax.associative_scan``
 takes, and a carry across chunks), differentiated by autograd.
 
-``cfg.ssm_fused_output`` (the reference's XLA stand-ins ``ssm_mix_fused``
-/ ``ssm_mix_seq``, the only readers of ``ssm_inner`` and
-``ssm_scan_dtype``) is not ported and raises.  ``dt_bias``, ``A_log`` and
-``D`` are float32 whatever the model's dtype, as in the reference.
+``cfg.ssm_fused_output`` takes the reference's fused output instead
+(``ssm_mix_seq`` when ``cfg.ssm_inner == "seq"``, else ``ssm_mix_fused``,
+both with the scan coefficients cast to ``cfg.ssm_scan_dtype``), which
+never holds the ``(B, S, d_in, n)`` state.  On the CPU the two mirror the
+reference's arithmetic: ``ssm_mix_seq`` a loop over time folding ``y_t =
+<h_t, C_t>`` into each step, ``ssm_mix_fused`` the coefficients, an
+associative scan (in the scan dtype) and the C contraction chunk by chunk
+with a float32 carry; autograd differentiates both.  On a CUDA tensor
+both go to one hand-written kernel, the selective scan with its output
+contraction (:func:`ssm_mix_kernel`, ``kernels/lru_scan/csrc/ssm_scan.cu``,
+forward and backward), fed ``dt``, ``u``, ``B``, ``C``, ``A`` and ``D``; the
+projections, ``softplus`` and ``A = -exp(A_log)`` stay in PyTorch.  The
+kernel walks time in order, ``ssm_mix_seq``'s order, so on the card the
+``assoc`` mode gives seq's numbers: in float32 they agree with the
+reference's associative path to 1e-5 relative, as ``lru_scan`` does; with
+a bfloat16 scan dtype the reference's associative scan multiplies in
+bfloat16 where the kernel carries h in float32 from the same bfloat16
+coefficients: up to 1.2e-2 of the largest output and 2.0e-2 of the
+largest gradient entry apart at the CPU tests' shapes, which hold them to
+4e-2 and 6e-2 (``tests/test_torch_ssm_fused.py``).  No fallback: a CUDA
+tensor launches the kernel or raises.
+
+``dt_bias``, ``A_log`` and ``D`` are float32 whatever the model's dtype, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -83,9 +103,9 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _ssm_coeffs(params, u):
-    """u: (B, S, d_in) post-conv activations -> (a, bx, C) scan coeffs,
-    float32."""
+def _projections(params, u):
+    """u: (B, S, d_in) post-conv activations -> (dt float32, B, C, A): the
+    inputs of the scan coefficients (B and C in u's dtype)."""
     n = params["A_log"].shape[1]
     dt_rank = params["dt_proj"].shape[0]
     proj = u @ params["x_proj"]                                # (B,S,r+2n)
@@ -93,6 +113,13 @@ def _ssm_coeffs(params, u):
     dt = softplus((dt_in @ params["dt_proj"]).float()
                   + params["dt_bias"])                         # (B,S,d_in)
     A = -torch.exp(params["A_log"])                            # (d_in, n)
+    return dt, Bc, Cc, A
+
+
+def _ssm_coeffs(params, u):
+    """u: (B, S, d_in) post-conv activations -> (a, bx, C) scan coeffs,
+    float32."""
+    dt, Bc, Cc, A = _projections(params, u)
     a = torch.exp(dt[..., None] * A)                           # (B,S,d_in,n)
     bx = (dt * u.float())[..., None] * Bc.float()[..., None, :]
     return a, bx, Cc.float()
@@ -154,19 +181,70 @@ def scan_from_zero(a, bx, chunk: int):
     return ssm_scan_chunked(a, bx, h0, chunk)[0]
 
 
+def ssm_mix_kernel(params, u, scan_dtype, chunk: int = 128):
+    """The fused output through the selective-scan kernel
+    (``lru_ops.ssm_scan``; checkpoints every ``min(chunk, 128)`` steps):
+    ``dt``, ``B``, ``C`` and ``A`` made as ``_ssm_coeffs`` makes them, the
+    coefficients ``a`` and ``bx`` inside the kernel."""
+    dt, Bc, Cc, A = _projections(params, u)
+    return lru_ops.ssm_scan(dt, u, Bc.float(), Cc.float(), A, params["D"],
+                            scan_dtype, chunk)
+
+
+def ssm_mix_seq(params, u, scan_dtype) -> torch.Tensor:
+    """Sequential time scan with the C contraction folded into the step
+    (the reference's ``ssm_mix_seq``); the kernel on a CUDA tensor."""
+    if u.is_cuda:
+        return ssm_mix_kernel(params, u, scan_dtype)
+    a, bx, Cc = _ssm_coeffs(params, u)
+    a = a.to(scan_dtype)
+    bx = bx.to(scan_dtype)
+    h = torch.zeros(a.shape[:1] + a.shape[2:], dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for t in range(a.shape[1]):
+        h = a[:, t].float() * h + bx[:, t].float()
+        ys.append(torch.einsum("bdn,bn->bd", h, Cc[:, t]))
+    return torch.stack(ys, dim=1) + params["D"] * u.float()
+
+
+def ssm_mix_fused(params, u, chunk: int, scan_dtype) -> torch.Tensor:
+    """Coefficients, associative scan (in ``scan_dtype``) and C contraction
+    chunk by chunk, with a float32 carry across chunks (the reference's
+    ``ssm_mix_fused``); the kernel on a CUDA tensor."""
+    if u.is_cuda:
+        return ssm_mix_kernel(params, u, scan_dtype, chunk)
+    S = u.shape[1]
+    if S % chunk:
+        chunk = S
+    h = torch.zeros(u.shape[:1] + params["A_log"].shape, dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for c in range(0, S, chunk):
+        u_i = u[:, c:c + chunk]
+        a, bx, Cc = _ssm_coeffs(params, u_i)
+        a_cum, b_cum = associative_scan(a.to(scan_dtype), bx.to(scan_dtype))
+        h_all = a_cum.float() * h[:, None] + b_cum.float()
+        y_i = torch.einsum("bsdn,bsn->bsd", h_all, Cc)
+        ys.append(y_i + params["D"] * u_i.float())
+        h = h_all[:, -1]
+    return torch.cat(ys, dim=1)
+
+
 def mamba_forward(params, x, cfg, chunk: int | None = None):
     """Full-sequence mamba block. x: (B, S, d) -> (B, S, d)."""
-    if cfg.ssm_fused_output:
-        raise NotImplementedError(
-            "ssm_fused_output (the reference's ssm_mix_fused / ssm_mix_seq "
-            "XLA stand-ins) is not ported yet")
     chunk = chunk or cfg.ssm_chunk
     u, z = torch.chunk(x @ params["in_proj"], 2, dim=-1)       # (B,S,d_in)
     u = causal_conv1d(u, params["conv_w"], params["conv_b"])
     u = F.silu(u)
-    a, bx, Cc = _ssm_coeffs(params, u)
-    h_all = scan_from_zero(a, bx, chunk)
-    y = torch.einsum("bsdn,bsn->bsd", h_all, Cc)
-    y = y + params["D"] * u.float()
+    if cfg.ssm_fused_output and cfg.ssm_inner == "seq":
+        y = ssm_mix_seq(params, u, getattr(torch, cfg.ssm_scan_dtype))
+    elif cfg.ssm_fused_output:
+        y = ssm_mix_fused(params, u, chunk, getattr(torch, cfg.ssm_scan_dtype))
+    else:
+        a, bx, Cc = _ssm_coeffs(params, u)
+        h_all = scan_from_zero(a, bx, chunk)
+        y = torch.einsum("bsdn,bsn->bsd", h_all, Cc)
+        y = y + params["D"] * u.float()
     y = y.to(x.dtype) * F.silu(z)
     return y @ params["out_proj"]

@@ -162,6 +162,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                            cap=5.0).sum().backward()
     a = torch.rand(2, 6, 3, 4, requires_grad=True)
     tlru.lru_scan(a, a).sum().backward()
+    dt = torch.rand(2, 6, 3, requires_grad=True)
+    tlru.ssm_scan(dt, dt, a[:, :, 0], a[:, :, 1], -a[0, 0], dt[0, 0],
+                  torch.float32, 4).sum().backward()
     tcompress.segment_ranks(z, segments=((10, 40), (50, 90)))
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,
@@ -175,7 +178,9 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
                                        "flash_attention_fwd": 0,
                                        "flash_attention_bwd": 0,
                                        "lru_scan_fwd": 0,
-                                       "lru_scan_bwd": 0}
+                                       "lru_scan_bwd": 0,
+                                       "ssm_scan_fwd": 0,
+                                       "ssm_scan_bwd": 0}
 
 
 def test_kernel_launchers_reject_cpu_tensors():

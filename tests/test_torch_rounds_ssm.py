@@ -24,6 +24,10 @@ trainers.
   relative in norm, the losses to 1e-3 relative (measured after 2
   rounds: at most 1.6% of a leaf's largest entry, 1.4% in norm, both in
   an RG-LRU ``conv_b`` of ``z``; losses 1.9e-4).
+* float32, 3 rounds of falcon-mamba with the fused output
+  (``ssm_fused_output=True``: the reference's associative ``ssm_mix_fused``
+  in both packages on the CPU; the selective-scan kernels on the card),
+  tree layout with the fused backend: the same tolerances.
 * both packages refuse the packed layout on the bf16 tree.
 """
 
@@ -56,11 +60,14 @@ CONFIGS = {
     "tree-fused": (dict(engine_backend="pallas", use_pallas=True),
                    dict(engine_backend="fused", use_fused_update=True)),
 }
-# (config, dtype, rounds) per run
-RUNS = {f"{arch}-{name}": (arch, name, "float32", 3)
+# (arch, config, dtype, rounds, model config changes) per run
+RUNS = {f"{arch}-{name}": (arch, name, "float32", 3, {})
         for arch in MODELS for name in CONFIGS}
-RUNS.update({f"{arch}-tree-fused-bf16": (arch, "tree-fused", "bfloat16", 2)
+RUNS.update({f"{arch}-tree-fused-bf16": (arch, "tree-fused", "bfloat16", 2,
+                                         {})
              for arch in MODELS})
+RUNS["falcon-mamba-7b-tree-fused-ssm_fused_output"] = (
+    "falcon-mamba-7b", "tree-fused", "float32", 3, dict(ssm_fused_output=True))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,18 +78,18 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-def _cfgs(arch, dtype):
+def _cfgs(arch, dtype, **kw):
     n = MODELS[arch]
     return (dataclasses.replace(jax_get_config(arch).reduced(n_layers=n),
-                                dtype=dtype),
+                                dtype=dtype, **kw),
             dataclasses.replace(get_config(arch).reduced(n_layers=n),
-                                dtype=dtype))
+                                dtype=dtype, **kw))
 
 
-def _run(arch, name, dtype, rounds):
+def _run(arch, name, dtype, rounds, cfg_kw):
     jkw, tkw = CONFIGS[name]
     common = dict(n_agents=N, n_epochs=2, gamma=0.05)
-    jcfg, tcfg = _cfgs(arch, dtype)
+    jcfg, tcfg = _cfgs(arch, dtype, **cfg_kw)
     jmodel = jax_build_model(jcfg)
     jtr = japi.build_trainer(jmodel, japi.FedSpec(**common, **jkw))
     ttr = tapi.build_trainer(build_model(tcfg), tapi.FedSpec(**common, **tkw),

@@ -12,15 +12,19 @@ in ``jax.lax.associative_scan``'s order, with a carry across chunks),
 ``mamba_forward``, ``_gates`` and ``rglru_forward``; then each whole
 model's loss and gradients, on the CPU path and with every scan sent
 through the card's ``LruScan`` autograd Function (on CPU tensors, where
-it runs the plain sequential scan).  Tolerances: values 1e-5 relative
+it runs the plain sequential scan); and falcon-mamba with the fused
+output (``ssm_fused_output``) under ``ssm_inner`` "seq" and "assoc", and
+with its time mixing sent through the card's ``SsmScan`` Function (the
+selective-scan kernels' plain versions on CPU tensors) against the
+reference's associative path.  Tolerances: values 1e-5 relative
 plus 1e-5 absolute (float32 rounding of two op orders); gradients 1e-4
 of the largest entry of each reference gradient (the backward sums over
 many more terms).
 
-Also: the float32 init leaves (``dt_bias``, ``A_log``, ``D``, ``lam``),
-the mixed-dtype parameter trees at bfloat16 (names, shapes and per-leaf
-dtypes of both packages, and ``convert`` keeping each leaf's dtype), and
-the ``ssm_fused_output`` knob raising.
+Also: the float32 init leaves (``dt_bias``, ``A_log``, ``D``, ``lam``)
+and the mixed-dtype parameter trees at bfloat16 (names, shapes and
+per-leaf dtypes of both packages, and ``convert`` keeping each leaf's
+dtype).
 """
 
 import dataclasses
@@ -211,16 +215,6 @@ def test_rglru_forward(rec, chunk):
            (p, x), 10)
 
 
-def test_ssm_fused_output_is_not_ported():
-    cfg = dataclasses.replace(get_config("falcon-mamba-7b").reduced(),
-                              ssm_fused_output=True)
-    model = build_model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), "cpu")
-    tok = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="ssm_fused_output"):
-        model.loss_fn(params, {"tokens": tok, "labels": tok})
-
-
 # ---------------------------------------------------------------------------
 # Whole models
 # ---------------------------------------------------------------------------
@@ -233,13 +227,29 @@ def _lru_scan_through_function(a, bx, chunk):
                                  ).reshape(B, S, W, N)
 
 
-@pytest.mark.parametrize("route", ["cpu", "lru_scan_function"])
-@pytest.mark.parametrize("arch", list(MODELS))
+def _ssm_scan_through_function(params, u, chunk, scan_dtype):
+    """The card's fused output on CPU tensors: ``SsmScan``."""
+    return tssm.ssm_mix_kernel(params, u, scan_dtype, chunk)
+
+
+# the fused output's config (both packages) per route
+FUSED = {"fused_seq": dict(ssm_fused_output=True, ssm_inner="seq"),
+         "fused_assoc": dict(ssm_fused_output=True),
+         "ssm_scan_function": dict(ssm_fused_output=True)}
+
+
+@pytest.mark.parametrize("arch,route", [
+    (arch, route) for arch in MODELS
+    for route in ("cpu", "lru_scan_function")] + [
+    ("falcon-mamba-7b", route) for route in FUSED])
 def test_model_loss_and_grads_match_reference(arch, route, request,
                                               monkeypatch):
     model = request.getfixturevalue({"falcon-mamba-7b": "mamba",
                                      "recurrentgemma-2b": "rec"}[arch])
     jcfg, tcfg = model["jcfg"], model["tcfg"]
+    if route in FUSED:
+        jcfg = dataclasses.replace(jcfg, **FUSED[route])
+        tcfg = dataclasses.replace(tcfg, **FUSED[route])
     rng = np.random.default_rng(11)
     tok = rng.integers(0, jcfg.vocab, (2, 40)).astype(np.int32)
     lab = np.roll(tok, -1, axis=-1)
@@ -250,6 +260,8 @@ def test_model_loss_and_grads_match_reference(arch, route, request,
     if route == "lru_scan_function":
         monkeypatch.setattr(tssm, "scan_from_zero",
                             _lru_scan_through_function)
+    if route == "ssm_scan_function":
+        monkeypatch.setattr(tssm, "ssm_mix_fused", _ssm_scan_through_function)
     tmodel = build_model(tcfg)
     leaves = {n: p.clone().requires_grad_()
               for n, p in model["tparams"].items()}
