@@ -229,17 +229,24 @@ last line):
 14. The SSM block's fused output through the selective-scan kernels
    (``kernels/lru_scan/csrc/ssm_scan.cu``: ``a = exp(dt A)``, ``bx = dt u
    B``, ``h = a h + bx`` and ``y = <h, C> + D u`` inside the time loop,
-   forward and backward).  14a: both kernels bit-equal to their plain
-   versions (``kernels/lru_scan/ref.py`` ``ssm_scan_ref``,
-   ``ssm_scan_bwd_ref``: y; ddt, du, dB, dC, dA, dD) at (B, S, d_in, n)
-   in {1, 2} x {1, 7, 513} x {5, 100} x {4, 16}, u and scan dtype
-   float32 and bfloat16, checkpoint spans 128 and 7; n 1, 5, 17 and 32;
-   every backward run twice with the same bits; the autograd Function;
-   both kernels from a fresh thread.  14b: falcon-mamba-7b's scan (B 2, S
+   forward and backward; a lane group of G lanes a channel, K states a
+   lane).  14a: the library's plan (G, K, block width, checkpoint span)
+   against ``kernel.ssm_plan`` and ``ref.block_channels`` for every n;
+   both kernels bit-equal to their plain versions
+   (``kernels/lru_scan/ref.py`` ``ssm_scan_ref``, ``ssm_scan_bwd_ref``:
+   y; ddt, du, dB, dC, dA, dD) at (B, S, d_in, n) in {1, 2} x {1, 7, 513}
+   x {5, 100} x {4, 16}, u and scan dtype float32 and bfloat16; n 1, 5,
+   17 and 32; every (G, K) instantiation at shapes with ragged channel
+   and step tails and without, both u and scan dtypes; every backward
+   run twice with the same bits; each check on the instantiation its n
+   plans by the C launcher's tallies; the autograd Function; both
+   kernels from a fresh thread.  14b: falcon-mamba-7b's scan (B 2, S
    512, d_in 8192, n 16, bf16 u), float32 and bfloat16 scan dtype,
-   bit-equal and timed beside the bound (bytes, float operations, one
-   exponential a state entry at the MUFU rate) and the plain versions;
-   no PyTorch call computes the function.  14c: reduced falcon-mamba-7b
+   bit-equal and timed (CUDA events around a call, and around its
+   kernels alone behind a sleep-held stream) beside the bound (bytes,
+   float operations at the rate without FMA, one exponential a state
+   entry at the MUFU rate) and the plain versions; no PyTorch call
+   computes the function.  14c: reduced falcon-mamba-7b
    with ``ssm_fused_output`` in float32, 2 rounds in the tree layout,
    card (ssm_scan 16 / 16, lru_scan 0) against the CPU (the reference's
    associative path); 1e-4.  14d: falcon-mamba-7b at published width cut
@@ -247,10 +254,13 @@ last line):
    three forms: float32 scan, float32 with ``ssm_inner="seq"`` (the same
    kernel on the card: its losses and counts must equal the first's) and
    bfloat16 scan: ssm_scan 48 / 48, lru_scan 0, fedplt_update 72; finite
-   losses and states, peak under 80 GB; one profiled round each.  Then a
-   probe: one full-width block's forward and backward (B 2, S 512, bf16)
-   must add less peak memory than one (B, S, d_in, n) float32 tensor
-   (0.537 GB) with the fused output; the unfused number is printed.
+   losses and states, peak under 80 GB; one profiled round each.  Then
+   two probes: one full-width block's forward and backward (B 2, S 512,
+   bf16) must add less peak memory than one (B, S, d_in, n) float32
+   tensor (0.537 GB) with the fused output (the unfused number is
+   printed); and one block's weights applied 64 times in a chain, the
+   published depth, fused: the memory the forward keeps for the
+   backward, a layer's share of it, and the peak of both.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -285,7 +295,13 @@ last line
 ``robust_agg.cu`` of the ``repro_torch`` under ``DIR`` (default this
 checkout's ``src``) and prints phase 12a's timed calls without the plain
 version, as one JSON line: run once for each of two trees, in turns, to
-compare them on one card.
+compare them on one card.  ``--ssm-scan`` runs phases 14a and 14b alone;
+``--ssm-times [--src DIR]`` times the selective-scan kernels of the
+``repro_torch`` under ``DIR`` at 14b's shape (CUDA events and device
+time) and runs the 64-layer memory probe, as one JSON line; and
+``--ssm-rounds [--src DIR]`` runs phases 14c and 14d alone with the
+``repro_torch`` under ``DIR``: each run once a tree, in turns, to
+compare two trees on one card.
 """
 
 from __future__ import annotations
@@ -344,6 +360,26 @@ def cuda_ms(torch, fn, reps=7):
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, reps=7, lead_cycles=2_000_000):
+    """Median of ``reps`` device times of one call of ``fn`` after one
+    warm-up: a sleep kernel (``lead_cycles`` clocks, ~1 ms) holds the
+    stream while the host enqueues the call between two CUDA events, so
+    the events time its kernels alone, without the host launch path that
+    :func:`cuda_ms` counts (the path must take less than the sleep)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(lead_cycles)
         a.record()
         fn()
         b.record()
@@ -3852,10 +3888,22 @@ SSM_FULL = (MAIN_BATCH // FULL_N, MAIN_SEQ, 8192, 16)
 # capability 9.0 (CUDA C Programming Guide, arithmetic instructions), 132
 # SMs at the H100 SXM's 1.98 GHz boost clock
 EXP_RATE = 16 * 132 * 1.98e9
+# the float32 rate of kernels built with --fmad=false: every multiply and
+# add issues on its own, 128 a clock an SM (FP32_PEAK counts an FMA as two)
+FP32_OPS_NO_FMA = 128 * 132 * 1.98e9
 # 14a: (B, S, d_in, n) -- S 1, 7 and 513 over 128-step spans; d_in 5 and
-# 100 not a multiple of a block's channels (16 at n 16, 64 at n 4)
+# 100 not a multiple of a block's 64 channels
 SSM_SMALL = tuple((B, S, d, n) for B, S in ((1, 1), (2, 7), (2, 513))
                   for d in (5, 100) for n in (4, 16))
+# 14a: (B, S, d_in, n) reaching every (G, K) instantiation: ragged
+# channel tails (d_in past a 64-channel block) and step tails (S past an
+# 8-step sub-span or a 32-step forward tile), and shapes with none
+SSM_ROUTE_SHAPES = (
+    (2, 41, 130, 1), (1, 40, 65, 2), (2, 33, 64, 3), (2, 9, 127, 4),
+    (2, 100, 70, 7), (1, 64, 128, 8), (2, 71, 129, 13), (2, 96, 192, 16),
+    (2, 65, 100, 16), (1, 64, 64, 16), (2, 50, 66, 25), (1, 32, 64, 32))
+# 14d: the chained blocks of the memory probe (falcon-mamba-7b's depth)
+SSM_STACK_LAYERS = 64
 # 14d: (label, config changes) of the three full-width forms
 SSM_FORMS = (("float32", dict(ssm_fused_output=True)),
              ("float32 seq", dict(ssm_fused_output=True, ssm_inner="seq")),
@@ -3879,21 +3927,21 @@ def ssm_inputs(torch, gen, B, S, d_in, n, u_dtype):
             rnd(d_in), rnd(B, S, d_in))
 
 
-def ssm_bounds(bw, B, S, d_in, n, u_elt, chunk=128):
+def ssm_bounds(bw, B, S, d_in, n, u_elt):
     """The least time of the selective scan at a shape: the bytes (forward
-    reads dt, u, B, C, A, D and writes y; backward reads those, gy and the
-    checkpoints and writes the six gradients; each once) over the memory
-    rate, the float operations over the float32 peak and one exponential
-    a (b, t, d, i) over :data:`EXP_RATE`, whichever is largest."""
+    reads dt, u, B, C, A, D and writes y; backward reads those and gy and
+    writes the six gradients; each once), over the memory rate; the float
+    operations (6 a state entry and 3 a row forward, 18 and 6 backward)
+    over :data:`FP32_OPS_NO_FMA`; and one exponential a (b, t, d, i) over
+    :data:`EXP_RATE`; whichever is largest."""
     rows, elems = B * S * d_in, B * S * d_in * n
     small = 2 * B * S * n * 4 + d_in * n * 4 + d_in * 4
-    ckpt = B * -(-S // chunk) * d_in * n * 4
     out = {}
     for name, bytes_, flops in (
             ("fwd", rows * (4 + u_elt + 4) + small, 6 * elems + 3 * rows),
-            ("bwd", rows * (4 + u_elt + 4 + 4 + 4) + 2 * small + ckpt,
+            ("bwd", rows * (4 + u_elt + 4 + 4 + 4) + 2 * small,
              18 * elems + 6 * rows)):
-        times = {"bytes": bytes_ / bw, "flops": flops / FP32_PEAK,
+        times = {"bytes": bytes_ / bw, "flops": flops / FP32_OPS_NO_FMA,
                  "exp": elems / EXP_RATE}
         worst = max(times, key=times.get)
         out[name] = dict(bytes=bytes_, flops=flops, exps=elems,
@@ -3903,69 +3951,102 @@ def ssm_bounds(bw, B, S, d_in, n, u_elt, chunk=128):
     return out
 
 
-def ssm_check(torch, ins, scan_dtype, chunk, tag):
-    """The kernels against their plain versions on ``ins``, bit for bit
-    (y; ddt, du, dB, dC, dA, dD), and the backward twice with the same
-    bits; returns ``{"fwd": .., "bwd": ..}``, the max abs errors."""
+def ssm_routes_run(before, after):
+    """The launches of each (G, K) instantiation between two
+    ``ssm_route_counts()`` readings: ``{"fwd": {(G, K): n}, "bwd": ..}``
+    with the instantiations that ran."""
+    return {d: {gk: after[d][gk] - before[d][gk] for gk in after[d]
+                if after[d][gk] != before[d][gk]} for d in after}
+
+
+def ssm_check(torch, ins, scan_dtype, tag):
+    """The kernels (through the ops) against their plain versions on
+    ``ins``, bit for bit (y; ddt, du, dB, dC, dA, dD), and the backward
+    twice with the same bits; the library's tallies must show the
+    instantiation the state plans, once forward and twice backward.
+    Returns ``{"fwd": .., "bwd": ..}``, the max abs errors."""
+    from repro_torch.kernels.lru_scan import kernel as lkernel
     from repro_torch.kernels.lru_scan import ops as lops
     from repro_torch.kernels.lru_scan import ref as lref
 
     dt, u, Bm, Cm, A, D, gy = ins
-    y, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype, chunk)
+    G, K = lkernel.ssm_plan(A.shape[1])[:2]
+    before = lkernel.ssm_route_counts()
+    y, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype)
     want_y = lref.ssm_scan_ref(dt, u, Bm, Cm, A, D, scan_dtype)
     same_bits(torch, y, want_y, f"ssm_scan fwd {tag}")
     err = {"fwd": float((y - want_y).abs().max()), "bwd": 0.0}
-    grads = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype,
-                              chunk)
+    grads = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype)
     want = lref.ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy, scan_dtype)
-    again = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype,
-                              chunk)
+    again = lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype)
     for name, g, w, g2 in zip(("ddt", "du", "dB", "dC", "dA", "dD"), grads,
                               want, again):
         same_bits(torch, g, w, f"ssm_scan bwd {name} {tag}")
         same_bits(torch, g2, g, f"ssm_scan bwd {name} {tag}, second run")
         err["bwd"] = max(err["bwd"], float((g - w).abs().max()))
+    ran = ssm_routes_run(before, lkernel.ssm_route_counts())
+    if ran != {"fwd": {(G, K): 1}, "bwd": {(G, K): 2}}:
+        fail(f"ssm_scan {tag}: the tallies show {ran}, not G {G} K {K} "
+             f"once forward and twice backward")
     return err
 
 
 def ssm_small_checks(torch):
     """Phase 14a: the selective-scan kernels bit-equal to their plain
-    versions (``kernels/lru_scan/ref.py``): :data:`SSM_SMALL` shapes, u
-    float32 and bfloat16, scan dtype float32 and bfloat16, checkpoint spans
-    128, 7 and 1; n 1, 5, 17 and 32 (lane groups of 1, 8, 32 and 32); the
-    backward twice with the same bits; the block width the library reports
-    against ``ref.block_channels``; the autograd Function; both kernels
-    launched from a fresh thread."""
+    versions (``kernels/lru_scan/ref.py``), each check on the (G, K)
+    instantiation its state plans (the library's tallies read before and
+    after): :data:`SSM_SMALL` shapes, u float32 and bfloat16, scan dtype
+    float32 and bfloat16; n 1, 5, 17 and 32; every instantiation at
+    :data:`SSM_ROUTE_SHAPES` (ragged channel and step tails and none),
+    both u and scan dtypes; the backward twice with the same bits;
+    the library's plan, block width and checkpoint span against
+    ``kernel.ssm_plan`` and ``ref.block_channels``; the autograd Function;
+    both kernels launched from a fresh thread."""
     from repro_torch.kernels.lru_scan import kernel as lkernel
     from repro_torch.kernels.lru_scan import ops as lops
     from repro_torch.kernels.lru_scan import ref as lref
 
     gen = torch.Generator(device="cuda").manual_seed(14)
+    if lkernel.ssm_library_ckpt_steps() != lkernel.SSM_CKPT_STEPS:
+        fail(f"phase 14a: the library checkpoints every "
+             f"{lkernel.ssm_library_ckpt_steps()} steps, kernel.py "
+             f"{lkernel.SSM_CKPT_STEPS}")
     for n in range(1, lkernel.SSM_MAX_STATE + 1):
-        if lkernel.ssm_block_channels(n) != lref.block_channels(n):
-            fail(f"phase 14a: the library's block at n {n} has "
-                 f"{lkernel.ssm_block_channels(n)} channels, ref.py "
-                 f"{lref.block_channels(n)}")
+        got = lkernel.ssm_library_plan(n)
+        want = lkernel.ssm_plan(n)
+        if got != want or want[2] != lref.block_channels(n):
+            fail(f"phase 14a: the library plans n {n} as {got}, kernel.py "
+                 f"{want}, ref.py {lref.block_channels(n)} channels a block")
     n_checks = 0
     f32, bf16 = torch.float32, torch.bfloat16
     for shape in SSM_SMALL:
         for u_dtype in (f32, bf16):
             for scan in (f32, bf16):
                 ins = ssm_inputs(torch, gen, *shape, u_dtype)
-                for chunk in ((128, 7) if shape[1] > 7 else (128,)):
-                    ssm_check(torch, ins, scan, chunk,
-                              f"{shape} u {u_dtype} scan {scan} span {chunk}")
-                    n_checks += 1
-    for n, chunk in ((1, 1), (5, 3), (17, 128), (32, 64)):
+                ssm_check(torch, ins, scan, f"{shape} u {u_dtype} scan {scan}")
+                n_checks += 1
+    for n in (1, 5, 17, 32):
         for scan in (f32, bf16):
             ins = ssm_inputs(torch, gen, 2, 37, 70, n, bf16)
-            ssm_check(torch, ins, scan, chunk, f"n {n} scan {scan} span "
-                      f"{chunk}")
+            ssm_check(torch, ins, scan, f"n {n} scan {scan}")
             n_checks += 1
+    routes = {}
+    for shape in SSM_ROUTE_SHAPES:
+        gk = lkernel.ssm_plan(shape[3])[:2]
+        for u_dtype in (f32, bf16):
+            for scan in (f32, bf16):
+                ins = ssm_inputs(torch, gen, *shape, u_dtype)
+                ssm_check(torch, ins, scan, f"{shape} G {gk[0]} K {gk[1]} "
+                          f"u {u_dtype} scan {scan}")
+                routes[gk] = routes.get(gk, 0) + 1
+                n_checks += 1
+    if set(routes) != set(lkernel.SSM_ROUTES):
+        fail(f"phase 14a: the route shapes reached {sorted(routes)}, not "
+             f"every instantiation {lkernel.SSM_ROUTES}")
     # the autograd Function on a bf16 u, as the model calls it
     dt, u, Bm, Cm, A, D, gy = ssm_inputs(torch, gen, 2, 129, 48, 16, bf16)
     leaves = [t.clone().requires_grad_() for t in (dt, u, Bm, Cm, A, D)]
-    y = lops.ssm_scan(*leaves, f32, 128)
+    y = lops.ssm_scan(*leaves, f32)
     got = torch.autograd.grad(y, leaves, gy)
     same_bits(torch, y.detach(), lref.ssm_scan_ref(dt, u, Bm, Cm, A, D),
               "SsmScan forward")
@@ -3980,18 +4061,40 @@ def ssm_small_checks(torch):
     torch.cuda.synchronize()
     log(f"phase 14a: {n_checks} ssm_scan checks bit-equal to the plain "
         f"versions (y; ddt, du, dB, dC, dA, dD), each backward twice with "
-        f"the same bits: (B, S, d_in, n) in {list(SSM_SMALL)}, u and scan "
-        f"dtype float32 and bfloat16, spans 128 and 7; n 1, 5, 17, 32; the "
-        f"autograd Function (B 2, S 129, d_in 48, bf16 u); both kernels "
-        f"from a fresh thread")
+        f"the same bits and on its planned (G, K) by the library's tallies: "
+        f"(B, S, d_in, n) in {list(SSM_SMALL)}, u and scan dtype float32 "
+        f"and bfloat16; n 1, 5, 17, 32; the "
+        f"instantiations {sorted(routes)} at {len(SSM_ROUTE_SHAPES)} "
+        f"shapes with ragged channel and step tails; the autograd Function "
+        f"(B 2, S 129, d_in 48, bf16 u); both kernels from a fresh thread")
+    return n_checks
+
+
+def ssm_timings(torch, ins, scan_dtype):
+    """The forward and the backward through the ops on ``ins``, timed:
+    ``{"fwd": {"ms", "device_ms"}, "bwd": ..}`` (:func:`cuda_ms`,
+    :func:`device_ms`), and the bytes of the checkpoints that the forward
+    returns."""
+    from repro_torch.kernels.lru_scan import ops as lops
+
+    dt, u, Bm, Cm, A, D, gy = ins
+    ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype)[1]
+    calls = {"fwd": lambda: lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D,
+                                              scan_dtype),
+             "bwd": lambda: lops.ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy,
+                                              scan_dtype)}
+    out = {name: {"ms": cuda_ms(torch, fn), "device_ms": device_ms(torch, fn)}
+           for name, fn in calls.items()}
+    out["ckpt_bytes"] = ckpt.numel() * ckpt.element_size()
+    return out
 
 
 def ssm_full_shape(torch, bw):
     """Phase 14b: the kernels at falcon-mamba-7b's scan (B 2, S 512, d_in
     8192, n 16, bf16 u), scan dtype float32 and bfloat16, bit-equal to the
-    plain versions and timed (CUDA events, median of 7; plain median of 3)
+    plain versions and timed (:func:`ssm_timings`; plain median of 3)
     beside the bound.  No PyTorch call computes the function."""
-    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import kernel as lkernel
     from repro_torch.kernels.lru_scan import ref as lref
 
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -3999,35 +4102,34 @@ def ssm_full_shape(torch, bw):
     ins = ssm_inputs(torch, gen, B, S, d_in, n, torch.bfloat16)
     dt, u, Bm, Cm, A, D, gy = ins
     bounds = ssm_bounds(bw, B, S, d_in, n, 2)
+    G, K = lkernel.ssm_plan(n)[:2]
     recs = {}
     for scan in (torch.float32, torch.bfloat16):
-        err = ssm_check(torch, ins, scan, 128, f"14b {scan}")
-        _, ckpt = lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan)
-        ms = {"fwd": cuda_ms(torch, lambda: lops.ssm_scan_fwd(
-                  dt, u, Bm, Cm, A, D, scan)),
-              "bwd": cuda_ms(torch, lambda: lops.ssm_scan_bwd(
-                  dt, u, Bm, Cm, A, D, ckpt, gy, scan))}
+        tag = str(scan).replace("torch.", "")
+        err = ssm_check(torch, ins, scan, f"14b {tag}")
+        times = ssm_timings(torch, ins, scan)
         plain = {"fwd": cuda_ms(torch, lambda: lref.ssm_scan_ref(
                      dt, u, Bm, Cm, A, D, scan), reps=3),
                  "bwd": cuda_ms(torch, lambda: lref.ssm_scan_bwd_ref(
                      dt, u, Bm, Cm, A, D, gy, scan), reps=3)}
-        tag = str(scan).replace("torch.", "")
         for name in ("fwd", "bwd"):
             bd = bounds[name]
-            rec = dict(shape=list(SSM_FULL), scan_dtype=tag, ms=ms[name],
-                       plain_ms=plain[name], max_abs_err=err[name],
-                       library_ms=None, **bd)
-            key = (f"ssm_scan_{name}" if scan == torch.float32 else
-                   f"ssm_scan_{name}[bf16 scan]")
-            recs[key] = rec
+            rec = dict(shape=list(SSM_FULL), scan_dtype=tag, lanes=[G, K],
+                       max_abs_err=err[name], plain_ms=plain[name],
+                       library_ms=None, **times[name], **bd)
+            recs[f"ssm_scan_{name}" + ("" if scan == torch.float32
+                                       else "[bf16 scan]")] = rec
             log(f"phase 14b (B {B}, S {S}, d_in {d_in}, n {n}, bf16 u, "
-                f"{tag} scan) {name}: bit-equal to the plain version; "
-                f"kernel {ms[name]:.4f} ms, plain {plain[name]:.2f} ms, "
-                f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
-                f"({bd['bytes'] / 1e6:.1f} MB, {bd['exps']:,} exp), "
-                f"{100 * bd['bound_ms'] / ms[name]:.1f}% of bound; no "
+                f"{tag} scan, G {G} K {K}) {name}: bit-equal to the plain "
+                f"version; kernel {rec['ms']:.4f} ms a call (device "
+                f"{rec['device_ms']:.4f} ms, "
+                f"{100 * bd['bound_ms'] / rec['device_ms']:.1f}% of bound), "
+                f"plain {rec['plain_ms']:.2f} "
+                f"ms, bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+                f"({bd['bytes'] / 1e6:.1f} MB, {bd['flops']:,} float "
+                f"operations, {bd['exps']:,} exp), "
+                f"{100 * bd['bound_ms'] / rec['ms']:.1f}% of bound; no "
                 f"PyTorch call computes the function")
-        del ckpt
     del ins, dt, u, Bm, Cm, A, D, gy
     torch.cuda.empty_cache()
     return recs
@@ -4076,6 +4178,46 @@ def ssm_block_memory(torch):
     return {k: v / 1e9 for k, v in out.items()} | {"state_gb": state / 1e9}
 
 
+def ssm_stack_memory(torch, layers=SSM_STACK_LAYERS):
+    """Phase 14d's second probe: one full-width falcon-mamba-7b block's
+    weights with the fused output, applied ``layers`` times in a chain (B
+    2, S 512, bf16): the device memory the forward keeps for the backward
+    (allocated after it less before), a layer's share, and the peak of the
+    forward and backward above what was allocated before."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as tssm
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              ssm_fused_output=True)
+    B, S = SSM_FULL[:2]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    params = {k: v.requires_grad_() for k, v in tssm.init_mamba(
+        gen, cfg, torch.bfloat16, device="cuda").items()}
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = x
+    for _ in range(layers):
+        y = tssm.mamba_forward(params, y, cfg)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    grads = torch.autograd.grad(y, [x, *params.values()], torch.ones_like(y))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del y, grads, params, x
+    torch.cuda.empty_cache()
+    out = {"layers": layers, "kept_gb": kept / 1e9,
+           "kept_per_layer_gb": kept / layers / 1e9, "peak_gb": peak / 1e9}
+    log(f"phase 14d probe: {layers} chained fused blocks (B {B}, S {S}, "
+        f"bf16) keep {out['kept_gb']:.3f} GB for the backward "
+        f"({out['kept_per_layer_gb']:.4f} GB a layer); forward + backward "
+        f"peak {out['peak_gb']:.3f} GB")
+    return out
+
+
 def ssm_fused_phase(torch, ssm_base):
     """Phase 14c and 14d; returns ``(counts of the float32 form, record)``."""
     from repro_torch.fed.api import FedSpec
@@ -4111,6 +4253,7 @@ def ssm_fused_phase(torch, ssm_base):
         f"{assoc['losses']} (one kernel on the card)")
     rec["14d"] = runs
     rec["14d_memory_probe"] = ssm_block_memory(torch)
+    rec["14d_stack_probe"] = ssm_stack_memory(torch)
     return assoc["counts"], rec
 
 
@@ -4149,6 +4292,81 @@ def sort_aggregate_times(torch, src: str) -> int:
     return 0
 
 
+def _ssm_build(torch):
+    """Build ``ssm_scan.cu`` of the ``repro_torch`` on the path, print its
+    ptxas lines and the card; returns the card's nvidia-smi line."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.lru_scan import kernel as lkernel
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    for text in build.build_all([lkernel.SSM_SOURCE]).values():
+        for kname, regs, st, ld in build.ptxas_summary(text):
+            log(f"ptxas: {short_kernel_name(kname)}: {regs} registers, "
+                f"spill stores {st} B, loads {ld} B")
+    return smi
+
+
+def ssm_scan_phases(torch) -> int:
+    """``--ssm-scan``: build ``ssm_scan.cu``, run phases 14a and 14b, and
+    print 14b's records as one JSON line."""
+    smi = _ssm_build(torch)
+    ssm_small_checks(torch)
+    recs = ssm_full_shape(torch, card_bandwidth(torch.cuda.get_device_name(0)))
+    log(json.dumps({"ssm_scan_times": recs, "card": smi}))
+    return 0
+
+
+def ssm_times(torch, src) -> int:
+    """``--ssm-times [--src DIR]``: build ``ssm_scan.cu`` of the
+    ``repro_torch`` under ``DIR`` (default this checkout's ``src``), hold
+    its forward's y at 14b's shape bit-equal to its plain version, time
+    both kernels there (:func:`ssm_timings`, float32 and bfloat16 scan)
+    and run the chained-block memory probe; one JSON line.  Two trees are
+    compared in one call by running this once for each, in turns."""
+    from repro_torch.kernels.lru_scan import ops as lops
+    from repro_torch.kernels.lru_scan import ref as lref
+
+    smi = _ssm_build(torch)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    ins = ssm_inputs(torch, gen, *SSM_FULL, torch.bfloat16)
+    dt, u, Bm, Cm, A, D, _ = ins
+    recs = {}
+    for scan in (torch.float32, torch.bfloat16):
+        tag = str(scan).replace("torch.", "")
+        same_bits(torch, lops.ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan)[0],
+                  lref.ssm_scan_ref(dt, u, Bm, Cm, A, D, scan),
+                  f"--ssm-times {tag} y")
+        recs[tag] = ssm_timings(torch, ins, scan)
+        log(f"ssm_scan times ({tag} scan): fwd {recs[tag]['fwd']}, bwd "
+            f"{recs[tag]['bwd']}, checkpoints {recs[tag]['ckpt_bytes']:,} B")
+    del ins, dt, u, Bm, Cm, A, D
+    torch.cuda.empty_cache()
+    recs["stack_probe"] = ssm_stack_memory(torch)
+    log(json.dumps({"ssm_times": recs, "src": src, "card": smi}))
+    return 0
+
+
+def ssm_rounds(torch, src) -> int:
+    """``--ssm-rounds [--src DIR]``: phases 14c and 14d (the three
+    full-width fused forms, the profiled rounds, the block memory probe)
+    with the ``repro_torch`` under ``DIR`` (default this checkout's
+    ``src``), as one JSON line: run once for each of two trees, in turns,
+    to compare their rounds on one card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                state_layout="tree", engine_backend="fused",
+                use_fused_update=True)
+    _, rec = ssm_fused_phase(torch, base)
+    log(json.dumps({"ssm_rounds": rec, "src": src, "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4162,6 +4380,12 @@ def main() -> int:
     sys.path.insert(0, src)
     if "--sort-aggregate-times" in args:
         return sort_aggregate_times(torch, src)
+    if "--ssm-scan" in args:
+        return ssm_scan_phases(torch)
+    if "--ssm-times" in args:
+        return ssm_times(torch, src)
+    if "--ssm-rounds" in args:
+        return ssm_rounds(torch, src)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -4408,7 +4632,8 @@ def main() -> int:
                       "library_ms": r.get("library_ms")})
     variants = {k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
                                       "max_abs_err", "network_bound_ms",
-                                      "sort_yardstick_ms") if f in v}
+                                      "sort_yardstick_ms", "lanes",
+                                      "device_ms") if f in v}
                 for k, v in recs.items() if "[" in k}
     variants["round_uplink[lagged]"]["launches_compressed_path"] = \
         comp_counts["round_uplink"]
@@ -4435,6 +4660,9 @@ def main() -> int:
                     "segment_ranks_full_shape": rank_recs["segment_ranks"],
                     "dense": dense, "model_mesh": model_mesh,
                     "lm_head": lm_head, "ssm_fused_output": ssm_fused,
+                    "ssm_scan_full_shape": {
+                        k: v for k, v in recs.items()
+                        if k.startswith("ssm_scan")},
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist

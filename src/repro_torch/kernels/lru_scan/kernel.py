@@ -21,6 +21,9 @@ gives a thread one column and takes any others.
 ``ssm_fwd`` / ``ssm_bwd`` launch the selective scan with its output
 contraction (``csrc/ssm_scan.cu``, below): the Mamba block's time mixing
 from ``(dt, u, B, C, A, D)`` to ``y`` without a ``(B, S, d_in, n)`` state.
+Each lane group of G lanes walks a channel with K states a lane
+(:func:`ssm_plan`); :func:`ssm_route_counts` tallies the launches of each
+``(G, K)`` instantiation.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels._cuda import (I64, INT, PTR, check_launch,
                                        check_operands, ptr, stream_of)
+from repro_torch.kernels.lru_scan.ref import SSM_BLOCK_CHANNELS, state_lanes
 
 SOURCE = Path(__file__).parent / "csrc" / "lru_scan.cu"
 
@@ -104,41 +108,95 @@ def lru_bwd(a: torch.Tensor, h: torch.Tensor, g: torch.Tensor):
 # ---------------------------------------------------------------------------
 #
 # Replaces no Pallas kernel: the counterpart of the reference's XLA stand-ins
-# ssm_mix_seq and ssm_mix_fused (repro/models/ssm.py:96, :123).  Bound by
-# its exponentials (forward) and its bytes (backward); the source file's
-# header says how the design meets that bound.
+# ssm_mix_seq and ssm_mix_fused (repro/models/ssm.py:96, :123).  Operations
+# bound both kernels: the forward's one exponential a state entry, the
+# backward's 18 separately rounded float operations a state entry.
+#
+# Layout: a lane group of G lanes walks one channel (b, d) in time order,
+# lane l holding the K = P / G states l, l + G, ... (P = n rounded up to a
+# power of two), so the sum over states is the plain version's halving tree
+# with its first log2 K levels in registers and its last log2 G levels as
+# xor shuffles.  A block holds 64 channels of one batch row.  Time passes in
+# tiles (32 steps forward, 8 backward) through a double-buffered ring in
+# shared memory whose next tile's loads are in flight during the scan.  The
+# forward checkpoints h every 8 steps; the backward rebuilds each 8-step
+# sub-span's a in registers from its checkpoint (and h, in registers under
+# a float32 scan, in shared memory under a bf16 one) and walks it back.
+# The source file's header has the details.
 
 SSM_SOURCE = Path(__file__).parent / "csrc" / "ssm_scan.cu"
 SSM_MAX_STATE = 32          # kMaxN
-SSM_MAX_CHUNK = 128         # kMaxChunk: the longest checkpoint span
+SSM_CKPT_STEPS = 8          # kSub: steps between the forward's checkpoints
+# the (G, K) instantiations in the library's route order, one for each P
+SSM_ROUTES = ((1, 1), (1, 2), (1, 4), (2, 4), (4, 4), (8, 4))
+
+
+def ssm_plan(n: int) -> tuple[int, int, int, int]:
+    """``(G, K, channels, threads)`` of the kernels' blocks at state n: K
+    = min(P, 4) states a lane, G = P / K lanes a channel, 64 channels and
+    64 G threads a block.  Raises for a state out of range."""
+    if not 1 <= n <= SSM_MAX_STATE:
+        raise ValueError(f"ssm_scan: the kernel takes a state of 1 to "
+                         f"{SSM_MAX_STATE}, not {n}")
+    P = state_lanes(n)
+    K = min(P, 4)
+    G = P // K
+    return G, K, SSM_BLOCK_CHANNELS, SSM_BLOCK_CHANNELS * G
+
+
+def ssm_ckpt_shape(Bn: int, S: int, d_in: int, n: int) -> tuple:
+    """The forward's checkpoints: h ahead of every 8-step sub-span, the P
+    states of a channel in the lanes' order, (B, ceil(S / 8), d_in, P)."""
+    return (Bn, -(-S // SSM_CKPT_STEPS), d_in, state_lanes(n))
 
 
 @functools.cache
 def _ssm_lib():
     lib = build.load(SSM_SOURCE)
-    lib.repro_ssm_scan_fwd.argtypes = [PTR] * 8 + [I64] * 5 + [INT, INT, PTR]
+    lib.repro_ssm_scan_fwd.argtypes = [PTR] * 8 + [I64] * 4 + [INT, INT, PTR]
     lib.repro_ssm_scan_fwd.restype = INT
-    lib.repro_ssm_scan_bwd.argtypes = [PTR] * 15 + [I64] * 5 + [INT, INT, PTR]
+    lib.repro_ssm_scan_bwd.argtypes = [PTR] * 15 + [I64] * 4 + [INT, INT, PTR]
     lib.repro_ssm_scan_bwd.restype = INT
-    lib.repro_ssm_scan_scratch.argtypes = [I64] * 4
-    lib.repro_ssm_scan_scratch.restype = I64
-    lib.repro_ssm_scan_block_channels.argtypes = [I64]
-    lib.repro_ssm_scan_block_channels.restype = INT
+    lib.repro_ssm_scan_plan.argtypes = [I64, PTR]
+    lib.repro_ssm_scan_plan.restype = INT
+    lib.repro_ssm_scan_ckpt_steps.argtypes = []
+    lib.repro_ssm_scan_ckpt_steps.restype = INT
+    lib.repro_ssm_scan_routes.argtypes = [PTR]
+    lib.repro_ssm_scan_routes.restype = None
     return lib
 
 
-def ssm_block_channels(n: int) -> int:
-    """The channels of a kernel block at state n, as the library reports
-    it (``ref.block_channels`` mirrors it)."""
-    return _ssm_lib().repro_ssm_scan_block_channels(n)
+def ssm_library_plan(n: int):
+    """``(G, K, channels, threads)`` as the library plans state n (None
+    where n is out of range); :func:`ssm_plan` mirrors it."""
+    out = (ctypes.c_int * 5)()
+    if _ssm_lib().repro_ssm_scan_plan(n, out) != 0:
+        return None
+    return tuple(out[:4])
 
 
-def check_ssm(name, dt, u, Bm, Cm, A, D, scan_dtype, chunk, **more) -> None:
+def ssm_library_ckpt_steps() -> int:
+    """The library's steps between checkpoints (:data:`SSM_CKPT_STEPS`)."""
+    return _ssm_lib().repro_ssm_scan_ckpt_steps()
+
+
+def ssm_route_counts() -> dict[str, dict[tuple[int, int], int]]:
+    """Launches so far of each ``(G, K)`` instantiation, ``{"fwd": {(G,
+    K): n}, "bwd": {...}}``, as the C launcher counts them where each
+    launch succeeds."""
+    out = (ctypes.c_int64 * (2 * len(SSM_ROUTES)))()
+    _ssm_lib().repro_ssm_scan_routes(out)
+    return {name: {gk: out[i * len(SSM_ROUTES) + r]
+                   for r, gk in enumerate(SSM_ROUTES)}
+            for i, name in enumerate(("fwd", "bwd"))}
+
+
+def check_ssm(name, dt, u, Bm, Cm, A, D, scan_dtype, **more) -> None:
     """Raise unless dt (B, S, d_in) is a contiguous float32 CUDA tensor, u
     matches its shape (float32 or bfloat16), B and C are (B, S, n), A is
     (d_in, n) and D (d_in,), all float32, on dt's card and contiguous;
-    1 <= n <= 32, scan_dtype float32 or bfloat16, 1 <= chunk <= 128; and
-    ``more`` (name: (tensor, shape)) float32 of the shapes given."""
+    1 <= n <= 32 and scan_dtype float32 or bfloat16; and ``more`` (name:
+    (tensor, shape)) float32 of the shapes given."""
     if dt.ndim != 3:
         raise ValueError(f"{name}: dt must be (B, S, d_in), got "
                          f"{tuple(dt.shape)}")
@@ -155,68 +213,67 @@ def check_ssm(name, dt, u, Bm, Cm, A, D, scan_dtype, chunk, **more) -> None:
     if scan_dtype not in DTYPES:
         raise TypeError(f"{name}: scan dtype float32 or bfloat16, not "
                         f"{scan_dtype}")
-    if not 1 <= chunk <= SSM_MAX_CHUNK:
-        raise ValueError(f"{name}: checkpoint span 1 to {SSM_MAX_CHUNK}, "
-                         f"not {chunk}")
     if u.dtype not in DTYPES:
         raise TypeError(f"{name}: u must be float32 or bfloat16, not "
                         f"{u.dtype}")
-    check_operands(name, dt)
-    check_operands(name, u)
-    if u.shape != dt.shape or u.device != dt.device:
+    if not dt.is_cuda:
+        raise ValueError(f"{name}: kernel operands must be CUDA tensors")
+    card = dt.get_device()
+    if u.shape != dt.shape or u.get_device() != card:
         raise ValueError(f"{name}: u is {tuple(u.shape)} on {u.device}, "
                          f"want {tuple(dt.shape)} on {dt.device}")
-    want = {"B": (Bm, (Bn, S, n)), "C": (Cm, (Bn, S, n)), "A": (A, (d_in, n)),
-            "D": (D, (d_in,)), **more}
-    for key, (t, shape) in want.items():
-        if t.device != dt.device or t.dtype != torch.float32:
+    if not (dt.is_contiguous() and u.is_contiguous()):
+        raise ValueError(f"{name}: dt and u must be contiguous")
+    f32 = torch.float32
+    for key, t, shape in (("B", Bm, (Bn, S, n)), ("C", Cm, (Bn, S, n)),
+                          ("A", A, (d_in, n)), ("D", D, (d_in,)),
+                          *((k, t, sh) for k, (t, sh) in more.items())):
+        if t.dtype != f32 or t.get_device() != card:
             raise ValueError(f"{name}: {key} is {t.dtype} on {t.device}, "
                              f"want float32 on {dt.device}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
                              f"want {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
-def ssm_fwd(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32, chunk=128):
+def ssm_fwd(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32):
     """``(y, ckpt)`` from the forward kernel: y (B, S, d_in) float32 and
-    the float32 state ahead of every span of ``chunk`` steps, (B,
-    ceil(S / chunk), d_in, n), which the backward reads."""
-    check_ssm("ssm_scan_fwd", dt, u, Bm, Cm, A, D, scan_dtype, chunk)
+    the float32 state ahead of every 8-step sub-span
+    (:func:`ssm_ckpt_shape`), which the backward reads."""
+    check_ssm("ssm_scan_fwd", dt, u, Bm, Cm, A, D, scan_dtype)
     Bn, S, d_in = dt.shape
     n = A.shape[1]
     y = torch.empty_like(dt)
-    ckpt = dt.new_empty((Bn, -(-S // chunk), d_in, n))
+    ckpt = dt.new_empty(ssm_ckpt_shape(Bn, S, d_in, n))
     if dt.numel() == 0:
         return y, ckpt
     check_launch("ssm_scan_fwd", _ssm_lib().repro_ssm_scan_fwd(
         ptr(dt), ptr(u), ptr(Bm), ptr(Cm), ptr(A), ptr(D), ptr(y), ptr(ckpt),
-        Bn, S, d_in, n, chunk, DTYPES[u.dtype], DTYPES[scan_dtype],
-        stream_of(dt)))
+        Bn, S, d_in, n, DTYPES[u.dtype], DTYPES[scan_dtype], stream_of(dt)))
     return y, ckpt
 
 
-def ssm_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype=torch.float32,
-            chunk=128):
+def ssm_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype=torch.float32):
     """``(ddt, du, dB, dC, dA, dD)``, float32, from the backward kernel and
     its fixed-order reduction, given the forward's ``ckpt`` and the
     upstream gradient ``gy`` of y."""
     Bn, S, d_in = dt.shape
     n = A.shape[1] if A.ndim == 2 else 0
-    check_ssm("ssm_scan_bwd", dt, u, Bm, Cm, A, D, scan_dtype, chunk,
+    check_ssm("ssm_scan_bwd", dt, u, Bm, Cm, A, D, scan_dtype,
               gy=(gy, (Bn, S, d_in)),
-              ckpt=(ckpt, (Bn, -(-S // chunk), d_in, n)))
+              ckpt=(ckpt, ssm_ckpt_shape(Bn, S, d_in, n)))
     ddt, du = torch.empty_like(dt), torch.empty_like(dt)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dA, dD = torch.empty_like(A), torch.empty_like(D)
     if dt.numel() == 0:
         return ddt, du, dB.zero_(), dC.zero_(), dA.zero_(), dD.zero_()
-    lib = _ssm_lib()
-    scratch = dt.new_empty((lib.repro_ssm_scan_scratch(Bn, S, d_in, n),))
-    check_launch("ssm_scan_bwd", lib.repro_ssm_scan_bwd(
+    # the partial sums of dB, dC over the 64-channel blocks, of dA, dD over b
+    scratch = dt.new_empty((2 * -(-d_in // SSM_BLOCK_CHANNELS) * Bn * S * n
+                            + Bn * d_in * n + Bn * d_in,))
+    check_launch("ssm_scan_bwd", _ssm_lib().repro_ssm_scan_bwd(
         ptr(dt), ptr(u), ptr(Bm), ptr(Cm), ptr(A), ptr(D), ptr(gy), ptr(ckpt),
         ptr(ddt), ptr(du), ptr(dB), ptr(dC), ptr(dA), ptr(dD), ptr(scratch),
-        Bn, S, d_in, n, chunk, DTYPES[u.dtype], DTYPES[scan_dtype],
-        stream_of(dt)))
+        Bn, S, d_in, n, DTYPES[u.dtype], DTYPES[scan_dtype], stream_of(dt)))
     return ddt, du, dB, dC, dA, dD

@@ -10,7 +10,7 @@ autograd.  No fallback: a kernel that fails to build or launch raises.
 
 ``lru_scan_fwd.launches`` and ``lru_scan_bwd.launches`` count launches.
 
-``ssm_scan(dt, u, B, C, A, D, scan_dtype, chunk)`` is the Mamba block's
+``ssm_scan(dt, u, B, C, A, D, scan_dtype)`` is the Mamba block's
 time mixing with its output contraction, ``y_t = <h_t, C_t> + D u_t``
 (``ref.ssm_scan_ref``), through :class:`SsmScan`: on CUDA tensors its
 forward and backward launch the selective-scan kernels, on CPU tensors
@@ -77,23 +77,22 @@ def lru_scan(a, b):
     return LruScan.apply(a.contiguous(), b.contiguous())
 
 
-def ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32, chunk=128):
+def ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32):
     """``(y, ckpt)``: y (B, S, d_in) float32 and, from the kernel, the
     backward's float32 state checkpoints (None on the CPU)."""
     if dt.device.type == "cpu":
         return ssm_scan_ref(dt, u, Bm, Cm, A, D, scan_dtype), None
-    out = kernel.ssm_fwd(dt, u, Bm, Cm, A, D, scan_dtype, chunk)
+    out = kernel.ssm_fwd(dt, u, Bm, Cm, A, D, scan_dtype)
     ssm_scan_fwd.launches += 1
     return out
 
 
-def ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype=torch.float32,
-                 chunk=128):
+def ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype=torch.float32):
     """``(ddt, du, dB, dC, dA, dD)``, float32, given the forward's
     checkpoints and the upstream gradient ``gy`` of y."""
     if dt.device.type == "cpu":
         return ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy, scan_dtype)
-    out = kernel.ssm_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype, chunk)
+    out = kernel.ssm_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype)
     ssm_scan_bwd.launches += 1
     return out
 
@@ -107,25 +106,25 @@ class SsmScan(torch.autograd.Function):
     the backward kernel for the gradients of all six (u's in u's dtype)."""
 
     @staticmethod
-    def forward(ctx, dt, u, Bm, Cm, A, D, scan_dtype, chunk):
-        y, ckpt = ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype, chunk)
+    def forward(ctx, dt, u, Bm, Cm, A, D, scan_dtype):
+        y, ckpt = ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype)
         ctx.save_for_backward(dt, u, Bm, Cm, A, D, ckpt)
-        ctx.scan = (scan_dtype, chunk)
+        ctx.scan_dtype = scan_dtype
         return y
 
     @staticmethod
     def backward(ctx, gy):
         dt, u, Bm, Cm, A, D, ckpt = ctx.saved_tensors
-        ddt, du, dB, dC, dA, dD = ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt,
-                                               gy.contiguous(), *ctx.scan)
-        return ddt, du.to(u.dtype), dB, dC, dA, dD, None, None
+        ddt, du, dB, dC, dA, dD = ssm_scan_bwd(
+            dt, u, Bm, Cm, A, D, ckpt, gy.contiguous(), ctx.scan_dtype)
+        return ddt, du.to(u.dtype), dB, dC, dA, dD, None
 
 
-def ssm_scan(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32, chunk=128):
+def ssm_scan(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32):
     """dt (B, S, d_in) float32, u (B, S, d_in), B and C (B, S, n) float32,
     A (d_in, n), D (d_in,) -> y (B, S, d_in) float32, through
-    :class:`SsmScan` (checkpoints every ``chunk`` steps, at most
-    ``kernel.SSM_MAX_CHUNK``)."""
+    :class:`SsmScan` (the kernels checkpoint every
+    ``kernel.SSM_CKPT_STEPS`` steps)."""
     return SsmScan.apply(dt.contiguous(), u.contiguous(), Bm.contiguous(),
                          Cm.contiguous(), A.contiguous(), D.contiguous(),
-                         scan_dtype, min(chunk, kernel.SSM_MAX_CHUNK))
+                         scan_dtype)

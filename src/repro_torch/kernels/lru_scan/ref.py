@@ -69,14 +69,14 @@ def lru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor,
 #
 # (a and bx rounded to bf16 under a bf16 scan dtype), walked in time order
 # with the kernel's rounded operations: the sum over i in the kernel's
-# lane tree (:func:`lane_tree_sum`), the sums over d_in in its blocks of
-# channels (:func:`block_channels`), over b in batch order.  On the card
+# lane tree (:func:`lane_tree_sum`), the sums over d_in in its blocks and
+# groups of channels (:func:`_over_channel_blocks`), over b in batch order.  On the card
 # the kernels equal these bit for bit.  The reference's ``ssm_mix_seq``
 # takes the same recurrence in the same order and its own contraction
 # order; its ``ssm_mix_fused`` an associative scan within a chunk.
 
-SSM_BLOCK_LANES = 256       # csrc/ssm_scan.cu kBlockLanes
-SSM_MAX_BLOCK_CHANNELS = 64  # kMaxD
+SSM_BLOCK_CHANNELS = 64     # csrc/ssm_scan.cu kD: the channels of a block
+SSM_CHANNEL_GROUPS = 4      # kGroups: a block's groups of channels in dB, dC
 SSM_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -87,14 +87,16 @@ def state_lanes(n: int) -> int:
 
 def block_channels(n: int) -> int:
     """The channels d of one kernel block at state n (the backward sums
-    dB and dC over d in blocks of this many, then across blocks)."""
-    return min(SSM_MAX_BLOCK_CHANNELS, SSM_BLOCK_LANES // state_lanes(n))
+    dB and dC over d in blocks of this many, then across blocks): 64 at
+    every n, whatever the lanes of a channel (``kernel.ssm_plan``)."""
+    return SSM_BLOCK_CHANNELS
 
 
 def lane_tree_sum(s: torch.Tensor) -> torch.Tensor:
-    """Sum over the last dim in the kernel's xor-butterfly order: padded
-    with zeros to :func:`state_lanes`, then ``s[..., :P/2] + s[..., P/2:]``,
-    halving until one entry is left."""
+    """Sum over the last dim in the kernel's tree order: padded with zeros
+    to :func:`state_lanes`, then ``s[..., :P/2] + s[..., P/2:]``, halving
+    until one entry is left (the kernel's first levels in a lane's
+    registers, its last ones xor shuffles across the lanes of a channel)."""
     pad = state_lanes(s.shape[-1]) - s.shape[-1]
     if pad:
         s = torch.cat([s, s.new_zeros(s.shape[:-1] + (pad,))], dim=-1)
@@ -145,15 +147,20 @@ def _in_order(parts: torch.Tensor) -> torch.Tensor:
 
 
 def _over_channel_blocks(terms: torch.Tensor) -> torch.Tensor:
-    """(B, S, d_in, n) -> (B, S, n): the sum over d in the kernel's order,
-    channel by channel within a block, then block by block."""
+    """(B, S, d_in, n) -> (B, S, n): the sum over d in the kernel's order:
+    zero-padded to whole blocks of :func:`block_channels`; within a block,
+    each of its :data:`SSM_CHANNEL_GROUPS` groups of consecutive channels
+    channel by channel, then the halving tree over the groups (as
+    :func:`lane_tree_sum`); then block by block."""
     Bn, S, d_in, n = terms.shape
     kd = block_channels(n)
     n_blk = -(-d_in // kd)
     pad = n_blk * kd - d_in
     if pad:
         terms = torch.cat([terms, terms.new_zeros((Bn, S, pad, n))], dim=2)
-    blocks = _in_order(terms.reshape(Bn, S, n_blk, kd, n).movedim(3, 0))
+    groups = terms.reshape(Bn, S, n_blk, SSM_CHANNEL_GROUPS,
+                           kd // SSM_CHANNEL_GROUPS, n)
+    blocks = lane_tree_sum(_in_order(groups.movedim(4, 0)).movedim(3, -1))
     return _in_order(blocks.movedim(2, 0))
 
 

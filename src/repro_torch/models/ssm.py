@@ -181,14 +181,14 @@ def scan_from_zero(a, bx, chunk: int):
     return ssm_scan_chunked(a, bx, h0, chunk)[0]
 
 
-def ssm_mix_kernel(params, u, scan_dtype, chunk: int = 128):
+def ssm_mix_kernel(params, u, scan_dtype):
     """The fused output through the selective-scan kernel
-    (``lru_ops.ssm_scan``; checkpoints every ``min(chunk, 128)`` steps):
+    (``lru_ops.ssm_scan``; the kernels checkpoint every 8 steps):
     ``dt``, ``B``, ``C`` and ``A`` made as ``_ssm_coeffs`` makes them, the
     coefficients ``a`` and ``bx`` inside the kernel."""
     dt, Bc, Cc, A = _projections(params, u)
     return lru_ops.ssm_scan(dt, u, Bc.float(), Cc.float(), A, params["D"],
-                            scan_dtype, chunk)
+                            scan_dtype)
 
 
 def ssm_mix_seq(params, u, scan_dtype) -> torch.Tensor:
@@ -213,7 +213,7 @@ def ssm_mix_fused(params, u, chunk: int, scan_dtype) -> torch.Tensor:
     chunk by chunk, with a float32 carry across chunks (the reference's
     ``ssm_mix_fused``); the kernel on a CUDA tensor."""
     if u.is_cuda:
-        return ssm_mix_kernel(params, u, scan_dtype, chunk)
+        return ssm_mix_kernel(params, u, scan_dtype)
     S = u.shape[1]
     if S % chunk:
         chunk = S

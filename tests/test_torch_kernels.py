@@ -164,7 +164,7 @@ def test_cpu_ops_take_plain_versions_and_count_no_launch():
     tlru.lru_scan(a, a).sum().backward()
     dt = torch.rand(2, 6, 3, requires_grad=True)
     tlru.ssm_scan(dt, dt, a[:, :, 0], a[:, :, 1], -a[0, 0], dt[0, 0],
-                  torch.float32, 4).sum().backward()
+                  torch.float32).sum().backward()
     tcompress.segment_ranks(z, segments=((10, 40), (50, 90)))
     assert kernels.launch_counts() == {"round_uplink": 0,
                                        "round_downlink": 0,

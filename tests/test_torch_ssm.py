@@ -229,7 +229,7 @@ def _lru_scan_through_function(a, bx, chunk):
 
 def _ssm_scan_through_function(params, u, chunk, scan_dtype):
     """The card's fused output on CPU tensors: ``SsmScan``."""
-    return tssm.ssm_mix_kernel(params, u, scan_dtype, chunk)
+    return tssm.ssm_mix_kernel(params, u, scan_dtype)
 
 
 # the fused output's config (both packages) per route

@@ -34,6 +34,14 @@ The largest differences seen are listed beside ``TOL``.
 * ``SsmScan.apply`` on CPU tensors runs the plain versions (bit for bit)
   and counts no launch; the kernel launchers refuse CPU tensors and
   operands out of range.
+* the kernels' layout, emulated: for every n and its lane group
+  (``kernel.ssm_plan``: G lanes a channel, K states a lane), the sum
+  over states as the kernels take it -- register levels over a lane's
+  strided states, then xor-shuffle levels -- bit-equal to
+  ``ref.lane_tree_sum`` on every lane; the plan's G, K, block width and
+  threads for each n; the sum over channels of dB and dC written out in
+  the backward kernel's order (64-channel blocks, 16-channel groups, a
+  tree over the groups), bit-equal to ``ref._over_channel_blocks``.
 """
 
 import dataclasses
@@ -174,7 +182,7 @@ def test_kernel_route_against_reference_fused(S, n, scan):
         params, u, ct)
     tp, tu = _leaves(params, u)
     kernels.reset_launch_counts()
-    y = tssm.ssm_mix_kernel(tp, tu, getattr(torch, scan), 128)
+    y = tssm.ssm_mix_kernel(tp, tu, getattr(torch, scan))
     _assert_matches(y, *_port_grads(y, tp, tu, ct), ref, ("kernel", scan))
     assert set(kernels.launch_counts().values()) == {0}
 
@@ -224,7 +232,7 @@ def test_ssm_scan_function_on_cpu_is_the_plain_version(scan, u_dtype):
     sd = getattr(torch, scan)
     kernels.reset_launch_counts()
     leaves = [t.clone().requires_grad_() for t in (dt, u, Bm, Cm, A, D)]
-    y = tops.ssm_scan(*leaves, sd, 7)
+    y = tops.ssm_scan(*leaves, sd)
     got = torch.autograd.grad(y, leaves, gy)
     assert torch.equal(y.detach(), tref.ssm_scan_ref(dt, u, Bm, Cm, A, D, sd))
     want = tref.ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy, sd)
@@ -249,7 +257,104 @@ def test_lane_tree_sum_is_the_halving_tree(n):
         half = len(v) // 2
         v = [v[i] + v[i + half] for i in range(half)]
     assert torch.equal(tref.lane_tree_sum(s), v[0])
-    assert tref.block_channels(n) * P == min(256, 64 * P)
+    assert tref.block_channels(n) == tkernel.ssm_plan(n)[2] == 64
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n", range(1, 33))
+def test_kernel_tree_is_the_halving_tree(n):
+    """The kernels' sum over states, emulated lane by lane: lane l of a
+    group of G holds states l, l + G, .. (K = P / G of them, zero past
+    n), adds register k + K/2 into k, then k + K/4, ..; then xor-shuffle
+    levels G/2 .. 1, each lane adding its partner's value to its own.
+    Every lane must end with ``ref.lane_tree_sum``'s bits, on rows whose
+    entries span six decades (so that another pairing rounds apart)."""
+    G, K = tkernel.ssm_plan(n)[:2]
+    rng = np.random.default_rng(100 + n)
+    s = torch.from_numpy((rng.normal(size=(256, n)) * 10.0 ** rng.uniform(
+        -3, 3, size=(256, n))).astype(np.float32))
+    zero = torch.zeros(s.shape[0])
+    regs = [[s[:, l + k * G] if l + k * G < n else zero for k in range(K)]
+            for l in range(G)]
+    half = K // 2
+    while half:
+        for r in regs:
+            for k in range(half):
+                r[k] = r[k] + r[k + half]
+        half //= 2
+    v = [r[0] for r in regs]
+    o = G // 2
+    while o:
+        v = [v[l] + v[l ^ o] for l in range(G)]
+        o //= 2
+    want = _bits(tref.lane_tree_sum(s))
+    for lane in v:
+        assert torch.equal(_bits(lane), want)
+
+
+# (n range, G, K, threads) of the plan: K = min(P, 4) states a lane, 64
+# channels a block
+PLAN = [((1, 1), 1, 1, 64), ((2, 2), 1, 2, 64), ((3, 4), 1, 4, 64),
+        ((5, 8), 2, 4, 128), ((9, 16), 4, 4, 256), ((17, 32), 8, 4, 512)]
+
+
+@pytest.mark.parametrize("n", range(1, 33))
+def test_ssm_plan(n):
+    """G, K, channels and threads of a block for each n; the block width
+    ``ref.block_channels`` sums dB and dC by; the staged state order (lane
+    l's K states side by side) a permutation of the P states."""
+    (_, _), G, K, threads = next(row for row in PLAN
+                                 if row[0][0] <= n <= row[0][1])
+    P = tref.state_lanes(n)
+    assert tkernel.ssm_plan(n) == (G, K, 64, threads)
+    assert G * K == P and tref.block_channels(n) == 64
+    assert (G, K) in tkernel.SSM_ROUTES
+    order = [p // K + (p % K) * G for p in range(P)]
+    assert sorted(order) == list(range(P))
+    assert all(order[l * K + k] == l + k * G for l in range(G)
+               for k in range(K))
+    assert tkernel.ssm_ckpt_shape(2, 17, 5, n) == (2, 3, 5, P)
+
+
+@pytest.mark.parametrize("d_in", (1, 15, 16, 17, 64, 65, 130))
+def test_over_channel_blocks_is_the_kernels_order(d_in):
+    """dB and dC sum over d as the backward kernel does, written out: zero
+    padding to whole 64-channel blocks; in a block, each group of 16
+    channels in channel order, then (g0 + g2) + (g1 + g3); then the blocks
+    in order.  On rows spanning six decades, so that another order rounds
+    apart."""
+    rng = np.random.default_rng(d_in)
+    t = torch.from_numpy((rng.normal(size=(2, 3, d_in, 5)) * 10.0 ** (
+        rng.uniform(-3, 3, size=(2, 3, d_in, 5)))).astype(np.float32))
+    zero = torch.zeros(2, 3, 5)
+    total = None
+    for b in range(-(-d_in // 64)):
+        groups = []
+        for g in range(4):
+            acc = None
+            for c in range(16):
+                d = 64 * b + 16 * g + c
+                x = t[:, :, d] if d < d_in else zero
+                acc = x if acc is None else acc + x
+            groups.append(acc)
+        blk = (groups[0] + groups[2]) + (groups[1] + groups[3])
+        total = blk if total is None else total + blk
+    assert torch.equal(_bits(tref._over_channel_blocks(t)), _bits(total))
+    assert tref.block_channels(5) * 1 == 64 and tref.SSM_CHANNEL_GROUPS == 4
+
+
+def test_ssm_plan_routes_cover_the_library():
+    """Every (G, K) the library builds is some n's plan, one for each P
+    in the library's route order, and nothing else is planned."""
+    planned = [tkernel.ssm_plan(2 ** r)[:2] for r in range(6)]
+    assert planned == list(tkernel.SSM_ROUTES)
+    assert {tkernel.ssm_plan(n)[:2] for n in range(1, 33)} == set(planned)
+    for n in (0, 33):
+        with pytest.raises(ValueError, match="state of 1 to 32"):
+            tkernel.ssm_plan(n)
 
 
 def test_suite_is_registered():
@@ -259,7 +364,7 @@ def test_suite_is_registered():
 
 
 @pytest.mark.parametrize("case", ["cpu", "ndim", "float64_dt", "state",
-                                  "chunk", "scan_dtype"])
+                                  "scan_dtype"])
 def test_kernel_launchers_check_operands(case):
     """The launchers raise before building on operands the kernels do not
     take: the shapes, dtypes and ranges first, then the device."""
@@ -267,7 +372,7 @@ def test_kernel_launchers_check_operands(case):
     u, Bm, Cm = dt.clone(), torch.rand(2, 5, 4), torch.rand(2, 5, 4)
     A, D = -torch.rand(8, 4), torch.rand(8)
     args = dict(dt=dt, u=u, Bm=Bm, Cm=Cm, A=A, D=D,
-                scan_dtype=torch.float32, chunk=128)
+                scan_dtype=torch.float32)
     err, match = ValueError, "CUDA"
     if case == "ndim":
         args["dt"], match = dt[0], "B, S, d_in"
@@ -275,8 +380,6 @@ def test_kernel_launchers_check_operands(case):
         args["dt"], err, match = dt.double(), TypeError, "float32"
     elif case == "state":
         args["A"], match = -torch.rand(8, 33), "state of 1 to 32"
-    elif case == "chunk":
-        args["chunk"], match = 129, "checkpoint span"
     elif case == "scan_dtype":
         args["scan_dtype"], err, match = torch.float16, TypeError, "scan dtype"
     with pytest.raises(err, match=match):
