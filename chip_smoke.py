@@ -261,6 +261,24 @@ last line):
    printed); and one block's weights applied 64 times in a chain, the
    published depth, fused: the memory the forward keeps for the
    backward, a layer's share of it, and the peak of both.
+15. Standard mode: gemma2-2b at published width cut to 2 layers, bf16,
+   batch 8, seq 512, AdamW, 3 steps through ``run_standard``: finite
+   losses and parameters, flash 6 / 6 launches (one a layer a step) and
+   nothing else; steady step ms and peak memory.
+16. Resume on the card: reduced gemma2-2b, N 4, packed, fused edges and
+   update, 6 rounds against 3, a checkpoint, ``resume`` and 3 more
+   (``run_fed`` with ``checkpoint_every=3``), in bf16 and fp32 (gd), fp32
+   topk and bf16 noisy_gd (the CUDA generator's state crosses the
+   checkpoint): x, z and t bit-equal, the two legs' launches equal and
+   summing to the uninterrupted run's.
+17. Serving: phase 15's parameters through ``save_checkpoint`` /
+   ``restore_checkpoint`` (bit-equal; seconds and GB/s), ``generate`` on
+   them at batch 4, prompt 128, 32 new tokens (prefill ms, ms a token,
+   tok/s; no kernel on the decode path), the prefill's last logits
+   against the forward through the flash kernels (largest difference,
+   argmax agreement); 17c reduced gemma2-2b, falcon-mamba-7b and
+   recurrentgemma-2b in fp32 decoded token by token against their
+   forward through the flash and lru_scan kernels, within 2e-2.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -301,7 +319,8 @@ compare them on one card.  ``--ssm-scan`` runs phases 14a and 14b alone;
 time) and runs the 64-layer memory probe, as one JSON line; and
 ``--ssm-rounds [--src DIR]`` runs phases 14c and 14d alone with the
 ``repro_torch`` under ``DIR``: each run once a tree, in turns, to
-compare two trees on one card.
+compare two trees on one card.  ``--train-serve`` runs phases 15-17
+alone.
 """
 
 from __future__ import annotations
@@ -4367,6 +4386,335 @@ def ssm_rounds(torch, src) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-17: standard training, resumed rounds, serving
+# ---------------------------------------------------------------------------
+
+STD_STEPS = 3                       # phase 15's standard steps
+RESUME_CASES = (                    # phase 16: (label, dtype, spec fields)
+    ("bf16 gd", "bfloat16", {}),
+    ("fp32 gd", "float32", {}),
+    ("fp32 topk 0.25", "float32", {"compression": ("topk", 0.25)}),
+    ("bf16 noisy_gd (tau 0.01)", "bfloat16", {"privacy": (0.01, 1.0)}),
+)
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
+# (arch, layers) of 17c: recurrentgemma-2b's 3 reduced layers hold its local
+# attention layer
+DECODE_CELLS = (("gemma2-2b", 2), ("falcon-mamba-7b", 2),
+                ("recurrentgemma-2b", 3))
+
+
+def _scratch_dir():
+    """A directory under the checkout's git-ignored ``build/`` for the
+    checkpoints of phases 16 and 17 (removed by the caller)."""
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    return tempfile.mkdtemp(prefix="chip_smoke_ckpt-",
+                            dir=os.path.join(ROOT, "build"))
+
+
+def standard_phase(torch):
+    """Phase 15: gemma2-2b at published width cut to 2 layers, bf16,
+    batch 8, seq 512, AdamW, ``STD_STEPS`` standard steps through
+    ``run_standard``.  Gates: finite losses and parameters, the parameter
+    count, and flash forward and backward launches of one per attention
+    layer a step (nothing else launches).  Returns ``(params, record)``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_standard
+
+    cfg = dataclasses.replace(get_config(GEMMA.arch), n_layers=GEMMA.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    params, hist = run_standard(cfg, optimizer="adamw", lr=1e-3,
+                                steps=STD_STEPS, seq_len=MAIN_SEQ,
+                                batch=MAIN_BATCH, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_counts(
+        flash_attention_fwd=STD_STEPS * GEMMA.attn_layers,
+        flash_attention_bwd=STD_STEPS * GEMMA.attn_layers)
+    n = sum(p.numel() for p in params.values())
+    if n != GEMMA.n_params:
+        fail(f"phase 15: {n} parameters, want {GEMMA.n_params:,}")
+    if counts != want:
+        fail(f"phase 15: launch counts {counts}, want {want}")
+    if not all(math.isfinite(h["loss"]) for h in hist) or not all(
+            bool(torch.isfinite(p).all()) for p in params.values()):
+        fail(f"phase 15: non-finite loss or parameters ({hist})")
+    step_ms = [1e3 * h["dt"] for h in hist]
+    log(f"phase 15 standard mode: gemma2-2b (2 layers, {n:,} params, bf16), "
+        f"AdamW, batch {MAIN_BATCH} x seq {MAIN_SEQ}, {STD_STEPS} steps: "
+        f"losses {[round(h['loss'], 4) for h in hist]}, step ms "
+        f"{[round(v, 2) for v in step_ms]} (steady {step_ms[1:]}), peak "
+        f"{peak / 1e9:.2f} GB; flash launches {want['flash_attention_fwd']} "
+        f"fwd / {want['flash_attention_bwd']} bwd")
+    return params, {"step_ms": step_ms, "losses": [h["loss"] for h in hist],
+                    "peak_gb": peak / 1e9,
+                    "flash_launches": want["flash_attention_fwd"]}
+
+
+def _resume_spec(fields):
+    from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
+
+    kw = dict(n_agents=FULL_N, n_epochs=N_EPOCHS, gamma=0.05,
+              weight_decay=0.01, state_layout="packed",
+              engine_backend="fused", use_fused_update=True)
+    if "compression" in fields:
+        name, ratio = fields["compression"]
+        kw["compression"] = CompressionSpec(name, ratio=ratio)
+    if "privacy" in fields:
+        tau, clip = fields["privacy"]
+        kw["privacy"] = PrivacySpec(tau=tau, clip=clip)
+    return FedSpec(**kw)
+
+
+def resume_phase(torch):
+    """Phase 16: reduced gemma2-2b, N 4, packed, fused edges and update,
+    on the card: 6 rounds against 3 rounds, a checkpoint, ``resume`` and 3
+    more (``run_fed`` with ``checkpoint_every=3``), for each of
+    ``RESUME_CASES``.  Gates: ``x``, ``z`` and ``t`` equal bit for bit
+    (``torch.equal`` on their bits), the uninterrupted run's launches equal
+    the two legs' together and the legs' launches equal each other (so
+    rounds 4-6 launch what the uninterrupted rounds 4-6 launch)."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_fed
+
+    out = {}
+    root = _scratch_dir()
+    try:
+        for label, dtype, fields in RESUME_CASES:
+            cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                                      dtype=dtype)
+            spec = _resume_spec(fields)
+            kw = dict(seq_len=64, batch=8, device="cuda",
+                      checkpoint_every=3, log=lambda *a: None)
+            tag = label.split()[0] + "-" + label.split()[1]
+            runs = {}
+            for leg, steps, resume, where in (
+                    ("whole", 6, False, "whole"), ("first", 3, False, "split"),
+                    ("second", 6, True, "split")):
+                kernels.reset_launch_counts()
+                _, state, hist = run_fed(
+                    cfg, spec, steps=steps, resume=resume,
+                    checkpoint=os.path.join(root, tag, where), **kw)
+                torch.cuda.synchronize()
+                runs[leg] = (state, kernels.launch_counts(), hist)
+            whole, split = runs["whole"][0], runs["second"][0]
+            for var in ("x", "z", "t"):
+                a, b = getattr(whole, var), getattr(split, var)
+                if (a is None) != (b is None) or (a is not None and not (
+                        a.dtype == b.dtype and torch.equal(
+                            a.view(torch.int16), b.view(torch.int16)))):
+                    fail(f"phase 16 {label}: the resumed run's {var} differs "
+                         f"from the uninterrupted run's")
+            c6, c1, c2 = (runs[k][1] for k in ("whole", "first", "second"))
+            if c1 != c2 or any(c6[k] != c1[k] + c2[k] for k in c6) or \
+                    c2["round_uplink"] != 3 or c2["fedplt_update"] != 3 * \
+                    N_EPOCHS:
+                fail(f"phase 16 {label}: launches whole {c6}, legs {c1} / "
+                     f"{c2}")
+            losses = [h["loss"] for h in runs["whole"][2]]
+            if [h["loss"] for h in runs["second"][2]] != losses[3:]:
+                fail(f"phase 16 {label}: rounds 4-6 losses differ")
+            launched = {k: v for k, v in c2.items() if v}
+            log(f"phase 16 resume ({label}): 6 rounds equal 3 + checkpoint "
+                f"+ resume + 3 bit for bit (x, z{', t' if whole.t is not None else ''}); "
+                f"rounds 4-6 launch {launched} in both runs; losses "
+                f"{[round(v, 4) for v in losses]}")
+            out[label] = {"launches_rounds_4_6": launched, "losses": losses}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _same_param_bits(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[n].dtype == b[n].dtype and torch.equal(
+            a[n].view(torch.int16 if a[n].element_size() == 2
+                      else torch.int32),
+            b[n].view(torch.int16 if b[n].element_size() == 2
+                      else torch.int32)) for n in a)
+
+
+def decode_vs_forward(torch):
+    """Phase 17c: reduced gemma2-2b, falcon-mamba-7b and recurrentgemma-2b
+    in float32 (B 2, S 24, past the reduced window of 16): the parallel
+    forward on the card through the flash and scan kernels (their forward
+    launch counts above 0) against token-by-token ``decode_step``; held to
+    2e-2 (the reference's bound).  Returns ``{arch: max abs diff}``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    out = {}
+    for arch, n_layers in DECODE_CELLS:
+        cfg = get_config(arch).reduced(n_layers=n_layers)
+        kinds = cfg.layer_kinds()
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        params = model.init(gen, "cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 24), generator=gen,
+                             device="cuda")
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            fwd = model.forward(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        attn = sum(k in ("global", "local") for k in kinds)
+        scan = sum(k in ("ssm", "rec") for k in kinds)
+        want = expected_counts(flash_attention_fwd=attn, lru_scan_fwd=scan)
+        if counts != want:
+            fail(f"phase 17c {arch}: forward launches {counts}, want {want}")
+        cache = model.init_cache(2, 24, device="cuda")
+        steps = []
+        for t in range(24):
+            lg, cache = model.decode_step(params, cache, toks[:, t])
+            steps.append(lg)
+        diff = float((fwd - torch.stack(steps, 1)).abs().max())
+        if not diff < 2e-2:
+            fail(f"phase 17c {arch}: decode vs forward {diff}")
+        log(f"phase 17c: reduced {arch} fp32, decode vs the forward through "
+            f"the kernels ({ {k: v for k, v in counts.items() if v} }): max "
+            f"abs diff {diff:.3g} (bound 2e-2)")
+        out[arch] = diff
+    return out
+
+
+def serve_phase(torch, params):
+    """Phase 17: the standard phase's parameters through ``save_checkpoint``
+    / ``restore_checkpoint`` (bit-equal gate; seconds and GB/s), then
+    ``generate`` on them (gemma2-2b, 2 layers, bf16) at batch 4, prompt
+    128, 32 new tokens: prefill ms, ms a token, tok/s; the prefill's last
+    logits against the forward through the flash kernels (largest
+    difference, argmax agreement); then decode against forward on reduced
+    models (:func:`decode_vs_forward`)."""
+    import shutil
+
+    from repro_torch import kernels
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate, prefill_via_decode
+    from repro_torch.models.model import build_model
+
+    rec = {}
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    root = _scratch_dir()
+    try:
+        path = os.path.join(root, "params")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        save_checkpoint(path, params, step=STD_STEPS)
+        save_s = time.time() - t0
+        like = {n: torch.empty_like(p) for n, p in params.items()}
+        t0 = time.time()
+        got = restore_checkpoint(path, like, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.time() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not _same_param_bits(torch, got, params):
+        fail("phase 17a: the restored parameters differ from the saved")
+    del got, like
+    rec["checkpoint"] = {"bytes": nbytes, "save_s": save_s,
+                         "restore_s": restore_s,
+                         "save_gb_s": nbytes / save_s / 1e9,
+                         "restore_gb_s": nbytes / restore_s / 1e9}
+    log(f"phase 17a: the trained parameters ({nbytes / 1e9:.3f} GB bf16) "
+        f"saved in {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} GB/s) and "
+        f"restored bit-equal in {restore_s:.2f} s "
+        f"({nbytes / restore_s / 1e9:.2f} GB/s; warm file cache)")
+
+    cfg = dataclasses.replace(get_config(GEMMA.arch), n_layers=GEMMA.n_layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    generate(model, params, prompts[:, :8], gen_len=4, cache_len=12)  # warm
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cache = model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                             device="cuda")
+    cache, last = prefill_via_decode(model, params, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    t0 = time.time()
+    out = generate(model, params, prompts, gen_len=SERVE_GEN,
+                   cache_len=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    if set(kernels.launch_counts().values()) != {0}:
+        fail(f"phase 17b: decode launched {kernels.launch_counts()}")
+    if tuple(out.shape) != (SERVE_B, SERVE_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        fail(f"phase 17b: generated {tuple(out.shape)} {out}")
+    token_ms = 1e3 * (gen_s - prefill_s) / (SERVE_GEN - 1)
+    rec["generate"] = {"batch": SERVE_B, "prompt": SERVE_PROMPT,
+                       "new_tokens": SERVE_GEN, "prefill_ms": 1e3 * prefill_s,
+                       "ms_a_token": token_ms,
+                       "tok_s": SERVE_B * SERVE_GEN / gen_s,
+                       "generate_s": gen_s}
+    log(f"phase 17b: generate on the trained gemma2-2b (2 layers, bf16), "
+        f"batch {SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_GEN} new tokens: "
+        f"prefill (through decode_step) {1e3 * prefill_s:.1f} ms, "
+        f"{token_ms:.2f} ms a token, {SERVE_B * SERVE_GEN / gen_s:.1f} tok/s "
+        f"({gen_s:.2f} s in all); no kernel launches on the decode path")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": prompts})[:, -1]
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["flash_attention_fwd"] != GEMMA.attn_layers:
+        fail(f"phase 17b: forward launches {kernels.launch_counts()}")
+    diff = float((fwd.float() - last.float()).abs().max())
+    agree = torch.argmax(fwd, -1).tolist() == torch.argmax(last, -1).tolist()
+    rec["full_width_last_logits"] = {"max_abs_diff": diff,
+                                     "argmax_agrees": agree,
+                                     "logit_max": float(fwd.float().abs().max())}
+    log(f"phase 17b: full width bf16, the prefill's last logits against the "
+        f"forward's (flash kernels): max abs diff {diff:.4g} (logits up to "
+        f"{rec['full_width_last_logits']['logit_max']:.3g}), argmax "
+        f"{'agrees' if agree else 'differs'} in "
+        f"{sum(a == b for a, b in zip(torch.argmax(fwd, -1).tolist(), torch.argmax(last, -1).tolist()))}"
+        f" of {SERVE_B} rows")
+    del fwd, last, cache
+    rec["decode_vs_forward"] = decode_vs_forward(torch)
+    return rec
+
+
+def train_serve_phases(torch) -> int:
+    """``--train-serve``: build the kernels, run phases 15-17 alone and
+    print their records as one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    params, std = standard_phase(torch)
+    t1 = time.time()
+    resume = resume_phase(torch)
+    t2 = time.time()
+    serve = serve_phase(torch, params)
+    t3 = time.time()
+    secs = {15: round(t1 - t0, 1), 16: round(t2 - t1, 1),
+            17: round(t3 - t2, 1)}
+    log(f"phase seconds: {secs}")
+    log(json.dumps({"standard": std, "resume": resume, "serve": serve,
+                    "phase_seconds": secs, "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4386,6 +4734,8 @@ def main() -> int:
         return ssm_times(torch, src)
     if "--ssm-rounds" in args:
         return ssm_rounds(torch, src)
+    if "--train-serve" in args:
+        return train_serve_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -4566,6 +4916,20 @@ def main() -> int:
     ssm_counts, ssm_fused = ssm_fused_phase(torch, ssm_base)
 
     stamp(14)
+    # phase 15: standard training with AdamW at published width
+    std_params, standard = standard_phase(torch)
+
+    stamp(15)
+    # phase 16: resumed rounds on the card, bit for bit
+    resumed = resume_phase(torch)
+
+    stamp(16)
+    # phase 17: the trained parameters checkpointed and served
+    serving = serve_phase(torch, std_params)
+    del std_params
+    torch.cuda.empty_cache()
+
+    stamp(17)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -4663,6 +5027,8 @@ def main() -> int:
                     "ssm_scan_full_shape": {
                         k: v for k, v in recs.items()
                         if k.startswith("ssm_scan")},
+                    "standard": standard, "resume": resumed,
+                    "serve": serving,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist

@@ -37,6 +37,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import io as ckpt
 from repro_torch.core import prox as prox_lib
 from repro_torch.core.solvers import SolverConfig
 from repro_torch.fed import engine
@@ -71,6 +72,21 @@ def _cli(flag=None, help="", arg_type=None, choices=None, default=None,
 def _later(what: str, slice_name: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: it comes with the "
                       f"{slice_name} slice of the PyTorch port")
+
+
+def _refuse_mesh_checkpoint(mesh) -> None:
+    if mesh is not None:
+        raise _later("checkpoints of a sharded state (--agent-shards / "
+                     "--mesh-shape)", "mesh checkpoint")
+
+
+def _restore_generator(path: str, generator) -> dict:
+    """The checkpoint's ``extra``; its ``generator`` state, when there is
+    one, is set into ``generator``."""
+    extra = ckpt.checkpoint_extra(path) or {}
+    if generator is not None and "generator" in extra:
+        ckpt.set_generator_state(generator, extra["generator"])
+    return extra
 
 
 # ---------------------------------------------------------------------------
@@ -552,6 +568,26 @@ class DenseTrainer:
     def consensus(self, state) -> torch.Tensor:
         return self.algo.x_bar(state)
 
+    def save_state(self, path: str, state, extra: Optional[dict] = None):
+        """Checkpoint ``state`` (:mod:`repro_torch.checkpoint`; the round
+        counter ``k`` a 0-d int32 leaf, the manifest's step) with its
+        generator's state in ``extra["generator"]``.  The reference's
+        dense state keys its PRNG key as ``.key``, which this one has
+        not: its draws come from the generator.  A sharded state refuses
+        (not ported yet)."""
+        _refuse_mesh_checkpoint(self.mesh)
+        extra = dict(extra or {},
+                     generator=ckpt.generator_state(state.generator))
+        ckpt.save_checkpoint(path, state, step=state.k, extra=extra)
+
+    def restore_state(self, path: str, like):
+        """Restore a state saved by :meth:`save_state` into ``like`` (a
+        state of this trainer, e.g. from :meth:`init`, whose generator
+        takes the saved state); returns ``(state, extra)``."""
+        _refuse_mesh_checkpoint(self.mesh)
+        state = ckpt.restore_checkpoint(path, like, self.device)
+        return state, _restore_generator(path, state.generator)
+
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):
         """``local_dataset_size`` defaults to the problem's q."""
@@ -629,6 +665,31 @@ class ModelTrainer:
         return self._runtime.consensus_model(state, meta=self.packed_meta,
                                              mesh=self.mesh,
                                              n_agents=self.spec.n_agents)
+
+    def save_state(self, path: str, state, generator=None,
+                   extra: Optional[dict] = None):
+        """Checkpoint the round state (:mod:`repro_torch.checkpoint`, the
+        reference's keys: ``.x``, ``.z``, ``.t`` and ``.step``, a 0-d int32
+        leaf; a packed state in the reference's columns) at manifest step
+        ``state.step``, with ``generator``'s state in
+        ``extra["generator"]``.  A sharded state refuses (not ported
+        yet)."""
+        _refuse_mesh_checkpoint(self.mesh)
+        extra = dict(extra or {})
+        if generator is not None:
+            extra["generator"] = ckpt.generator_state(generator)
+        ckpt.save_checkpoint(path, state, step=state.step, extra=extra,
+                             packed_meta=self.packed_meta)
+
+    def restore_state(self, path: str, like, generator=None):
+        """Restore a round state into the restore target ``like`` (a
+        state of this trainer, e.g. from :meth:`init`) on the trainer's
+        device; a saved generator state goes into ``generator``.  Returns
+        ``(state, extra)``.  Reads the reference's checkpoints too."""
+        _refuse_mesh_checkpoint(self.mesh)
+        state = ckpt.restore_checkpoint(path, like, self.device,
+                                        packed_meta=self.packed_meta)
+        return state, _restore_generator(path, generator)
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):

@@ -1,10 +1,33 @@
-"""Training entry point (counterpart of ``repro/launch/train.py``, fed
-mode).
+"""Training entry point (counterpart of ``repro/launch/train.py``).
 
-Runs Fed-PLT rounds of an architecture on one device: CUDA unless
-``--device cpu``.  :func:`run_fed` holds the round loop for a built
-config and spec, so other scripts (``chip_smoke.py``) run the same loop
-on a config cut in depth.
+Runs Fed-PLT rounds (``--mode fed``, the default) or standard training
+with an optimizer (``--mode standard --optimizer sgd|momentum|adamw
+--lr``) of an architecture on one device: CUDA unless ``--device cpu``.
+:func:`run_fed` and :func:`run_standard` hold the loops for a built
+config, so other scripts (``chip_smoke.py``) run the same loops on a
+config cut in depth.
+
+Checkpoints (:mod:`repro_torch.checkpoint`, the reference's format):
+``--checkpoint DIR`` saves the final model (the consensus in fed mode)
+to ``DIR``; in fed mode ``--checkpoint-every K`` saves the round state
+to ``DIR/rounds/step-NNNNNN`` every K rounds and ``--resume`` continues
+from the latest of them, the final save then going to
+``DIR/consensus``.  A round checkpoint's ``extra`` holds the round, the
+(empty) arrival rows and the state of the run's ``torch.Generator``, so
+a resumed run draws what the uninterrupted run draws and equals it bit
+for bit.
+
+Standard training (one loss and gradient a step over the whole batch):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --steps 3 --mode standard --optimizer adamw --device cpu
+
+Round checkpoints and a resume:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --steps 3 --n-agents 2 --checkpoint ckpt \\
+      --checkpoint-every 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --steps 6 --n-agents 2 --checkpoint ckpt \\
+      --checkpoint-every 1 --resume --device cpu
 
 Example (the slice's main path, on a card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
@@ -55,26 +78,35 @@ same way:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import find_latest_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.configs.fedplt_logreg import CONFIG as LOGREG
 from repro_torch.core.problem import make_logreg_problem
 from repro_torch.data.synthetic import make_batch_for
 from repro_torch.fed import api
 from repro_torch.models.model import build_model
+from repro_torch.optim import OPTIMIZERS, apply_updates
 
 
 def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             seq_len: int, batch: int, device=None, seed: int = 0,
-            local_dataset_size=None, log=print):
+            local_dataset_size=None, checkpoint=None, checkpoint_every=0,
+            resume=False, log=print):
     """``steps`` Fed-PLT rounds of ``cfg`` under ``spec`` on synthetic
     per-agent batches; logs one line per round (and the privacy position
-    first when ``tau > 0``).  Returns ``(trainer, state, history)``."""
+    first when ``tau > 0``).  With ``checkpoint_every`` the round state
+    goes to ``<checkpoint>/rounds/step-NNNNNN`` every that many rounds;
+    ``resume`` continues from the latest of them (module docstring).
+    Returns ``(trainer, state, history)``, the history of the rounds run
+    here."""
     device = resolve_device(device)
     spec.validate()
     trainer = api.build_trainer(build_model(cfg), spec, device)
@@ -89,9 +121,20 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             f" ceiling as K*Ne->inf: eps={rep.eps_ceiling:.3f}"
             f" at Renyi order {rep.rdp_order:.1f}{caveat}")
     state, gen = trainer.init(seed)
+    start = 0
+    rounds_dir = os.path.join(checkpoint, "rounds") if checkpoint else None
+    if resume:
+        latest = find_latest_checkpoint(rounds_dir)
+        if latest is None:
+            log(f"resume: no committed checkpoint under {rounds_dir} -- "
+                f"starting from round 0")
+        else:
+            state, extra = trainer.restore_state(latest, state, gen)
+            start = int(extra.get("round", 0))
+            log(f"resumed from {latest} at round {start}")
     shape = InputShape("cli", seq_len, batch, "train")
     history = []
-    for i in range(steps):
+    for i in range(start, steps):
         b = make_batch_for(cfg, shape, gen, n_agents=spec.n_agents,
                            device=trainer.device)
         t0 = time.time()
@@ -101,7 +144,54 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
         history.append(m)
         log(f"round {i:4d} loss={m['loss']:.4f} "
             f"part={m['participation']:.2f} dt={m['dt']:.2f}s")
+        if checkpoint_every and (i + 1) % checkpoint_every == 0:
+            ck = os.path.join(rounds_dir, f"step-{i + 1:06d}")
+            # synchronous rounds realize no arrival rows
+            trainer.save_state(ck, state, gen,
+                               extra={"round": i + 1, "arrivals": []})
+            log(f"  checkpointed round {i + 1} -> {ck}")
     return trainer, state, history
+
+
+def standard_step(model, opt, params: dict, opt_state, batch: dict):
+    """One standard training step: the loss and its gradient over the
+    whole batch, ``opt.update`` and :func:`apply_updates`.  Returns
+    ``(params, opt_state, loss)``."""
+    names = list(params)
+    leaves = [params[n].detach().requires_grad_() for n in names]
+    with torch.enable_grad():
+        loss = model.loss_fn(dict(zip(names, leaves)), batch)
+        grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    with torch.no_grad():
+        upd, opt_state = opt.update(grads, opt_state, params)
+        params = apply_updates(params, upd)
+    return params, opt_state, loss.detach()
+
+
+def run_standard(cfg: ModelConfig, *, optimizer: str, lr: float, steps: int,
+                 seq_len: int, batch: int, device=None, seed: int = 0,
+                 log=print):
+    """``steps`` standard training steps of ``cfg`` with ``optimizer``
+    (``sgd``, ``momentum`` or ``adamw``) at ``lr`` on synthetic batches
+    without an agent axis; logs one line a step.  Returns ``(params,
+    history)``."""
+    device = resolve_device(device)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(gen, device)
+    opt = OPTIMIZERS[optimizer](lr)
+    opt_state = opt.init(params)
+    shape = InputShape("cli", seq_len, batch, "train")
+    history = []
+    for i in range(steps):
+        b = make_batch_for(cfg, shape, gen, device=device)
+        t0 = time.time()
+        params, opt_state, loss = standard_step(model, opt, params,
+                                                opt_state, b)
+        m = {"loss": float(loss), "dt": time.time() - t0}
+        history.append(m)
+        log(f"step {i:4d} loss={m['loss']:.4f} dt={m['dt']:.2f}s")
+    return params, history
 
 
 def _silent(*args, **kwargs):
@@ -120,8 +210,8 @@ def _mesh_log(mesh, log):
     return log
 
 
-def run_dense(spec: api.FedSpec, *, steps: int, dim: int, q: int,
-              device=None, seed: int = 0, log=print):
+def run_dense(spec: api.FedSpec, *, steps: int, dim: int = LOGREG.dim,
+              q: int = LOGREG.q, device=None, seed: int = 0, log=print):
     """``steps`` Fed-PLT rounds of the paper's logistic-regression
     federation (``spec.n_agents`` agents, ``dim`` features, ``q`` samples
     each, seeded); logs the criterion ``||sum_i grad f_i(x_bar)||^2`` a
@@ -147,12 +237,11 @@ def main(argv=None):
                     help="model architecture (or --problem)")
     ap.add_argument("--problem", default=None, choices=["logreg"],
                     help="the paper's dense front end instead of a model")
-    ap.add_argument("--dim", type=int, default=5,
+    ap.add_argument("--dim", type=int, default=LOGREG.dim,
                     help="--problem: features n")
-    ap.add_argument("--q", type=int, default=250,
+    ap.add_argument("--q", type=int, default=LOGREG.q,
                     help="--problem: samples a agent q_i")
-    ap.add_argument("--mode", default="fed", choices=["fed"],
-                    help="fed only (standard training is a later slice)")
+    ap.add_argument("--mode", default="fed", choices=["fed", "standard"])
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config (2 layers, d_model 256)")
     ap.add_argument("--steps", type=int, default=20)
@@ -162,15 +251,43 @@ def main(argv=None):
     ap.add_argument("--local-dataset-size", type=int, default=None,
                     help="local dataset size q_i for the privacy report "
                          "(default: per-agent batch)")
+    ap.add_argument("--optimizer", default="sgd",
+                    choices=sorted(OPTIMIZERS))
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="fed mode: save the round state to "
+                         "<checkpoint>/rounds/step-NNNNNN every N rounds "
+                         "(atomic tmp-then-rename saves; 0 = off)")
+    ap.add_argument("--resume", action="store_true",
+                    help="fed mode: resume from the latest committed "
+                         "round checkpoint under <checkpoint>/rounds "
+                         "(bit for bit: the checkpoint carries the run's "
+                         "generator state)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     api.add_spec_args(ap)
+    # --problem takes its agent count from the paper's set-up, --arch the
+    # spec flag's default
+    model_agents = ap.get_default("n_agents")
+    ap.set_defaults(n_agents=None)
     args = ap.parse_args(argv)
 
     if (args.arch is None) == (args.problem is None):
         ap.error("give one of --arch and --problem")
+    if args.n_agents is None:
+        args.n_agents = LOGREG.n_agents if args.problem else model_agents
+    if (args.checkpoint_every or args.resume) and not args.checkpoint:
+        ap.error("--checkpoint-every/--resume require --checkpoint")
+    if (args.checkpoint_every or args.resume) and args.mode != "fed":
+        ap.error("--checkpoint-every/--resume are fed-mode only")
+    if args.problem is not None and (args.mode != "fed" or args.checkpoint):
+        ap.error("--problem runs fed rounds without --checkpoint (the dense "
+                 "trainer checkpoints through DenseTrainer.save_state)")
     device = resolve_device(args.device)
-    spec = api.spec_from_args(args).validate()
+    spec = api.spec_from_args(args)
+    if args.mode == "fed":
+        spec.validate()      # fail fast, before building the model
     if args.problem is not None:
         trainer, _, _ = run_dense(spec, steps=args.steps, dim=args.dim,
                                   q=args.q, device=device, seed=args.seed)
@@ -180,20 +297,38 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
-    trainer, state, _ = run_fed(
-        cfg, spec, steps=args.steps, seq_len=args.seq_len, batch=args.batch,
-        device=device, seed=args.seed,
-        local_dataset_size=args.local_dataset_size)
-    final = trainer.consensus(state)
-    if trainer.mesh is None or dist.get_rank() == 0:
+    mesh, run_device = None, device
+    if args.mode == "fed":
+        trainer, state, _ = run_fed(
+            cfg, spec, steps=args.steps, seq_len=args.seq_len,
+            batch=args.batch, device=device, seed=args.seed,
+            local_dataset_size=args.local_dataset_size,
+            checkpoint=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, resume=args.resume)
+        final = trainer.consensus(state)
+        mesh, run_device = trainer.mesh, trainer.device
+    else:
+        final, _ = run_standard(
+            cfg, optimizer=args.optimizer, lr=args.lr, steps=args.steps,
+            seq_len=args.seq_len, batch=args.batch, device=device,
+            seed=args.seed)
+    if mesh is None or dist.get_rank() == 0:
+        if args.checkpoint:
+            target = args.checkpoint
+            if args.checkpoint_every or args.resume:
+                # the round checkpoints live under <checkpoint>/rounds;
+                # save_checkpoint atomically REPLACES its target, so the
+                # final save takes a sibling entry
+                target = os.path.join(args.checkpoint, "consensus")
+            save_checkpoint(target, final, step=args.steps)
+            print(f"saved checkpoint to {target}")
         n = sum(p.numel() for p in final.values())
-        print(f"done: {args.arch} ({n / 1e6:.2f}M params) on "
-              f"{trainer.device}")
+        print(f"done: {args.arch} ({n / 1e6:.2f}M params) on {run_device}")
         if device.type == "cuda":
             print(f"peak device memory: "
-                  f"{torch.cuda.max_memory_allocated(trainer.device) / 2**30:.2f}"
+                  f"{torch.cuda.max_memory_allocated(run_device) / 2**30:.2f}"
                   f" GiB")
-    if trainer.mesh is not None:
+    if mesh is not None:
         dist.destroy_process_group()
 
 

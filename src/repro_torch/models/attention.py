@@ -1,6 +1,5 @@
 """Attention: GQA, sliding window, logit softcap (counterpart of
-``repro/models/attention.py``, full-sequence half; decode is a later
-slice).
+``repro/models/attention.py``).
 
 Plain tensor code, as in the reference, which computes attention
 outside any Pallas kernel:
@@ -16,8 +15,13 @@ outside any Pallas kernel:
 GQA groups query heads as ``(Hkv, G)``: head ``h = kv * G + g``.  Scores
 are float32; probabilities are cast to v's dtype before the PV product.
 
-These functions are the CPU path of the transformer's layers.  On the
-card every layer (local and global) runs
+``init_kv_cache`` / ``decode_attn`` are the decode path: one token a
+sequence against a KV cache with per-slot positions (a ring buffer for
+windowed layers), plain tensor code on every device, as in the
+reference (its decode attention is an einsum, no Pallas kernel).
+
+The full-sequence functions are the CPU path of the transformer's
+layers.  On the card every layer (local and global) runs
 ``repro_torch.kernels.flash_attention.ops.flash_attention`` instead:
 the hand-written forward and backward kernels, which keep ``p`` in
 float32 for the PV product (so in bfloat16 the two paths differ by the
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import softcap
+from repro_torch.models.layers import apply_rope, softcap
 
 NEG_INF = -1e30
 
@@ -175,3 +179,65 @@ def attn_block_local(q, k, v, *, window, cap=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bnhgst,bnthd->bnshgd", p.to(v2.dtype), v2)
     return o.reshape(B, S, H * D)
+
+
+# ---------------------------------------------------------------------------
+# Decode-step attention over a cache
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, cache_len: int, n_kv_heads: int, head_dim: int,
+                  dtype, device=None) -> dict:
+    return {
+        "k": torch.zeros((batch, cache_len, n_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        "v": torch.zeros((batch, cache_len, n_kv_heads, head_dim),
+                         dtype=dtype, device=device),
+        # absolute position held in each slot, PER SEQUENCE; -1 = empty
+        # (per-sequence positions enable continuous batching)
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def decode_attn(params, x_t, cache, *, n_heads, n_kv_heads, head_dim,
+                rope_theta, pos, window=None, cap=None, ring=False,
+                rope=True):
+    """One-token attention against a KV cache.
+
+    x_t: (B, d); pos: (B,) int32 per-sequence positions (sequences may be
+    at different depths -- continuous batching).  ``ring=True`` means the
+    cache is a ring buffer of size ``cache_len`` (windowed layers): the
+    token goes to slot ``pos mod C``, else to ``clip(pos, 0, C - 1)``.
+    Returns (out (B, d_attn), new_cache); ``cache`` is not modified.
+    """
+    B = x_t.shape[0]
+    pos = torch.as_tensor(pos, device=x_t.device).expand(B)
+    q = (x_t @ params["wq"]).reshape(B, 1, n_heads, head_dim)
+    k_t = (x_t @ params["wk"]).reshape(B, 1, n_kv_heads, head_dim)
+    v_t = (x_t @ params["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    if rope:
+        posv = pos[:, None]                     # (B, 1)
+        q = apply_rope(q, posv, rope_theta)
+        k_t = apply_rope(k_t, posv, rope_theta)
+
+    C = cache["k"].shape[1]
+    slot = (torch.remainder(pos, C) if ring
+            else torch.clamp(pos, 0, C - 1)).long()          # (B,)
+    rows = torch.arange(B, device=x_t.device)
+    k, v, posarr = (cache["k"].clone(), cache["v"].clone(),
+                    cache["pos"].clone())
+    k[rows, slot] = k_t[:, 0]
+    v[rows, slot] = v_t[:, 0]
+    posarr[rows, slot] = pos.to(posarr.dtype)
+
+    G = n_heads // n_kv_heads
+    qg = q.reshape(B, 1, n_kv_heads, G, head_dim)
+    s = _gqa_scores(qg, k, head_dim ** -0.5, cap)            # (B,Hkv,G,1,C)
+    valid = (posarr >= 0) & (posarr <= pos[:, None])
+    if window is not None:
+        valid &= posarr > (pos[:, None] - window)
+    s = torch.where(valid[:, None, None, None, :], s,
+                    torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = _gqa_out(p, v)[:, 0, :]
+    return o, {"k": k, "v": v, "pos": posarr}

@@ -118,6 +118,19 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def conv1d_step(conv_state: torch.Tensor, x_t: torch.Tensor, w: torch.Tensor,
+                b=None):
+    """Single decode step of :func:`causal_conv1d`.
+
+    conv_state: (B, K-1, C) past inputs; x_t: (B, C).  Returns (y_t,
+    new_state)."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B, K, C)
+    y = torch.einsum("bkc,kc->bc", window, w)
+    if b is not None:
+        y = y + b
+    return y, window[:, 1:, :]
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask=None) -> torch.Tensor:
     """Mean token cross-entropy; logits promoted to float32."""

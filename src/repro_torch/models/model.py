@@ -1,10 +1,12 @@
-"""The public Model bundle (counterpart of ``repro/models/model.py``;
-decode is a later slice).
+"""The public Model bundle (counterpart of ``repro/models/model.py``).
 
 ``loss_fn(params, batch)`` and ``forward(params, batch)`` run the meta
 :class:`~repro_torch.models.transformer.Transformer` through
 ``torch.func.functional_call`` with ``params`` -- a ``{name: tensor}``
 mapping, typically views into a packed agent buffer row.
+``init_cache(batch, cache_len, long_ctx=False, device=None)`` and
+``decode_step(params, cache, tokens, long_ctx=False)`` are the serving
+path (:mod:`repro_torch.models.decode`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode as decode_lib
 from repro_torch.models import transformer as tfm
 
 
@@ -26,6 +29,8 @@ class Model:
     init: Callable[..., dict]                     # (generator, device)
     loss_fn: Callable[..., torch.Tensor]          # (params, batch)
     forward: Callable[..., torch.Tensor]          # (params, batch) -> logits
+    init_cache: Callable[..., dict]               # (batch, cache_len, ...)
+    decode_step: Callable[..., tuple]             # (params, cache, tokens)
 
     def param_shapes(self) -> dict:
         """``{name: (shape, dtype)}`` in the module's parameter order."""
@@ -49,5 +54,14 @@ def build_model(cfg: ModelConfig) -> Model:
     def forward(params: dict, batch: dict) -> torch.Tensor:
         return functional_call(module, params, (batch,), {"logits": True})
 
+    def init_cache(batch: int, cache_len: int, long_ctx: bool = False,
+                   device=None) -> dict:
+        return decode_lib.init_cache(cfg, batch, cache_len, long_ctx, device)
+
+    def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                    long_ctx: bool = False):
+        return decode_lib.decode_step(params, cfg, cache, tokens, long_ctx)
+
     return Model(config=cfg, module=module, init=init, loss_fn=loss_fn,
-                 forward=forward)
+                 forward=forward, init_cache=init_cache,
+                 decode_step=decode_step)

@@ -17,7 +17,9 @@ wrapped in the Griffin recurrent block::
 The scan over ``lru_width`` channels is
 :func:`repro_torch.models.ssm.scan_from_zero`:
 the ``lru_scan`` kernels on a CUDA tensor, the reference's chunked scan
-on the CPU.  ``lam`` is float32 whatever the model's dtype.
+on the CPU.  ``lam`` is float32 whatever the model's dtype.  The decode
+step (:func:`rglru_step`) advances the cache ``(conv, h)`` by one token,
+``h`` float32.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import _gelu_tanh, causal_conv1d
+from repro_torch.models.layers import _gelu_tanh, causal_conv1d, conv1d_step
 
 _C = 8.0  # Griffin's constant
 
@@ -85,3 +87,24 @@ def rglru_forward(params, x, cfg, chunk: int = 256):
     h = h.to(x.dtype)                                           # (B,S,w)
     gate = _gelu_tanh(x @ params["w_branch2"])
     return (h * gate) @ params["w_out"]
+
+
+def init_rglru_cache(batch, cfg, dtype, device=None) -> dict:
+    w = cfg.resolved_lru_width
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, w), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }
+
+
+def rglru_step(params, x_t, cache, cfg):
+    """One decode step. x_t: (B, d)."""
+    u = x_t @ params["w_branch1"]
+    u, conv_state = conv1d_step(cache["conv"], u, params["conv_w"],
+                                params["conv_b"])
+    a, bx = _gates(params, u)
+    h = a * cache["h"] + bx
+    gate = _gelu_tanh(x_t @ params["w_branch2"])
+    out = (h.to(x_t.dtype) * gate) @ params["w_out"]
+    return out, {"conv": conv_state, "h": h}

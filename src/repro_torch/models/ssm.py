@@ -39,7 +39,9 @@ largest gradient entry apart at the CPU tests' shapes, which hold them to
 tensor launches the kernel or raises.
 
 ``dt_bias``, ``A_log`` and ``D`` are float32 whatever the model's dtype, as
-in the reference.
+in the reference.  The decode step (:func:`mamba_step`) advances the
+recurrent cache ``(conv, h)`` by one token in plain tensor code, ``h``
+float32, as the reference's does.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.lru_scan import ops as lru_ops
-from repro_torch.models.layers import causal_conv1d
+from repro_torch.models.layers import causal_conv1d, conv1d_step
 
 
 def mamba_shapes(cfg, dtype) -> dict:
@@ -248,3 +250,26 @@ def mamba_forward(params, x, cfg, chunk: int | None = None):
         y = y + params["D"] * u.float()
     y = y.to(x.dtype) * F.silu(z)
     return y @ params["out_proj"]
+
+
+def init_mamba_cache(batch, cfg, dtype, device=None) -> dict:
+    return {
+        "conv": torch.zeros((batch, cfg.conv_width - 1, cfg.d_inner),
+                            dtype=dtype, device=device),
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba_step(params, x_t, cache, cfg):
+    """One decode step. x_t: (B, d) -> (y (B, d), new_cache)."""
+    u, z = torch.chunk(x_t @ params["in_proj"], 2, dim=-1)    # (B, d_in)
+    u, conv_state = conv1d_step(cache["conv"], u, params["conv_w"],
+                                params["conv_b"])
+    u = F.silu(u)
+    a, bx, Cc = _ssm_coeffs(params, u[:, None, :])
+    h = a[:, 0] * cache["h"] + bx[:, 0]                        # (B,d_in,n)
+    y = torch.einsum("bdn,bn->bd", h, Cc[:, 0])
+    y = y + params["D"] * u.float()
+    y = y.to(x_t.dtype) * F.silu(z)
+    return y @ params["out_proj"], {"conv": conv_state, "h": h}

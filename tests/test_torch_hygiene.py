@@ -17,7 +17,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro", "triton")
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "ml_dtypes")
 
 
 def _modules():
@@ -61,6 +61,25 @@ def test_ssm_slice_modules_are_scanned():
     assert slice_ <= names, slice_ - names
 
 
+def test_no_module_imports_ml_dtypes():
+    """The card machine has no ml_dtypes (it comes with JAX): the port
+    reads and writes bfloat16 checkpoints without it."""
+    for path in _modules() + [ROOT / "chip_smoke.py"]:
+        assert "ml_dtypes" not in set(_imported_roots(path)), path
+
+
+def test_checkpoint_optim_and_serving_modules_are_scanned():
+    """The checkpoint, optimizer, decode and serve modules are among the
+    modules the import rules here scan (and import in the subprocess
+    below)."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    slice_ = {"checkpoint/__init__.py", "checkpoint/io.py",
+              "optim/__init__.py", "optim/optimizers.py",
+              "models/decode.py", "launch/serve.py",
+              "configs/fedplt_logreg.py"}
+    assert slice_ <= names, slice_ - names
+
+
 def test_every_module_imports_without_jax_repro_or_triton():
     names = []
     for p in _modules():
@@ -87,6 +106,29 @@ def test_train_entry_point_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         train.main(["--arch", "gemma2-2b", "--smoke", "--steps", "1"])
+
+
+@pytest.mark.parametrize("entry", [
+    ("train", ["--arch", "gemma2-2b", "--smoke", "--steps", "1", "--mode",
+               "standard", "--optimizer", "adamw"]),
+    ("serve", ["--arch", "gemma2-2b", "--smoke"])], ids=lambda e: e[0])
+def test_standard_and_serve_entry_points_raise_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the entry point would run")
+    import importlib
+
+    module = importlib.import_module(f"repro_torch.launch.{entry[0]}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(entry[1])
+
+
+def test_serve_entry_point_runs_on_the_cpu(capsys):
+    from repro_torch.launch import serve
+
+    out = serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--batch", "2",
+                      "--prompt-len", "4", "--gen-len", "3",
+                      "--temperature", "0.7", "--device", "cpu"])
+    assert tuple(out.shape) == (2, 3) and "tok/s" in capsys.readouterr().out
 
 
 def test_trainer_on_cuda_raises_without_cuda():
