@@ -269,8 +269,9 @@ last line):
    update, 6 rounds against 3, a checkpoint, ``resume`` and 3 more
    (``run_fed`` with ``checkpoint_every=3``), in bf16 and fp32 (gd), fp32
    topk and bf16 noisy_gd (the CUDA generator's state crosses the
-   checkpoint): x, z and t bit-equal, the two legs' launches equal and
-   summing to the uninterrupted run's.
+   checkpoint), and reduced qwen2-moe-a2.7b in fp32 (gd): x, z and t
+   bit-equal, the two legs' launches equal and summing to the
+   uninterrupted run's.
 17. Serving: phase 15's parameters through ``save_checkpoint`` /
    ``restore_checkpoint`` (bit-equal; seconds and GB/s), ``generate`` on
    them at batch 4, prompt 128, 32 new tokens (prefill ms, ms a token,
@@ -279,6 +280,24 @@ last line):
    argmax agreement); 17c reduced gemma2-2b, falcon-mamba-7b and
    recurrentgemma-2b in fp32 decoded token by token against their
    forward through the flash and lru_scan kernels, within 2e-2.
+18. The MoE FFN (``models/moe.py``; no new kernel).  18a: the reduced
+   qwen2-moe-a2.7b (swiglu, one shared expert) and grok-1-314b (geglu)
+   MoE layers in fp32, flat and grouped routes, capacity factor 1.25 and
+   0.5 (drops, counted), on the card against the port's CPU path: every
+   contribution's expert, rank and slot equal; output, aux and gradients
+   within 1e-5 relative.  18b: qwen2-moe-a2.7b at published width cut to
+   one layer (881,719,296 parameters, 13 leaves), bf16 with the float32
+   router (tree layout), phase 4's spec otherwise, 3 rounds: flash 8 / 8
+   a round, fedplt_update once a leaf a local epoch (78), no edge kernel;
+   peak memory; one profiled round, and one split by MoE part (router,
+   dispatch, experts, combine, shared; forward and backward).  18c: two
+   full-width rounds from one state, one batch and one generator state,
+   equal bit for bit (and phase 16's MoE case).  18d: one-layer
+   qwen2-moe-a2.7b through ``run_standard`` (AdamW, 2 steps, flash 1 / 1
+   a step), served (``generate`` at batch 4, prompt 128, 32 new tokens),
+   grok-1-314b cut to one layer (5,725,292,544 parameters, expert wi (1,
+   8, 6144, 65536)) served the same way, and reduced qwen2-moe / grok-1
+   decoded against their forward at capacity factor 8 (2e-2).
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -320,7 +339,7 @@ time) and runs the 64-layer memory probe, as one JSON line; and
 ``--ssm-rounds [--src DIR]`` runs phases 14c and 14d alone with the
 ``repro_torch`` under ``DIR``: each run once a tree, in turns, to
 compare two trees on one card.  ``--train-serve`` runs phases 15-17
-alone.
+alone, ``--moe`` phase 18 (with phase 16's MoE case).
 """
 
 from __future__ import annotations
@@ -1223,6 +1242,10 @@ def profile_round(torch, trainer, state, gen, cfg, label):
 
 
 MAIN_SEQ, MAIN_BATCH = 512, 8     # the main path's tokens per sequence, batch
+# phase 4's FedSpec fields (the full-width trainers' spec)
+MAIN_SPEC = dict(n_agents=FULL_N, n_epochs=N_EPOCHS, gamma=0.05,
+                 weight_decay=0.01, state_layout="packed",
+                 engine_backend="fused", use_fused_update=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1251,14 +1274,20 @@ PHI4 = Cell("phi4-mini-3.8b", N_LAYERS, 815_938_560, 10, 815_938_560,
 # float32 leaves (dt_bias, A_log, D; lam): tree layout
 RGEMMA = Cell("recurrentgemma-2b", 3, 912_309_760, 34, None, 1, 2)
 MAMBA = Cell("falcon-mamba-7b", 2, 476_966_912, 12, None, 0, 2)
+# one layer: the tied embedding 311,164,928, attention 16,777,216, the
+# MoE 553,771,008 (router 122,880 float32; 60 experts' wi 346,030,080 and
+# wo 173,015,040; the shared experts' 34,603,008), norms 6,144; bf16 with
+# the float32 router: tree layout
+QWEN = Cell("qwen2-moe-a2.7b", 1, 881_719_296, 13, None, 1)
 
 
 def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
-                cfg_kw=None, profile_out=None):
+                cfg_kw=None, profile_out=None, after=None):
     """``steps`` rounds of ``cell`` (its config with ``cfg_kw`` replaced)
     through ``run_fed``, checked; returns ``(counts, history, peak)`` and,
     with ``profile``, puts the profiled round's record in
-    ``profile_out``."""
+    ``profile_out``.  ``after(trainer, state, cfg)`` runs last, before the
+    trainer and its state are freed."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run_fed
@@ -1310,6 +1339,8 @@ def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
                             " ".join(label.split()[:2]))
         if profile_out is not None:
             profile_out.update(rec)
+    if after is not None:
+        after(trainer, state, cfg)
     del trainer, state, x
     torch.cuda.empty_cache()
     return counts, hist, peak
@@ -4396,6 +4427,7 @@ RESUME_CASES = (                    # phase 16: (label, dtype, spec fields)
     ("fp32 gd", "float32", {}),
     ("fp32 topk 0.25", "float32", {"compression": ("topk", 0.25)}),
     ("bf16 noisy_gd (tau 0.01)", "bfloat16", {"privacy": (0.01, 1.0)}),
+    ("qwen2-moe fp32 gd", "float32", {"arch": QWEN.arch}),
 )
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 4, 128, 32
 # (arch, layers) of 17c: recurrentgemma-2b's 3 reduced layers hold its local
@@ -4471,11 +4503,12 @@ def _resume_spec(fields):
     return FedSpec(**kw)
 
 
-def resume_phase(torch):
-    """Phase 16: reduced gemma2-2b, N 4, packed, fused edges and update,
+def resume_phase(torch, cases=RESUME_CASES):
+    """Phase 16: reduced gemma2-2b (and reduced qwen2-moe, the case whose
+    fields name its arch), N 4, packed, fused edges and update,
     on the card: 6 rounds against 3 rounds, a checkpoint, ``resume`` and 3
     more (``run_fed`` with ``checkpoint_every=3``), for each of
-    ``RESUME_CASES``.  Gates: ``x``, ``z`` and ``t`` equal bit for bit
+    ``cases``.  Gates: ``x``, ``z`` and ``t`` equal bit for bit
     (``torch.equal`` on their bits), the uninterrupted run's launches equal
     the two legs' together and the legs' launches equal each other (so
     rounds 4-6 launch what the uninterrupted rounds 4-6 launch)."""
@@ -4488,9 +4521,10 @@ def resume_phase(torch):
     out = {}
     root = _scratch_dir()
     try:
-        for label, dtype, fields in RESUME_CASES:
-            cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
-                                      dtype=dtype)
+        for label, dtype, fields in cases:
+            cfg = dataclasses.replace(
+                get_config(fields.get("arch", "gemma2-2b")).reduced(),
+                dtype=dtype)
             spec = _resume_spec(fields)
             kw = dict(seq_len=64, batch=8, device="cuda",
                       checkpoint_every=3, log=lambda *a: None)
@@ -4542,19 +4576,22 @@ def _same_param_bits(torch, a: dict, b: dict) -> bool:
                       else torch.int32)) for n in a)
 
 
-def decode_vs_forward(torch):
+def decode_vs_forward(torch, cells=DECODE_CELLS, cfg_kw=None, tag="17c"):
     """Phase 17c: reduced gemma2-2b, falcon-mamba-7b and recurrentgemma-2b
     in float32 (B 2, S 24, past the reduced window of 16): the parallel
     forward on the card through the flash and scan kernels (their forward
     launch counts above 0) against token-by-token ``decode_step``; held to
-    2e-2 (the reference's bound).  Returns ``{arch: max abs diff}``."""
+    2e-2 (the reference's bound).  ``cells`` and ``cfg_kw`` (config fields
+    replaced) run other models the same way (phase 18d).  Returns ``{arch:
+    max abs diff}``."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
     out = {}
-    for arch, n_layers in DECODE_CELLS:
-        cfg = get_config(arch).reduced(n_layers=n_layers)
+    for arch, n_layers in cells:
+        cfg = dataclasses.replace(get_config(arch).reduced(n_layers=n_layers),
+                                  **(cfg_kw or {}))
         kinds = cfg.layer_kinds()
         model = build_model(cfg)
         gen = torch.Generator(device="cuda").manual_seed(4)
@@ -4570,7 +4607,8 @@ def decode_vs_forward(torch):
         scan = sum(k in ("ssm", "rec") for k in kinds)
         want = expected_counts(flash_attention_fwd=attn, lru_scan_fwd=scan)
         if counts != want:
-            fail(f"phase 17c {arch}: forward launches {counts}, want {want}")
+            fail(f"phase {tag} {arch}: forward launches {counts}, want "
+                 f"{want}")
         cache = model.init_cache(2, 24, device="cuda")
         steps = []
         for t in range(24):
@@ -4578,12 +4616,82 @@ def decode_vs_forward(torch):
             steps.append(lg)
         diff = float((fwd - torch.stack(steps, 1)).abs().max())
         if not diff < 2e-2:
-            fail(f"phase 17c {arch}: decode vs forward {diff}")
-        log(f"phase 17c: reduced {arch} fp32, decode vs the forward through "
-            f"the kernels ({ {k: v for k, v in counts.items() if v} }): max "
-            f"abs diff {diff:.3g} (bound 2e-2)")
+            fail(f"phase {tag} {arch}: decode vs forward {diff}")
+        log(f"phase {tag}: reduced {arch} fp32{f' {cfg_kw}' if cfg_kw else ''}"
+            f", decode vs the forward through the kernels "
+            f"({ {k: v for k, v in counts.items() if v} }): max abs diff "
+            f"{diff:.3g} (bound 2e-2)")
         out[arch] = diff
     return out
+
+
+def generate_timed(torch, cfg, params, tag, attn_layers):
+    """``generate`` of ``cfg`` on ``params`` at batch 4, prompt 128, 32 new
+    tokens (after a short warm-up): prefill ms (the prompt through
+    ``decode_step``), ms a token, tok/s; no kernel launches on the decode
+    path; then the prefill's last logits against the forward through the
+    flash kernels (``attn_layers`` forward launches): largest difference
+    and argmax agreement, reported (an MoE decode drops contributions
+    that the forward keeps).  Returns ``{"generate": ...,
+    "full_width_last_logits": ...}``."""
+    from repro_torch import kernels
+    from repro_torch.launch.serve import generate, prefill_via_decode
+    from repro_torch.models.model import build_model
+
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    generate(model, params, prompts[:, :8], gen_len=4, cache_len=12)  # warm
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cache = model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                             device="cuda")
+    cache, last = prefill_via_decode(model, params, cache, prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    del cache
+    t0 = time.time()
+    out = generate(model, params, prompts, gen_len=SERVE_GEN,
+                   cache_len=SERVE_PROMPT + SERVE_GEN)
+    torch.cuda.synchronize()
+    gen_s = time.time() - t0
+    if set(kernels.launch_counts().values()) != {0}:
+        fail(f"phase {tag}: decode launched {kernels.launch_counts()}")
+    if tuple(out.shape) != (SERVE_B, SERVE_GEN) or not bool(
+            ((out >= 0) & (out < cfg.vocab)).all()):
+        fail(f"phase {tag}: generated {tuple(out.shape)} {out}")
+    token_ms = 1e3 * (gen_s - prefill_s) / (SERVE_GEN - 1)
+    rec = {"generate": {"batch": SERVE_B, "prompt": SERVE_PROMPT,
+                        "new_tokens": SERVE_GEN, "prefill_ms": 1e3 * prefill_s,
+                        "ms_a_token": token_ms,
+                        "tok_s": SERVE_B * SERVE_GEN / gen_s,
+                        "generate_s": gen_s}}
+    log(f"phase {tag}: generate on {cfg.name} ({cfg.n_layers} layer(s), "
+        f"{cfg.dtype}), batch {SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_GEN} "
+        f"new tokens: prefill (through decode_step) {1e3 * prefill_s:.1f} ms, "
+        f"{token_ms:.2f} ms a token, {SERVE_B * SERVE_GEN / gen_s:.1f} tok/s "
+        f"({gen_s:.2f} s in all); no kernel launches on the decode path")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": prompts})[:, -1]
+    torch.cuda.synchronize()
+    if kernels.launch_counts()["flash_attention_fwd"] != attn_layers:
+        fail(f"phase {tag}: forward launches {kernels.launch_counts()}")
+    diff = float((fwd.float() - last.float()).abs().max())
+    fwd_top, last_top = (torch.argmax(t, -1).tolist() for t in (fwd, last))
+    agree = sum(a == b for a, b in zip(fwd_top, last_top))
+    rec["full_width_last_logits"] = {"max_abs_diff": diff,
+                                     "argmax_agrees": agree == SERVE_B,
+                                     "argmax_rows_agreeing": agree,
+                                     "logit_max": float(fwd.float().abs().max())}
+    log(f"phase {tag}: full width {cfg.dtype}, the prefill's last logits "
+        f"against the forward's (flash kernels): max abs diff {diff:.4g} "
+        f"(logits up to {rec['full_width_last_logits']['logit_max']:.3g}), "
+        f"argmax {'agrees' if agree == SERVE_B else 'differs'} in {agree} of "
+        f"{SERVE_B} rows")
+    return rec
 
 
 def serve_phase(torch, params):
@@ -4596,11 +4704,8 @@ def serve_phase(torch, params):
     models (:func:`decode_vs_forward`)."""
     import shutil
 
-    from repro_torch import kernels
     from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate, prefill_via_decode
-    from repro_torch.models.model import build_model
 
     rec = {}
     nbytes = sum(p.numel() * p.element_size() for p in params.values())
@@ -4631,60 +4736,337 @@ def serve_phase(torch, params):
         f"({nbytes / restore_s / 1e9:.2f} GB/s; warm file cache)")
 
     cfg = dataclasses.replace(get_config(GEMMA.arch), n_layers=GEMMA.n_layers)
-    model = build_model(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
-                            generator=gen, device="cuda")
-    generate(model, params, prompts[:, :8], gen_len=4, cache_len=12)  # warm
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    cache = model.init_cache(SERVE_B, SERVE_PROMPT + SERVE_GEN,
-                             device="cuda")
-    cache, last = prefill_via_decode(model, params, cache, prompts)
-    torch.cuda.synchronize()
-    prefill_s = time.time() - t0
-    t0 = time.time()
-    out = generate(model, params, prompts, gen_len=SERVE_GEN,
-                   cache_len=SERVE_PROMPT + SERVE_GEN)
-    torch.cuda.synchronize()
-    gen_s = time.time() - t0
-    if set(kernels.launch_counts().values()) != {0}:
-        fail(f"phase 17b: decode launched {kernels.launch_counts()}")
-    if tuple(out.shape) != (SERVE_B, SERVE_GEN) or not bool(
-            ((out >= 0) & (out < cfg.vocab)).all()):
-        fail(f"phase 17b: generated {tuple(out.shape)} {out}")
-    token_ms = 1e3 * (gen_s - prefill_s) / (SERVE_GEN - 1)
-    rec["generate"] = {"batch": SERVE_B, "prompt": SERVE_PROMPT,
-                       "new_tokens": SERVE_GEN, "prefill_ms": 1e3 * prefill_s,
-                       "ms_a_token": token_ms,
-                       "tok_s": SERVE_B * SERVE_GEN / gen_s,
-                       "generate_s": gen_s}
-    log(f"phase 17b: generate on the trained gemma2-2b (2 layers, bf16), "
-        f"batch {SERVE_B}, prompt {SERVE_PROMPT}, {SERVE_GEN} new tokens: "
-        f"prefill (through decode_step) {1e3 * prefill_s:.1f} ms, "
-        f"{token_ms:.2f} ms a token, {SERVE_B * SERVE_GEN / gen_s:.1f} tok/s "
-        f"({gen_s:.2f} s in all); no kernel launches on the decode path")
-    kernels.reset_launch_counts()
-    with torch.no_grad():
-        fwd = model.forward(params, {"tokens": prompts})[:, -1]
-    torch.cuda.synchronize()
-    if kernels.launch_counts()["flash_attention_fwd"] != GEMMA.attn_layers:
-        fail(f"phase 17b: forward launches {kernels.launch_counts()}")
-    diff = float((fwd.float() - last.float()).abs().max())
-    agree = torch.argmax(fwd, -1).tolist() == torch.argmax(last, -1).tolist()
-    rec["full_width_last_logits"] = {"max_abs_diff": diff,
-                                     "argmax_agrees": agree,
-                                     "logit_max": float(fwd.float().abs().max())}
-    log(f"phase 17b: full width bf16, the prefill's last logits against the "
-        f"forward's (flash kernels): max abs diff {diff:.4g} (logits up to "
-        f"{rec['full_width_last_logits']['logit_max']:.3g}), argmax "
-        f"{'agrees' if agree else 'differs'} in "
-        f"{sum(a == b for a, b in zip(torch.argmax(fwd, -1).tolist(), torch.argmax(last, -1).tolist()))}"
-        f" of {SERVE_B} rows")
-    del fwd, last, cache
+    rec.update(generate_timed(torch, cfg, params, "17b", GEMMA.attn_layers))
     rec["decode_vs_forward"] = decode_vs_forward(torch)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the MoE FFN (qwen2-moe-a2.7b, grok-1-314b)
+# ---------------------------------------------------------------------------
+
+# 18a: (arch, capacity factor, grouped route) of the reduced MoE layer
+MOE_LAYER_CASES = (("qwen2-moe-a2.7b", 1.25, False),
+                   ("qwen2-moe-a2.7b", 1.25, True),
+                   ("grok-1-314b", 1.25, False), ("grok-1-314b", 1.25, True),
+                   ("qwen2-moe-a2.7b", 0.5, False),
+                   ("grok-1-314b", 0.5, True))
+MOE_RANGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine",
+              "moe.shared")
+MOE_STD_STEPS = 2                   # 18d's standard steps
+# 18d: grok-1-314b at published width cut to one layer (bf16; the expert
+# wi (1, 8, 6144, 65536))
+GROK_LAYERS, GROK_PARAMS = 1, 5_725_292_544
+MOE_DECODE_CELLS = (("qwen2-moe-a2.7b", 2), ("grok-1-314b", 2))
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _tree_items(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def moe_layer_parity(torch):
+    """Phase 18a: the reduced qwen2-moe (swiglu, one shared expert) and
+    grok-1 (geglu) MoE layers in float32 on the card against the port's
+    CPU path, both routes, capacity factor 1.25 and 0.5 (drops), B 2, S
+    64: every contribution's expert, rank and slot equal exactly; the
+    output, the aux loss and the gradients of ``sum(out * g) + aux`` (every
+    parameter and x) within 1e-5 relative (largest difference over the
+    largest entry).  Returns ``{case: {"max_rel_err", "dropped"}}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_lib
+
+    out = {}
+    B, S = 2, 64
+    for arch, cf, grouped in MOE_LAYER_CASES:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  capacity_factor=cf, moe_grouped=grouped)
+        label = f"{arch} cf {cf} {'grouped' if grouped else 'flat'}"
+        gen = torch.Generator().manual_seed(7)
+        params = moe_lib.init_moe(gen, cfg, torch.float32)
+        x = torch.randn((B, S, cfg.d_model), generator=gen)
+        g = torch.randn((B, S, cfg.d_model), generator=gen)
+        groups = B if grouped else 1
+        cap = moe_lib.capacity(cfg, B * S // groups)
+        res = {}
+        for dev in ("cpu", "cuda"):
+            p = _tree_map(lambda t: t.detach().to(dev).requires_grad_(),
+                          params)
+            xx = x.detach().to(dev).requires_grad_()
+            y, aux = moe_lib.moe_ffn(p, xx, cfg)
+            (torch.sum(y * g.to(dev)) + aux).backward()
+            _, _, experts = moe_lib.route(xx.detach().reshape(B * S, -1),
+                                          p["router"].detach(), cfg.top_k)
+            plan = moe_lib.dispatch_plan(experts.reshape(groups, -1),
+                                         cfg.n_experts, cap)
+            res[dev] = {
+                "values": dict([("out", y.detach()), ("aux", aux.detach()),
+                                ("dx", xx.grad)] + [
+                    (f"d{n}", t.grad) for n, t in _tree_items(p)]),
+                "ids": (experts, plan["rank"], plan["slot"]),
+                "dropped": int((~plan["kept"]).sum())}
+        for a, b, what in zip(res["cuda"]["ids"], res["cpu"]["ids"],
+                              ("experts", "ranks", "slots")):
+            if not torch.equal(a.cpu(), b):
+                fail(f"phase 18a {label}: {what} differ card / CPU")
+        errs = {k: _rel_err(v.cpu(), res["cpu"]["values"][k])
+                for k, v in res["cuda"]["values"].items()}
+        worst = max(errs.values())
+        if not worst <= 1e-5:
+            fail(f"phase 18a {label}: card vs CPU {errs}")
+        if cf < 1 and res["cuda"]["dropped"] == 0:
+            fail(f"phase 18a {label}: no contribution dropped")
+        if res["cuda"]["dropped"] != res["cpu"]["dropped"]:
+            fail(f"phase 18a {label}: drops {res['cuda']['dropped']} card, "
+                 f"{res['cpu']['dropped']} CPU")
+        log(f"phase 18a: reduced {label} fp32 (capacity {cap}): experts, "
+            f"ranks and slots equal card / CPU, "
+            f"{res['cuda']['dropped']} of {B * S * cfg.top_k} contributions "
+            f"dropped; out, aux and gradients within {worst:.3g} relative "
+            f"(bound 1e-5)")
+        out[label] = {"max_rel_err": worst,
+                      "dropped": res["cuda"]["dropped"],
+                      "contributions": B * S * cfg.top_k, "capacity": cap}
+    return out
+
+
+def _range_of(e, names):
+    """The innermost range of ``names`` that holds profiler event ``e``
+    (None outside them), and whether ``e`` runs inside a backward node."""
+    r, in_backward = None, False
+    while e is not None:
+        if r is None and e.name in names:
+            r = e.name
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            in_backward = True
+        e = e.cpu_parent
+    return r, in_backward
+
+
+def moe_profile_split(torch, fn):
+    """``fn()`` (ending in a synchronize) under torch.profiler: the device
+    ms of the MoE's parts, forward and backward.  A part's forward is the
+    kernels launched inside its ``record_function`` range (``MOE_RANGES``);
+    its backward is the kernels of the autograd nodes its forward ops
+    created, matched by sequence number (an op records the number the next
+    node takes, so the last forward op to hold a number is that node's
+    maker, or runs inside it).  Returns ``{"wall_ms", "device_ms",
+    "forward_ms": {part: ms}, "backward_ms": {part: ms}, "moe_ms",
+    "moe_share"}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CPU]
+    fwd = dict.fromkeys(MOE_RANGES, 0.0)
+    bwd = dict.fromkeys(MOE_RANGES, 0.0)
+    maker = {}
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.name in MOE_RANGES:
+            fwd[e.name] += e.device_time_total / 1e3
+        r, in_backward = _range_of(e, MOE_RANGES)
+        if e.sequence_nr >= 0 and not in_backward and not \
+                e.name.startswith("autograd::"):
+            maker[(e.thread, e.sequence_nr)] = r
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function") and \
+                e.sequence_nr >= 0:
+            r = maker.get((e.fwd_thread, e.sequence_nr))
+            if r is not None:
+                bwd[r] += e.device_time_total / 1e3
+    device_ms = sum(
+        getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    moe_ms = sum(fwd.values()) + sum(bwd.values())
+    return {"wall_ms": wall_ms, "device_ms": device_ms, "forward_ms": fwd,
+            "backward_ms": bwd, "moe_ms": moe_ms,
+            "moe_share": moe_ms / device_ms if device_ms else None}
+
+
+def _moe_round_checks(torch, trainer, state, cfg, out):
+    """Phase 18b/18c on the full-width trainer's final state: one round
+    under the profiler split by MoE part (:func:`moe_profile_split`), then
+    two rounds from that state with the same batch and generator state,
+    equal bit for bit (x, z and the loss; the first round's state held on
+    the host while the second runs)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+
+    shape = InputShape("moe", MAIN_SEQ, MAIN_BATCH, "train")
+    batch = make_batch_for(cfg, shape,
+                           torch.Generator(device="cuda").manual_seed(11),
+                           n_agents=FULL_N, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def one_round():
+        _, m = trainer.step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+
+    split = moe_profile_split(torch, one_round)
+    out["moe_profile"] = split
+    if not split["moe_ms"]:
+        # a measurement, not a gate: phase 11b has seen profiles that hold
+        # no device event
+        log(f"phase 18b profile: no MoE device time in the profile ({split})")
+    else:
+        log(f"phase 18b profile: one round {split['wall_ms']:.1f} ms wall, "
+            f"device {split['device_ms']:.1f} ms, the MoE "
+            f"{split['moe_ms']:.1f} ms ({100 * split['moe_share']:.1f}%): "
+            f"forward "
+            f"{ {k: round(v, 2) for k, v in split['forward_ms'].items()} }, "
+            f"backward "
+            f"{ {k: round(v, 2) for k, v in split['backward_ms'].items()} }")
+
+    g0 = gen.get_state()
+    s1, m1 = trainer.step(state, batch, gen)
+    first = {v: {n: t.cpu() for n, t in getattr(s1, v).items()}
+             for v in ("x", "z")}
+    loss1 = float(m1["loss"])
+    del s1, m1
+    gen.set_state(g0)
+    s2, m2 = trainer.step(state, batch, gen)
+    for v in ("x", "z"):
+        if not _same_param_bits(torch, first[v], {
+                n: t.cpu() for n, t in getattr(s2, v).items()}):
+            fail(f"phase 18c: two rounds from one state differ in {v}")
+    if float(m2["loss"]) != loss1:
+        fail(f"phase 18c: two rounds from one state, losses {loss1} / "
+             f"{float(m2['loss'])}")
+    del s2, m2, first
+    out["repeat_round_bit_equal"] = True
+    log(f"phase 18c: two full-width rounds from one state with one batch "
+        f"and generator state: x, z and the loss ({loss1:.6f}) equal bit for "
+        f"bit")
+
+
+def moe_phase(torch, base, resume=False):
+    """Phase 18: the MoE FFN.  18a :func:`moe_layer_parity`; 18b
+    qwen2-moe-a2.7b at published width cut to one layer, bf16 (tree
+    layout: the float32 router), phase 4's spec otherwise, 3 rounds
+    (flash 8 / 8 a round, fedplt_update once a leaf a local epoch, no edge
+    kernel), a profiled round split by MoE part; 18c two full-width rounds
+    from one state bit for bit (and, with ``resume``, phase 16's reduced
+    qwen2-moe case); 18d one-layer qwen2-moe through ``run_standard``
+    (AdamW, flash 1 / 1 a step) and served, grok-1-314b cut to one layer
+    served, and reduced decode against the forward at capacity factor 8.
+    Returns the phase's record."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.launch.train import run_standard
+    from repro_torch.models.model import build_model
+
+    rec = {"18a": moe_layer_parity(torch)}
+    checks = {}
+    tree_base = dict(base, state_layout="tree")
+    counts, hist, peak = train_phase(
+        torch, "phase 18b qwen2-moe-a2.7b (1 layer, tree layout)",
+        FedSpec(**tree_base), 3,
+        expected_counts(3, QWEN, fedplt_update=3 * N_EPOCHS * QWEN.n_leaves),
+        profile=True, cell=QWEN, profile_out=checks.setdefault("profile", {}),
+        after=lambda tr, st, cfg: _moe_round_checks(torch, tr, st, cfg,
+                                                    checks))
+    if peak > 80e9:
+        fail(f"phase 18b: peak device memory {peak / 1e9:.2f} GB")
+    rec["18b"] = dict(checks, counts={k: v for k, v in counts.items() if v},
+                      peak_gb=peak / 1e9,
+                      round_ms=[1e3 * h["dt"] for h in hist],
+                      losses=[h["loss"] for h in hist])
+    if resume:
+        rec["18c_resume"] = resume_phase(
+            torch, [c for c in RESUME_CASES if "arch" in c[2]])
+
+    # 18d: a standard step and serving at published width
+    cfg = dataclasses.replace(get_config(QWEN.arch), n_layers=QWEN.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    params, hist = run_standard(cfg, optimizer="adamw", lr=1e-3,
+                                steps=MOE_STD_STEPS, seq_len=MAIN_SEQ,
+                                batch=MAIN_BATCH, device="cuda", log=log)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = expected_counts(flash_attention_fwd=MOE_STD_STEPS,
+                           flash_attention_bwd=MOE_STD_STEPS)
+    if counts != want:
+        fail(f"phase 18d: standard launches {counts}, want {want}")
+    if not all(math.isfinite(h["loss"]) for h in hist) or not all(
+            bool(torch.isfinite(p).all()) for p in params.values()):
+        fail(f"phase 18d: non-finite loss or parameters ({hist})")
+    std_peak = torch.cuda.max_memory_allocated()
+    step_ms = [1e3 * h["dt"] for h in hist]
+    log(f"phase 18d standard mode: qwen2-moe-a2.7b (1 layer, bf16), AdamW, "
+        f"batch {MAIN_BATCH} x seq {MAIN_SEQ}: losses "
+        f"{[round(h['loss'], 4) for h in hist]}, step ms "
+        f"{[round(v, 2) for v in step_ms]}, peak {std_peak / 1e9:.2f} GB; "
+        f"flash {MOE_STD_STEPS} / {MOE_STD_STEPS}")
+    rec["18d_standard"] = {"step_ms": step_ms,
+                           "losses": [h["loss"] for h in hist],
+                           "peak_gb": std_peak / 1e9}
+    rec["18d_serve_qwen"] = generate_timed(torch, cfg, params, "18d",
+                                           QWEN.attn_layers)
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(get_config("grok-1-314b"), n_layers=GROK_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(6), "cuda")
+    n = sum(p.numel() for p in params.values())
+    wi = params["stages.0.0.moe.experts.wi"]
+    if n != GROK_PARAMS or tuple(wi.shape) != (1, 8, 6144, 65536):
+        fail(f"phase 18d: grok-1-314b {n:,} parameters, expert wi "
+             f"{tuple(wi.shape)}")
+    log(f"phase 18d: grok-1-314b (1 layer, {n:,} params, "
+        f"{sum(p.numel() * p.element_size() for p in params.values()) / 1e9:.2f}"
+        f" GB bf16; expert wi {tuple(wi.shape)})")
+    rec["18d_serve_grok"] = generate_timed(torch, cfg, params, "18d",
+                                           GROK_LAYERS)
+    rec["18d_serve_grok"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, wi
+    torch.cuda.empty_cache()
+    rec["18d_decode_vs_forward"] = decode_vs_forward(
+        torch, MOE_DECODE_CELLS, dict(capacity_factor=8.0), tag="18d")
+    return rec
+
+
+def moe_phases(torch) -> int:
+    """``--moe``: build the kernels, run phase 18 (with phase 16's MoE
+    resume case) alone and print its record as one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    rec = moe_phase(torch, MAIN_SPEC, resume=True)
+    log(json.dumps({"moe": rec, "seconds": round(time.time() - t0, 1),
+                    "card": smi}))
+    return 0
 
 
 def train_serve_phases(torch) -> int:
@@ -4736,6 +5118,8 @@ def main() -> int:
         return ssm_rounds(torch, src)
     if "--train-serve" in args:
         return train_serve_phases(torch)
+    if "--moe" in args:
+        return moe_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -4786,9 +5170,7 @@ def main() -> int:
 
     stamp(3)
     # phase 4: the main path
-    base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
-                state_layout="packed", engine_backend="fused",
-                use_fused_update=True)
+    base = dict(MAIN_SPEC)
     main_prof = {}
     main_counts, hist, main_peak = train_phase(
         torch, "phase 4 main path", FedSpec(**base), 3,
@@ -4930,6 +5312,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     stamp(17)
+    # phase 18: the MoE FFN, trained and served at published width
+    moe = moe_phase(torch, base)
+
+    stamp(18)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -5028,7 +5414,7 @@ def main() -> int:
                         k: v for k, v in recs.items()
                         if k.startswith("ssm_scan")},
                     "standard": standard, "resume": resumed,
-                    "serve": serving,
+                    "serve": serving, "moe": moe,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist

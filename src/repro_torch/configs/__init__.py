@@ -2,19 +2,22 @@
 
 Holds the architectures the port runs so far: the dense gemma2-2b,
 phi4-mini-3.8b, gemma3-12b and nemotron-4-340b (untied LM head), the SSM
-falcon-mamba-7b and the hybrid recurrentgemma-2b.  The others of the
-reference's registry (MoE, enc-dec, vision frontends) join with the model
-kinds they need.
+falcon-mamba-7b, the hybrid recurrentgemma-2b and the MoE qwen2-moe-a2.7b
+and grok-1-314b.  The others of the reference's registry (enc-dec, vision
+frontends) join with the model kinds they need.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig  # noqa: F401
 from repro_torch.configs import (falcon_mamba_7b, gemma2_2b,  # noqa: E402
-                                 gemma3_12b, nemotron_4_340b,
-                                 phi4_mini_3_8b, recurrentgemma_2b)
+                                 gemma3_12b, grok_1_314b, nemotron_4_340b,
+                                 phi4_mini_3_8b, qwen2_moe_a2_7b,
+                                 recurrentgemma_2b)
 
 REGISTRY = {
     "phi4-mini-3.8b": phi4_mini_3_8b.CONFIG,
     "gemma2-2b": gemma2_2b.CONFIG,
+    "qwen2-moe-a2.7b": qwen2_moe_a2_7b.CONFIG,
+    "grok-1-314b": grok_1_314b.CONFIG,
     "falcon-mamba-7b": falcon_mamba_7b.CONFIG,
     "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
     "gemma3-12b": gemma3_12b.CONFIG,

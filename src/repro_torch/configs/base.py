@@ -2,8 +2,8 @@
 
 A copy of the reference's ``repro/configs/base.py`` fields (the port
 keeps every field so one config reads the same in both packages, even
-where the port does not act on it yet: MoE and enc-dec models raise
-in :mod:`repro_torch.models.transformer`).
+where the port does not act on it yet: enc-dec and frontend models
+raise in :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations

@@ -17,8 +17,11 @@ positions are per sequence, so batched requests may sit at different
 depths (continuous batching), and :func:`reset_slots` frees finished
 ones.  Plain tensor code on every device, as in the reference (no
 Pallas kernel on its decode path); ``decode_step`` leaves its input
-cache unmodified.  The enc-dec ``xdec`` kind (``fill_cross_cache``) and
-MoE layers are not ported yet.
+cache unmodified.  An MoE layer runs the flat route on ``(B, 1, d)``, so
+its capacity is ``int(cf * B * K / E) + 1`` (1 for qwen2-moe at batch 4)
+and decode drops contributions that the full forward keeps, as the
+reference's does.  The enc-dec ``xdec`` kind (``fill_cross_cache``) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_scale, mlp, rms_norm, softcap
@@ -161,6 +165,9 @@ def _layer_decode(p, c, kind, cfg: ModelConfig, x_t, pos, long_ctx):
             pos=pos, window=window, cap=cfg.attn_softcap, ring=ring)
         x_t = x_t + out @ p["attn"]["wo"]
     h = rms_norm(x_t, p["ln2"], eps)
+    if "moe" in p:
+        out, _ = moe_lib.moe_ffn(p["moe"], h[:, None, :], cfg)
+        return x_t + out[:, 0, :], c_new
     return x_t + mlp(p["mlp"], h, cfg.activation), c_new
 
 

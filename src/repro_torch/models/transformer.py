@@ -14,9 +14,12 @@ parameters passed in -- views of a packed state buffer in the federated
 trainer -- so the module itself holds no weights.
 
 The ``global`` / ``local`` attention kinds, the ``ssm`` (Mamba-1) and
-``rec`` (RG-LRU) kinds, the untied LM head (``lm_head``, ``(d_model,
-vocab)``) and the vocab-chunked loss (``chunked_loss > 0``) are ported;
-MoE, enc-dec and multimodal frontends raise.  On a CUDA tensor the
+``rec`` (RG-LRU) kinds, the MoE FFN (``moe`` in place of ``mlp`` in a
+``global`` / ``local`` layer of a config with ``n_experts``; the loss is
+``ce + router_aux_weight * aux``, ``aux`` summed over the layers), the
+untied LM head (``lm_head``, ``(d_model, vocab)``) and the vocab-chunked
+loss (``chunked_loss > 0``) are ported; enc-dec and multimodal frontends
+raise.  On a CUDA tensor the
 attention kinds run the hand-written flash-attention kernels and the
 ``ssm`` / ``rec`` kinds the hand-written ``lru_scan`` kernels (forward
 and backward); on the CPU they run the reference's plain paths (``attn_block_local`` / ``attn_chunked``, the
@@ -35,6 +38,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (apply_rope, chunked_cross_entropy,
@@ -47,7 +51,8 @@ _PORTED_KINDS = ("global", "local", "ssm", "rec")
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported yet: repro_torch runs the global, local, "
-        f"ssm and rec layer kinds only (later slice of the port)")
+        f"ssm and rec layer kinds and the MoE FFN only (later slice of the "
+        f"port)")
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +80,6 @@ def build_stages(cfg: ModelConfig) -> list[StageSpec]:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise _not_ported("the MoE FFN")
     if cfg.frontend:
         raise _not_ported(f"the {cfg.frontend} frontend")
     for kind in cfg.layer_kinds():
@@ -107,9 +110,29 @@ class Params(nn.Module):
         return {k: getattr(self, k)[u] for k in self.names}
 
 
+def _params_tree(shapes: dict, n_units: int) -> nn.Module:
+    """A nested ``{name: (shape, dtype) | {...}}`` as modules: each dict
+    of leaves a :class:`Params`, each nested dict a submodule (the MoE's
+    ``router``, ``experts.wi``, ...)."""
+    leaves = {k: v for k, v in shapes.items() if not isinstance(v, dict)}
+    node = Params(leaves, n_units)
+    for k, v in shapes.items():
+        if isinstance(v, dict):
+            setattr(node, k, _params_tree(v, n_units))
+    return node
+
+
+def _unit_tree(node: nn.Module, u: int) -> dict:
+    out = node.unit(u)
+    for k, child in node.named_children():
+        out[k] = _unit_tree(child, u)
+    return out
+
+
 class Layer(nn.Module):
     """One layer of a kind, parameters stacked over units: attention (or
-    an RG-LRU block) + FFN, or a Mamba block alone."""
+    an RG-LRU block) + FFN (the MoE in an attention layer of an MoE
+    config), or a Mamba block alone."""
 
     def __init__(self, kind: str, cfg: ModelConfig, n_units: int, dtype):
         super().__init__()
@@ -128,6 +151,9 @@ class Layer(nn.Module):
             self.attn = Params({k: (s, dtype) for k, s in shapes.items()},
                                n_units)
         self.ln2 = _param((n_units, cfg.d_model), dtype)
+        if cfg.n_experts and kind in ("global", "local"):
+            self.moe = _params_tree(moe_lib.moe_shapes(cfg, dtype), n_units)
+            return
         shapes = mlp_shapes(cfg.d_model, cfg.d_ff, cfg.activation)
         self.mlp = Params({k: (s, dtype) for k, s in shapes.items()}, n_units)
 
@@ -156,16 +182,22 @@ class Layer(nn.Module):
         return o @ p["wo"]
 
     def forward(self, x, u: int, positions):
+        """``(x, aux)``: the layer's output and its MoE aux loss (0.0
+        without an MoE)."""
         eps = self.cfg.norm_eps
         h = rms_norm(x, self.ln1[u], eps)
         if self.kind == "ssm":
-            return x + ssm_lib.mamba_forward(self.mamba.unit(u), h, self.cfg)
+            return x + ssm_lib.mamba_forward(self.mamba.unit(u), h,
+                                             self.cfg), 0.0
         if self.kind == "rec":
             x = x + rglru_lib.rglru_forward(self.rec.unit(u), h, self.cfg)
         else:
             x = x + self._attention(self.attn.unit(u), h, positions)
         h = rms_norm(x, self.ln2[u], eps)
-        return x + mlp(self.mlp.unit(u), h, self.cfg.activation)
+        if hasattr(self, "moe"):
+            out, aux = moe_lib.moe_ffn(_unit_tree(self.moe, u), h, self.cfg)
+            return x + out, aux
+        return x + mlp(self.mlp.unit(u), h, self.cfg.activation), 0.0
 
 
 class Stage(nn.ModuleDict):
@@ -177,17 +209,21 @@ class Stage(nn.ModuleDict):
                           for i, kind in enumerate(spec.unit)})
         self.spec = spec
 
-    def forward(self, x, positions):
+    def forward(self, x, aux, positions):
+        """``(x, aux)`` after every unit, the layers' aux losses added to
+        ``aux`` in order."""
         for u in range(self.spec.n_units):
             for i in range(len(self.spec.unit)):
-                x = self[str(i)](x, u, positions)
-        return x
+                x, a = self[str(i)](x, u, positions)
+                aux = aux + a
+        return x, aux
 
 
 class Transformer(nn.Module):
     """``forward(batch)`` is the mean token cross-entropy (over vocab
-    chunks when ``cfg.chunked_loss > 0``); ``forward(batch, logits=True)``
-    the softcapped logits."""
+    chunks when ``cfg.chunked_loss > 0``), plus ``router_aux_weight``
+    times the summed aux loss of an MoE model; ``forward(batch,
+    logits=True)`` the softcapped logits."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -203,30 +239,36 @@ class Transformer(nn.Module):
 
     def forward_hidden(self, tokens):
         """Embedding (scaled by sqrt(d) in the param dtype) -> stages ->
-        final norm."""
+        final norm: ``(hidden, aux)``, ``aux`` the float32 sum of the MoE
+        layers' aux losses (0.0 without an MoE)."""
         cfg = self.cfg
         x = self.embed[tokens] * embed_scale(cfg.d_model, self.embed.dtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = 0.0
         for stage in self.stages:
-            x = stage(x, positions)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+            x, aux = stage(x, aux, positions)
+        return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def _head(self):
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
     def forward(self, batch: dict, logits: bool = False):
         cfg = self.cfg
-        x = self.forward_hidden(batch["tokens"])
-        if cfg.chunked_loss and not logits:
+        x, aux = self.forward_hidden(batch["tokens"])
+        if logits:
+            return softcap(x @ self._head(), cfg.final_softcap)
+        if cfg.chunked_loss:
             # the softcap in float32, after the cast (the reference's
             # order on this path; the full logits take the param dtype's)
-            return chunked_cross_entropy(x, self._head(), batch["labels"],
+            loss = chunked_cross_entropy(x, self._head(), batch["labels"],
                                          cfg.chunked_loss,
                                          cap=cfg.final_softcap)
-        out = softcap(x @ self._head(), cfg.final_softcap)
-        if logits:
-            return out
-        return cross_entropy(out, batch["labels"])
+        else:
+            loss = cross_entropy(softcap(x @ self._head(), cfg.final_softcap),
+                                 batch["labels"])
+        if cfg.n_experts:
+            loss = loss + cfg.router_aux_weight * aux
+        return loss
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +292,11 @@ def _init_layer(generator, kind: str, cfg: ModelConfig, dtype, device,
                                        cfg.n_kv_heads, cfg.resolved_head_dim,
                                        dtype, device=device, lead=lead)
     p["ln2"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
-    p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.activation, dtype,
-                        device=device, lead=lead)
+    if cfg.n_experts and kind in ("global", "local"):
+        p["moe"] = moe_lib.init_moe(generator, cfg, dtype, device, lead)
+    else:
+        p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.activation, dtype,
+                            device=device, lead=lead)
     return p
 
 

@@ -61,6 +61,15 @@ def test_ssm_slice_modules_are_scanned():
     assert slice_ <= names, slice_ - names
 
 
+def test_moe_slice_modules_are_scanned():
+    """The MoE FFN and the MoE configs are among the modules the import
+    rules here scan."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    slice_ = {"models/moe.py", "configs/qwen2_moe_a2_7b.py",
+              "configs/grok_1_314b.py"}
+    assert slice_ <= names, slice_ - names
+
+
 def test_no_module_imports_ml_dtypes():
     """The card machine has no ml_dtypes (it comes with JAX): the port
     reads and writes bfloat16 checkpoints without it."""

@@ -170,7 +170,10 @@ def test_loss_gradient_matches(cfgs, params, batch):
 
 
 def test_unported_model_kinds_raise(cfgs):
+    """The enc-dec model and the frontends are not ported yet (the MoE FFN
+    is: ``tests/test_torch_moe.py``)."""
     _, tcfg = cfgs
-    for kw in (dict(n_experts=4, top_k=2), dict(n_enc_layers=2)):
+    for kw in (dict(n_enc_layers=2),
+               dict(frontend="vision", n_frontend_tokens=16)):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(dataclasses.replace(tcfg, **kw))
