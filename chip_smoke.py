@@ -271,7 +271,12 @@ last line):
    topk and bf16 noisy_gd (the CUDA generator's state crosses the
    checkpoint), and reduced qwen2-moe-a2.7b in fp32 (gd): x, z and t
    bit-equal, the two legs' launches equal and summing to the
-   uninterrupted run's.
+   uninterrupted run's.  The mesh case: reduced gemma2-2b in bf16 on two
+   gloo ranks spawned on the card, under 2x1 and 1x2, 4 rounds against 2
+   + checkpoint + resume + 2 (``run_fed``, ``checkpoint_every=2``): each
+   rank's x and z bit-equal, and the round-2 checkpoint (the gathered
+   global state, written by rank 0) restored into the unsharded trainer
+   equal to the ranks' blocks bit for bit.
 17. Serving: phase 15's parameters through ``save_checkpoint`` /
    ``restore_checkpoint`` (bit-equal; seconds and GB/s), ``generate`` on
    them at batch 4, prompt 128, 32 new tokens (prefill ms, ms a token,
@@ -298,6 +303,32 @@ last line):
    grok-1-314b cut to one layer (5,725,292,544 parameters, expert wi (1,
    8, 6144, 65536)) served the same way, and reduced qwen2-moe / grok-1
    decoded against their forward at capacity factor 8 (2e-2).
+19. The encoder-decoder and the vision prefix (no new kernel; the flash
+   kernels at new shapes).  19a: reduced whisper-small (2 encoder layers
+   over 24 frames, 2 decoder layers with cross-attention) and reduced
+   internvl2-26b (16 patch embeddings before the text) in fp32, N 2,
+   packed, fused, 2 rounds on the card (flash once an attention call per
+   agent per epoch) against the CPU (1e-4); the flash forward and
+   backward against their plain versions at 9a's bf16 tolerances at
+   whisper-small's encoder (B 2, S = T 1500, H 12, D 64, no mask),
+   decoder self-attention (448, causal) and cross-attention (S 448, T
+   1500, no mask), and internvl2-26b's layer (512 causal, H 48, Hkv 8, D
+   128); the whisper shapes timed beside the bound (4 D operations a
+   visible pair forward, 10 D backward, at the bf16 peak), the plain
+   versions, SDPA (the same function: whisper has no cap) and
+   ``flex_attention`` compiled.  19b: whisper-small at published width
+   and depth (12 + 12 layers, 238,060,032 parameters, bf16, packed), N
+   4, batch 8 (2 an agent) x 448 text tokens with 1500 encoder frames,
+   N_e 2, 3 rounds through ``run_fed``: flash 864 / 864 (36 calls an
+   agent's forward), uplink 3, downlink 3, fedplt_update 6, nothing
+   else; peak memory; one profiled round.  19c: internvl2-26b cut to one
+   layer of 48 (958,734,336 parameters, packed; 256 patch embeddings and
+   256 text tokens), 3 rounds: flash 24 / 24.  19d: reduced whisper
+   decoded against its forward after the encoder and
+   ``fill_cross_cache`` (2e-2); whisper-small at published width served
+   at batch 4 (the encoder, the cross cache, a 128-token prompt through
+   ``decode_step``, 32 greedy tokens: ms a token), its prefill's last
+   logits against the forward's.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -339,7 +370,8 @@ time) and runs the 64-layer memory probe, as one JSON line; and
 ``--ssm-rounds [--src DIR]`` runs phases 14c and 14d alone with the
 ``repro_torch`` under ``DIR``: each run once a tree, in turns, to
 compare two trees on one card.  ``--train-serve`` runs phases 15-17
-alone, ``--moe`` phase 18 (with phase 16's MoE case).
+alone, ``--moe`` phase 18 (with phase 16's MoE case), ``--encdec`` phase
+19 (with phase 16's mesh case).
 """
 
 from __future__ import annotations
@@ -1160,7 +1192,23 @@ def _kernel_group(name: str) -> str:
     return "other elementwise/reduction"
 
 
-def profile_round(torch, trainer, state, gen, cfg, label):
+def attention_calls(cfg, seq):
+    """The flash calls of one agent's forward at ``seq`` tokens, as
+    ``(S, T, causal)``: a self-attention layer over the sequence (a local
+    layer sees what a causal one sees while ``seq`` is within its
+    window); an encoder-decoder model's encoder over its frames, its
+    decoder's self-attention and its cross-attention over the frames."""
+    if cfg.n_enc_layers:
+        T = cfg.n_enc_tokens
+        return ([(T, T, False)] * cfg.n_enc_layers
+                + [(seq, seq, True), (seq, T, False)] * cfg.n_layers)
+    if seq > cfg.window and "local" in cfg.layer_kinds():
+        fail(f"{cfg.name}: sequence {seq} > window {cfg.window}")
+    return [(seq, seq, True) for k in cfg.layer_kinds()
+            if k in ("global", "local")]
+
+
+def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
     """One more main-path round under torch.profiler: device time by
     kernel group, the top kernels, and the device's idle share of the
     round's wall time (one stream, so kernel times do not overlap)."""
@@ -1168,7 +1216,8 @@ def profile_round(torch, trainer, state, gen, cfg, label):
     from repro_torch.configs.base import InputShape
     from repro_torch.data.synthetic import make_batch_for
 
-    shape = InputShape("profile", MAIN_SEQ, MAIN_BATCH, "train")
+    seq = MAIN_SEQ if seq is None else seq
+    shape = InputShape("profile", seq, MAIN_BATCH, "train")
     batch = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device="cuda")
 
     kernels.reset_launch_counts()
@@ -1195,18 +1244,18 @@ def profile_round(torch, trainer, state, gen, cfg, label):
                 if _kernel_group(k) == "flash_attention"}
     if flash_ms:
         rec["flash_kernels_ms"] = flash_ms
-        # this round's flash time against its bound; at MAIN_SEQ <= window
-        # a local layer sees the keys a global (causal) one sees
-        if MAIN_SEQ > cfg.window:
-            fail(f"{label}: sequence {MAIN_SEQ} > window {cfg.window}")
-        bounds = flash_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.n_heads,
-                              cfg.n_kv_heads, cfg.resolved_head_dim, True,
-                              None)
+        # this round's flash time against its bound: the bounds of one
+        # agent's calls, times the agents and epochs that ran them
+        calls = attention_calls(cfg, seq)
+        per_agent = {name: sum(flash_bounds(
+            bw, MAIN_BATCH // FULL_N, S, cfg.n_heads, cfg.n_kv_heads,
+            cfg.resolved_head_dim, causal, None, T=T)[name]["bound_ms"]
+            for S, T, causal in calls) for name in ("fwd", "bwd")}
         for name in ("fwd", "bwd"):
             n = counts[f"flash_attention_{name}"]
             ms = sum(v for k, v in flash_ms.items()
                      if f"flash_{name}_" in k)
-            bound = n * bounds[name]["bound_ms"]
+            bound = n / len(calls) * per_agent[name]
             rec[f"flash_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
                                         share_of_bound=bound / ms if ms else None)
     lru_ms = {k: v for k, v in kernels_ms.items()
@@ -1253,9 +1302,10 @@ class Cell:
     """A full-width trainer of the smoke: an architecture at published
     width cut to ``n_layers``; its parameter count and leaves; the packed
     width of its state (None: the tree layout, which a mixed-dtype tree
-    takes); its attention and scan layers, which set the flash and
-    lru_scan launches of a round (one forward and one backward per layer
-    per agent per local epoch)."""
+    takes); its attention calls (an enc-dec layer's cross-attention
+    counts as one) and scan layers, which set the flash and lru_scan
+    launches of a round (one forward and one backward per call per agent
+    per local epoch); the tokens of a sequence."""
     arch: str
     n_layers: int
     n_params: int
@@ -1263,6 +1313,7 @@ class Cell:
     packed_width: int | None
     attn_layers: int
     scan_layers: int = 0
+    seq_len: int = MAIN_SEQ
 
 
 GEMMA = Cell("gemma2-2b", N_LAYERS, 745_549_056, 18, FULL_M, N_LAYERS)
@@ -1279,6 +1330,15 @@ MAMBA = Cell("falcon-mamba-7b", 2, 476_966_912, 12, None, 0, 2)
 # wo 173,015,040; the shared experts' 34,603,008), norms 6,144; bf16 with
 # the float32 router: tree layout
 QWEN = Cell("qwen2-moe-a2.7b", 1, 881_719_296, 13, None, 1)
+# published depth: 12 encoder layers (over 1500 frames) and 12 decoder
+# layers, 36 attention calls an agent's forward (12 encoder, 12 causal
+# self, 12 cross); the decoder's 448-token text context; 23 leaves, bf16
+WHISPER = Cell("whisper-small", 12, 238_060_032, 23, 238_060_032, 36,
+               seq_len=448)
+# one layer of 48: the tied embedding 568,653,632, attention 88,080,384,
+# the swiglu MLP 301,989,888, norms 12,288; 256 patch embeddings before
+# 256 text tokens
+INTERNVL = Cell("internvl2-26b", 1, 958_734_336, 10, 958_734_336, 1)
 
 
 def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
@@ -1297,8 +1357,9 @@ def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.time()
-    trainer, state, hist = run_fed(cfg, spec, steps=steps, seq_len=MAIN_SEQ,
-                                   batch=MAIN_BATCH, device="cuda", log=log)
+    trainer, state, hist = run_fed(cfg, spec, steps=steps,
+                                   seq_len=cell.seq_len, batch=MAIN_BATCH,
+                                   device="cuda", log=log)
     trainer_gen = torch.Generator(device="cuda").manual_seed(1)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
@@ -1336,7 +1397,7 @@ def train_phase(torch, label, spec, steps, expect, profile=False, cell=GEMMA,
         f"device memory {peak / 1e9:.2f} GB; {wall:.1f} s wall")
     if profile:
         rec = profile_round(torch, trainer, state, trainer_gen, cfg,
-                            " ".join(label.split()[:2]))
+                            " ".join(label.split()[:2]), cell.seq_len)
         if profile_out is not None:
             profile_out.update(rec)
     if after is not None:
@@ -2054,17 +2115,19 @@ def visible_pairs(S, T, causal, window):
     return total
 
 
-def flash_bounds(bw, B, S, H, Hkv, D, causal, window):
-    """The least time of the bf16 flash forward and backward at a shape:
-    the larger of the bytes (q, k, v, o, and dO, dq, dk, dv, once each,
-    with the float32 lse) over the memory rate and the operations as the
-    tensor-core kernels run them, all at the bf16 tensor-core peak: q k^T
-    and dO v^T (two bf16 operands) once each, and p v, p^T dO, ds^T q and
-    ds k once per bf16 term of their float32 p or ds (NSPLIT terms)."""
+def flash_bounds(bw, B, S, H, Hkv, D, causal, window, T=None):
+    """The least time of the bf16 flash forward and backward at a shape
+    (``T`` keys, ``S`` by default): the larger of the bytes (q, k, v, o,
+    and dO, dq, dk, dv, once each, with the float32 lse) over the memory
+    rate and the operations as the tensor-core kernels run them, all at
+    the bf16 tensor-core peak: q k^T and dO v^T (two bf16 operands) once
+    each, and p v, p^T dO, ds^T q and ds k once per bf16 term of their
+    float32 p or ds (NSPLIT terms)."""
     from repro_torch.kernels.flash_attention.kernel import NSPLIT
 
-    pairs = B * H * visible_pairs(S, S, causal, window)
-    q_elts, kv_elts, lse_bytes = B * S * H * D, B * S * Hkv * D, B * H * S * 4
+    T = S if T is None else T
+    pairs = B * H * visible_pairs(S, T, causal, window)
+    q_elts, kv_elts, lse_bytes = B * S * H * D, B * T * Hkv * D, B * H * S * 4
     out = {"pairs": pairs}
     for name, f_bf16, f_split, bytes_ in (
             ("fwd", 2 * D * pairs, NSPLIT * 2 * D * pairs,
@@ -5049,6 +5112,497 @@ def moe_phase(torch, base, resume=False):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 16's mesh case: checkpoints of a sharded state
+# ---------------------------------------------------------------------------
+
+MESH_RESUME = ("2x1", "1x2")        # meshes of the two gloo ranks
+MESH_RESUME_ROUNDS, MESH_RESUME_EVERY = 4, 2
+
+
+def _mesh_resume_run(torch, mesh_shape, root):
+    """Reduced gemma2-2b (bf16) under ``mesh_shape``: ``run_fed`` for
+    ``MESH_RESUME_ROUNDS`` rounds with a checkpoint every
+    ``MESH_RESUME_EVERY``, and again stopped at the first checkpoint and
+    resumed; this rank's ``x`` and ``z`` of each leg (on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run_fed
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              dtype="bfloat16")
+    # participation 0.75: every rank draws the rows from its generator,
+    # whose state the checkpoint carries
+    spec = dataclasses.replace(_resume_spec({}), mesh_shape=mesh_shape,
+                               participation=0.75)
+    kw = dict(seq_len=64, batch=8, device="cuda:0",
+              checkpoint_every=MESH_RESUME_EVERY, log=lambda *a: None)
+    out = {}
+    for leg, steps, resume, where in (
+            ("whole", MESH_RESUME_ROUNDS, False, "whole"),
+            ("first", MESH_RESUME_EVERY, False, "split"),
+            ("second", MESH_RESUME_ROUNDS, True, "split")):
+        _, state, hist = run_fed(
+            cfg, spec, steps=steps, resume=resume,
+            checkpoint=os.path.join(root, mesh_shape, where), **kw)
+        out[leg] = {"x": state.x.cpu(), "z": state.z.cpu(),
+                    "step": state.step, "losses": [h["loss"] for h in hist]}
+    return out
+
+
+def _mesh_resume_worker(rank, world, store, out_dir):
+    """Phase 16's mesh case on one of two gloo ranks on the one card."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        res = {m: _mesh_resume_run(torch, m, out_dir) for m in MESH_RESUME}
+        torch.save(res, os.path.join(out_dir, f"resume-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_resume_phase(torch):
+    """Phase 16's mesh case: reduced gemma2-2b (bf16, N 4, packed, fused,
+    participation 0.75) on two gloo ranks spawned on the card under 2x1
+    and 1x2: the run stopped at round 2 and resumed to round 4 equals the
+    uninterrupted sharded run bit for bit on each rank, and the round-2
+    checkpoint (the global state) restores into the unsharded trainer as
+    the ranks' gathered blocks, bit for bit.  Any failure of a rank fails
+    the smoke."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    root = _scratch_dir()
+    out = {}
+    try:
+        try:
+            mp.start_processes(_mesh_resume_worker,
+                               args=(2, os.path.join(root, "store"), root),
+                               nprocs=2, join=True, start_method="spawn")
+        except Exception as e:
+            text = str(e)
+            last = (text.strip().splitlines() or [type(e).__name__])[-1]
+            fail(f"phase 16 mesh: a rank failed: {last}")
+        ranks = [torch.load(os.path.join(root, f"resume-rank{r}.pt"))
+                 for r in range(2)]
+        cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                                  dtype="bfloat16")
+        tr = api.build_trainer(build_model(cfg), _resume_spec({}), "cuda")
+        width = tr.packed_meta.width
+        for mesh in MESH_RESUME:
+            model = int(mesh.split("x")[1])
+            for r, res in enumerate(ranks):
+                for var in ("x", "z"):
+                    a, b = res[mesh]["whole"][var], res[mesh]["second"][var]
+                    if not torch.equal(a.view(torch.int16),
+                                       b.view(torch.int16)):
+                        fail(f"phase 16 mesh {mesh}: rank {r}'s resumed {var} "
+                             f"differs from the uninterrupted run's")
+                if res[mesh]["second"]["losses"] != \
+                        res[mesh]["whole"]["losses"][MESH_RESUME_EVERY:]:
+                    fail(f"phase 16 mesh {mesh}: rank {r}'s resumed losses "
+                         f"differ")
+            path = os.path.join(root, mesh, "split", "rounds",
+                                f"step-{MESH_RESUME_EVERY:06d}")
+            st, extra = tr.restore_state(path, tr.init(1)[0])
+            for var in ("x", "z"):
+                want = _assemble(torch, [res[mesh]["first"][var]
+                                         for res in ranks], model, width)
+                if not torch.equal(getattr(st, var).cpu().view(torch.int16),
+                                   want.view(torch.int16)):
+                    fail(f"phase 16 mesh {mesh}: the checkpoint's {var} "
+                         f"restored unsharded differs from the gathered "
+                         f"blocks")
+            blocks = tuple(ranks[0][mesh]["first"]["x"].shape)
+            log(f"phase 16 mesh {mesh}: reduced gemma2-2b bf16, two gloo "
+                f"ranks on the card (blocks {blocks}): {MESH_RESUME_EVERY} "
+                f"rounds + checkpoint + resume + "
+                f"{MESH_RESUME_ROUNDS - MESH_RESUME_EVERY} equal "
+                f"{MESH_RESUME_ROUNDS} rounds bit for bit on both ranks; the "
+                f"checkpoint restores unsharded (round {extra['round']}) as "
+                f"the gathered blocks")
+            out[mesh] = {"blocks": blocks,
+                         "losses": ranks[0][mesh]["whole"]["losses"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the encoder-decoder and the vision prefix (whisper-small,
+# internvl2-26b; no new kernel)
+# ---------------------------------------------------------------------------
+
+ENCDEC_REDUCED = ("whisper-small", "internvl2-26b")
+# 19a's flash shapes, bf16, no cap: (label, B, S, T, H, Hkv, D, causal);
+# whisper-small's (2 sequences an agent) are timed
+ENCDEC_FLASH = (
+    ("whisper encoder", 2, 1500, 1500, 12, 12, 64, False),
+    ("whisper decoder self", 2, 448, 448, 12, 12, 64, True),
+    ("whisper cross", 2, 448, 1500, 12, 12, 64, False),
+    ("internvl2 layer", 2, 512, 512, 48, 8, 128, True),
+)
+
+
+def encdec_reduced_parity(torch):
+    """19a: reduced whisper-small and internvl2-26b in fp32, N 2, packed,
+    fused edges and update, 2 rounds on the card and on the CPU: the
+    states within 1e-4 (:func:`card_vs_cpu`); on the card one flash
+    forward and backward an attention call per agent per epoch, on the
+    CPU no launch.  Returns ``{arch: max abs err}``."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    spec = api.FedSpec(n_agents=2, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                       state_layout="packed", engine_backend="fused",
+                       use_fused_update=True)
+    out = {}
+    for arch in ENCDEC_REDUCED:
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        gen = torch.Generator().manual_seed(1)
+        batches = [make_batch_for(cfg, InputShape("small", 32, 4, "train"),
+                                  gen, n_agents=2) for _ in range(2)]
+        states, counts = {}, {}
+        for dev in ("cuda", "cpu"):
+            tr = api.build_trainer(model, spec, dev)
+            st, _ = tr.init(0, params=params)
+            kernels.reset_launch_counts()
+            for b in batches:
+                st, m = tr.step(st, b, u=torch.ones(2))
+            float(m["loss"])
+            states[dev], counts[dev] = st, kernels.launch_counts()
+        calls = 2 * 2 * 2 * len(attention_calls(cfg, 32))
+        want = expected_counts(flash_attention_fwd=calls,
+                               flash_attention_bwd=calls, round_uplink=2,
+                               round_downlink=2, fedplt_update=4)
+        if counts["cuda"] != want or set(counts["cpu"].values()) != {0}:
+            fail(f"phase 19a {arch}: launches card {counts['cuda']}, CPU "
+                 f"{counts['cpu']}; want {want} on the card")
+        err, _ = card_vs_cpu(torch, states, f"phase 19a {arch}")
+        log(f"phase 19a: reduced {arch} fp32, 2 rounds, card (flash "
+            f"{calls} / {calls}, edges, update) vs CPU (plain versions): max "
+            f"abs err {err:.3g} (tolerance 1e-4)")
+        out[arch] = err
+    return out
+
+
+def _plain_flash_bound(bw, B, S, T, H, Hkv, D, causal):
+    """The bound at a flash shape as 4 D operations a visible (query,
+    key) pair forward and 10 D backward at the bf16 tensor-core peak,
+    against the bytes (q, k, v, o and the lse forward; with dO, dq, dk,
+    dv backward) over the memory rate."""
+    pairs = B * H * visible_pairs(S, T, causal, None)
+    q, kv, lse = B * S * H * D, B * T * Hkv * D, B * H * S * 4
+    out = {}
+    for name, ops, nbytes in (("fwd", 4 * D * pairs, (2 * q + 2 * kv) * 2
+                               + lse),
+                              ("bwd", 10 * D * pairs, (4 * q + 4 * kv) * 2
+                               + lse)):
+        ops_ms, bytes_ms = ops / BF16_PEAK * 1e3, nbytes / bw * 1e3
+        out[name] = dict(bound_ms=max(ops_ms, bytes_ms),
+                         bound_by="operations" if ops_ms >= bytes_ms
+                         else "bytes", flops=ops, bytes=nbytes)
+    return out
+
+
+def encdec_flash_checks(torch, bw):
+    """19a: the flash forward and backward at whisper-small's encoder,
+    decoder self- and cross-attention shapes and internvl2-26b's layer
+    (:data:`ENCDEC_FLASH`, bf16, no cap) against their plain versions run
+    head by head, at 9a's bf16 tolerances; whisper's shapes timed (CUDA
+    events, median of 7) beside the bound (:func:`_plain_flash_bound`),
+    the bound as the kernels run the products (9b's), the plain versions,
+    SDPA (the same function: no cap) and ``flex_attention`` compiled.
+    Returns ``{label: record}``."""
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    from repro_torch.kernels.flash_attention import ops as fops
+
+    flex = torch.compile(flex_attention)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    recs = {}
+    for label, B, S, T, H, Hkv, D, causal in ENCDEC_FLASH:
+        bf = torch.bfloat16
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf)
+        k, v = (torch.randn((B, T, Hkv, D), generator=gen,
+                            device="cuda").to(bf) for _ in range(2))
+        do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(bf)
+        kw = dict(causal=causal, window=None, cap=None)
+        o, lse = fops.flash_attention_fwd(q, k, v, **kw)
+        po, plse = plain_fwd_by_head(torch, q, k, v, **kw)
+        err_f = max(flash_close(torch, o, po, f"phase 19a {label} o"),
+                    flash_close(torch, lse, plse, f"phase 19a {label} lse"))
+        grads = fops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        want = plain_bwd_by_head(torch, q, k, v, o, lse, do, **kw)
+        err_b = max(flash_close(torch, a, b, f"phase 19a {label} d{n}",
+                                grad=True)
+                    for n, a, b in zip("qkv", grads, want))
+        del grads, want
+        rec = {"shape": dict(B=B, S=S, T=T, H=H, Hkv=Hkv, D=D,
+                             causal=causal),
+               "max_abs_err_fwd": err_f, "max_abs_err_bwd": err_b}
+        if label.startswith("whisper"):
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                          for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv)
+            out = sdpa()
+            sdpa_err = float((out.detach().transpose(1, 2).float()
+                              - po.float()).abs().max())
+            times = {
+                "fwd": cuda_ms(torch, lambda: fops.flash_attention_fwd(
+                    q, k, v, **kw)),
+                "bwd": cuda_ms(torch, lambda: fops.flash_attention_bwd(
+                    q, k, v, o, lse, do, **kw)),
+                "plain_fwd": cuda_ms(torch, lambda: plain_fwd_by_head(
+                    torch, q, k, v, **kw), reps=3),
+                "plain_bwd": cuda_ms(torch, lambda: plain_bwd_by_head(
+                    torch, q, k, v, o, lse, do, **kw), reps=3),
+                "sdpa_fwd": cuda_ms(torch, sdpa),
+                "sdpa_bwd": cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True))}
+            del out
+            mask = (create_block_mask(lambda b, h, qi, ki: qi >= ki, None,
+                                      None, S, T, device="cuda")
+                    if causal else None)
+            flex_call = lambda: flex(qt, kt, vt, block_mask=mask,
+                                     enable_gqa=H != Hkv)
+            # the backward is timed on one graph, kept between calls:
+            # a compiled backward that donates its buffers refuses that
+            with torch._functorch.config.patch(donated_buffer=False):
+                out = flex_call()
+                flex_err = float((out.detach().transpose(1, 2).float()
+                                  - po.float()).abs().max())
+                times["flex_fwd"] = cuda_ms(torch, flex_call)
+                times["flex_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True))
+            del out, qt, kt, vt, dot
+            bounds = _plain_flash_bound(bw, B, S, T, H, Hkv, D, causal)
+            as_run = flash_bounds(bw, B, S, H, Hkv, D, causal, None, T=T)
+            for name in ("fwd", "bwd"):
+                bd = bounds[name]
+                rec[name] = dict(
+                    ms=times[name], plain_ms=times[f"plain_{name}"],
+                    sdpa_ms=times[f"sdpa_{name}"],
+                    library_ms=times[f"flex_{name}"], **bd,
+                    as_run_bound_ms=as_run[name]["bound_ms"])
+                log(f"phase 19a {label} (B {B} S {S} T {T} H {H} Hkv {Hkv} "
+                    f"D {D} bf16, {'causal' if causal else 'no mask'}) "
+                    f"{name}: kernel {times[name]:.4f} ms, bound "
+                    f"{bd['bound_ms']:.4f} ms ({bd['flops'] / 1e9:.2f} GFLOP "
+                    f"at {BF16_PEAK / 1e12:.0f} TFLOP/s, by {bd['bound_by']}; "
+                    f"{100 * bd['bound_ms'] / times[name]:.1f}% of it; as the "
+                    f"kernels run the products "
+                    f"{as_run[name]['bound_ms']:.4f} ms), plain "
+                    f"{times[f'plain_{name}']:.3f} ms, SDPA "
+                    f"{times[f'sdpa_{name}']:.4f} ms, flex_attention "
+                    f"{times[f'flex_{name}']:.4f} ms")
+            rec["sdpa_max_abs_err"], rec["flex_max_abs_err"] = sdpa_err, flex_err
+        log(f"phase 19a {label}: flash forward and backward against the "
+            f"plain versions (B {B} S {S} T {T} H {H} Hkv {Hkv} D {D} bf16, "
+            f"{'causal' if causal else 'no mask'}): max abs err "
+            f"{err_f:.3g} / {err_b:.3g}")
+        recs[label] = rec
+        del q, k, v, do, o, lse, po, plse
+        torch.cuda.empty_cache()
+    return recs
+
+
+def whisper_serving(torch):
+    """19d: reduced whisper-small (fp32, B 2, 24 text tokens, 24 frames):
+    the encoder once through the kernels, ``fill_cross_cache``, then
+    ``decode_step`` token by token against the forward through the
+    kernels (2e-2, the reference's bound); then whisper-small at
+    published width (bf16) at batch 4: the encoder over 1500 frames,
+    ``fill_cross_cache``, a 128-token prompt through ``decode_step`` and
+    32 greedy tokens (ms a token, tok/s; no kernel on the decode path),
+    and the prefill's last logits against the forward's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import prefill_via_decode
+    from repro_torch.models import frontends
+    from repro_torch.models.decode import fill_cross_cache
+    from repro_torch.models.model import build_model
+
+    rec = {}
+    cfg = get_config("whisper-small").reduced()
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    params = model.init(gen, "cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=gen, device="cuda")
+    enc = frontends.fake_audio_frames(gen, cfg, 2, "cuda")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": toks, "enc_embeds": enc})
+        enc_out = model.encode(params, enc)
+    torch.cuda.synchronize()
+    calls = len(attention_calls(cfg, 24))
+    counts = kernels.launch_counts()
+    if counts != expected_counts(flash_attention_fwd=calls
+                                 + cfg.n_enc_layers):
+        fail(f"phase 19d: reduced forward and encoder launches {counts}")
+    cache = fill_cross_cache(params, cfg,
+                             model.init_cache(2, 24, device="cuda"), enc_out)
+    steps = []
+    for t in range(24):
+        lg, cache = model.decode_step(params, cache, toks[:, t])
+        steps.append(lg)
+    diff = float((fwd - torch.stack(steps, 1)).abs().max())
+    if not diff < 2e-2:
+        fail(f"phase 19d: reduced whisper decode vs forward {diff}")
+    rec["reduced_decode_vs_forward"] = diff
+    log(f"phase 19d: reduced whisper-small fp32, the encoder once (flash "
+        f"{cfg.n_enc_layers}), fill_cross_cache, decode vs the forward "
+        f"through the kernels (flash {calls}): max abs diff {diff:.3g} "
+        f"(bound 2e-2)")
+
+    cfg = get_config("whisper-small")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(5),
+                        "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            generator=gen, device="cuda")
+    enc = frontends.fake_audio_frames(gen, cfg, SERVE_B, "cuda")
+
+    def serve(prompt, gen_len):
+        with torch.no_grad():
+            cache = fill_cross_cache(
+                params, cfg, model.init_cache(SERVE_B, SERVE_PROMPT
+                                              + SERVE_GEN, device="cuda"),
+                model.encode(params, enc))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cache, last = prefill_via_decode(model, params, cache, prompt)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        tok = torch.argmax(last, -1)
+        for _ in range(gen_len):
+            lg, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(lg, -1)
+        torch.cuda.synchronize()
+        return last, t1 - t0, time.time() - t1
+
+    serve(prompts[:, :8], 4)                          # warm-up
+    kernels.reset_launch_counts()
+    last, prefill_s, decode_s = serve(prompts, SERVE_GEN)
+    counts = kernels.launch_counts()
+    if counts != expected_counts(flash_attention_fwd=cfg.n_enc_layers):
+        fail(f"phase 19d: serving launched {counts} (the encoder only, "
+             f"{cfg.n_enc_layers} flash forwards, want)")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        fwd = model.forward(params, {"tokens": prompts,
+                                     "enc_embeds": enc})[:, -1]
+    if kernels.launch_counts()["flash_attention_fwd"] != len(
+            attention_calls(cfg, SERVE_PROMPT)):
+        fail(f"phase 19d: forward launches {kernels.launch_counts()}")
+    ldiff = float((fwd.float() - last.float()).abs().max())
+    agree = sum(a == b for a, b in zip(torch.argmax(fwd, -1).tolist(),
+                                       torch.argmax(last, -1).tolist()))
+    token_ms = 1e3 * decode_s / SERVE_GEN
+    rec["full_width"] = {
+        "batch": SERVE_B, "prompt": SERVE_PROMPT, "new_tokens": SERVE_GEN,
+        "prefill_ms": 1e3 * prefill_s, "ms_a_token": token_ms,
+        "tok_s": SERVE_B * SERVE_GEN / decode_s,
+        "last_logits_max_abs_diff": ldiff, "argmax_rows_agreeing": agree}
+    log(f"phase 19d: whisper-small (published width, bf16) at batch "
+        f"{SERVE_B}: the encoder over {cfg.n_enc_tokens} frames and the "
+        f"cross cache, prefill of {SERVE_PROMPT} tokens through decode_step "
+        f"{1e3 * prefill_s:.1f} ms, {token_ms:.2f} ms a token "
+        f"({SERVE_B * SERVE_GEN / decode_s:.1f} tok/s); the prefill's last "
+        f"logits against the forward's: max abs diff {ldiff:.4g}, argmax "
+        f"agrees in {agree} of {SERVE_B} rows")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def encdec_phase(torch, base, bw):
+    """Phase 19: 19a :func:`encdec_reduced_parity` and
+    :func:`encdec_flash_checks`; 19b whisper-small at published width and
+    depth (238,060,032 parameters, bf16, packed), phase 4's spec with the
+    448-token text context and 1500 encoder frames, 3 rounds: flash 864 /
+    864, uplink 3, downlink 3, fedplt_update 6, nothing else; a profiled
+    round; 19c internvl2-26b cut to one layer of 48 (958,734,336
+    parameters, packed; 256 patch embeddings and 256 text tokens), 3
+    rounds: flash 24 / 24; 19d :func:`whisper_serving`.  Returns the
+    phase's record."""
+    from repro_torch.fed.api import FedSpec
+
+    t0 = time.time()
+    rec = {"19a_reduced": encdec_reduced_parity(torch)}
+    secs = {"19a reduced": time.time() - t0}
+    rec["19a_flash"] = encdec_flash_checks(torch, bw)
+    secs["19a flash"] = time.time() - t0 - sum(secs.values())
+    for tag, cell in (("19b", WHISPER), ("19c", INTERNVL)):
+        prof = {}
+        counts, hist, peak = train_phase(
+            torch, f"phase {tag} {cell.arch} ({cell.n_layers} "
+            f"{'decoder + 12 encoder layers' if cell is WHISPER else 'layer'}"
+            f", packed)", FedSpec(**base), 3,
+            expected_counts(3, cell, round_uplink=3, round_downlink=3,
+                            fedplt_update=6), profile=True, cell=cell,
+            profile_out=prof)
+        if peak > 80e9:
+            fail(f"phase {tag}: peak device memory {peak / 1e9:.2f} GB")
+        rec[tag] = {"counts": {k: v for k, v in counts.items() if v},
+                    "peak_gb": peak / 1e9,
+                    "round_ms": [1e3 * h["dt"] for h in hist],
+                    "losses": [h["loss"] for h in hist], "profile": prof}
+        secs[tag] = time.time() - t0 - sum(secs.values())
+    rec["19d"] = whisper_serving(torch)
+    secs["19d"] = time.time() - t0 - sum(secs.values())
+    rec["seconds"] = {k: round(v, 1) for k, v in secs.items()}
+    log(f"phase 19 seconds: {rec['seconds']}")
+    return rec
+
+
+def encdec_phases(torch) -> int:
+    """``--encdec``: build the kernels, run phase 19 and phase 16's mesh
+    case alone and print their record as one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    rec = encdec_phase(torch, MAIN_SPEC,
+                          card_bandwidth(torch.cuda.get_device_name(0)))
+    t1 = time.time()
+    mesh = mesh_resume_phase(torch)
+    log(json.dumps({"encdec": rec, "mesh_resume": mesh,
+                    "seconds": {19: round(t1 - t0, 1),
+                                "16 mesh": round(time.time() - t1, 1)},
+                    "card": smi}))
+    return 0
+
+
 def moe_phases(torch) -> int:
     """``--moe``: build the kernels, run phase 18 (with phase 16's MoE
     resume case) alone and print its record as one JSON line."""
@@ -5120,6 +5674,8 @@ def main() -> int:
         return train_serve_phases(torch)
     if "--moe" in args:
         return moe_phases(torch)
+    if "--encdec" in args:
+        return encdec_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -5302,8 +5858,9 @@ def main() -> int:
     std_params, standard = standard_phase(torch)
 
     stamp(15)
-    # phase 16: resumed rounds on the card, bit for bit
+    # phase 16: resumed rounds on the card, bit for bit (and under a mesh)
     resumed = resume_phase(torch)
+    resumed["mesh"] = mesh_resume_phase(torch)
 
     stamp(16)
     # phase 17: the trained parameters checkpointed and served
@@ -5316,6 +5873,10 @@ def main() -> int:
     moe = moe_phase(torch, base)
 
     stamp(18)
+    # phase 19: the encoder-decoder and the vision prefix
+    encdec = encdec_phase(torch, base, bw)
+
+    stamp(19)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -5414,7 +5975,7 @@ def main() -> int:
                         k: v for k, v in recs.items()
                         if k.startswith("ssm_scan")},
                     "standard": standard, "resume": resumed,
-                    "serve": serving, "moe": moe,
+                    "serve": serving, "moe": moe, "encdec": encdec,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist

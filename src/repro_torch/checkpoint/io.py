@@ -33,6 +33,15 @@ copy of the reference's rule), so one file means the same thing in both
 packages.  A single-leaf state (the dense ``(N, n)`` front end) is the
 array itself in both.
 
+SHARDED STATES.  Under a mesh (:mod:`repro_torch.fed.sharding`) each
+rank holds a block of the state: its agent rows and, under a model axis,
+its columns of every packed buffer.  The trainers gather the blocks and
+rank 0 writes the file the unsharded run writes for the same state.
+:func:`restore_checkpoint` with ``shardings=`` reads the global leaves on
+every rank and keeps ``shardings(key, leaf)``, its own block (the
+reference's ``restore_checkpoint(shardings=)``, which puts the restored
+tree on the mesh).
+
 CRASH SAFETY.  :func:`save_checkpoint` is atomic at the directory level:
 the checkpoint is assembled in a same-filesystem temporary sibling
 (``<name>.ckpt-tmp-*``) -- leaves first, the manifest last, fsync'd -- and
@@ -293,13 +302,17 @@ def save_checkpoint(path: str, tree, step: int | None = None,
         raise
 
 
-def restore_checkpoint(path: str, like, device=None, packed_meta=None):
+def restore_checkpoint(path: str, like, device=None, packed_meta=None,
+                       shardings=None):
     """Restore into the structure of ``like`` (a state NamedTuple, a
     ``{name: tensor}`` dict, ...), each leaf with ``like``'s dtype, on
     ``device`` (default: each leaf's own device).  A NamedTuple's
     ``None`` and ``torch.Generator`` fields are carried over from
     ``like``; an int leaf comes back an int.  ``packed_meta`` as in
-    :func:`save_checkpoint`.
+    :func:`save_checkpoint`.  With ``shardings`` each tensor leaf is read
+    whole and ``shardings(key, leaf)`` kept -- this rank's block, whose
+    shape must be ``like``'s; ``shardings`` raises a ValueError where the
+    file's global leaf does not fit the mesh (another agent count).
 
     The stored key set is validated against ``like`` up front: missing
     and unexpected leaf keys are reported together in ONE ValueError,
@@ -325,7 +338,12 @@ def restore_checkpoint(path: str, like, device=None, packed_meta=None):
         def load(key, leaf, packed):
             arr = data[key]
             shape = _disk_shape(leaf, packed, packed_meta)
-            if tuple(arr.shape) != shape:
+            # under ``shardings`` ``leaf`` is this rank's block: the file's
+            # rows (and a dense state's columns) are ``shardings``' to
+            # check, a packed buffer's columns are checked here
+            lo = 0 if shardings is None else 1
+            if (shardings is None or packed) and (
+                    arr.ndim != len(shape) or arr.shape[lo:] != shape[lo:]):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {shape}")
             out = _from_numpy(arr, leaf)
@@ -333,6 +351,13 @@ def restore_checkpoint(path: str, like, device=None, packed_meta=None):
                 return out
             if packed:
                 out = from_reference_packed(out, packed_meta)
+            if shardings is not None:
+                out = shardings(key, out).contiguous()
+                if tuple(out.shape) != tuple(leaf.shape):
+                    raise ValueError(
+                        f"shape mismatch for {key}: this rank's block of "
+                        f"{arr.shape} is {tuple(out.shape)}, want "
+                        f"{tuple(leaf.shape)}")
             return out.to(leaf.device if device is None else device)
 
         return _map_leaves(like, packed_meta, load)

@@ -1,17 +1,17 @@
 """Architecture config registry: ``get_config("<arch-id>")``.
 
-Holds the architectures the port runs so far: the dense gemma2-2b,
-phi4-mini-3.8b, gemma3-12b and nemotron-4-340b (untied LM head), the SSM
-falcon-mamba-7b, the hybrid recurrentgemma-2b and the MoE qwen2-moe-a2.7b
-and grok-1-314b.  The others of the reference's registry (enc-dec, vision
-frontends) join with the model kinds they need.
+The reference's ten architectures: the dense gemma2-2b, phi4-mini-3.8b,
+gemma3-12b and nemotron-4-340b (untied LM head), the SSM falcon-mamba-7b,
+the hybrid recurrentgemma-2b, the MoE qwen2-moe-a2.7b and grok-1-314b,
+the encoder-decoder whisper-small and the vision-prefixed internvl2-26b.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig  # noqa: F401
 from repro_torch.configs import (falcon_mamba_7b, gemma2_2b,  # noqa: E402
-                                 gemma3_12b, grok_1_314b, nemotron_4_340b,
-                                 phi4_mini_3_8b, qwen2_moe_a2_7b,
-                                 recurrentgemma_2b)
+                                 gemma3_12b, grok_1_314b, internvl2_26b,
+                                 nemotron_4_340b, phi4_mini_3_8b,
+                                 qwen2_moe_a2_7b, recurrentgemma_2b,
+                                 whisper_small)
 
 REGISTRY = {
     "phi4-mini-3.8b": phi4_mini_3_8b.CONFIG,
@@ -22,6 +22,8 @@ REGISTRY = {
     "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
     "gemma3-12b": gemma3_12b.CONFIG,
     "nemotron-4-340b": nemotron_4_340b.CONFIG,
+    "whisper-small": whisper_small.CONFIG,
+    "internvl2-26b": internvl2_26b.CONFIG,
 }
 
 ARCH_IDS = tuple(REGISTRY)

@@ -1,9 +1,8 @@
 """Model/run configuration: ``ModelConfig`` and ``InputShape``.
 
 A copy of the reference's ``repro/configs/base.py`` fields (the port
-keeps every field so one config reads the same in both packages, even
-where the port does not act on it yet: enc-dec and frontend models
-raise in :mod:`repro_torch.models.transformer`).
+keeps every field so one config reads the same in both packages, the
+GSPMD-only knobs included, which change no number).
 """
 
 from __future__ import annotations

@@ -35,12 +35,14 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint import io as ckpt
 from repro_torch.core import prox as prox_lib
 from repro_torch.core.solvers import SolverConfig
-from repro_torch.fed import engine
+from repro_torch.fed import engine, sharding
 from repro_torch.fed.compress import (COMPRESS_BACKENDS,
                                       available_compressors, get_compressor)
 from repro_torch.fed.robust import validate_aggregator
@@ -74,10 +76,43 @@ def _later(what: str, slice_name: str) -> ValueError:
                       f"{slice_name} slice of the PyTorch port")
 
 
-def _refuse_mesh_checkpoint(mesh) -> None:
-    if mesh is not None:
-        raise _later("checkpoints of a sharded state (--agent-shards / "
-                     "--mesh-shape)", "mesh checkpoint")
+def _save(trainer, path: str, state, **kw) -> None:
+    """:func:`repro_torch.checkpoint.io.save_checkpoint` of a trainer's
+    state.  Under a mesh every rank calls this with its block: each
+    tensor field is gathered as ``trainer._placement`` says (a collective
+    over both groups), rank 0 writes the global state, and a barrier
+    follows before any rank reads."""
+    if trainer.mesh is None:
+        ckpt.save_checkpoint(path, state, **kw)
+        return
+    mesh, n_agents = trainer.mesh, trainer.spec.n_agents
+    gathered = {}
+    for f, v in zip(state._fields, state):
+        if isinstance(v, (torch.Tensor, dict)):
+            place = trainer._placement("." + f)
+            gathered[f] = pytree.tree_map(
+                lambda t: sharding.gather_block(t, mesh, n_agents, **place),
+                v)
+    state = state._replace(**gathered)
+    err = None
+    if dist.get_rank() == 0:
+        try:
+            ckpt.save_checkpoint(path, state, **kw)
+        except Exception as e:          # the barrier first, then raise
+            err = e
+    dist.barrier()
+    if err is not None:
+        raise err
+
+
+def _own(trainer):
+    """This rank's block of a global leaf (the inverse of the gather in
+    :func:`_save`), or None without a mesh."""
+    if trainer.mesh is None:
+        return None
+    return lambda key, full: sharding.own_block(
+        full, trainer.mesh, trainer.spec.n_agents,
+        **trainer._placement(key))
 
 
 def _restore_generator(path: str, generator) -> dict:
@@ -573,20 +608,27 @@ class DenseTrainer:
         counter ``k`` a 0-d int32 leaf, the manifest's step) with its
         generator's state in ``extra["generator"]``.  The reference's
         dense state keys its PRNG key as ``.key``, which this one has
-        not: its draws come from the generator.  A sharded state refuses
-        (not ported yet)."""
-        _refuse_mesh_checkpoint(self.mesh)
+        not: its draws come from the generator.  Under a mesh every rank
+        calls this with its block: the file holds the global state (rank
+        0 writes it; every rank's generator is in the same state)."""
         extra = dict(extra or {},
                      generator=ckpt.generator_state(state.generator))
-        ckpt.save_checkpoint(path, state, step=state.k, extra=extra)
+        _save(self, path, state, step=state.k, extra=extra)
 
     def restore_state(self, path: str, like):
         """Restore a state saved by :meth:`save_state` into ``like`` (a
         state of this trainer, e.g. from :meth:`init`, whose generator
-        takes the saved state); returns ``(state, extra)``."""
-        _refuse_mesh_checkpoint(self.mesh)
-        state = ckpt.restore_checkpoint(path, like, self.device)
+        takes the saved state; under a mesh this rank's block, which it
+        keeps of the file's global state); returns ``(state, extra)``."""
+        state = ckpt.restore_checkpoint(path, like, self.device,
+                                        shardings=_own(self))
         return state, _restore_generator(path, state.generator)
+
+    def _placement(self, key: str) -> dict:
+        """How a leaf of the state is split over the mesh: the
+        coordinator row ``y`` by columns only, the rest by agent rows and
+        columns."""
+        return dict(width=self.problem.dim, rows=key != ".y")
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):
@@ -672,24 +714,35 @@ class ModelTrainer:
         reference's keys: ``.x``, ``.z``, ``.t`` and ``.step``, a 0-d int32
         leaf; a packed state in the reference's columns) at manifest step
         ``state.step``, with ``generator``'s state in
-        ``extra["generator"]``.  A sharded state refuses (not ported
-        yet)."""
-        _refuse_mesh_checkpoint(self.mesh)
+        ``extra["generator"]``.  Under a mesh every rank calls this with
+        its block of the state: the blocks are gathered over the agent
+        group (and a packed state's columns over the model group), and
+        rank 0 writes the file the unsharded run writes for the same
+        state (every rank's generator is in the same state)."""
         extra = dict(extra or {})
         if generator is not None:
             extra["generator"] = ckpt.generator_state(generator)
-        ckpt.save_checkpoint(path, state, step=state.step, extra=extra,
-                             packed_meta=self.packed_meta)
+        _save(self, path, state, step=state.step, extra=extra,
+              packed_meta=self.packed_meta)
 
     def restore_state(self, path: str, like, generator=None):
         """Restore a round state into the restore target ``like`` (a
-        state of this trainer, e.g. from :meth:`init`) on the trainer's
-        device; a saved generator state goes into ``generator``.  Returns
-        ``(state, extra)``.  Reads the reference's checkpoints too."""
-        _refuse_mesh_checkpoint(self.mesh)
+        state of this trainer, e.g. from :meth:`init`: under a mesh this
+        rank's block, which it keeps of the file's global state) on the
+        trainer's device; a saved generator state goes into
+        ``generator``.  Returns ``(state, extra)``.  Reads the
+        reference's checkpoints too, and any run's, sharded or not."""
         state = ckpt.restore_checkpoint(path, like, self.device,
-                                        packed_meta=self.packed_meta)
+                                        packed_meta=self.packed_meta,
+                                        shardings=_own(self))
         return state, _restore_generator(path, generator)
+
+    def _placement(self, key: str) -> dict:
+        """How a leaf of the state is split over the mesh: by agent rows,
+        and a packed buffer by its columns too (the tree layout splits
+        rows only)."""
+        return dict(width=None if self.packed_meta is None
+                    else self.packed_meta.width)
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):

@@ -192,6 +192,44 @@ def agent_gather(block: torch.Tensor, mesh, n_agents: int) -> torch.Tensor:
                          agent_rows(mesh, n_agents), agent_group(mesh))
 
 
+def gather_block(block: torch.Tensor, mesh, n_agents: int,
+                 width: Optional[int] = None,
+                 rows: bool = True) -> torch.Tensor:
+    """The global tensor of which this rank holds ``block``: its columns
+    gathered over the model group when ``width`` is a packed width that
+    the mesh splits, then (``rows``) its agent rows over the agent group
+    -- on every rank (a collective over both groups).  A leaf without an
+    agent axis (``rows=False``, e.g. the dense coordinator row ``(n,)``)
+    is gathered by columns only."""
+    if not rows:
+        if width is None:
+            return block
+        return model_gather(block[None], mesh, width)[0]
+    if width is not None:
+        block = model_gather(block, mesh, width)
+    return agent_gather(block, mesh, n_agents)
+
+
+def own_block(full: torch.Tensor, mesh, n_agents: int,
+              width: Optional[int] = None,
+              rows: bool = True) -> torch.Tensor:
+    """Inverse of :func:`gather_block`: this rank's block of a global
+    tensor (its agent rows when ``rows``, its columns of ``width``).
+    Raises a ValueError where ``full`` has not ``n_agents`` rows
+    (``rows``) or not ``width`` columns: a global tensor of another run."""
+    if (rows and full.shape[0] != n_agents) or (
+            width is not None and full.shape[-1] != width):
+        raise ValueError(
+            f"shape mismatch: a global tensor of {tuple(full.shape)} is "
+            f"not one of {n_agents if rows else 'no'} agent rows"
+            + ("" if width is None else f" and {width} columns"))
+    if rows:
+        full = full[agent_rows(mesh, n_agents)]
+    if width is not None:
+        full = col_block(full, mesh, width)
+    return full
+
+
 def model_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """``t`` summed over the model axis's ranks, in place (``t`` itself
     with a model extent of 1)."""

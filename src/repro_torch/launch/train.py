@@ -15,7 +15,11 @@ from the latest of them, the final save then going to
 ``DIR/consensus``.  A round checkpoint's ``extra`` holds the round, the
 (empty) arrival rows and the state of the run's ``torch.Generator``, so
 a resumed run draws what the uninterrupted run draws and equals it bit
-for bit.
+for bit.  Under a mesh every rank takes part in a save (the state's
+blocks are gathered, rank 0 writes the one file the unsharded run
+writes) and resumes from the checkpoint rank 0 finds, keeping its own
+block; a sharded run resumes from an unsharded run's checkpoint and the
+other way round.
 
 Standard training (one loss and gradient a step over the whole batch):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
@@ -50,7 +54,8 @@ per round; ``--aggregator coord_median|norm_clip_mean`` likewise):
       --weight-decay 0.01 --aggregator trimmed_mean --aggregator-param 1 \\
       --guard-increments
 
-Sharded rounds: one process per rank of the ``(agent, model)`` mesh,
+Sharded rounds (checkpoints and ``--resume`` as above): one process per
+rank of the ``(agent, model)`` mesh,
 started by torchrun (``--mesh-shape 1x1`` runs in one process, without
 it); every rank draws the same global batch and keeps its agents, and
 only rank 0 prints.  On cards torchrun starts one rank per card (NCCL).
@@ -124,7 +129,11 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
     start = 0
     rounds_dir = os.path.join(checkpoint, "rounds") if checkpoint else None
     if resume:
-        latest = find_latest_checkpoint(rounds_dir)
+        latest = [find_latest_checkpoint(rounds_dir)]
+        if trainer.mesh is not None:
+            # every rank resumes from rank 0's choice
+            dist.broadcast_object_list(latest, src=0)
+        latest = latest[0]
         if latest is None:
             log(f"resume: no committed checkpoint under {rounds_dir} -- "
                 f"starting from round 0")

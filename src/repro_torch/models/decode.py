@@ -11,6 +11,9 @@ units on a leading axis as the parameters are:
   'local'  -- ring-buffer KV cache of length min(window, cache_len)
   'ssm'    -- (conv, h) Mamba recurrent state
   'rec'    -- (conv, h) RG-LRU recurrent state
+  'xdec'   -- self-attention KV cache + the cross-attention's K / V
+              ``xk``, ``xv`` (B, n_enc_tokens, Hkv, D), which
+              :func:`fill_cross_cache` fills from the encoder's output
 
 The cache is ``{"stages": [{str(i): layer cache}], "pos": (B,) int32}``:
 positions are per sequence, so batched requests may sit at different
@@ -20,8 +23,8 @@ Pallas kernel on its decode path); ``decode_step`` leaves its input
 cache unmodified.  An MoE layer runs the flat route on ``(B, 1, d)``, so
 its capacity is ``int(cf * B * K / E) + 1`` (1 for qwen2-moe at batch 4)
 and decode drops contributions that the full forward keeps, as the
-reference's does.  The enc-dec ``xdec`` kind (``fill_cross_cache``) is
-not ported yet.
+reference's does.  The encoder stage has no decode-time state: the
+cache holds the stages after it, and ``decode_step`` runs them.
 """
 
 from __future__ import annotations
@@ -35,8 +38,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import embed_scale, mlp, rms_norm, softcap
-from repro_torch.models.transformer import (_check_ported, _not_ported,
-                                            build_stages)
+from repro_torch.models.transformer import build_stages
 
 
 # ---------------------------------------------------------------------------
@@ -52,21 +54,33 @@ def _layer_cache(kind: str, cfg: ModelConfig, batch: int, cache_len: int,
         return rglru_lib.init_rglru_cache(batch, cfg, dtype, device)
     if kind == "local":
         length = min(cfg.window, cache_len)
-    else:
+    else:       # global / xdec self-attention
         length = (min(cfg.long_ctx_global_window, cache_len) if long_ctx
                   else cache_len)
-    return attn_lib.init_kv_cache(batch, length, Hkv, D, dtype, device)
+    c = attn_lib.init_kv_cache(batch, length, Hkv, D, dtype, device)
+    if kind == "xdec":
+        for name in ("xk", "xv"):
+            c[name] = torch.zeros((batch, cfg.n_enc_tokens, Hkv, D),
+                                  dtype=dtype, device=device)
+    return c
+
+
+def _decoder_stages(cfg: ModelConfig) -> list:
+    """``(index, stage)`` of the stages that decode (all but the
+    encoder)."""
+    return [(si, s) for si, s in enumerate(build_stages(cfg))
+            if s.unit != ("enc",)]
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                long_ctx: bool = False, device=None) -> dict:
     """The empty cache on ``device`` (CUDA unless the CPU is asked
-    for)."""
-    _check_ported(cfg)
+    for).  An enc-dec model's cross K / V are zeros until
+    :func:`fill_cross_cache`."""
     device = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     caches = []
-    for stage in build_stages(cfg):
+    for _, stage in _decoder_stages(cfg):
         units = [{str(i): _layer_cache(kind, cfg, batch, cache_len,
                                        long_ctx, dtype, device)
                   for i, kind in enumerate(stage.unit)}
@@ -83,8 +97,23 @@ def _stack(units: list) -> dict:
             for i in units[0]}
 
 
-def fill_cross_cache(params, cfg: ModelConfig, cache, enc_out):
-    raise _not_ported("the encoder-decoder model's cross-attention cache")
+def fill_cross_cache(params: dict, cfg: ModelConfig, cache: dict,
+                     enc_out: torch.Tensor) -> dict:
+    """The decoder's cross-attention K / V from the encoder's output
+    ``enc_out`` (B, T, d) (once a request, before decoding; enc-dec
+    models only).  Returns a new cache."""
+    if not cfg.n_enc_layers:
+        raise ValueError("the cross cache exists for enc-dec models only")
+    Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    B, T, _ = enc_out.shape
+    xa = _layer_params(params, 1, 0)["xattn"]       # the ('xdec',) stage
+    xk = torch.stack([(enc_out @ w).reshape(B, T, Hkv, D)
+                      for w in xa["wk"]])             # (U, B, T, Hkv, D)
+    xv = torch.stack([(enc_out @ w).reshape(B, T, Hkv, D)
+                      for w in xa["wv"]])
+    stage = dict(cache["stages"][0])
+    stage["0"] = dict(stage["0"], xk=xk, xv=xv)
+    return {"stages": [stage] + cache["stages"][1:], "pos": cache["pos"]}
 
 
 def reset_slots(cache: dict, done_mask: torch.Tensor) -> dict:
@@ -140,6 +169,20 @@ def _unit(tree, u: int):
     return tree[u]
 
 
+def _decode_cross_attn(p, x_t, xk, xv, cfg: ModelConfig):
+    """One token's cross-attention over the filled ``xk``, ``xv`` (B, T,
+    Hkv, D): float32 scores, the softcap, probabilities cast to v's
+    dtype."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B = x_t.shape[0]
+    q = (x_t @ p["wq"]).reshape(B, 1, Hkv, H // Hkv, D)
+    s = torch.einsum("bshgd,bthd->bhgst", q.float(), xk.float()) * (
+        D ** -0.5)
+    pr = torch.softmax(softcap(s, cfg.attn_softcap), dim=-1)
+    o = torch.einsum("bhgst,bthd->bshgd", pr.to(xv.dtype), xv)
+    return o.reshape(B, -1) @ p["wo"]
+
+
 def _layer_decode(p, c, kind, cfg: ModelConfig, x_t, pos, long_ctx):
     eps = cfg.norm_eps
     if kind == "ssm":
@@ -159,11 +202,17 @@ def _layer_decode(p, c, kind, cfg: ModelConfig, x_t, pos, long_ctx):
         else:
             window, ring = None, False
         out, c_new = attn_lib.decode_attn(
-            p["attn"], rms_norm(x_t, p["ln1"], eps), c,
+            p["attn"], rms_norm(x_t, p["ln1"], eps),
+            {k: c[k] for k in ("k", "v", "pos")},
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
             pos=pos, window=window, cap=cfg.attn_softcap, ring=ring)
         x_t = x_t + out @ p["attn"]["wo"]
+        if kind == "xdec":
+            x_t = x_t + _decode_cross_attn(
+                p["xattn"], rms_norm(x_t, p["ln_x"], eps), c["xk"], c["xv"],
+                cfg)
+            c_new.update(xk=c["xk"], xv=c["xv"])
     h = rms_norm(x_t, p["ln2"], eps)
     if "moe" in p:
         out, _ = moe_lib.moe_ffn(p["moe"], h[:, None, :], cfg)
@@ -181,8 +230,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     embed = params["embed"]
     x_t = embed[tokens.long()] * embed_scale(cfg.d_model, embed.dtype)
     new_stage_caches = []
-    for si, (stage, sc) in enumerate(zip(build_stages(cfg),
-                                         cache["stages"])):
+    for (si, stage), sc in zip(_decoder_stages(cfg), cache["stages"]):
         layers = [_layer_params(params, si, i)
                   for i in range(len(stage.unit))]
         units = []

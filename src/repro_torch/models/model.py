@@ -6,7 +6,9 @@
 mapping, typically views into a packed agent buffer row.
 ``init_cache(batch, cache_len, long_ctx=False, device=None)`` and
 ``decode_step(params, cache, tokens, long_ctx=False)`` are the serving
-path (:mod:`repro_torch.models.decode`).
+path (:mod:`repro_torch.models.decode`); for an encoder-decoder model
+``encode(params, enc_embeds)`` is the encoder's normed output, which
+:func:`repro_torch.models.decode.fill_cross_cache` takes.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ class Model:
     forward: Callable[..., torch.Tensor]          # (params, batch) -> logits
     init_cache: Callable[..., dict]               # (batch, cache_len, ...)
     decode_step: Callable[..., tuple]             # (params, cache, tokens)
+    encode: Callable[..., torch.Tensor]           # (params, enc_embeds)
 
     def param_shapes(self) -> dict:
         """``{name: (shape, dtype)}`` in the module's parameter order."""
@@ -54,6 +57,10 @@ def build_model(cfg: ModelConfig) -> Model:
     def forward(params: dict, batch: dict) -> torch.Tensor:
         return functional_call(module, params, (batch,), {"logits": True})
 
+    def encode(params: dict, enc_embeds: torch.Tensor) -> torch.Tensor:
+        return functional_call(module, params, ({"enc_embeds": enc_embeds},),
+                               {"encode": True})
+
     def init_cache(batch: int, cache_len: int, long_ctx: bool = False,
                    device=None) -> dict:
         return decode_lib.init_cache(cfg, batch, cache_len, long_ctx, device)
@@ -64,4 +71,4 @@ def build_model(cfg: ModelConfig) -> Model:
 
     return Model(config=cfg, module=module, init=init, loss_fn=loss_fn,
                  forward=forward, init_cache=init_cache,
-                 decode_step=decode_step)
+                 decode_step=decode_step, encode=encode)

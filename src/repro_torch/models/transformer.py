@@ -1,10 +1,13 @@
-"""Stage-based transformer, dense path (counterpart of
+"""Stage-based transformer (counterpart of
 ``repro/models/transformer.py``).
 
 A model is a list of *stages*; each stage is a repeating unit of layer
 kinds (gemma2's ``('local', 'global')``) run ``n_units`` times with
 parameters stacked on a leading ``n_units`` axis, exactly as the
-reference stacks them (a Python loop over units where JAX scans).
+reference stacks them (a Python loop over units where JAX scans).  An
+encoder-decoder config (``n_enc_layers > 0``, whisper-small) has two
+stages: ``("enc",)`` over ``n_enc_layers`` units, then ``("xdec",)``
+over ``n_layers``.
 
 The module is an ``nn.Module`` whose parameter names mirror the
 reference's pytree paths (``stages.0.1.attn.wq`` is
@@ -13,19 +16,27 @@ device and driven through ``torch.func.functional_call`` with the
 parameters passed in -- views of a packed state buffer in the federated
 trainer -- so the module itself holds no weights.
 
-The ``global`` / ``local`` attention kinds, the ``ssm`` (Mamba-1) and
-``rec`` (RG-LRU) kinds, the MoE FFN (``moe`` in place of ``mlp`` in a
-``global`` / ``local`` layer of a config with ``n_experts``; the loss is
-``ce + router_aux_weight * aux``, ``aux`` summed over the layers), the
-untied LM head (``lm_head``, ``(d_model, vocab)``) and the vocab-chunked
-loss (``chunked_loss > 0``) are ported; enc-dec and multimodal frontends
-raise.  On a CUDA tensor the
-attention kinds run the hand-written flash-attention kernels and the
-``ssm`` / ``rec`` kinds the hand-written ``lru_scan`` kernels (forward
-and backward); on the CPU they run the reference's plain paths (``attn_block_local`` / ``attn_chunked``, the
-chunked associative scan).  An ``ssm`` layer has no FFN (``ln1`` and
-``mamba`` only), as in the reference; its ``dt_bias``, ``A_log`` and
-``D`` and an RG-LRU's ``lam`` are float32 whatever the model's dtype.
+Layer kinds (all of the reference's): ``global`` / ``local`` attention
+(+ FFN, or the MoE FFN -- ``moe`` in place of ``mlp`` -- in a config with
+``n_experts``; the loss is then ``ce + router_aux_weight * aux``, ``aux``
+summed over the layers), ``ssm`` (Mamba-1, no FFN: ``ln1`` and ``mamba``
+only), ``rec`` (RG-LRU + FFN), ``enc`` (non-causal self-attention + FFN,
+the encoder) and ``xdec`` (causal self-attention, then ``ln_x`` and the
+cross-attention ``xattn`` over the encoder's output, + FFN).  The
+encoder runs on ``batch["enc_embeds"]`` at its own positions
+``0 .. n_enc_tokens - 1`` (RoPE as the reference applies it), and its
+output is RMS-normed with a zero weight; the cross-attention has no
+RoPE.  A vision config (``frontend="vision"``) puts
+``batch["patch_embeds"]`` before the text embeddings, and the loss drops
+those positions before the head.  Also ported: the untied LM head
+(``lm_head``, ``(d_model, vocab)``) and the vocab-chunked loss
+(``chunked_loss > 0``).  On a CUDA tensor every attention (self, the
+encoder's and the cross-attention) runs the hand-written flash-attention
+kernels and the ``ssm`` / ``rec`` kinds the hand-written ``lru_scan``
+kernels (forward and backward); on the CPU they run the reference's
+plain paths (``attn_block_local`` / ``attn_chunked``, the chunked
+associative scan).  An ``ssm`` layer's ``dt_bias``, ``A_log`` and ``D``
+and an RG-LRU's ``lam`` are float32 whatever the model's dtype.
 """
 
 from __future__ import annotations
@@ -45,16 +56,6 @@ from repro_torch.models.layers import (apply_rope, chunked_cross_entropy,
                                        cross_entropy, embed_scale, init_mlp,
                                        mlp, mlp_shapes, rms_norm, softcap)
 
-_PORTED_KINDS = ("global", "local", "ssm", "rec")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: repro_torch runs the global, local, "
-        f"ssm and rec layer kinds and the MoE FFN only (later slice of the "
-        f"port)")
-
-
 # ---------------------------------------------------------------------------
 # Stage structure
 # ---------------------------------------------------------------------------
@@ -68,7 +69,8 @@ class StageSpec:
 
 def build_stages(cfg: ModelConfig) -> list[StageSpec]:
     if cfg.n_enc_layers:
-        raise _not_ported("the encoder-decoder model")
+        return [StageSpec(unit=("enc",), n_units=cfg.n_enc_layers),
+                StageSpec(unit=("xdec",), n_units=cfg.n_layers, cross=True)]
     unit = tuple(cfg.pattern)
     stages = []
     n_full, rem = divmod(cfg.n_layers, len(unit))
@@ -77,14 +79,6 @@ def build_stages(cfg: ModelConfig) -> list[StageSpec]:
     if rem:
         stages.append(StageSpec(unit=unit[:rem], n_units=1))
     return stages
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.frontend:
-        raise _not_ported(f"the {cfg.frontend} frontend")
-    for kind in cfg.layer_kinds():
-        if kind not in _PORTED_KINDS:
-            raise _not_ported(f"the {kind!r} layer kind")
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +125,8 @@ def _unit_tree(node: nn.Module, u: int) -> dict:
 
 class Layer(nn.Module):
     """One layer of a kind, parameters stacked over units: attention (or
-    an RG-LRU block) + FFN (the MoE in an attention layer of an MoE
+    an RG-LRU block; in an ``xdec`` layer, self-attention then the
+    cross-attention) + FFN (the MoE in an attention layer of an MoE
     config), or a Mamba block alone."""
 
     def __init__(self, kind: str, cfg: ModelConfig, n_units: int, dtype):
@@ -150,6 +145,10 @@ class Layer(nn.Module):
                                           cfg.resolved_head_dim)
             self.attn = Params({k: (s, dtype) for k, s in shapes.items()},
                                n_units)
+            if kind == "xdec":
+                self.ln_x = _param((n_units, cfg.d_model), dtype)
+                self.xattn = Params({k: (s, dtype)
+                                     for k, s in shapes.items()}, n_units)
         self.ln2 = _param((n_units, cfg.d_model), dtype)
         if cfg.n_experts and kind in ("global", "local"):
             self.moe = _params_tree(moe_lib.moe_shapes(cfg, dtype), n_units)
@@ -163,12 +162,15 @@ class Layer(nn.Module):
         q, k, v = attn_lib.qkv(p, x, n_heads=H, n_kv_heads=Hkv, head_dim=D)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        # the encoder is non-causal; global and xdec self-attention take
+        # the config's flag
+        causal = self.kind != "enc" and cfg.causal
         if q.is_cuda:
-            # both kinds through the hand-written kernel, with the
+            # every kind through the hand-written kernel, with the
             # reference's own arguments (p kept in float32)
             local = self.kind == "local"
             o = flash_ops.flash_attention(
-                q, k, v, causal=local or cfg.causal,
+                q, k, v, causal=local or causal,
                 window=cfg.window if local else None,
                 cap=cfg.attn_softcap)
             o = o.reshape(q.shape[0], q.shape[1], H * D)
@@ -176,14 +178,34 @@ class Layer(nn.Module):
             o = attn_lib.attn_block_local(q, k, v, window=cfg.window,
                                           cap=cfg.attn_softcap)
         else:
-            o = attn_lib.attn_chunked(q, k, v, causal=cfg.causal,
+            o = attn_lib.attn_chunked(q, k, v, causal=causal,
                                       cap=cfg.attn_softcap,
                                       chunk=cfg.attn_chunk)
         return o @ p["wo"]
 
-    def forward(self, x, u: int, positions):
+    def _cross_attention(self, p, x, enc_out):
+        """Queries from the decoder's ``x`` (B, S, d), keys and values from
+        the encoder's output (B, T, d): no RoPE, no mask."""
+        cfg = self.cfg
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        B, S, _ = x.shape
+        T = enc_out.shape[1]
+        q = (x @ p["wq"]).reshape(B, S, H, D)
+        k = (enc_out @ p["wk"]).reshape(B, T, Hkv, D)
+        v = (enc_out @ p["wv"]).reshape(B, T, Hkv, D)
+        if q.is_cuda:
+            o = flash_ops.flash_attention(q, k, v, causal=False, window=None,
+                                          cap=cfg.attn_softcap)
+            o = o.reshape(B, S, H * D)
+        else:
+            o = attn_lib.attn_chunked(q, k, v, causal=False,
+                                      cap=cfg.attn_softcap)
+        return o @ p["wo"]
+
+    def forward(self, x, u: int, positions, enc_out=None):
         """``(x, aux)``: the layer's output and its MoE aux loss (0.0
-        without an MoE)."""
+        without an MoE); ``enc_out`` is the encoder's output, which an
+        ``xdec`` layer attends to."""
         eps = self.cfg.norm_eps
         h = rms_norm(x, self.ln1[u], eps)
         if self.kind == "ssm":
@@ -193,6 +215,10 @@ class Layer(nn.Module):
             x = x + rglru_lib.rglru_forward(self.rec.unit(u), h, self.cfg)
         else:
             x = x + self._attention(self.attn.unit(u), h, positions)
+            if self.kind == "xdec":
+                x = x + self._cross_attention(
+                    self.xattn.unit(u), rms_norm(x, self.ln_x[u], eps),
+                    enc_out)
         h = rms_norm(x, self.ln2[u], eps)
         if hasattr(self, "moe"):
             out, aux = moe_lib.moe_ffn(_unit_tree(self.moe, u), h, self.cfg)
@@ -209,12 +235,12 @@ class Stage(nn.ModuleDict):
                           for i, kind in enumerate(spec.unit)})
         self.spec = spec
 
-    def forward(self, x, aux, positions):
+    def forward(self, x, aux, positions, enc_out=None):
         """``(x, aux)`` after every unit, the layers' aux losses added to
         ``aux`` in order."""
         for u in range(self.spec.n_units):
             for i in range(len(self.spec.unit)):
-                x, a = self[str(i)](x, u, positions)
+                x, a = self[str(i)](x, u, positions, enc_out)
                 aux = aux + a
         return x, aux
 
@@ -223,11 +249,12 @@ class Transformer(nn.Module):
     """``forward(batch)`` is the mean token cross-entropy (over vocab
     chunks when ``cfg.chunked_loss > 0``), plus ``router_aux_weight``
     times the summed aux loss of an MoE model; ``forward(batch,
-    logits=True)`` the softcapped logits."""
+    logits=True)`` the softcapped logits (of every position, the vision
+    prefix's too); ``forward(batch, encode=True)`` the encoder's normed
+    output of an encoder-decoder model."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        _check_ported(cfg)
         dtype = getattr(torch, cfg.dtype)
         self.cfg = cfg
         self.stages = nn.ModuleList(
@@ -237,26 +264,49 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), dtype)
 
-    def forward_hidden(self, tokens):
-        """Embedding (scaled by sqrt(d) in the param dtype) -> stages ->
+    def encode(self, enc_embeds, aux=0.0):
+        """The encoder stage on ``enc_embeds`` (B, T, d) at positions
+        ``0 .. T - 1``, RMS-normed with a zero weight: ``(enc_out,
+        aux)``."""
+        cfg = self.cfg
+        x = enc_embeds.to(self.embed.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x, aux = self.stages[0](x, aux, positions)
+        return rms_norm(x, torch.zeros_like(x[0, 0]), cfg.norm_eps), aux
+
+    def forward_hidden(self, batch: dict):
+        """Embedding (scaled by sqrt(d) in the param dtype; a vision
+        prefix before it) -> the encoder, when there is one -> stages ->
         final norm: ``(hidden, aux)``, ``aux`` the float32 sum of the MoE
         layers' aux losses (0.0 without an MoE)."""
         cfg = self.cfg
-        x = self.embed[tokens] * embed_scale(cfg.d_model, self.embed.dtype)
+        x = self.embed[batch["tokens"]] * embed_scale(cfg.d_model,
+                                                      self.embed.dtype)
+        if cfg.frontend and cfg.frontend != "audio":
+            x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
         positions = torch.arange(x.shape[1], device=x.device)
-        aux = 0.0
-        for stage in self.stages:
-            x, aux = stage(x, aux, positions)
+        aux, enc_out, stages = 0.0, None, list(self.stages)
+        if cfg.n_enc_layers:
+            enc_out, aux = self.encode(batch["enc_embeds"], aux)
+            stages = stages[1:]
+        for stage in stages:
+            x, aux = stage(x, aux, positions, enc_out)
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def _head(self):
         return self.embed.t() if self.cfg.tie_embeddings else self.lm_head
 
-    def forward(self, batch: dict, logits: bool = False):
+    def forward(self, batch: dict, logits: bool = False,
+                encode: bool = False):
         cfg = self.cfg
-        x, aux = self.forward_hidden(batch["tokens"])
+        if encode:
+            return self.encode(batch["enc_embeds"])[0]
+        x, aux = self.forward_hidden(batch)
         if logits:
             return softcap(x @ self._head(), cfg.final_softcap)
+        if cfg.frontend and cfg.frontend != "audio":
+            # the loss is over the text positions
+            x = x[:, batch["patch_embeds"].shape[1]:, :]
         if cfg.chunked_loss:
             # the softcap in float32, after the cast (the reference's
             # order on this path; the full logits take the param dtype's)
@@ -291,6 +341,11 @@ def _init_layer(generator, kind: str, cfg: ModelConfig, dtype, device,
         p["attn"] = attn_lib.init_attn(generator, d, cfg.n_heads,
                                        cfg.n_kv_heads, cfg.resolved_head_dim,
                                        dtype, device=device, lead=lead)
+        if kind == "xdec":
+            p["ln_x"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
+            p["xattn"] = attn_lib.init_attn(
+                generator, d, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, dtype, device=device, lead=lead)
     p["ln2"] = torch.zeros(lead + (d,), dtype=dtype, device=device)
     if cfg.n_experts and kind in ("global", "local"):
         p["moe"] = moe_lib.init_moe(generator, cfg, dtype, device, lead)
@@ -315,7 +370,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device) -> dict:
     """Random parameters as ``{name: tensor}`` (names of
     :class:`Transformer`'s ``named_parameters``)."""
-    _check_ported(cfg)
     dtype = getattr(torch, cfg.dtype)
     tree = {"stages": {
         str(si): {str(i): _init_layer(generator, kind, cfg, dtype, device,

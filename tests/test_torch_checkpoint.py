@@ -207,16 +207,6 @@ def test_packed_layout_manifest_matches_reference(arch):
         jio.packed_layout_manifest(jtr.packed_meta)
 
 
-def test_sharded_state_refuses_to_checkpoint(tmp_path):
-    _, _, _, ttr = _trainers()
-    state, gen = ttr.init(0)
-    ttr.mesh = object()          # a state held under a mesh
-    with pytest.raises(ValueError, match="not ported yet"):
-        ttr.save_state(str(tmp_path / "ck"), state, gen)
-    with pytest.raises(ValueError, match="not ported yet"):
-        ttr.restore_state(str(tmp_path / "ck"), state)
-
-
 # ---------------------------------------------------------------------------
 # Crash-safe checkpoints (the reference's tests/test_faults.py cases)
 # ---------------------------------------------------------------------------

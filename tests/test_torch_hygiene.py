@@ -77,6 +77,15 @@ def test_no_module_imports_ml_dtypes():
         assert "ml_dtypes" not in set(_imported_roots(path)), path
 
 
+def test_encdec_and_frontend_modules_are_scanned():
+    """The frontend stubs and the enc-dec and vision configs are among the
+    modules the import rules here scan."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    slice_ = {"models/frontends.py", "configs/whisper_small.py",
+              "configs/internvl2_26b.py"}
+    assert slice_ <= names, slice_ - names
+
+
 def test_checkpoint_optim_and_serving_modules_are_scanned():
     """The checkpoint, optimizer, decode and serve modules are among the
     modules the import rules here scan (and import in the subprocess

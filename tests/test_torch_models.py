@@ -167,13 +167,3 @@ def test_loss_gradient_matches(cfgs, params, batch):
 
     errs = jax.tree_util.tree_leaves(jax.tree_util.tree_map(rel, jg, tg))
     assert max(errs) <= 1e-4, errs
-
-
-def test_unported_model_kinds_raise(cfgs):
-    """The enc-dec model and the frontends are not ported yet (the MoE FFN
-    is: ``tests/test_torch_moe.py``)."""
-    _, tcfg = cfgs
-    for kw in (dict(n_enc_layers=2),
-               dict(frontend="vision", n_frontend_tokens=16)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(dataclasses.replace(tcfg, **kw))

@@ -50,7 +50,22 @@ end (``test_dense_meshes_match_the_reference``): the reference's problem
 (N 8, q 20, n 12 and n 5) under 2x1, 1x2 and 2x2 meshes, 30 rounds,
 against the reference's unsharded run, and at 50% participation (given
 rows) and under a prox that is not elementwise against the port's
-unsharded run.  All 2-rank cases run in one
+unsharded run.  Checkpoints of a sharded state
+(``test_mesh_checkpoint_resumes_bit_for_bit``): under 2x1, 1x2 and 2x2
+meshes, ``run_fed`` (packed, fused backend and update, participation
+0.7, N_e 1, the port's seeded init, 2 sequences of 16 tokens an agent)
+runs 4
+rounds with a checkpoint every 2, and again 2 rounds, then ``resume``
+to 4: each rank's block of ``x`` and ``z`` equals the uninterrupted run's
+bit for bit; the round-2 file restores into the unsharded port, and
+through the reference's ``restore_checkpoint``, as the ranks' gathered
+round-2 blocks, bit for bit; the N 4 file (and, where the mesh splits no
+columns, a tree-layout state saved under the mesh) raises a shape
+mismatch in an N 8 trainer on the same mesh.  The dense trainer likewise
+(``ckpt-dense-2x2``: the reference's problem at n 12, 50% participation
+drawn from the generator, 4 rounds, a checkpoint, 4 more, and a resume
+from it to the same round; the file restored unsharded).  All 2-rank
+cases run in one
 spawn of 2 processes, the 4-rank cases in another: about a minute of
 wall time in all, on a CPU, with one thread per rank.
 """
@@ -125,6 +140,12 @@ DENSE["dense-2x2-n12-p0.5"] = (4, "2x2", 12, 0.5)
 # under a model axis it gathers the (1, n) row over the model group
 DENSE["dense-1x2-n12-group-prox"] = (2, "1x2", 12, 1.0)
 GROUP_PROX = ("dense-1x2-n12-group-prox",)
+
+# checkpoints of a sharded state: name -> (ranks, mesh_shape); run_fed
+# saves every CKPT_EVERY rounds of CKPT_ROUNDS
+CKPT = {"ckpt-2x1": (2, "2x1"), "ckpt-1x2": (2, "1x2"),
+        "ckpt-2x2": (4, "2x2"), "ckpt-dense-2x2": (4, "2x2")}
+CKPT_ROUNDS, CKPT_EVERY, CKPT_TOKENS = 4, 2, 16
 
 
 def _group_prox(v, rho_eff, lam=0.5):
@@ -226,6 +247,102 @@ def _dense_run(name, out_dir, sharded):
     return dict(x=state.x, z=state.z, crit=crit, sched=sched)
 
 
+def _ckpt_spec(mesh_shape=None):
+    from repro_torch.fed import api
+
+    return api.FedSpec(n_agents=4, **{**BASE, "n_epochs": 1},
+                       state_layout="packed", **FUSED, mesh_shape=mesh_shape)
+
+
+def _ckpt_run(name, out_dir):
+    """The uninterrupted sharded ``run_fed`` of ``CKPT_ROUNDS`` rounds, and
+    the same run stopped after ``CKPT_EVERY`` and resumed from its
+    checkpoint: this rank's ``x`` and ``z`` of each (the stopped run's
+    at its stop)."""
+    from repro_torch.launch.train import run_fed
+
+    cfg, _ = _model()
+    spec = _ckpt_spec(CKPT[name][1])
+    root = os.path.join(out_dir, name)
+    kw = dict(seq_len=CKPT_TOKENS, batch=8, device="cpu",
+              checkpoint_every=CKPT_EVERY, log=lambda *a: None)
+    out = {}
+    for leg, steps, resume, where in (
+            ("whole", CKPT_ROUNDS, False, "whole"),
+            ("first", CKPT_EVERY, False, "split"),
+            ("second", CKPT_ROUNDS, True, "split")):
+        _, state, _ = run_fed(cfg, spec, steps=steps, resume=resume,
+                              checkpoint=os.path.join(root, where), **kw)
+        out[leg] = {"x": state.x, "z": state.z, "step": state.step}
+    out["refused"] = _other_agent_count(
+        spec, os.path.join(root, "split", "rounds", f"step-{CKPT_EVERY:06d}"),
+        os.path.join(root, "tree"))
+    return out
+
+
+def _other_agent_count(spec, packed_path, tree_path):
+    """The errors of restoring an N 4 file into an N 8 trainer on the same
+    mesh: the packed round checkpoint and, where the mesh splits no
+    columns, a tree-layout state that this mesh saves (which first
+    restores into its own N 4 trainer as it was saved)."""
+    from repro_torch.fed import api
+
+    _, model = _model()
+
+    def refused(path, layout):
+        tr = api.build_trainer(model, dataclasses.replace(
+            spec, n_agents=8, state_layout=layout), "cpu")
+        try:
+            tr.restore_state(path, tr.init(1)[0])
+        except ValueError as e:
+            return str(e)
+        return None
+
+    out = {"packed": refused(packed_path, "packed")}
+    if spec.mesh_shape.endswith("x1"):
+        tr = api.build_trainer(model, dataclasses.replace(
+            spec, state_layout="tree"), "cpu")
+        state, gen = tr.init(0)
+        tr.save_state(tree_path, state, gen)
+        back, _ = tr.restore_state(tree_path, tr.init(1)[0])
+        assert all(torch.equal(back.x[k], state.x[k]) for k in state.x)
+        out["tree"] = refused(tree_path, "tree")
+    return out
+
+
+def _dense_ckpt_run(name, out_dir):
+    """The dense trainer under the case's mesh: 4 rounds, ``save_state``,
+    4 more; then the saved state restored and run the same 4 rounds.
+    This rank's blocks of each."""
+    from repro_torch.convert import problem_from_arrays
+    from repro_torch.fed import api
+
+    arrays = torch.load(os.path.join(out_dir, "dense-n12.pt"))
+    problem = problem_from_arrays(arrays["A"].numpy(), arrays["b"].numpy())
+    tr = api.build_trainer(problem, _dense_ckpt_spec(CKPT[name][1]), "cpu")
+    path = os.path.join(out_dir, name, "ck")
+    blocks = lambda st: {"x": st.x, "z": st.z, "y": st.y, "k": st.k}
+    st = tr.init(0)
+    for _ in range(4):
+        st = tr.step(st)
+    tr.save_state(path, st)
+    out = {"first": blocks(st)}
+    for leg in ("whole", "second"):
+        for _ in range(4):
+            st = tr.step(st)
+        out[leg] = blocks(st)
+        st, _ = tr.restore_state(path, tr.init(1))
+    return out
+
+
+def _dense_ckpt_spec(mesh_shape=None):
+    from repro_torch.fed import api
+
+    return api.FedSpec(n_agents=DENSE_N, n_epochs=2, participation=0.5,
+                       state_layout="packed", engine_backend="fused",
+                       mesh_shape=mesh_shape)
+
+
 def _worker(rank, world, store_path, out_dir, names):
     """One rank: join the gloo group and run every case of ``names``."""
     import torch.distributed as dist
@@ -236,6 +353,11 @@ def _worker(rank, world, store_path, out_dir, names):
     try:
         params = torch.load(os.path.join(out_dir, "params.pt"))
         for name in names:
+            if name in CKPT:
+                run = (_dense_ckpt_run if "dense" in name else _ckpt_run)
+                torch.save(run(name, out_dir),
+                           os.path.join(out_dir, f"{name}-{rank}.pt"))
+                continue
             if name in DENSE:
                 torch.save(_dense_run(name, out_dir, True),
                            os.path.join(out_dir, f"{name}-{rank}.pt"))
@@ -299,7 +421,8 @@ def sharded_runs(tmp_path_factory, reference_start, dense_problems):
                     "b": torch.from_numpy(np.array(jp.b))},
                    tmp / f"dense-n{n}.pt")
     ranks = {**{k: c[0] for k, c in CASES.items()},
-             **{k: c[0] for k, c in DENSE.items()}}
+             **{k: c[0] for k, c in DENSE.items()},
+             **{k: c[0] for k, c in CKPT.items()}}
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
@@ -582,3 +705,95 @@ def test_dense_meshes_match_the_reference(sharded_runs, dense_problems,
     k = int(np.flatnonzero(jcrit > 1e-5 * jcrit[0])[-1]) - 1
     threshold = float(np.sqrt(jcrit[k] * jcrit[k + 1]))
     assert _hit(crit, threshold) == _hit(jcrit, threshold) == k + 2
+
+
+def _int_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("name", list(CKPT))
+def test_mesh_checkpoint_resumes_bit_for_bit(sharded_runs, name):
+    """A sharded run resumed from its checkpoint equals the uninterrupted
+    sharded run bit for bit on every rank; the checkpoint (the global
+    state, in the reference's columns) restores into the unsharded port
+    and into the reference as the ranks' gathered blocks."""
+    import jax
+
+    from repro.checkpoint import io as jio
+    from repro.configs import get_config as jax_get_config
+    from repro.fed import api as japi
+    from repro.models.model import build_model as jax_build_model
+    from repro_torch.checkpoint import io as tio
+    from repro_torch.fed import api
+
+    torch.set_num_threads(1)
+    ranks, mesh = CKPT[name]
+    agents, model = (int(e) for e in mesh.split("x"))
+    got = sharded_runs[name]
+    if "dense" in name:
+        _check_dense_ckpt(sharded_runs, name, model)
+        return
+    for g in got:
+        assert g["second"]["step"] == g["whole"]["step"] == CKPT_ROUNDS
+        # a file of N 4 does not restore into an N 8 run on this mesh
+        assert set(g["refused"]) == ({"packed", "tree"} if model == 1
+                                     else {"packed"})
+        for layout, err in g["refused"].items():
+            assert err is not None and "shape mismatch" in err, layout
+        for var in ("x", "z"):
+            assert torch.equal(_int_bits(g["second"][var]),
+                               _int_bits(g["whole"][var])), var
+    cfg, mdl = _model()
+    path = os.path.join(sharded_runs["dir"], name, "split", "rounds",
+                        f"step-{CKPT_EVERY:06d}")
+    tr = api.build_trainer(mdl, _ckpt_spec(), "cpu")
+    like, _ = tr.init(1)
+    state, extra = tr.restore_state(path, like)
+    assert state.step == CKPT_EVERY and extra["round"] == CKPT_EVERY
+    width = tr.packed_meta.width
+    full = {}
+    for var in ("x", "z"):
+        blocks = [g["first"][var] for g in got]
+        if model > 1:
+            assert {b.shape[1] for b in blocks} == {width // model}
+        full[var] = _gather(blocks, model, width)
+        assert torch.equal(_int_bits(getattr(state, var)),
+                           _int_bits(full[var])), var
+    jcfg = dataclasses.replace(jax_get_config("gemma2-2b").reduced(),
+                               n_kv_heads=2)
+    jtr = japi.build_trainer(jax_build_model(jcfg), japi.FedSpec(
+        n_agents=4, gamma=0.05, state_layout="packed"))
+    jstate = jio.restore_checkpoint(
+        path, jax.eval_shape(jtr.init, jax.random.PRNGKey(0)))
+    assert int(jstate.step) == CKPT_EVERY
+    for var in ("x", "z"):
+        ref = np.asarray(getattr(jstate, var))
+        want = tio.to_reference_packed(full[var], tr.packed_meta).numpy()
+        assert ref.shape == want.shape
+        assert np.array_equal(ref.view(np.uint32), want.view(np.uint32)), var
+
+
+def _check_dense_ckpt(sharded_runs, name, model):
+    """The dense case of :func:`test_mesh_checkpoint_resumes_bit_for_bit`:
+    resumed bit for bit on every rank, the file restored unsharded as the
+    gathered blocks (the coordinator row ``y`` gathered by columns)."""
+    from repro_torch.convert import problem_from_arrays
+    from repro_torch.fed import api
+
+    got = sharded_runs[name]
+    for g in got:
+        assert g["second"]["k"] == g["whole"]["k"] == 8
+        for var in ("x", "z", "y"):
+            assert torch.equal(_int_bits(g["second"][var]),
+                               _int_bits(g["whole"][var])), var
+    arrays = torch.load(os.path.join(sharded_runs["dir"], "dense-n12.pt"))
+    problem = problem_from_arrays(arrays["A"].numpy(), arrays["b"].numpy())
+    tr = api.build_trainer(problem, _dense_ckpt_spec(), "cpu")
+    st, extra = tr.restore_state(
+        os.path.join(sharded_runs["dir"], name, "ck"), tr.init(1))
+    assert st.k == 4 and "generator" in extra
+    for var in ("x", "z"):
+        want = _gather([g["first"][var] for g in got], model, 12)
+        assert torch.equal(_int_bits(getattr(st, var)), _int_bits(want)), var
+    y = torch.cat([g["first"]["y"] for g in got[:model]])
+    assert torch.equal(_int_bits(st.y), _int_bits(y))
