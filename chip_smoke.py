@@ -329,6 +329,30 @@ last line):
    at batch 4 (the encoder, the cross cache, a 128-token prompt through
    ``decode_step``, 32 greedy tokens: ms a token), its prefill's last
    logits against the forward's.
+20. Bounded-staleness async rounds and the host broker (no new kernel:
+   the async round runs the synchronous round's kernels).  20a: reduced
+   gemma2-2b fp32, N 4, packed, fused, K 2, five given arrival rows (a
+   round nobody arrives in, stale arrivals, rows the bound must add
+   agents to) on the card and on the CPU: the realised rows and the
+   staleness counters equal (and the host's replay of the bound), x, z
+   and y_tag within 1e-4; K = 0 async rounds equal the synchronous ones
+   bit for bit on the card over 3 rounds with generator draws
+   (participation 0.5).  20b: phase 4's trainer (gemma2-2b, 2 layers,
+   packed bf16, fused) with K 2: ``IncrementBroker`` drives 6 rounds,
+   agent 0 a straggler (20 ms against 2 ms, 3 ms of grace), then
+   ``replay`` of its schedule from the same init: x, z, y_tag and the
+   counters equal bit for bit, the schedule holds a stale arrival, each
+   run launches what 6 synchronous rounds launch (uplink 6, downlink 6,
+   fedplt_update 12, flash 96 / 96); round ms, peak memory and one
+   profiled round.  20c: the same width with the topk 0.25 exchange,
+   participation 0.5, 3 rounds: phase 6's topk counts, finite losses.
+   20d: reduced gemma2-2b fp32, K 2, participation 0.5: 4 rounds equal 2
+   + checkpoint + resume + 2 bit for bit (x, z, y_tag, counters and the
+   checkpoint's arrival rows).  20e: the paper's dense cell (N 100, q
+   250, n 5, K 3, participation 0.4, noisy GD with given noise) 100
+   rounds: ``run_recorded`` then ``replay`` bit for bit on the card, the
+   CPU's replay of the card's schedule within 1e-5, and the effective
+   per-agent privacy report of the schedule equal on both.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -371,7 +395,7 @@ time) and runs the 64-layer memory probe, as one JSON line; and
 ``repro_torch`` under ``DIR``: each run once a tree, in turns, to
 compare two trees on one card.  ``--train-serve`` runs phases 15-17
 alone, ``--moe`` phase 18 (with phase 16's MoE case), ``--encdec`` phase
-19 (with phase 16's mesh case).
+19 (with phase 16's mesh case), ``--async`` phase 20.
 """
 
 from __future__ import annotations
@@ -4563,21 +4587,27 @@ def _resume_spec(fields):
     if "privacy" in fields:
         tau, clip = fields["privacy"]
         kw["privacy"] = PrivacySpec(tau=tau, clip=clip)
+    if "async" in fields:
+        K, p = fields["async"]
+        kw.update(async_mode="stale", max_staleness=K, participation=p)
     return FedSpec(**kw)
 
 
-def resume_phase(torch, cases=RESUME_CASES):
-    """Phase 16: reduced gemma2-2b (and reduced qwen2-moe, the case whose
-    fields name its arch), N 4, packed, fused edges and update,
-    on the card: 6 rounds against 3 rounds, a checkpoint, ``resume`` and 3
-    more (``run_fed`` with ``checkpoint_every=3``), for each of
-    ``cases``.  Gates: ``x``, ``z`` and ``t`` equal bit for bit
-    (``torch.equal`` on their bits), the uninterrupted run's launches equal
-    the two legs' together and the legs' launches equal each other (so
-    rounds 4-6 launch what the uninterrupted rounds 4-6 launch)."""
+def resume_phase(torch, cases=RESUME_CASES, legs=3, tag="16"):
+    """Phase 16 (and 20d): reduced gemma2-2b (and reduced qwen2-moe, the
+    case whose fields name its arch), N 4, packed, fused edges and update,
+    on the card: 2 x ``legs`` rounds against ``legs`` rounds, a
+    checkpoint, ``resume`` and ``legs`` more (``run_fed`` with
+    ``checkpoint_every=legs``), for each of ``cases``.  Gates: ``x``,
+    ``z``, ``t`` and the async carriers ``y_tag`` and ``staleness`` equal
+    bit for bit, and so the last checkpoint's arrival rows; the
+    uninterrupted run's launches equal the two legs' together and the
+    legs' launches equal each other (so the second leg launches what the
+    uninterrupted run's last rounds launch)."""
     import shutil
 
     from repro_torch import kernels
+    from repro_torch.checkpoint import checkpoint_extra
     from repro_torch.configs import get_config
     from repro_torch.launch.train import run_fed
 
@@ -4590,53 +4620,69 @@ def resume_phase(torch, cases=RESUME_CASES):
                 dtype=dtype)
             spec = _resume_spec(fields)
             kw = dict(seq_len=64, batch=8, device="cuda",
-                      checkpoint_every=3, log=lambda *a: None)
-            tag = label.split()[0] + "-" + label.split()[1]
-            runs = {}
+                      checkpoint_every=legs, log=lambda *a: None)
+            case = label.split()[0] + "-" + label.split()[1]
+            runs, last = {}, f"step-{2 * legs:06d}"
             for leg, steps, resume, where in (
-                    ("whole", 6, False, "whole"), ("first", 3, False, "split"),
-                    ("second", 6, True, "split")):
+                    ("whole", 2 * legs, False, "whole"),
+                    ("first", legs, False, "split"),
+                    ("second", 2 * legs, True, "split")):
                 kernels.reset_launch_counts()
                 _, state, hist = run_fed(
                     cfg, spec, steps=steps, resume=resume,
-                    checkpoint=os.path.join(root, tag, where), **kw)
+                    checkpoint=os.path.join(root, case, where), **kw)
                 torch.cuda.synchronize()
                 runs[leg] = (state, kernels.launch_counts(), hist)
             whole, split = runs["whole"][0], runs["second"][0]
-            for var in ("x", "z", "t"):
+            held = [v for v in ("x", "z", "t", "y_tag", "staleness")
+                    if getattr(whole, v) is not None]
+            for var in ("x", "z", "t", "y_tag", "staleness"):
                 a, b = getattr(whole, var), getattr(split, var)
                 if (a is None) != (b is None) or (a is not None and not (
                         a.dtype == b.dtype and torch.equal(
                             a.view(torch.int16), b.view(torch.int16)))):
-                    fail(f"phase 16 {label}: the resumed run's {var} differs "
-                         f"from the uninterrupted run's")
+                    fail(f"phase {tag} {label}: the resumed run's {var} "
+                         f"differs from the uninterrupted run's")
+            rows = [checkpoint_extra(os.path.join(
+                root, case, where, "rounds", last))["arrivals"]
+                for where in ("whole", "split")]
+            if rows[0] != rows[1] or len(rows[0]) != (
+                    2 * legs if spec.async_mode != "off" else 0):
+                fail(f"phase {tag} {label}: checkpointed arrival rows "
+                     f"{rows[0]} / {rows[1]}")
             c6, c1, c2 = (runs[k][1] for k in ("whole", "first", "second"))
             if c1 != c2 or any(c6[k] != c1[k] + c2[k] for k in c6) or \
-                    c2["round_uplink"] != 3 or c2["fedplt_update"] != 3 * \
-                    N_EPOCHS:
-                fail(f"phase 16 {label}: launches whole {c6}, legs {c1} / "
-                     f"{c2}")
+                    c2["round_uplink"] != legs or \
+                    c2["fedplt_update"] != legs * N_EPOCHS:
+                fail(f"phase {tag} {label}: launches whole {c6}, legs {c1} "
+                     f"/ {c2}")
             losses = [h["loss"] for h in runs["whole"][2]]
-            if [h["loss"] for h in runs["second"][2]] != losses[3:]:
-                fail(f"phase 16 {label}: rounds 4-6 losses differ")
+            if [h["loss"] for h in runs["second"][2]] != losses[legs:]:
+                fail(f"phase {tag} {label}: the second leg's losses differ")
             launched = {k: v for k, v in c2.items() if v}
-            log(f"phase 16 resume ({label}): 6 rounds equal 3 + checkpoint "
-                f"+ resume + 3 bit for bit (x, z{', t' if whole.t is not None else ''}); "
-                f"rounds 4-6 launch {launched} in both runs; losses "
+            log(f"phase {tag} resume ({label}): {2 * legs} rounds equal "
+                f"{legs} + checkpoint + resume + {legs} bit for bit "
+                f"({', '.join(held)}"
+                f"{'; arrival rows ' + str(rows[0]) if rows[0] else ''}); "
+                f"the second leg launches {launched} in both runs; losses "
                 f"{[round(v, 4) for v in losses]}")
-            out[label] = {"launches_rounds_4_6": launched, "losses": losses}
+            out[label] = {"launches_second_leg": launched, "losses": losses,
+                          "arrivals": rows[0]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """Bit equality of two tensors of one dtype (NaN by position)."""
+    view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(view), b.contiguous().view(view))
+
+
 def _same_param_bits(torch, a: dict, b: dict) -> bool:
-    return a.keys() == b.keys() and all(
-        a[n].dtype == b[n].dtype and torch.equal(
-            a[n].view(torch.int16 if a[n].element_size() == 2
-                      else torch.int32),
-            b[n].view(torch.int16 if b[n].element_size() == 2
-                      else torch.int32)) for n in a)
+    return a.keys() == b.keys() and all(_bits_equal(torch, a[n], b[n])
+                                        for n in a)
 
 
 def decode_vs_forward(torch, cells=DECODE_CELLS, cfg_kw=None, tag="17c"):
@@ -5651,6 +5697,333 @@ def train_serve_phases(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: bounded-staleness async rounds and the host broker
+# ---------------------------------------------------------------------------
+
+ASYNC_K = 2
+# 20a's given rows (N 4, K 2): nobody in round 0; agents 0 and 2 arrive
+# stale (1 round) in round 1; round 2 gives nobody and the bound adds
+# agents 1 and 3 (2 rounds old); round 4 gives nobody and the bound adds
+# agent 2
+ASYNC_ROWS = ((0, 0, 0, 0), (1, 0, 1, 0), (0, 0, 0, 0), (1, 1, 0, 0),
+              (0, 0, 0, 0))
+ASYNC_BROKER_ROUNDS = 6
+ASYNC_LATENCY = (0.020, 0.002)      # agent 0 (the straggler), the others
+ASYNC_GRACE = 0.003
+ASYNC_DENSE = dict(rounds=100, K=3, participation=0.4, tau=0.05)
+
+
+def realised_rows(rows, K):
+    """The rows a round realises from given rows: each OR-ed with the
+    agents the bound forces in (the counters replayed on the host)."""
+    import numpy as np
+
+    s = np.zeros(len(rows[0]), np.int64)
+    out = []
+    for row in rows:
+        u = np.maximum(np.asarray(row, np.float32),
+                       ((s >= K) & (s > 0)).astype(np.float32))
+        out.append(u)
+        s = np.where(u != 0, 0, np.where(s < K, s + 1, s))
+    return np.stack(out)
+
+
+def async_reduced_parity(torch):
+    """Phase 20a (docstring at the top); returns its record."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.fed.async_engine import effective_counts
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    shape = InputShape("small", 64, 8, "train")
+    batches = [make_batch_for(cfg, shape, gen, n_agents=FULL_N)
+               for _ in ASYNC_ROWS]
+    base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                state_layout="packed", engine_backend="fused",
+                use_fused_update=True)
+    want = realised_rows(ASYNC_ROWS, ASYNC_K)
+    arrivals, released = effective_counts(want, ASYNC_K)
+    given = np.asarray(ASYNC_ROWS, np.float32)
+    if not ((released > arrivals).any() and (want > given).any()
+            and (want.sum(1) == 0).any()):
+        fail("phase 20a: the schedule lacks a stale arrival, a forced "
+             "arrival or an empty round")
+    spec = api.FedSpec(**base, async_mode="stale", max_staleness=ASYNC_K)
+    states, rows = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = api.build_trainer(model, spec, dev)
+        st, g = tr.init(0, params=params)
+        got = []
+        for b, row in zip(batches, ASYNC_ROWS):
+            st, m = tr.step(st, b, g, arrival=torch.tensor(
+                row, dtype=torch.float32))
+            got.append(m["arrivals"].cpu().numpy())
+        states[dev], rows[dev] = st, np.stack(got)
+    for dev in ("cuda", "cpu"):
+        if not np.array_equal(rows[dev], want):
+            fail(f"phase 20a: {dev} realised rows {rows[dev].tolist()}, "
+                 f"want {want.tolist()}")
+    if not torch.equal(states["cuda"].staleness.cpu(),
+                       states["cpu"].staleness):
+        fail(f"phase 20a: counters card {states['cuda'].staleness} / CPU "
+             f"{states['cpu'].staleness}")
+    err = max(float((getattr(states["cuda"], v).cpu()
+                     - getattr(states["cpu"], v)).abs().max())
+              for v in ("x", "z", "y_tag"))
+    if not err <= 1e-4:
+        fail(f"phase 20a: card vs CPU max abs err {err} on x, z, y_tag")
+    # K = 0 is the synchronous round, bit for bit, with generator draws
+    k0 = {}
+    for tag, extra in (("sync", {}),
+                       ("async", dict(async_mode="stale", max_staleness=0))):
+        tr = api.build_trainer(model, api.FedSpec(
+            **base, participation=0.5, **extra), "cuda")
+        st, g = tr.init(0, params=params)
+        parts = []
+        for b in batches[:3]:
+            st, m = tr.step(st, b, g)
+            parts.append(float(m["participation"]))
+        k0[tag] = (st, parts)
+    same = all(_bits_equal(torch, getattr(k0["sync"][0], v),
+                           getattr(k0["async"][0], v)) for v in ("x", "z"))
+    if not same or k0["sync"][1] != k0["async"][1]:
+        fail(f"phase 20a: K = 0 async rounds differ from the synchronous "
+             f"ones (participation {k0['sync'][1]} / {k0['async'][1]})")
+    log(f"phase 20a: reduced gemma2-2b fp32, K {ASYNC_K}, rows "
+        f"{want.astype(int).tolist()} realised on the card and the CPU "
+        f"(counters {states['cpu'].staleness.tolist()}), x / z / y_tag "
+        f"card vs CPU {err:.3g} (tolerance 1e-4); K = 0 equals the "
+        f"synchronous round bit for bit over 3 rounds (participation "
+        f"{k0['sync'][1]})")
+    return {"card_vs_cpu_max_abs_err": err, "rows": want.tolist(),
+            "k0_participation": k0["sync"][1]}
+
+
+def _host_copy(torch, state):
+    return {v: getattr(state, v).cpu() for v in ("x", "z", "y_tag",
+                                                 "staleness")}
+
+
+def _same_as_host(torch, host, state) -> list:
+    """The fields of ``state`` that differ in their bits from ``host``
+    (compared a column slab at a time on the card)."""
+    bad = []
+    for v, want in host.items():
+        got = getattr(state, v)
+        if want.ndim == 1:
+            ok = _bits_equal(torch, want, got.cpu())
+        else:
+            ok = want.shape == got.shape and all(
+                _bits_equal(torch, want[:, i:i + SLAB].to(got.device),
+                            got[:, i:i + SLAB])
+                for i in range(0, want.shape[1], SLAB))
+        if not ok:
+            bad.append(v)
+    return bad
+
+
+def async_broker_full_width(torch, base, cfg=None):
+    """Phase 20b (docstring at the top); returns its record.  ``cfg``
+    replaces the full-width config (a rehearsal at a reduced one)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.fed.broker import IncrementBroker, replay
+    from repro_torch.models.model import build_model
+
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(GEMMA.arch),
+                                  n_layers=GEMMA.n_layers)
+    spec = api.FedSpec(**base, async_mode="stale", max_staleness=ASYNC_K)
+    trainer = api.build_trainer(build_model(cfg), spec, "cuda")
+    shape = InputShape("async", MAIN_SEQ, MAIN_BATCH, "train")
+    R = ASYNC_BROKER_ROUNDS
+    want = expected_counts(R, round_uplink=R, round_downlink=R,
+                           fedplt_update=R * N_EPOCHS)
+
+    def drive(label, run):
+        """``run(round_fn, holder)`` from a fresh init, the launch counts
+        zeroed just before and read just after.  ``holder`` is a list
+        holding the initial state, which ``run`` pops into the broker's
+        call: no other frame keeps it, so each state is freed as the next
+        one replaces it."""
+        holder = list(trainer.init(0))
+        gen = holder.pop()
+        ms, losses = [], []
+
+        def round_fn(s, u):
+            b = make_batch_for(cfg, shape, torch.Generator(
+                device="cuda").manual_seed(100 + len(ms)), n_agents=FULL_N,
+                device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s, m = trainer.step(s, b, gen, arrival=torch.as_tensor(u))
+            losses.append(float(m["loss"]))     # waits for the device
+            ms.append(1e3 * (time.perf_counter() - t0))
+            return s
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        state, sched = run(round_fn, holder)
+        torch.cuda.synchronize()
+        counts, peak = kernels.launch_counts(), torch.cuda.max_memory_allocated()
+        if counts != want:
+            fail(f"phase 20b {label}: launch counts {counts}, want {want}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"phase 20b {label}: non-finite losses {losses}")
+        if peak > 80e9:
+            fail(f"phase 20b {label}: peak {peak / 1e9:.2f} GB")
+        return state, gen, sched, dict(round_ms=ms, losses=losses,
+                                       peak_gb=peak / 1e9)
+
+    broker = IncrementBroker(
+        FULL_N, ASYNC_K, grace=ASYNC_GRACE,
+        latency_fn=lambda a, r: ASYNC_LATENCY[0 if a == 0 else 1])
+    state, _, sched, run1 = drive(
+        "broker", lambda f, h: broker.run(f, h.pop(), R))
+    arrivals, released = sched.effective_counts()
+    if not (released > arrivals).any():
+        fail(f"phase 20b: the broker's schedule {sched.arrivals.tolist()} "
+             f"holds no stale arrival")
+    host = _host_copy(torch, state)
+    del state
+    torch.cuda.empty_cache()
+    state, gen, _, run2 = drive(
+        "replay", lambda f, h: (replay(f, h.pop(), sched), sched))
+    bad = _same_as_host(torch, host, state)
+    if bad:
+        fail(f"phase 20b: the replay's {bad} differ from the broker run's")
+    if run1["losses"] != run2["losses"]:
+        fail(f"phase 20b: losses {run1['losses']} / {run2['losses']}")
+    del host
+    prof = profile_round(torch, trainer, state, gen, cfg, "phase 20b")
+    log(f"phase 20b: gemma2-2b (2 layers, packed bf16) K {ASYNC_K}, "
+        f"{R} broker rounds (agent 0 {ASYNC_LATENCY[0] * 1e3:.0f} ms, the "
+        f"others {ASYNC_LATENCY[1] * 1e3:.0f} ms, grace "
+        f"{ASYNC_GRACE * 1e3:.0f} ms): schedule "
+        f"{sched.arrivals.astype(int).tolist()}, released rounds "
+        f"{released.tolist()} for {arrivals.tolist()} arrivals; replay bit "
+        f"for bit (x, z, y_tag, counters); launches {want} in each run; "
+        f"round ms {[round(v, 1) for v in run1['round_ms']]} (replay "
+        f"{[round(v, 1) for v in run2['round_ms']]}); peak "
+        f"{run1['peak_gb']:.2f} / {run2['peak_gb']:.2f} GB")
+    del state, trainer
+    torch.cuda.empty_cache()
+    return {"schedule": sched.arrivals.tolist(),
+            "released_rounds": released.tolist(),
+            "arrivals": arrivals.tolist(), "broker": run1, "replay": run2,
+            "counts": want, "profile": prof}
+
+
+def async_dense_cell(torch):
+    """Phase 20e (docstring at the top); returns its record."""
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, PrivacySpec, build_trainer
+
+    c = ASYNC_DENSE
+    problem = make_logreg_problem(**PAPER_PROBLEM)
+    spec = FedSpec(rho=1.0, n_epochs=5, participation=c["participation"],
+                   async_mode="stale", max_staleness=c["K"],
+                   privacy=PrivacySpec(tau=c["tau"]))
+    noise = torch.randn((c["rounds"], 5, problem.n_agents, problem.dim),
+                        generator=torch.Generator().manual_seed(3))
+    card = build_trainer(problem, spec, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, crit, sched = card.run_recorded(0, c["rounds"], noise=noise)
+    crit = crit.cpu()
+    ms = 1e3 * (time.perf_counter() - t0) / c["rounds"]
+    sched = sched.cpu()
+    back, crit2 = card.replay(0, sched, noise=noise)
+    if not (all(_bits_equal(torch, getattr(state, v), getattr(back, v))
+                for v in ("x", "z", "y_tag", "staleness"))
+            and _bits_equal(torch, crit, crit2.cpu())):
+        fail("phase 20e: the card's replay differs from its recorded run")
+    cpu = build_trainer(problem, spec, device="cpu")
+    cstate, ccrit = cpu.replay(0, sched, noise=noise)
+    err = _state_err(torch, back, cstate)
+    if not err <= 1e-5 or not torch.equal(back.staleness.cpu(),
+                                          cstate.staleness):
+        fail(f"phase 20e: card vs CPU replay differ by {err}")
+    reps = [tr.effective_privacy_report(sched.numpy())
+            for tr in (card, cpu)]
+    if reps[0] != reps[1]:
+        fail("phase 20e: the effective privacy reports differ")
+    arrivals, released = (
+        [a.arrivals for a in reps[0].per_agent], [a.K for a in reps[0].per_agent])
+    stale = sum(r > a for r, a in zip(released, arrivals))
+    if not stale:
+        fail("phase 20e: no agent released stale work")
+    log(f"phase 20e: the paper's cell (N 100, q 250, n 5), K {c['K']}, "
+        f"participation {c['participation']}, noisy GD (tau {c['tau']}, "
+        f"given noise), {c['rounds']} rounds: replay bit for bit on the "
+        f"card, the CPU's replay within {err:.3g} (tolerance 1e-5); "
+        f"{stale} agents released stale work; effective eps max "
+        f"{reps[0].adp_eps:.4f} (nominal K {reps[0].K}); {ms:.3f} ms a "
+        f"round on the card (host clock)")
+    return {"card_vs_cpu": err, "adp_eps": reps[0].adp_eps,
+            "agents_with_stale_work": stale, "card_ms_per_round": ms,
+            "final_crit": float(crit[-1])}
+
+
+ASYNC_RESUME = (("fp32 async K 2", "float32",
+                 {"async": (ASYNC_K, 0.5)}),)
+
+
+def async_phase(torch, base):
+    """Phase 20: 20a-20e; returns their record."""
+    from repro_torch.fed.api import CompressionSpec, FedSpec
+
+    rec = {"20a": async_reduced_parity(torch),
+           "20b": async_broker_full_width(torch, base)}
+    counts, hist, peak = train_phase(
+        torch, "phase 20c async topk 0.25 (K 2, participation 0.5)",
+        FedSpec(**dict(base, participation=0.5), async_mode="stale",
+                max_staleness=ASYNC_K,
+                compression=CompressionSpec("topk", ratio=0.25)), 3,
+        expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6,
+                        rank_select=3))
+    rec["20c"] = {"counts": counts, "round_ms": [1e3 * h["dt"] for h in hist],
+                  "losses": [h["loss"] for h in hist],
+                  "arrivals": [h["arrivals"] for h in hist],
+                  "peak_gb": peak / 1e9}
+    rec["20d"] = resume_phase(torch, ASYNC_RESUME, legs=2, tag="20d")
+    rec["20e"] = async_dense_cell(torch)
+    return rec
+
+
+def async_phases(torch) -> int:
+    """``--async``: build the kernels, run phase 20 alone and print its
+    record as one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    rec = async_phase(torch, MAIN_SPEC)
+    log(json.dumps({"async": rec, "seconds": round(time.time() - t0, 1),
+                    "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5676,6 +6049,8 @@ def main() -> int:
         return moe_phases(torch)
     if "--encdec" in args:
         return encdec_phases(torch)
+    if "--async" in args:
+        return async_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -5877,6 +6252,10 @@ def main() -> int:
     encdec = encdec_phase(torch, base, bw)
 
     stamp(19)
+    # phase 20: bounded-staleness async rounds and the host broker
+    async_rec = async_phase(torch, base)
+
+    stamp(20)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -5976,7 +6355,7 @@ def main() -> int:
                         if k.startswith("ssm_scan")},
                     "standard": standard, "resume": resumed,
                     "serve": serving, "moe": moe, "encdec": encdec,
-                    "phase_seconds": phase_s}))
+                    "async": async_rec, "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -11,7 +11,9 @@ parameter names (``stages.0.1.attn.wq``) are paths too, so a
 state's ``step`` or round counter ``k``) is a 0-d int32 leaf, a ``None``
 field has no leaf and a ``torch.Generator`` is not a leaf (the trainers
 keep its state in the manifest's ``extra``, see
-:func:`generator_state`).  ``manifest.json`` holds the sorted keys, the
+:func:`generator_state`).  An async state's carriers are ``.y_tag``
+(shaped like ``.x``) and ``.staleness`` (``(A,)`` int32), the keys the
+reference's ``_flatten`` gives those fields.  ``manifest.json`` holds the sorted keys, the
 step and the optional ``extra`` dict.
 
 BFLOAT16.  numpy has no bfloat16: the reference's ``np.savez`` writes an
@@ -26,11 +28,11 @@ parameter tree in JAX's order (dict keys sorted, lists in order), puts
 the leaves one after the other and pads only the total width to 128;
 the port keeps module-registration order and starts every segment at a
 multiple of 64 (:mod:`repro_torch.fed.compress`).  Given the port's
-``packed_meta``, :func:`save_checkpoint` writes a state's ``x``, ``z`` and
-``t`` in the reference's columns and :func:`restore_checkpoint` reads
-them back into the port's (:func:`reference_layout` is the port's own
-copy of the reference's rule), so one file means the same thing in both
-packages.  A single-leaf state (the dense ``(N, n)`` front end) is the
+``packed_meta``, :func:`save_checkpoint` writes a state's ``x``, ``z``,
+``t`` and (async rounds) ``y_tag`` in the reference's columns and
+:func:`restore_checkpoint` reads them back into the port's
+(:func:`reference_layout` is the port's own copy of the reference's
+rule), so one file means the same thing in both packages.  A single-leaf state (the dense ``(N, n)`` front end) is the
 array itself in both.
 
 SHARDED STATES.  Under a mesh (:mod:`repro_torch.fed.sharding`) each
@@ -67,7 +69,7 @@ from torch.utils import _pytree as pytree
 # the reference's lane width: its packed buffers pad the total width to it
 _LANE = 128
 # NamedTuple fields that hold a packed (A, width) buffer under packed_meta
-PACKED_FIELDS = ("x", "z", "t")
+PACKED_FIELDS = ("x", "z", "t", "y_tag")
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +254,8 @@ def save_checkpoint(path: str, tree, step: int | None = None,
     """Write ``tree`` (a state NamedTuple, a ``{name: tensor}`` dict, or
     any nesting of those, lists and tensors) to ``path``.  ``extra`` is an
     optional JSON-able dict stored in the manifest.  ``packed_meta`` is
-    the port's layout of the packed ``x`` / ``z`` / ``t`` buffers of a
-    state, which go to disk in the reference's columns.
+    the port's layout of the packed ``x`` / ``z`` / ``t`` / ``y_tag``
+    buffers of a state, which go to disk in the reference's columns.
 
     Atomic: assembled in a temporary sibling and renamed into place
     (see the module docstring); a kill mid-save never corrupts an

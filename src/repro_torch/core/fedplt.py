@@ -42,9 +42,15 @@ group, on every rank.  The state's ``x``, ``z``, ``t`` and ``y`` are this
 rank's block.  The tree layout takes an agent axis only (a model axis
 needs ``state_layout="packed"``).
 
+Bounded-staleness async rounds (``async_mode="stale"``): the state
+carries ``y_tag`` and the ``(N,)`` int32 ``staleness`` counters (this
+rank's block under a mesh) and a round runs
+:mod:`repro_torch.fed.async_engine`; ``arrival`` (or ``u``) replaces the
+arrival draw with a given row, :meth:`FedPLT.run_recorded` returns the
+realised schedule and :meth:`FedPLT.replay` re-runs one bit for bit.
+
 Not ported here (each raises naming its slice): heterogeneous solver
-groups and per-agent participation tuples, and async rounds
-(``arrival``, ``replay``).
+groups and per-agent participation tuples.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from repro_torch.core import prox as prox_lib
 from repro_torch.core.solvers import SolverConfig, StateBlock
 from repro_torch.fed import api
 from repro_torch.fed import compress as compress_lib
-from repro_torch.fed import engine, sharding
+from repro_torch.fed import async_engine, engine, sharding
 from repro_torch.fed import solvers as solver_registry
 
 
@@ -72,6 +78,11 @@ class FedPLTState(NamedTuple):
     # the coordinator's copy of each z_i, only when the exchange is
     # compressed (advanced in place by the next round)
     t: Optional[torch.Tensor] = None
+    # bounded-staleness async rounds only (None when synchronous): the
+    # per-agent pulled coordinator point (updated in place by the next
+    # round) and the staleness counters
+    y_tag: Optional[torch.Tensor] = None        # (N, n)
+    staleness: Optional[torch.Tensor] = None    # (N,) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,8 +157,6 @@ class FedPLT:
         if solver_groups is not None or isinstance(participation, tuple):
             raise api._later("heterogeneous solver groups and per-agent "
                          "participation", "heterogeneous solver groups")
-        if config.async_mode != "off" or config.max_staleness != 0:
-            raise api._later("bounded-staleness async rounds", "async runtime")
         self.problem = problem
         self.mesh = mesh
         self.cfg = config
@@ -223,10 +232,16 @@ class FedPLT:
         else:
             x0 = torch.zeros((N, n), device=self.device)
         x0 = self._own(x0).contiguous()
+        stale = self._ecfg.staleness.enabled
         return FedPLTState(x=x0, z=x0.clone(),
                            y=torch.zeros(x0.shape[1], device=self.device),
                            generator=gen, k=0,
-                           t=x0.clone() if self._ecfg.compressed else None)
+                           t=x0.clone() if self._ecfg.compressed else None,
+                           y_tag=(async_engine.init_y_tag(x0) if stale
+                                  else None),
+                           staleness=(async_engine.init_staleness(
+                               x0.shape[0], self.device) if stale
+                               else None))
 
     # ------------------------------------------------------------------
     def _solver(self, gen, batch_idx, noise):
@@ -273,14 +288,43 @@ class FedPLT:
             noise=noise_fn, block=self._block)
 
     def _round_core(self, state: FedPLTState, u=None, batch_idx=None,
-                    noise=None, corrupt=None, live=None):
+                    noise=None, corrupt=None, live=None, arrival=None):
         """One round; returns ``(next_state, u)`` with ``u`` the round's
-        realized ``(N,)`` participation row.  ``corrupt`` / ``live`` are
-        fault rows (see :func:`repro_torch.fed.engine.round_step`)."""
+        realized global ``(N,)`` participation (async: arrival) row.
+        ``corrupt`` / ``live`` are fault rows (see
+        :func:`repro_torch.fed.engine.round_step`); ``arrival`` (async
+        rounds; ``u`` is the same row) replaces the arrival draw."""
         gen = state.generator
         solver = self._solver(gen, batch_idx, noise)
         compressed = self._ecfg.compressed
         t = state.t if compressed else state.z
+        if arrival is not None and u is not None:
+            raise ValueError("give the arrival row once (arrival= or u=)")
+        if self._ecfg.staleness.enabled:
+            rows = dict(generator=gen, corrupt=corrupt, live=live,
+                        mesh=self.mesh,
+                        arrival=u if arrival is None else arrival)
+            if self._meta is not None:
+                res = async_engine.packed_async_round_step(
+                    self._ecfg, self._meta, state.x, state.z, t, state.y_tag,
+                    state.staleness, solver, self.prox_h, **rows)
+                y = res.y.reshape(-1)
+            else:
+                res = async_engine.async_round_step(
+                    self._ecfg, state.x, state.z, t, state.y_tag,
+                    state.staleness, solver, self.prox_h, **rows)
+                y = res.y
+            u = sharding.agent_gather(res.u, self.mesh,
+                                      self.problem.n_agents)
+            return FedPLTState(x=res.x, z=res.z, y=y, generator=gen,
+                               k=state.k + 1,
+                               t=res.t if compressed else None,
+                               y_tag=res.y_tag,
+                               staleness=res.staleness), u
+        if arrival is not None:
+            raise ValueError("arrival schedules require async_mode='stale' "
+                             "(synchronous rounds draw participation "
+                             "internally)")
         if self._meta is not None:
             res = engine.packed_round_step(
                 self._ecfg, self._meta, state.x, state.z, t, solver,
@@ -307,17 +351,27 @@ class FedPLT:
         return self._round_core(state, u, batch_idx, noise)[0]
 
     @torch.no_grad()
+    def round_with_arrival(self, state: FedPLTState, arrival=None, *,
+                           batch_idx=None, noise=None):
+        """One round returning ``(next_state, u)``; ``arrival`` (async
+        rounds) replaces the arrival draw with a recorded ``(N,)`` 0/1 row
+        -- the broker's numerics entry point."""
+        return self._round_core(state, batch_idx=batch_idx, noise=noise,
+                                arrival=arrival)
+
+    @torch.no_grad()
     def round_with_faults(self, state: FedPLTState, arrival=None,
                           corrupt=None, live=None, *, u=None,
                           batch_idx=None, noise=None):
         """One round returning ``(next_state, u)`` (``u`` the global
-        participation row) under fault rows:
-        ``corrupt`` (per-agent corruption multipliers or ``[mult, add]``
-        pairs applied to the solver output) and ``live`` (0/1 survivor
-        mask).  All None reproduces :meth:`round`."""
-        if arrival is not None:
-            raise api._later("arrival schedules", "async runtime")
-        return self._round_core(state, u, batch_idx, noise, corrupt, live)
+        participation or arrival row) under the broker's rows:
+        ``arrival`` (a recorded schedule row, async rounds), ``corrupt``
+        (per-agent corruption multipliers or ``[mult, add]`` pairs applied
+        to the solver output) and ``live`` (0/1 survivor mask); e.g.
+        ``lambda s, u, c, l: algo.round_with_faults(s, u, c, l)[0]``.  All
+        None reproduces :meth:`round`."""
+        return self._round_core(state, u, batch_idx, noise, corrupt, live,
+                                arrival)
 
     def run(self, seed: int, n_rounds: int, **draws):
         """Run ``n_rounds`` rounds from :meth:`init`; returns
@@ -331,7 +385,9 @@ class FedPLT:
     def run_recorded(self, seed: int, n_rounds: int, *, u=None,
                      batch_idx=None, noise=None, x0=None):
         """:meth:`run` that also returns the realized ``(n_rounds, N)``
-        participation schedule.  ``u`` ``(n_rounds, N)``, ``batch_idx``
+        participation (async: arrival) schedule -- feed it to
+        :func:`repro_torch.fed.api.effective_privacy_report` or replay it
+        with :meth:`replay`.  ``u`` ``(n_rounds, N)``, ``batch_idx``
         ``(n_rounds, N_e, N, batch)`` and ``noise`` ``(n_rounds, N_e, N,
         n)`` replay given draws round by round; ``x0`` the initial
         models."""
@@ -345,6 +401,29 @@ class FedPLT:
             crit[r] = self.criterion(state)
             sched[r] = ur
         return state, crit, sched
+
+    @torch.no_grad()
+    def replay(self, seed: int, schedule, *, batch_idx=None, noise=None,
+               x0=None):
+        """Re-run a recorded ``(n_rounds, N)`` arrival schedule (async
+        rounds) from :meth:`init`; returns ``(final_state,
+        criterion_history)``, bit for bit the run that recorded it from
+        the same ``seed`` and draws.  Each round still draws (and drops)
+        the participation row that the recording drew, so the solvers'
+        later draws from the generator are the recording's too."""
+        if not self._ecfg.staleness.enabled:
+            raise ValueError("replay requires async_mode='stale'")
+        sched = torch.as_tensor(schedule, dtype=torch.float32)
+        state = self.init(seed, x0)
+        crit = torch.empty(sched.shape[0], device=self.device)
+        for r in range(sched.shape[0]):
+            state, _ = self._round_core(state, batch_idx=_row(batch_idx, r),
+                                        noise=_row(noise, r),
+                                        arrival=sched[r])
+            engine.participation_mask(self._ecfg, self.device,
+                                      state.generator)
+            crit[r] = self.criterion(state)
+        return state, crit
 
     # convenience -------------------------------------------------------
     def x_bar(self, state: FedPLTState) -> torch.Tensor:

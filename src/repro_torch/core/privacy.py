@@ -173,7 +173,8 @@ class PrivacyReport:
         ``Ks`` (optional) gives each agent its own EFFECTIVE round count
         -- under bounded-staleness async rounds, the rounds of local
         epochs agent i actually released (derived from the realized
-        arrival schedule by ``repro.fed.async_engine.effective_counts``;
+        arrival schedule by
+        :func:`repro_torch.fed.async_engine.effective_counts`;
         the K * N_e product of Prop. 4 then reflects released
         information only).  ``arrivals`` (optional) annotates each row
         with the agent's increment count; both default to the

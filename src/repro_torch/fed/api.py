@@ -21,8 +21,12 @@ aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.
 one process per rank under torchrun; a 1x1 mesh runs in the caller's
 process); a model extent above 1 (``"AxM"``) also splits the packed
 state's columns and each agent's batch over the model ranks, and needs
-``state_layout="packed"``.  Fields whose features are later slices of the
-port raise a ``ValueError`` naming the slice in :meth:`FedSpec.validate`.
+``state_layout="packed"``.  ``async_mode="stale"`` with ``max_staleness``
+K runs bounded-staleness async rounds (:mod:`repro_torch.fed.async_engine`;
+:func:`effective_privacy_report` composes over a realised schedule).
+Fields whose features are later slices of the port (heterogeneous agent
+groups) raise a ``ValueError`` naming the slice in
+:meth:`FedSpec.validate`.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -34,6 +38,7 @@ import argparse
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
@@ -222,10 +227,12 @@ class FedSpec:
              "resident agent-axis buffer)"))
     async_mode: str = dataclasses.field(default="off", metadata=_cli(
         flag="--async-mode", choices=["off", "stale"],
-        help="async round mode (stale is not ported yet)"))
+        help="async round mode (stale = bounded-staleness arrivals; "
+             "off = bulk-synchronous rounds)"))
     max_staleness: int = dataclasses.field(default=0, metadata=_cli(
         flag="--max-staleness", arg_type=int,
-        help="staleness bound K (async rounds)"))
+        help="staleness bound K: an agent holding K-round-old work is "
+             "forced to arrive (0 = synchronous semantics)"))
     guard_increments: bool = dataclasses.field(default=False, metadata=_cli(
         flag="--guard-increments",
         help="screen agent increments in the round: a non-finite (or "
@@ -279,11 +286,17 @@ class FedSpec:
             compress_backend=self.compression.backend,
             engine_backend=self.engine_backend,
             state_layout=self.state_layout,
+            staleness=self.staleness_config(),
             guard_increments=self.guard_increments,
             guard_norm_bound=self.guard_norm_bound,
             aggregator=self.aggregator,
             aggregator_param=self.aggregator_param,
             agent_shards=self.resolved_agent_shards())
+
+    def staleness_config(self) -> engine.StalenessConfig:
+        """The async-round knobs (mode "off" = synchronous rounds)."""
+        return engine.StalenessConfig(mode=self.async_mode,
+                                      max_staleness=self.max_staleness)
 
     def mesh_axes(self) -> Optional[tuple]:
         """The ``(agent, model)`` mesh extents this spec denotes, or None
@@ -401,6 +414,7 @@ class FedSpec:
             raise ValueError(
                 f"unknown state layout {self.state_layout!r}; "
                 f"known: {', '.join(engine.ENGINE_LAYOUTS)}")
+        self.staleness_config()     # bad mode / bound -> ValueError
         if not self.guard_norm_bound > 0.0:
             raise ValueError("guard_norm_bound must be positive (use "
                              "inf for a finiteness-only screen)")
@@ -430,8 +444,6 @@ class FedSpec:
             self.round_config()     # checks n_agents against the shards
 
     def _validate_port_scope(self) -> None:
-        if self.async_mode != "off" or self.max_staleness != 0:
-            raise _later("bounded-staleness async rounds", "async runtime")
         if self.agent_groups is not None:
             raise _later("heterogeneous agent_groups",
                          "heterogeneous solver groups")
@@ -501,6 +513,20 @@ def _resolve_gamma(spec: FedSpec, gamma: Optional[float]) -> float:
         m + 1.0 / spec.rho, L + 1.0 / spec.rho)
 
 
+def _accounting(spec: Any, mu, delta, what: str):
+    """``(spec, mu, delta)`` of a privacy report: the validated spec, the
+    curvature charged (default weight_decay + 1/rho, the curvature the
+    algorithm optimizes against) and delta (default the spec's)."""
+    spec = as_spec(spec).validate()
+    if spec.privacy.tau <= 0.0:
+        raise ValueError(f"{what} requires tau > 0")
+    mu_eff = mu if mu is not None else spec.weight_decay + 1.0 / spec.rho
+    if mu_eff <= 0.0:
+        raise ValueError("privacy accounting requires a strongly convex "
+                         "local objective (mu > 0)")
+    return spec, mu_eff, delta if delta is not None else spec.privacy.delta
+
+
 def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
                    delta: Optional[float] = None, *,
                    mu: Optional[float] = None):
@@ -512,15 +538,8 @@ def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
     sensitivity is C * q; an unclipped run assumes 1.0."""
     from repro_torch.core.privacy import PrivacyReport
 
-    spec = as_spec(spec).validate()
+    spec, mu_eff, delta_eff = _accounting(spec, mu, delta, "privacy_report")
     p = spec.privacy
-    if p.tau <= 0.0:
-        raise ValueError("privacy_report requires tau > 0")
-    mu_eff = mu if mu is not None else spec.weight_decay + 1.0 / spec.rho
-    if mu_eff <= 0.0:
-        raise ValueError("privacy accounting requires a strongly convex "
-                         "local objective (mu > 0)")
-    delta_eff = delta if delta is not None else p.delta
     if isinstance(local_dataset_size, (str, bytes)) or hasattr(
             local_dataset_size, "__len__"):
         raise _later("per-agent dataset sizes (the per-agent privacy table)",
@@ -532,6 +551,51 @@ def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
         sensitivity=sensitivity, mu=mu_eff, tau=p.tau,
         q=local_dataset_size, gamma=gamma, K=n_rounds,
         n_epochs=spec.n_epochs, delta=delta_eff)
+
+
+def effective_privacy_report(spec: Any, schedule, local_dataset_size,
+                             delta: Optional[float] = None, *,
+                             mu: Optional[float] = None):
+    """Per-agent privacy report under a REALISED async arrival schedule
+    (the reference's): ``schedule`` is the ``(n_rounds, n_agents)`` 0/1
+    record of a bounded-staleness run (a broker's
+    ``ArrivalSchedule.arrivals`` or the stacked ``arrivals`` rows).
+    Agent i composes Prop. 4 over ``K_i = released_rounds_i`` rounds, the
+    rounds of local work its increments carried
+    (:func:`repro_torch.fed.async_engine.effective_counts`), instead of
+    the nominal round count: always the per-agent table.
+    ``local_dataset_size`` is one q or a per-agent sequence."""
+    from repro_torch.core.privacy import PrivacyReport
+    from repro_torch.fed.async_engine import effective_counts
+
+    spec, mu_eff, delta_eff = _accounting(spec, mu, delta,
+                                          "effective_privacy_report")
+    if spec.n_agents is None:
+        raise ValueError("per-agent privacy_report needs a resolved "
+                         "n_agents")
+    N = spec.n_agents
+    if isinstance(local_dataset_size, (str, bytes)):
+        raise TypeError("local_dataset_size must be an int or a "
+                        "sequence of per-agent ints, not a string")
+    try:
+        qs = [int(q) for q in local_dataset_size]
+    except TypeError:
+        qs = [int(local_dataset_size)] * N
+    if len(qs) != N:
+        raise ValueError(f"local_dataset_size has {len(qs)} entries for "
+                         f"n_agents={N}")
+    sched = np.asarray(schedule)
+    if sched.ndim != 2 or sched.shape[1] != N:
+        raise ValueError(f"schedule must be (n_rounds, n_agents={N}), "
+                         f"got shape {sched.shape}")
+    arrivals, released = effective_counts(sched, spec.max_staleness)
+    clip = spec.privacy.clip
+    return PrivacyReport.build_per_agent(
+        sensitivities=[clip * q if clip is not None else 1.0 for q in qs],
+        mu=mu_eff, tau=spec.privacy.tau, qs=qs,
+        gammas=[_resolve_gamma(spec, spec.gamma)] * N, K=int(sched.shape[0]),
+        n_epochs_seq=[spec.n_epochs] * N, delta=delta_eff,
+        Ks=[int(k) for k in released], arrivals=[int(a) for a in arrivals])
 
 
 # ---------------------------------------------------------------------------
@@ -589,14 +653,21 @@ class DenseTrainer:
 
     def run_recorded(self, seed: int, n_rounds: int, **draws):
         """:meth:`run` that also returns the realized ``(n_rounds, N)``
-        participation schedule."""
+        participation (async: arrival) schedule (feed it to
+        :meth:`effective_privacy_report` or :meth:`replay`)."""
         return self.algo.run_recorded(seed, n_rounds, **draws)
+
+    def replay(self, seed: int, schedule, **draws):
+        """Re-run a recorded arrival schedule (async rounds) from a fresh
+        init; bit for bit the run that recorded it."""
+        return self.algo.replay(seed, schedule, **draws)
 
     def round_with_faults(self, state, arrival=None, corrupt=None,
                           live=None, **draws):
-        """One round under fault rows: ``corrupt`` (per-agent corruption
-        multipliers, 0 = clean) and ``live`` (0/1 survivor mask); returns
-        ``(state, u)``.  All None reproduces :meth:`step`."""
+        """One round under the broker's rows: ``arrival`` (an ``(N,)`` 0/1
+        row, async rounds), ``corrupt`` (per-agent corruption multipliers,
+        0 = clean) and ``live`` (0/1 survivor mask); returns ``(state,
+        u)``.  All None reproduces :meth:`step`."""
         return self.algo.round_with_faults(state, arrival, corrupt, live,
                                            **draws)
 
@@ -626,8 +697,11 @@ class DenseTrainer:
 
     def _placement(self, key: str) -> dict:
         """How a leaf of the state is split over the mesh: the
-        coordinator row ``y`` by columns only, the rest by agent rows and
-        columns."""
+        coordinator row ``y`` by columns only, the ``(N,)`` staleness
+        counters by agent rows only, the rest (``y_tag`` as ``x``) by
+        agent rows and columns."""
+        if key == ".staleness":
+            return dict(width=None)
         return dict(width=self.problem.dim, rows=key != ".y")
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
@@ -637,6 +711,17 @@ class DenseTrainer:
              else self.problem.q)
         return privacy_report(self._resolved, n_rounds, q, delta,
                               mu=self.algo.mu if self.algo.mu > 0 else None)
+
+    def effective_privacy_report(self, schedule, local_dataset_size=None,
+                                 delta: Optional[float] = None):
+        """Per-agent report under a realised async arrival schedule
+        (:func:`effective_privacy_report`; ``local_dataset_size`` defaults
+        to the problem's q)."""
+        q = (local_dataset_size if local_dataset_size is not None
+             else self.problem.q)
+        return effective_privacy_report(
+            self._resolved, schedule, q, delta,
+            mu=self.algo.mu if self.algo.mu > 0 else None)
 
 
 class ModelTrainer:
@@ -680,27 +765,32 @@ class ModelTrainer:
 
     @torch.no_grad()
     def step(self, state, batch, generator=None, u=None, noise=None,
-             corrupt=None, live=None):
+             corrupt=None, live=None, arrival=None):
         """One Fed-PLT round on an agent-stacked batch (``u`` replays an
         ``(N,)`` participation row, ``noise(epoch, w)`` the DP draw).
         ``corrupt`` / ``live`` are fault rows: per-agent corruption
         (``(N,)`` multipliers or ``(N, 2)`` ``[mult, add]`` pairs, e.g. a
         :class:`repro_torch.fed.faults.FaultPlan` realised per round) and
-        the ``(N,)`` survivor mask after evictions."""
+        the ``(N,)`` survivor mask after evictions.  ``arrival`` (async
+        rounds) replaces the arrival draw with an ``(N,)`` 0/1 row: a
+        broker's row, or a recorded schedule's in a replay."""
         batch = {k: v.to(self.device) for k, v in batch.items()}
         return self._step(state, batch, generator=generator, u=u,
-                          noise=noise, corrupt=corrupt, live=live)
+                          noise=noise, corrupt=corrupt, live=live,
+                          arrival=arrival)
 
     def run(self, seed: int, n_rounds: int, batches):
         """Run from a fresh init; ``batches`` is a callable ``i -> batch``
-        or an iterable.  Returns ``(state, metrics_history)``."""
+        or an iterable.  Returns ``(state, metrics_history)``: scalar
+        metrics as floats, the async rounds' ``arrivals`` row as a list."""
         state, gen = self.init(seed)
         it = None if callable(batches) else iter(batches)
         history = []
         for i in range(n_rounds):
             batch = batches(i) if it is None else next(it)
             state, m = self.step(state, batch, gen)
-            history.append({k: float(v) for k, v in m.items()})
+            history.append({k: float(v) if v.ndim == 0 else v.tolist()
+                            for k, v in m.items()})
         return state, history
 
     def consensus(self, state) -> dict:
@@ -739,10 +829,11 @@ class ModelTrainer:
 
     def _placement(self, key: str) -> dict:
         """How a leaf of the state is split over the mesh: by agent rows,
-        and a packed buffer by its columns too (the tree layout splits
-        rows only)."""
+        and a packed buffer (``y_tag`` as ``x``) by its columns too (the
+        tree layout and the ``(N,)`` staleness counters split rows
+        only)."""
         return dict(width=None if self.packed_meta is None
-                    else self.packed_meta.width)
+                    or key == ".staleness" else self.packed_meta.width)
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):

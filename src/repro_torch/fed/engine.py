@@ -96,8 +96,9 @@ gradient oracle's model-axis work is :mod:`repro_torch.fed.runtime`'s.
 The tree layout under a model axis (per-leaf specs) is not ported and
 raises.
 
-Not ported yet (later slices): bounded-staleness async rounds and
-heterogeneous solver groups.
+Bounded-staleness async rounds (``RoundConfig.staleness``, mode
+``"stale"``) run in :mod:`repro_torch.fed.async_engine` on these edges.
+Not ported yet (a later slice): heterogeneous solver groups.
 """
 
 from __future__ import annotations
@@ -121,6 +122,11 @@ tree_map = pytree.tree_map
 
 ENGINE_BACKENDS = ("torch", "fused")
 ENGINE_LAYOUTS = ("tree", "packed")
+
+# round synchrony modes: "off" = the bulk-synchronous round; "stale" = the
+# bounded-staleness async model (an arrival mask and per-agent staleness
+# counters: repro_torch.fed.async_engine)
+ASYNC_MODES = ("off", "stale")
 
 # Leaf-wise proximal operator of the coordinator regularizer h (None =
 # h = 0), applied with rho_eff = rho / N (Lemma 6).
@@ -150,6 +156,37 @@ def _int_scalar(name: str, value) -> int:
     return int(f)
 
 
+@dataclasses.dataclass(frozen=True)
+class StalenessConfig:
+    """Bounded-staleness async-round knobs (the reference's).
+
+    ``mode="stale"`` turns the participation draw into an ARRIVAL draw:
+    arriving agents submit their increment (tagged with the coordinator
+    point it was computed against) and pull a fresh reflection next
+    round; the others keep training against their stale reflection and
+    age a per-agent counter.  ``max_staleness`` is the bound K: an agent
+    holding work K rounds old is forced to arrive.  K = 0 allows no stale
+    work -- a miss discards the round's local work -- which is the
+    synchronous round bit for bit (:mod:`repro_torch.fed.async_engine`)."""
+
+    mode: str = "off"            # "off" | "stale"
+    max_staleness: int = 0       # K: forced arrival at staleness K
+
+    def __post_init__(self):
+        if self.mode not in ASYNC_MODES:
+            raise ValueError(
+                f"unknown async mode {self.mode!r}; "
+                f"known: {', '.join(ASYNC_MODES)}")
+        k = _int_scalar("max_staleness", self.max_staleness)
+        if k < 0:
+            raise ValueError(f"max_staleness must be >= 0, got {k}")
+        object.__setattr__(self, "max_staleness", k)
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode != "off"
+
+
 class SolverGroup(NamedTuple):
     """A contiguous slice of the agent axis with its own solver; the
     port runs a single group only (heterogeneous groups are a later
@@ -164,8 +201,8 @@ SolverAssignment = Union[LocalSolver, Tuple[SolverGroup, ...]]
 
 @dataclasses.dataclass(frozen=True)
 class RoundConfig:
-    """Round-topology knobs (the synchronous subset of the reference's
-    ``RoundConfig``)."""
+    """Round-topology knobs (the reference's ``RoundConfig``; solver
+    groups are a later slice)."""
 
     n_agents: int
     rho: float = 1.0
@@ -182,6 +219,11 @@ class RoundConfig:
     compress_backend: str = "torch"
     engine_backend: str = "torch"
     state_layout: str = "tree"
+    # bounded-staleness async rounds: "off" keeps the synchronous round;
+    # "stale" makes the participation draw an arrival mask with per-agent
+    # staleness counters (front ends dispatch to async_engine)
+    staleness: StalenessConfig = dataclasses.field(
+        default_factory=StalenessConfig)
     # in-round increment guards: a non-finite row of the local solvers'
     # output, or one whose l2 norm exceeds guard_norm_bound, becomes a
     # non-arrival (u_i -> 0).  Clean rows multiply u by ones: unchanged
@@ -239,6 +281,11 @@ class RoundConfig:
                 f"guard_norm_bound must be > 0 (inf disables the norm "
                 f"screen), got {bound}")
         object.__setattr__(self, "guard_norm_bound", bound)
+        if self.staleness is None:
+            object.__setattr__(self, "staleness", StalenessConfig())
+        elif not isinstance(self.staleness, StalenessConfig):
+            raise ValueError(f"staleness must be a StalenessConfig, got "
+                             f"{self.staleness!r}")
         p = self.participation
         if isinstance(p, (str, bytes)):
             raise ValueError(

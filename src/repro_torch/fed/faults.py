@@ -7,12 +7,15 @@ stall, drop their uplink, corrupt their increment, or turn byzantine; a
 :class:`FaultRecord` captures what a broker did about it (evictions,
 rejoins, retries, the corruption rows a round consumed).  Plans and
 records are plain host-side data, JSON round-trippable (NaN corrupt
-values included).  The port's host broker is a later slice (it comes with
-the async runtime), and so do the reference's queries that only the
-broker makes (drop attempts, stall delays, the gate timeout, retry and
-error notes, file save and load).  Until then a caller realises a plan
-into the rows that :meth:`repro_torch.fed.api.ModelTrainer.step` takes
-itself:
+values included) and saved in the reference's file format, so each
+package loads the other's plans and records.  The host broker
+(:class:`repro_torch.fed.broker.IncrementBroker`) consults a plan every
+round -- crashes, rejoins, drop attempts, stall delays, whether it needs
+a gate timeout -- and notes what it did in a record (evictions, rejoins,
+retries, drops, worker errors, the corruption rows);
+:func:`repro_torch.fed.broker.replay` replays a record bit for bit.
+Without a broker a caller realises a plan into the rows that
+:meth:`repro_torch.fed.api.ModelTrainer.step` takes itself:
 
     row = np.zeros((N, 2), np.float32)
     for a in range(N):
@@ -43,8 +46,9 @@ from __future__ import annotations
 
 import bisect
 import dataclasses
+import json
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -189,11 +193,29 @@ class FaultPlan:
                 f"fault plan targets agents {sorted({e.agent for e in bad})} "
                 f"but the fleet has only {n_agents} agents")
 
+    def needs_timeout(self) -> bool:
+        """True when the plan can make dispatched work vanish: a broker
+        then needs a ``gate_timeout``, or its round gate blocks forever."""
+        return any(e.kind in ("crash", "drop") for e in self.events)
+
     def crashed(self, agent: int, round: int) -> bool:
         return any(e.kind == "crash" and e.agent == agent
                    and e.round <= round
                    and (e.until is None or round < e.until)
                    for e in self.events)
+
+    def rejoins_at(self, round: int) -> List[int]:
+        """Agents whose crash window ends exactly at ``round``."""
+        return sorted({e.agent for e in self.events
+                       if e.kind == "crash" and e.until == round})
+
+    def dropped(self, agent: int, round: int, attempt: int) -> bool:
+        """Whether delivery ``attempt`` (0-based) of this round's uplink
+        is lost: each matching drop event eats one attempt, so the
+        broker's redispatch gets through in the end."""
+        n = sum(1 for e in self.events if e.kind == "drop"
+                and e.agent == agent and e.round == round)
+        return attempt < n
 
     def corrupt_value(self, agent: int, round: int) -> Optional[float]:
         return self._corrupt_index.get((agent, round))
@@ -214,6 +236,18 @@ class FaultPlan:
         corruption-row encoding -- plans without byzantine events keep
         the historical ``(N,)`` rows so old recordings replay bitwise."""
         return bool(self._byz_index)
+
+    def stall_delay(self, agent: int, round: int) -> float:
+        return sum(e.delay for e in self.events if e.kind == "stall"
+                   and e.agent == agent and e.round == round)
+
+    def wrap_latency(self, latency_fn: Callable[[int, int], float]
+                     ) -> Callable[[int, int], float]:
+        """A latency function with the plan's stalls added."""
+        def fn(agent: int, round: int) -> float:
+            return float(latency_fn(agent, round)) + self.stall_delay(
+                agent, round)
+        return fn
 
     # -- construction / persistence -------------------------------------
     @staticmethod
@@ -288,6 +322,15 @@ class FaultPlan:
                                for e in d["events"]),
                          n_agents=d.get("n_agents"), seed=d.get("seed"))
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as fh:
+            json.dump(self.to_json(), fh)   # allow_nan: corrupt values
+
+    @staticmethod
+    def load(path: str) -> "FaultPlan":
+        with open(path) as fh:
+            return FaultPlan.from_json(json.load(fh))
+
 @dataclasses.dataclass
 class FaultRecord:
     """What the broker actually DID during a faulty run.
@@ -319,6 +362,15 @@ class FaultRecord:
     def note_rejoin(self, agent: int, round: int) -> None:
         self.events.append((int(round), int(agent), "rejoin"))
 
+    def note_retry(self, agent: int, round: int, attempt: int) -> None:
+        self.retries.append((int(agent), int(round), int(attempt)))
+
+    def note_drop(self, agent: int, round: int) -> None:
+        self.drops.append((int(agent), int(round)))
+
+    def note_error(self, agent: int, round: int, err: BaseException) -> None:
+        self.errors.append((int(agent), int(round), repr(err)))
+
     def note_corrupt_row(self, round: int, row: np.ndarray) -> None:
         row = np.asarray(row)
         if row.ndim == 2:      # byzantine (N, 2) [mult, add] pairs
@@ -328,6 +380,18 @@ class FaultRecord:
             self.corrupt_rows[int(round)] = [float(v) for v in row]
 
     # -- replay queries --------------------------------------------------
+    @property
+    def evictions(self) -> List[Tuple[int, int]]:
+        return [(a, r) for (r, a, k) in self.events if k == "evict"]
+
+    @property
+    def rejoins(self) -> List[Tuple[int, int]]:
+        return [(a, r) for (r, a, k) in self.events if k == "rejoin"]
+
+    @property
+    def has_faults(self) -> bool:
+        return bool(self.events or self.corrupt_rows)
+
     def first_eviction_round(self) -> Optional[int]:
         rounds = [r for (r, _a, k) in self.events if k == "evict"]
         return min(rounds) if rounds else None
@@ -424,3 +488,12 @@ class FaultRecord:
         rec.corrupt_rows = {int(r): parse_row(row)
                             for r, row in d["corrupt_rows"].items()}
         return rec
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as fh:
+            json.dump(self.to_json(), fh)
+
+    @staticmethod
+    def load(path: str) -> "FaultRecord":
+        with open(path) as fh:
+            return FaultRecord.from_json(json.load(fh))

@@ -35,6 +35,13 @@ rank's columns; the loss metric is the same weighted sum.  So the model
 axis divides both the state and the per-agent forward; a rank with an
 empty share contributes zeros.  The clip norm and the noise are over
 whole rows (:class:`repro_torch.core.solvers.StateBlock`).
+
+Bounded-staleness async rounds (``async_mode="stale"``): the state also
+carries ``y_tag`` (shaped like ``x``, this rank's block under a mesh) and
+the ``(A,)`` int32 ``staleness`` counters, and the step dispatches to
+:mod:`repro_torch.fed.async_engine`; ``arrival=`` replaces the arrival
+draw with a given global row, and the metrics hold the realised global
+``arrivals`` row and the mean ``staleness``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ from torch.utils import _pytree as pytree
 
 from repro_torch.core.solvers import StateBlock
 from repro_torch.fed import compress as compress_lib
-from repro_torch.fed import engine, sharding
+from repro_torch.fed import async_engine, engine, sharding
 from repro_torch.fed.solvers import (make_local_solver,
                                      make_packed_local_solver)
 
@@ -57,12 +64,18 @@ class FedState(NamedTuple):
     """Per-agent federated state: ``x``/``z`` are dicts of ``(A, ...)``
     tensors, or ``(A, width)`` buffers under the packed layout; ``t`` is
     the coordinator's lagged copy of ``z`` under a compressed exchange
-    (None otherwise: at model scale it is one more state-sized buffer)."""
+    (None otherwise: at model scale it is one more state-sized buffer);
+    ``y_tag`` and ``staleness`` are the async carriers (None when
+    synchronous)."""
 
     x: Any
     z: Any
     step: int
     t: Any = None
+    # bounded-staleness async rounds only (None when synchronous): the
+    # per-agent pulled coordinator point and the (A,) int32 counters
+    y_tag: Any = None
+    staleness: Any = None
 
 
 def _stacked_meta_tree(model, n_agents: int) -> dict:
@@ -96,13 +109,19 @@ def init_state(model, spec, device, generator=None,
                 params.values()):
             dst.copy_(src)
         x = sharding.col_block(row, mesh).expand(A, -1).clone()
-        return FedState(x=x, z=x.clone(), step=0,
-                        t=x.clone() if compressed else None)
-    x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
-         for n, p in params.items()}
-    return FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0,
-                    t={n: l.clone() for n, l in x.items()} if compressed
-                    else None)
+        state = FedState(x=x, z=x.clone(), step=0,
+                         t=x.clone() if compressed else None)
+    else:
+        x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
+             for n, p in params.items()}
+        state = FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0,
+                         t={n: l.clone() for n, l in x.items()} if compressed
+                         else None)
+    if spec.staleness_config().enabled:
+        state = state._replace(
+            y_tag=async_engine.init_y_tag(state.x),
+            staleness=async_engine.init_staleness(A, device))
+    return state
 
 
 def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
@@ -163,13 +182,16 @@ def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
 
 def make_train_step(model, spec, mesh=None):
     """Returns ``step(state, batch, *, generator=None, u=None,
-    noise=None, corrupt=None, live=None) -> (state, metrics)``.  ``batch``
-    leaves carry a leading agent axis (tokens ``(A, b, S)``); ``u``
-    replays an ``(A,)`` participation row; ``noise(epoch, w)`` overrides
-    the noisy_gd draw; ``corrupt`` (``(A,)`` or ``(A, 2)``) and ``live``
-    (``(A,)``) are fault rows (:func:`repro_torch.fed.engine.round_step`).
-    Under a ``mesh`` the batch and the rows are global (all A agents) and
-    the state is this rank's row block."""
+    noise=None, corrupt=None, live=None, arrival=None) -> (state,
+    metrics)``.  ``batch`` leaves carry a leading agent axis (tokens
+    ``(A, b, S)``); ``u`` replays an ``(A,)`` participation row;
+    ``noise(epoch, w)`` overrides the noisy_gd draw; ``corrupt`` (``(A,)``
+    or ``(A, 2)``) and ``live`` (``(A,)``) are fault rows
+    (:func:`repro_torch.fed.engine.round_step`).  Under async rounds
+    ``arrival`` (or ``u``: the same row) replaces the arrival draw; a
+    synchronous spec refuses ``arrival``.  Under a ``mesh`` the batch and
+    the rows are global (all A agents) and the state is this rank's row
+    block."""
     spec = spec.validate()
     scfg = spec.solver_config()
     rcfg = spec.round_config()
@@ -187,8 +209,16 @@ def make_train_step(model, spec, mesh=None):
                 cols=sharding.model_cols(mesh, meta.width), width=meta.width,
                 row_sum=lambda t: sharding.model_sum(t, mesh))
 
+    stale = rcfg.staleness.enabled
+
     def train_step(state: FedState, batch: dict, *, generator=None, u=None,
-                   noise=None, corrupt=None, live=None):
+                   noise=None, corrupt=None, live=None, arrival=None):
+        if arrival is not None and not stale:
+            raise ValueError("arrival schedules require async_mode='stale' "
+                             "(synchronous rounds draw participation "
+                             "internally)")
+        if arrival is not None and u is not None:
+            raise ValueError("give the arrival row once (arrival= or u=)")
         batch = sharding.fed_batch_specs(batch, mesh, spec.n_agents)
         # padding columns of a packed gradient stay zero
         g = tree_map(torch.zeros_like, state.x)
@@ -196,19 +226,29 @@ def make_train_step(model, spec, mesh=None):
         kw = dict(use_fused=spec.use_fused_update, has_aux=True,
                   generator=generator, noise=noise, block=block)
         t = state.t if rcfg.compressed else state.z
+        rows = dict(generator=generator, corrupt=corrupt, live=live,
+                    mesh=mesh)
         if meta is not None:
             solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
                                               meta=meta, **kw)
-            res = engine.packed_round_step(rcfg, meta, state.x, state.z, t,
-                                           solver, prox_h,
-                                           generator=generator, u=u,
-                                           corrupt=corrupt, live=live,
-                                           mesh=mesh)
+            if stale:
+                res = async_engine.packed_async_round_step(
+                    rcfg, meta, state.x, state.z, t, state.y_tag,
+                    state.staleness, solver, prox_h,
+                    arrival=u if arrival is None else arrival, **rows)
+            else:
+                res = engine.packed_round_step(rcfg, meta, state.x, state.z,
+                                               t, solver, prox_h, u=u, **rows)
         else:
             solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
-            res = engine.round_step(rcfg, state.x, state.z, t, solver,
-                                    prox_h, generator=generator, u=u,
-                                    corrupt=corrupt, live=live, mesh=mesh)
+            if stale:
+                res = async_engine.async_round_step(
+                    rcfg, state.x, state.z, t, state.y_tag, state.staleness,
+                    solver, prox_h, arrival=u if arrival is None else arrival,
+                    **rows)
+            else:
+                res = engine.round_step(rcfg, state.x, state.z, t, solver,
+                                        prox_h, u=u, **rows)
         metrics = {
             "loss": (sharding.agent_mean(res.aux[-1], mesh, spec.n_agents)
                      if res.aux is not None
@@ -216,8 +256,17 @@ def make_train_step(model, spec, mesh=None):
             "participation": sharding.agent_mean(res.u, mesh,
                                                  spec.n_agents),
         }
-        return FedState(x=res.x, z=res.z, step=state.step + 1,
-                        t=res.t if rcfg.compressed else None), metrics
+        new = FedState(x=res.x, z=res.z, step=state.step + 1,
+                       t=res.t if rcfg.compressed else None)
+        if stale:
+            # the realised global (A,) arrival row: stacked over rounds it
+            # is the schedule effective_privacy_report composes over
+            metrics["arrivals"] = sharding.agent_gather(res.u, mesh,
+                                                        spec.n_agents)
+            metrics["staleness"] = sharding.agent_mean(
+                res.staleness.float(), mesh, spec.n_agents)
+            new = new._replace(y_tag=res.y_tag, staleness=res.staleness)
+        return new, metrics
 
     return train_step
 

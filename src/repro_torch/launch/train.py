@@ -13,13 +13,24 @@ to ``DIR``; in fed mode ``--checkpoint-every K`` saves the round state
 to ``DIR/rounds/step-NNNNNN`` every K rounds and ``--resume`` continues
 from the latest of them, the final save then going to
 ``DIR/consensus``.  A round checkpoint's ``extra`` holds the round, the
-(empty) arrival rows and the state of the run's ``torch.Generator``, so
-a resumed run draws what the uninterrupted run draws and equals it bit
-for bit.  Under a mesh every rank takes part in a save (the state's
-blocks are gathered, rank 0 writes the one file the unsharded run
-writes) and resumes from the checkpoint rank 0 finds, keeping its own
-block; a sharded run resumes from an unsharded run's checkpoint and the
-other way round.
+realised arrival rows of the rounds so far (async rounds; empty when
+synchronous) and the state of the run's ``torch.Generator``, so a resumed
+run draws what the uninterrupted run draws and equals it bit for bit.
+Under a mesh every rank takes part in a save (the state's blocks are
+gathered, rank 0 writes the one file the unsharded run writes) and
+resumes from the checkpoint rank 0 finds, keeping its own block; a
+sharded run resumes from an unsharded run's checkpoint and the other way
+round.
+
+Bounded-staleness async rounds (``--async-mode stale --max-staleness
+K``): each round line also prints ``stale=`` (the mean staleness), the
+realised arrival rows are collected (and restored on ``--resume``), and
+with ``--tau > 0`` the run ends with the effective per-agent privacy
+table composed over that schedule:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --steps 6 --n-agents 4 --participation 0.5 \\
+      --async-mode stale --max-staleness 2 --tau 0.01 --clip 1.0 \\
+      --state-layout packed --device cpu
 
 Standard training (one loss and gradient a step over the whole batch):
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
@@ -107,11 +118,12 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             resume=False, log=print):
     """``steps`` Fed-PLT rounds of ``cfg`` under ``spec`` on synthetic
     per-agent batches; logs one line per round (and the privacy position
-    first when ``tau > 0``).  With ``checkpoint_every`` the round state
-    goes to ``<checkpoint>/rounds/step-NNNNNN`` every that many rounds;
-    ``resume`` continues from the latest of them (module docstring).
-    Returns ``(trainer, state, history)``, the history of the rounds run
-    here."""
+    first when ``tau > 0``; under async rounds the effective per-agent
+    table last).  With ``checkpoint_every`` the round state goes to
+    ``<checkpoint>/rounds/step-NNNNNN`` every that many rounds; ``resume``
+    continues from the latest of them (module docstring).  Returns
+    ``(trainer, state, history)``, the history of the rounds run here
+    (async rounds: each entry's ``arrivals`` is the realised row)."""
     device = resolve_device(device)
     spec.validate()
     trainer = api.build_trainer(build_model(cfg), spec, device)
@@ -127,6 +139,8 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             f" at Renyi order {rep.rdp_order:.1f}{caveat}")
     state, gen = trainer.init(seed)
     start = 0
+    stale = spec.staleness_config().enabled
+    arrival_rows = []       # the realised (N,) rows: the run's schedule
     rounds_dir = os.path.join(checkpoint, "rounds") if checkpoint else None
     if resume:
         latest = [find_latest_checkpoint(rounds_dir)]
@@ -140,6 +154,7 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
         else:
             state, extra = trainer.restore_state(latest, state, gen)
             start = int(extra.get("round", 0))
+            arrival_rows = [list(r) for r in extra.get("arrivals", [])]
             log(f"resumed from {latest} at round {start}")
     shape = InputShape("cli", seq_len, batch, "train")
     history = []
@@ -148,17 +163,37 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
                            device=trainer.device)
         t0 = time.time()
         state, metrics = trainer.step(state, b, gen)
-        m = {k: float(v) for k, v in metrics.items()}   # waits for the device
+        # waits for the device
+        m = {k: float(v) if v.ndim == 0 else v.tolist()
+             for k, v in metrics.items()}
         m["dt"] = time.time() - t0
         history.append(m)
+        extra = ""
+        if stale:
+            arrival_rows.append(m["arrivals"])
+            extra = f" stale={m['staleness']:.2f}"
         log(f"round {i:4d} loss={m['loss']:.4f} "
-            f"part={m['participation']:.2f} dt={m['dt']:.2f}s")
+            f"part={m['participation']:.2f}{extra} dt={m['dt']:.2f}s")
         if checkpoint_every and (i + 1) % checkpoint_every == 0:
             ck = os.path.join(rounds_dir, f"step-{i + 1:06d}")
             # synchronous rounds realize no arrival rows
             trainer.save_state(ck, state, gen,
-                               extra={"round": i + 1, "arrivals": []})
+                               extra={"round": i + 1,
+                                      "arrivals": list(arrival_rows)})
             log(f"  checkpointed round {i + 1} -> {ck}")
+    if stale and spec.privacy.tau > 0 and arrival_rows:
+        # the nominal position above charged every agent all the rounds;
+        # recompose over the realised schedule, each agent over the
+        # rounds of local work it released
+        q = local_dataset_size or max(1, batch // spec.n_agents)
+        rep = api.effective_privacy_report(spec, arrival_rows, q)
+        log(f"effective privacy (realized arrival schedule, "
+            f"max_staleness={spec.max_staleness}): "
+            f"({rep.adp_eps:.3f}, {rep.adp_delta:.0e})-ADP")
+        for a in rep.per_agent:
+            log(f"  agent {a.agent:3d}: arrivals={a.arrivals} "
+                f"released_rounds={a.K}/{rep.K} eps_i={a.adp_eps:.3f} "
+                f"(ceiling {a.eps_ceiling:.3f})")
     return trainer, state, history
 
 

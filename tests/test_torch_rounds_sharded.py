@@ -64,7 +64,13 @@ columns, a tree-layout state saved under the mesh) raises a shape
 mismatch in an N 8 trainer on the same mesh.  The dense trainer likewise
 (``ckpt-dense-2x2``: the reference's problem at n 12, 50% participation
 drawn from the generator, 4 rounds, a checkpoint, 4 more, and a resume
-from it to the same round; the file restored unsharded).  All 2-rank
+from it to the same round; the file restored unsharded).  Async rounds
+(K 2, packed, fused, a fixed schedule with stale arrivals on both ranks'
+agents): ``2x1-async`` and ``1x2-async`` (``y_tag`` a column block)
+against the unsharded port, ``y_tag``, the counters and the realised
+rows included; ``ckpt-2x1-async`` resumes bit for bit with ``y_tag``, the
+counters and the checkpoint's arrival rows, and its file restores
+unsharded and through the reference.  All 2-rank
 cases run in one
 spawn of 2 processes, the 4-rank cases in another: about a minute of
 wall time in all, on a CPU, with one thread per rank.
@@ -128,6 +134,17 @@ del _mesh, _ranks, _k, _kw, _step
 CASES["1x2-untied"] = (2, 4, dict(state_layout="packed", mesh_shape="1x2",
                                   participation=1.0, untied=True, **FUSED),
                        {})
+# bounded-staleness async rounds (K 2) on a fixed schedule: agent 1 misses
+# round 0 and arrives stale in round 1, agent 3 misses round 1 and arrives
+# stale in round 2 -- on the agent axis (the two agents on different
+# ranks) and on the model axis (y_tag a column block like x)
+ASYNC = dict(state_layout="packed", async_mode="stale", max_staleness=2,
+             **FUSED)
+ASYNC_ROWS = ([1.0, 0.0, 1.0, 1.0], [1.0, 1.0, 1.0, 0.0],
+              [1.0, 0.0, 1.0, 1.0])
+CASES["2x1-async"] = (2, 4, dict(ASYNC), dict(arrivals=ASYNC_ROWS))
+CASES["1x2-async"] = (2, 4, dict(ASYNC, mesh_shape="1x2"),
+                      dict(arrivals=ASYNC_ROWS))
 
 # the dense front end: the reference's problem (N 8, q 20, n 12 or 5),
 # packed, fused backend (plain on the CPU), N_e 2, DENSE_ROUNDS rounds;
@@ -144,7 +161,8 @@ GROUP_PROX = ("dense-1x2-n12-group-prox",)
 # checkpoints of a sharded state: name -> (ranks, mesh_shape); run_fed
 # saves every CKPT_EVERY rounds of CKPT_ROUNDS
 CKPT = {"ckpt-2x1": (2, "2x1"), "ckpt-1x2": (2, "1x2"),
-        "ckpt-2x2": (4, "2x2"), "ckpt-dense-2x2": (4, "2x2")}
+        "ckpt-2x2": (4, "2x2"), "ckpt-dense-2x2": (4, "2x2"),
+        "ckpt-2x1-async": (2, "2x1")}
 CKPT_ROUNDS, CKPT_EVERY, CKPT_TOKENS = 4, 2, 16
 
 
@@ -203,14 +221,20 @@ def _run(n_agents, spec_kw, step_kw, shards=1, params=None):
     tr = api.build_trainer(model, _spec(n_agents, spec_kw, shards), "cpu")
     state, gen = tr.init(0, params=params)
     hist, increments = [], []
-    for b in _batches(cfg.vocab, n_agents):
+    step_kw = dict(step_kw)
+    arrivals = step_kw.pop("arrivals", None)
+    for r, b in enumerate(_batches(cfg.vocab, n_agents)):
         t_prev = None if state.t is None else state.t.clone()
+        if arrivals is not None:
+            step_kw["arrival"] = torch.tensor(arrivals[r])
         state, m = tr.step(state, b, gen, **step_kw)
-        hist.append({k: float(v) for k, v in m.items()})
+        hist.append({k: float(v) if v.ndim == 0 else v.tolist()
+                     for k, v in m.items()})
         if t_prev is not None:
             increments.append(state.z - t_prev)
     cons = tr.consensus(state)
-    return dict(x=state.x, z=state.z, t=state.t, consensus=cons, hist=hist,
+    return dict(x=state.x, z=state.z, t=state.t, y_tag=state.y_tag,
+                staleness=state.staleness, consensus=cons, hist=hist,
                 increments=increments, meta=tr.packed_meta)
 
 
@@ -247,11 +271,14 @@ def _dense_run(name, out_dir, sharded):
     return dict(x=state.x, z=state.z, crit=crit, sched=sched)
 
 
-def _ckpt_spec(mesh_shape=None):
+def _ckpt_spec(mesh_shape=None, stale=False):
+    """The resume cases' spec; ``stale``: async rounds, K 2."""
     from repro_torch.fed import api
 
+    kw = dict(async_mode="stale", max_staleness=2) if stale else {}
     return api.FedSpec(n_agents=4, **{**BASE, "n_epochs": 1},
-                       state_layout="packed", **FUSED, mesh_shape=mesh_shape)
+                       state_layout="packed", **FUSED, mesh_shape=mesh_shape,
+                       **kw)
 
 
 def _ckpt_run(name, out_dir):
@@ -259,10 +286,11 @@ def _ckpt_run(name, out_dir):
     the same run stopped after ``CKPT_EVERY`` and resumed from its
     checkpoint: this rank's ``x`` and ``z`` of each (the stopped run's
     at its stop)."""
+    from repro_torch.checkpoint import checkpoint_extra
     from repro_torch.launch.train import run_fed
 
     cfg, _ = _model()
-    spec = _ckpt_spec(CKPT[name][1])
+    spec = _ckpt_spec(CKPT[name][1], "async" in name)
     root = os.path.join(out_dir, name)
     kw = dict(seq_len=CKPT_TOKENS, batch=8, device="cpu",
               checkpoint_every=CKPT_EVERY, log=lambda *a: None)
@@ -273,7 +301,11 @@ def _ckpt_run(name, out_dir):
             ("second", CKPT_ROUNDS, True, "split")):
         _, state, _ = run_fed(cfg, spec, steps=steps, resume=resume,
                               checkpoint=os.path.join(root, where), **kw)
-        out[leg] = {"x": state.x, "z": state.z, "step": state.step}
+        out[leg] = {"x": state.x, "z": state.z, "step": state.step,
+                    "y_tag": state.y_tag, "staleness": state.staleness,
+                    "arrivals": checkpoint_extra(os.path.join(
+                        root, where, "rounds", f"step-{steps:06d}"))[
+                            "arrivals"]}
     out["refused"] = _other_agent_count(
         spec, os.path.join(root, "split", "rounds", f"step-{CKPT_EVERY:06d}"),
         os.path.join(root, "tree"))
@@ -365,7 +397,8 @@ def _worker(rank, world, store_path, out_dir, names):
             _, n_agents, spec_kw, step_kw = CASES[name]
             run = _run(n_agents, spec_kw, step_kw, shards=world,
                        params=params if spec_kw.get("ref") else None)
-            torch.save({k: run[k] for k in ("x", "z", "t", "consensus",
+            torch.save({k: run[k] for k in ("x", "z", "t", "y_tag",
+                                            "staleness", "consensus",
                                             "hist")},
                        os.path.join(out_dir, f"{name}-{rank}.pt"))
     finally:
@@ -542,7 +575,7 @@ def test_sharded_rounds_match_unsharded(sharded_runs, unsharded_runs,
                      if "mesh_shape" in spec_kw else (ranks, 1))
     near = (_near_ties(want, spec_kw.get("compression"))
             if want["increments"] else None)
-    for var in ("x", "z", "t"):
+    for var in ("x", "z", "t", "y_tag"):
         if want[var] is None:
             assert all(g[var] is None for g in got)
             continue
@@ -557,12 +590,22 @@ def test_sharded_rounds_match_unsharded(sharded_runs, unsharded_runs,
                  else None)
         _close(_gather(blocks, model, width), want[var], near,
                model_axis=model > 1)
+    if want["staleness"] is not None:
+        # the counters advance locally: each rank holds its agents', the
+        # same on every rank of a model group
+        assert torch.equal(torch.cat([got[r * model]["staleness"]
+                                      for r in range(agents)]),
+                           want["staleness"])
+        assert all(torch.equal(g["staleness"],
+                               got[i // model * model]["staleness"])
+                   for i, g in enumerate(got))
     for g in got:
         if near is None:
             _close(g["consensus"], want["consensus"])
         for hg, hw in zip(g["hist"], want["hist"]):
             np.testing.assert_allclose(hg["loss"], hw["loss"], rtol=1e-5)
             assert hg["participation"] == hw["participation"]
+            assert hg.get("arrivals") == hw.get("arrivals")
     if name == "2x4-trimmed-mean":
         # agent 3 was evicted: it never took part
         assert all(h["participation"] <= 0.75 for h in want["hist"])
@@ -733,6 +776,8 @@ def test_mesh_checkpoint_resumes_bit_for_bit(sharded_runs, name):
     if "dense" in name:
         _check_dense_ckpt(sharded_runs, name, model)
         return
+    stale = "async" in name
+    packed_vars = ("x", "z", "y_tag") if stale else ("x", "z")
     for g in got:
         assert g["second"]["step"] == g["whole"]["step"] == CKPT_ROUNDS
         # a file of N 4 does not restore into an N 8 run on this mesh
@@ -740,33 +785,44 @@ def test_mesh_checkpoint_resumes_bit_for_bit(sharded_runs, name):
                                      else {"packed"})
         for layout, err in g["refused"].items():
             assert err is not None and "shape mismatch" in err, layout
-        for var in ("x", "z"):
+        for var in packed_vars + (("staleness",) if stale else ()):
             assert torch.equal(_int_bits(g["second"][var]),
                                _int_bits(g["whole"][var])), var
+        # the resumed run restored the first leg's arrival rows
+        assert g["second"]["arrivals"] == g["whole"]["arrivals"]
+        assert len(g["whole"]["arrivals"]) == (CKPT_ROUNDS if stale else 0)
     cfg, mdl = _model()
     path = os.path.join(sharded_runs["dir"], name, "split", "rounds",
                         f"step-{CKPT_EVERY:06d}")
-    tr = api.build_trainer(mdl, _ckpt_spec(), "cpu")
+    tr = api.build_trainer(mdl, _ckpt_spec(stale=stale), "cpu")
     like, _ = tr.init(1)
     state, extra = tr.restore_state(path, like)
     assert state.step == CKPT_EVERY and extra["round"] == CKPT_EVERY
     width = tr.packed_meta.width
     full = {}
-    for var in ("x", "z"):
+    for var in packed_vars:
         blocks = [g["first"][var] for g in got]
         if model > 1:
             assert {b.shape[1] for b in blocks} == {width // model}
         full[var] = _gather(blocks, model, width)
         assert torch.equal(_int_bits(getattr(state, var)),
                            _int_bits(full[var])), var
+    if stale:
+        counters = torch.cat([got[r * model]["first"]["staleness"]
+                              for r in range(agents)])
+        assert torch.equal(state.staleness, counters)
     jcfg = dataclasses.replace(jax_get_config("gemma2-2b").reduced(),
                                n_kv_heads=2)
     jtr = japi.build_trainer(jax_build_model(jcfg), japi.FedSpec(
-        n_agents=4, gamma=0.05, state_layout="packed"))
+        n_agents=4, gamma=0.05, state_layout="packed",
+        **(dict(async_mode="stale", max_staleness=2) if stale else {})))
     jstate = jio.restore_checkpoint(
         path, jax.eval_shape(jtr.init, jax.random.PRNGKey(0)))
     assert int(jstate.step) == CKPT_EVERY
-    for var in ("x", "z"):
+    if stale:
+        np.testing.assert_array_equal(np.asarray(jstate.staleness),
+                                      counters.numpy())
+    for var in packed_vars:
         ref = np.asarray(getattr(jstate, var))
         want = tio.to_reference_packed(full[var], tr.packed_meta).numpy()
         assert ref.shape == want.shape
