@@ -353,6 +353,32 @@ last line):
    rounds: ``run_recorded`` then ``replay`` bit for bit on the card, the
    CPU's replay of the card's schedule within 1e-5, and the effective
    per-agent privacy report of the schedule equal on both.
+21. Heterogeneous agent groups (no new kernel: the groups drive the
+   existing kernels).  21a: reduced gemma2-2b fp32, N 4, fused,
+   groups ``2*gd,2*agd:n_epochs=1:gamma=0.02``: 2 rounds card vs CPU
+   (1e-4) packed, then async K 2 on given arrival rows (the counters
+   equal), then the tree layout.  21b: gemma2-2b at published width cut
+   to 2 layers (745,549,056 parameters, bf16), N 4, batch 8, seq 512,
+   packed, fused backend and update, the same groups, 3 rounds through
+   ``run_fed``: per round fedplt_update 2 (the gd group's 2 epochs on its
+   row slice; agd never fuses), flash 12 / 12 (2 layers x 6
+   agent-epochs), uplink 1, downlink 1; finite losses, peak under 64 GB;
+   round ms and a profiled round's kernel groups beside phase 4's.  21c:
+   as 21b with ``3*gd:participation=0.5,1*agd:n_epochs=1``: the rows the
+   participation draw gives (per-agent rates) are the rows
+   ``round_downlink`` takes, the agd agent (rate 1) arrives every round;
+   launches fedplt_update 2, flash 14 / 14 a round.  21d: reduced
+   gemma2-2b bf16, N 4, packed, fused, the 21a groups on two gloo ranks
+   on the card under 2x1 (one group a rank: fedplt_update 2 / 0, flash
+   8 / 4, one partial and one presummed launch a rank a round) against
+   the unsharded grouped card run: round 1 bit for bit (identical rows in,
+   an exact agent mean), round 2 within 2^-5 of the largest entry (the
+   ranks' bf16 partial sums); ``1*gd,3*agd`` refused by the spec and the
+   engine on both ranks.  21e: the paper's cell (N 100, q 250, n 5) with
+   ``50*gd,50*agd``, 200 rounds: the same hitting round of 1e-5 on the
+   card and the CPU, states 1e-5; DP groups ``50*gd,50*gd:n_epochs=2``
+   (tau 0.05, given noise), 100 rounds: states 1e-5 and the per-agent
+   privacy tables equal.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -395,7 +421,8 @@ time) and runs the 64-layer memory probe, as one JSON line; and
 ``repro_torch`` under ``DIR``: each run once a tree, in turns, to
 compare two trees on one card.  ``--train-serve`` runs phases 15-17
 alone, ``--moe`` phase 18 (with phase 16's MoE case), ``--encdec`` phase
-19 (with phase 16's mesh case), ``--async`` phase 20.
+19 (with phase 16's mesh case), ``--async`` phase 20, ``--groups`` phase
+21 (after one profiled round of phase 4, which 21b is shown beside).
 """
 
 from __future__ import annotations
@@ -6024,6 +6051,394 @@ def async_phases(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: heterogeneous agent groups (no new kernel)
+# ---------------------------------------------------------------------------
+
+GROUPS = "2*gd,2*agd:n_epochs=1:gamma=0.02"
+GROUPS_PART = "3*gd:participation=0.5,1*agd:n_epochs=1"
+GROUPS_STRADDLE = "1*gd,3*agd"
+GROUPS_DENSE = "50*gd,50*agd"
+GROUPS_DENSE_DP = "50*gd,50*gd:n_epochs=2"
+GROUPS_ROUNDS = 3
+GROUPS_MESH_ROUNDS = 2
+GROUPS_DENSE_ROUNDS, GROUPS_DP_ROUNDS = 200, 100
+GROUPS_PEAK_GB = 64.0
+
+
+def group_launches(groups, rounds, layers):
+    """A grouped round's launches of the full-width trainer: every
+    agent's every local epoch runs one flash forward and backward per
+    layer; each gd-type group runs one ``fedplt_update`` an epoch on its
+    row slice (agd never fuses); one uplink and one downlink a round.
+    ``groups``: ``(size, solver, n_epochs)`` a group."""
+    agent_epochs = sum(size * ne for size, _, ne in groups)
+    return expected_counts(
+        0, round_uplink=rounds, round_downlink=rounds,
+        fedplt_update=rounds * sum(ne for _, s, ne in groups if s != "agd"),
+        flash_attention_fwd=rounds * agent_epochs * layers,
+        flash_attention_bwd=rounds * agent_epochs * layers)
+
+
+def _resolved(spec):
+    return [(g.size, g.solver, g.n_epochs) for g in spec.resolved_groups()]
+
+
+def groups_reduced_parity(torch):
+    """Phase 21a (docstring at the top); returns its record."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    batches = [make_batch_for(cfg, InputShape("small", 64, 8, "train"), gen,
+                              n_agents=FULL_N) for _ in range(2)]
+    base = dict(n_agents=FULL_N, n_epochs=2, gamma=0.05, weight_decay=0.01,
+                engine_backend="fused", use_fused_update=True,
+                agent_groups=GROUPS)
+    rec = {}
+    for label, kw, rows in (
+            ("packed", dict(state_layout="packed"), None),
+            ("packed async K 2", dict(state_layout="packed",
+                                      async_mode="stale",
+                                      max_staleness=ASYNC_K),
+             ASYNC_ROWS[:2]),
+            ("tree", dict(state_layout="tree"), None)):
+        spec = api.FedSpec(**base, **kw)
+        states = {}
+        for dev in ("cuda", "cpu"):
+            tr = api.build_trainer(model, spec, dev)
+            st, g = tr.init(0, params=params)
+            for r, b in enumerate(batches):
+                row = torch.ones(FULL_N) if rows is None else torch.tensor(
+                    rows[r], dtype=torch.float32)
+                st, _ = tr.step(st, b, g, u=row)
+            states[dev] = st
+        if kw["state_layout"] == "tree":
+            err = max(float((getattr(states["cuda"], var)[n].cpu()
+                             - l).abs().max())
+                      for var in ("x", "z") for n, l in
+                      getattr(states["cpu"], var).items())
+            if not err <= 1e-4:
+                fail(f"phase 21a {label}: card vs CPU max abs err {err}")
+        else:
+            err, _ = card_vs_cpu(torch, states, f"phase 21a {label}")
+        if rows is not None and not torch.equal(
+                states["cuda"].staleness.cpu(), states["cpu"].staleness):
+            fail(f"phase 21a {label}: counters card "
+                 f"{states['cuda'].staleness} / CPU {states['cpu'].staleness}")
+        rec[label] = err
+        log(f"phase 21a {label}: reduced gemma2-2b fp32, N {FULL_N}, groups "
+            f"{GROUPS}, 2 rounds card (kernels) vs CPU (plain versions): max "
+            f"abs err {err:.3g} (tolerance 1e-4)")
+    return rec
+
+
+def groups_full_width(torch, base, main_prof):
+    """Phases 21b and 21c (docstring at the top); returns their record.
+    ``main_prof``: phase 4's profiled round, shown beside 21b's."""
+    from repro_torch.fed import api, engine
+    from repro_torch.kernels.round_edge import ops as edge_ops
+
+    rec = {}
+    spec = api.FedSpec(**base, agent_groups=GROUPS)
+    want = group_launches(_resolved(spec), GROUPS_ROUNDS, GEMMA.attn_layers)
+    prof = {}
+    counts, hist, peak = train_phase(
+        torch, f"phase 21b groups {GROUPS}", spec, GROUPS_ROUNDS, want,
+        profile=True, profile_out=prof)
+    if peak > GROUPS_PEAK_GB * 1e9:
+        fail(f"phase 21b: peak {peak / 1e9:.2f} GB > {GROUPS_PEAK_GB} GB")
+    per_round = {k: v // GROUPS_ROUNDS for k, v in counts.items() if v}
+    rec["21b"] = {"counts": counts, "per_round": per_round,
+                  "round_ms": [1e3 * h["dt"] for h in hist],
+                  "losses": [h["loss"] for h in hist], "peak_gb": peak / 1e9,
+                  "profile": prof}
+    side = {k: {"groups_ms": p.get("groups_ms"), "wall_ms": p.get("wall_ms"),
+                "device_busy_ms": p.get("device_busy_ms"),
+                "idle_share": p.get("idle_share")}
+            for k, p in (("phase 4", main_prof), ("phase 21b", prof))}
+    log(f"phase 21b: per round {per_round}; round ms "
+        f"{[round(v, 1) for v in rec['21b']['round_ms']]}; peak "
+        f"{peak / 1e9:.2f} GB; profiled groups beside phase 4's:")
+    log(json.dumps({"groups_vs_phase4": side}))
+
+    # 21c: the per-group participation row through round_downlink
+    drawn, passed = [], []
+    draw, downlink = engine.participation_mask, edge_ops.round_downlink
+
+    def drawing(*a, **kw):
+        u = draw(*a, **kw)
+        drawn.append(u.clone())
+        return u
+
+    def passing(x, w, z, u, *a, **kw):
+        passed.append(u.clone())
+        return downlink(x, w, z, u, *a, **kw)
+
+    spec = api.FedSpec(**base, agent_groups=GROUPS_PART)
+    want = group_launches(_resolved(spec), GROUPS_ROUNDS, GEMMA.attn_layers)
+    engine.participation_mask, edge_ops.round_downlink = drawing, passing
+    try:
+        counts, hist, peak = train_phase(
+            torch, f"phase 21c groups {GROUPS_PART}", spec, GROUPS_ROUNDS,
+            want)
+    finally:
+        engine.participation_mask, edge_ops.round_downlink = draw, downlink
+    rows = [u.cpu() for u in drawn]
+    if len(rows) != GROUPS_ROUNDS or len(passed) != GROUPS_ROUNDS or not all(
+            _bits_equal(torch, d, p.cpu()) for d, p in zip(rows, passed)):
+        fail(f"phase 21c: the downlink's rows {[p.tolist() for p in passed]} "
+             f"differ from the drawn rows {[d.tolist() for d in rows]}")
+    if not all(float(r[3]) == 1.0 for r in rows):
+        fail(f"phase 21c: the agd agent (participation 1) missed a round: "
+             f"{[r.tolist() for r in rows]}")
+    for h, r in zip(hist, rows):
+        if h["participation"] != float(r.mean()):
+            fail(f"phase 21c: participation {h['participation']} for the "
+                 f"row {r.tolist()}")
+    rec["21c"] = {"counts": counts, "rows": [r.tolist() for r in rows],
+                  "round_ms": [1e3 * h["dt"] for h in hist],
+                  "losses": [h["loss"] for h in hist], "peak_gb": peak / 1e9}
+    log(f"phase 21c: drawn rows {rec['21c']['rows']} (group rates 0.5, 0.5, "
+        f"0.5, 1) equal the rows round_downlink took; round ms "
+        f"{[round(v, 1) for v in rec['21c']['round_ms']]}; peak "
+        f"{peak / 1e9:.2f} GB")
+    return rec
+
+
+def _groups_mesh_run(torch, device, mesh_shape=None):
+    """21d's run: reduced gemma2-2b bf16, N 4, packed, fused, ``GROUPS``,
+    ``GROUPS_MESH_ROUNDS`` rounds (this rank's block under a mesh): the
+    state after each round (on the CPU) and each round's launches."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              n_kv_heads=2, dtype="bfloat16")
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(1)
+    batches = [make_batch_for(cfg, InputShape("small", 64, 8, "train"), gen,
+                              n_agents=FULL_N)
+               for _ in range(GROUPS_MESH_ROUNDS)]
+    tr = api.build_trainer(model, api.FedSpec(
+        n_agents=FULL_N, n_epochs=2, gamma=0.05, state_layout="packed",
+        engine_backend="fused", use_fused_update=True, agent_groups=GROUPS,
+        mesh_shape=mesh_shape), device)
+    st, g = tr.init(0)
+    out = []
+    for b in batches:
+        kernels.reset_launch_counts()
+        st, m = tr.step(st, b, g)
+        out.append(dict(x=st.x.cpu(), z=st.z.cpu(), loss=float(m["loss"]),
+                        counts=kernels.launch_counts()))
+    return out
+
+
+def _groups_mesh_worker(rank, world, store, out_dir):
+    """21d on one of two gloo ranks on the one card: the grouped run under
+    2x1, and the straddling groups refused by the spec and by the
+    engine."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        from repro_torch.fed import api, engine
+
+        res = {"rounds": _groups_mesh_run(torch, "cuda:0", "2x1")}
+        refused = []
+        try:
+            api.FedSpec(n_agents=FULL_N, gamma=0.05, mesh_shape="2x1",
+                        agent_groups=GROUPS_STRADDLE).validate()
+        except ValueError as e:
+            refused.append(str(e))
+        mesh = api.FedSpec(mesh_shape="2x1").build_mesh("cuda:0")
+        solver = engine.other_rank_solver
+        try:
+            engine.validate_mesh(
+                engine.RoundConfig(n_agents=FULL_N), mesh, packed=True,
+                local_solver=(engine.SolverGroup(1, solver),
+                              engine.SolverGroup(3, solver)))
+        except ValueError as e:
+            refused.append(str(e))
+        res["refused"] = refused
+        torch.save(res, os.path.join(out_dir, f"groups-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def groups_mesh_phase(torch):
+    """Phase 21d (docstring at the top); returns its record."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    want = _groups_mesh_run(torch, "cuda")
+    root = _scratch_dir()
+    try:
+        try:
+            mp.start_processes(_groups_mesh_worker,
+                               args=(2, os.path.join(root, "store"), root),
+                               nprocs=2, join=True, start_method="spawn")
+        except Exception as e:
+            text = str(e)
+            last = (text.strip().splitlines() or [type(e).__name__])[-1]
+            fail(f"phase 21d: a rank failed: {last}")
+        ranks = [torch.load(os.path.join(root, f"groups-rank{r}.pt"))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    errs = []
+    for i, w in enumerate(want):
+        # the rank's launches: rank 0 holds the gd rows, rank 1 the agd rows
+        for r, res in enumerate(ranks):
+            got = res["rounds"][i]["counts"]
+            layers = 2
+            agent_epochs = 2 * (N_EPOCHS if r == 0 else 1)
+            need = expected_counts(
+                0, round_uplink_partial=1, round_downlink_presummed=1,
+                fedplt_update=N_EPOCHS if r == 0 else 0,
+                flash_attention_fwd=agent_epochs * layers,
+                flash_attention_bwd=agent_epochs * layers)
+            if got != need:
+                fail(f"phase 21d: rank {r} round {i} launches {got}, want "
+                     f"{need}")
+            if res["rounds"][i]["loss"] != ranks[0]["rounds"][i]["loss"]:
+                fail(f"phase 21d: the ranks' round {i} losses differ")
+        for var in ("x", "z"):
+            got = torch.cat([res["rounds"][i][var] for res in ranks])
+            if i == 0:
+                # identical rows in: the agent mean is exact on both sides
+                if not _bits_equal(torch, got, w[var]):
+                    fail(f"phase 21d: round 1 {var} under 2x1 differs from "
+                         f"the unsharded run's")
+            d = (got.float() - w[var].float()).abs().max()
+            scale = w[var].float().abs().max()
+            errs.append(float(d / scale))
+            if not float(d) <= 2.0 ** -5 * float(scale):
+                fail(f"phase 21d: round {i + 1} {var} max abs difference "
+                     f"{float(d)} from the unsharded run's (max |{var}| "
+                     f"{float(scale)})")
+    for r, res in enumerate(ranks):
+        if len(res["refused"]) != 2 or "straddle" not in res["refused"][0] \
+                or "inside an agent shard" not in res["refused"][1]:
+            fail(f"phase 21d: rank {r}: the straddling groups were not "
+                 f"refused ({res['refused']})")
+    log(f"phase 21d: reduced gemma2-2b bf16, groups {GROUPS} on two gloo "
+        f"ranks on the card under 2x1 (one group a rank: fedplt_update "
+        f"{N_EPOCHS} / 0 a round, flash {4 * N_EPOCHS} / 4, one partial and "
+        f"one presummed launch a rank a round): round 1 bit for bit the "
+        f"unsharded grouped run, round {GROUPS_MESH_ROUNDS} within "
+        f"{max(errs):.3g} of max |x|, |z| (the ranks' bf16 partial sums; "
+        f"bound 2^-5); {GROUPS_STRADDLE} refused by the spec and the engine")
+    return {"rel_diff": errs, "refused": ranks[0]["refused"],
+            "losses": [r["loss"] for r in ranks[0]["rounds"]]}
+
+
+def groups_dense_cell(torch):
+    """Phase 21e (docstring at the top); returns its record."""
+    from repro_torch.core.metrics import hitting_round
+    from repro_torch.core.problem import make_logreg_problem
+    from repro_torch.fed.api import FedSpec, PrivacySpec, build_trainer
+
+    problem = make_logreg_problem(**PAPER_PROBLEM)
+    rec = {}
+    spec = FedSpec(rho=1.0, n_epochs=5, agent_groups=GROUPS_DENSE)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = build_trainer(problem, spec, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, crit = tr.run(0, GROUPS_DENSE_ROUNDS)
+        crit = crit.cpu().numpy()
+        res[dev] = (state, crit, 1e3 * (time.perf_counter() - t0)
+                    / GROUPS_DENSE_ROUNDS)
+    hit = {d: hitting_round(r[1]) for d, r in res.items()}
+    err = _state_err(torch, res["cuda"][0], res["cpu"][0])
+    if hit["cuda"] is None or hit["cuda"] != hit["cpu"] or not err <= 1e-5:
+        fail(f"phase 21e: hitting rounds card {hit['cuda']} / CPU "
+             f"{hit['cpu']}, states {err}")
+    rec["gd-agd"] = dict(hitting_round=hit["cuda"], state_err=err,
+                         card_ms_per_round=res["cuda"][2])
+    # DP: gd-type groups (agd takes no noise), given noise (N_e 2: the
+    # groups' largest), the per-agent privacy table of each trainer
+    spec = FedSpec(rho=1.0, n_epochs=1, agent_groups=GROUPS_DENSE_DP,
+                   privacy=PrivacySpec(tau=ASYNC_DENSE["tau"]))
+    noise = torch.randn((GROUPS_DP_ROUNDS, 2, problem.n_agents, problem.dim),
+                        generator=torch.Generator().manual_seed(3))
+    states, reps = {}, {}
+    for dev in ("cuda", "cpu"):
+        tr = build_trainer(problem, spec, device=dev)
+        states[dev] = tr.run(0, GROUPS_DP_ROUNDS, noise=noise)[0]
+        reps[dev] = tr.privacy_report(GROUPS_DP_ROUNDS)
+    dp_err = _state_err(torch, states["cuda"], states["cpu"])
+    if not dp_err <= 1e-5 or reps["cuda"] != reps["cpu"]:
+        fail(f"phase 21e DP: card vs CPU states {dp_err}, reports equal "
+             f"{reps['cuda'] == reps['cpu']}")
+    table = sorted({(a.n_epochs, a.adp_eps) for a in reps["cuda"].per_agent})
+    rec["dp"] = dict(state_err=dp_err, adp_eps=reps["cuda"].adp_eps,
+                     per_group=table)
+    log(f"phase 21e: the paper's cell (N 100, q 250, n 5) with groups "
+        f"{GROUPS_DENSE}: hitting round {hit['cuda']} on the card and the CPU "
+        f"(states {err:.3g}, tolerance 1e-5; {res['cuda'][2]:.3f} ms a round "
+        f"on the card, host clock); DP groups {GROUPS_DENSE_DP} (tau "
+        f"{ASYNC_DENSE['tau']}, given noise) {GROUPS_DP_ROUNDS} rounds: states "
+        f"{dp_err:.3g}, the per-agent tables equal (eps_i by N_e: {table}; "
+        f"headline {reps['cuda'].adp_eps:.4f})")
+    return rec
+
+
+def groups_phase(torch, base, main_prof):
+    """Phase 21: 21a-21e; returns their record."""
+    return {"21a": groups_reduced_parity(torch),
+            **groups_full_width(torch, base, main_prof),
+            "21d": groups_mesh_phase(torch),
+            "21e": groups_dense_cell(torch)}
+
+
+def groups_phases(torch) -> int:
+    """``--groups``: build the kernels, run phase 4's profiled round (one
+    round, for the comparison) and phase 21 alone, and print its record as
+    one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    main_prof = {}
+    train_phase(torch, "phase 4 main path (one round, for 21b)",
+                FedSpec(**MAIN_SPEC), 1,
+                expected_counts(1, round_uplink=1, round_downlink=1,
+                                fedplt_update=N_EPOCHS),
+                profile=True, profile_out=main_prof)
+    rec = groups_phase(torch, MAIN_SPEC, main_prof)
+    log(json.dumps({"groups": rec, "seconds": round(time.time() - t0, 1),
+                    "card": smi}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6051,6 +6466,8 @@ def main() -> int:
         return encdec_phases(torch)
     if "--async" in args:
         return async_phases(torch)
+    if "--groups" in args:
+        return groups_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -6256,6 +6673,10 @@ def main() -> int:
     async_rec = async_phase(torch, base)
 
     stamp(20)
+    # phase 21: heterogeneous agent groups
+    groups_rec = groups_phase(torch, base, main_prof)
+
+    stamp(21)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -6355,7 +6776,8 @@ def main() -> int:
                         if k.startswith("ssm_scan")},
                     "standard": standard, "resume": resumed,
                     "serve": serving, "moe": moe, "encdec": encdec,
-                    "async": async_rec, "phase_seconds": phase_s}))
+                    "async": async_rec, "groups": groups_rec,
+                    "phase_seconds": phase_s}))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -25,6 +25,16 @@ participation row ``u`` ``(N,)``, sgd minibatch indices ``batch_idx``
 (scaled here by ``sqrt(2 gamma) tau``); ``run`` takes them stacked over
 rounds.  What is not given is drawn from the state's ``torch.Generator``.
 
+Heterogeneous agent groups (``solver_groups``, the reference's): each
+contiguous group runs its own ``SolverConfig`` on its rows, with its
+slice of the per-agent moduli (its step size and noise scale resolved
+from them in float32), and ``participation`` may give every agent its
+own rate.  The draws keep their global shapes with ``N_e`` the largest
+epoch count of the groups: ``batch_idx`` ``(N_e, N, batch)`` (drawn when
+a group is sgd) and ``noise`` ``(N_e, N, n)`` (when a group is noisy_gd),
+and group g reads its own rows of its first ``N_e_g`` epochs.  A
+homogeneous config draws exactly as without groups.
+
 Under a ``mesh`` (the reference's ``FedPLT(mesh=)``; one process per
 rank, :mod:`repro_torch.launch.mesh`) the dense ``(N, n)`` state follows
 the engine's row and column rules (:mod:`repro_torch.fed.sharding`): each
@@ -48,9 +58,6 @@ rank's block under a mesh) and a round runs
 :mod:`repro_torch.fed.async_engine`; ``arrival`` (or ``u``) replaces the
 arrival draw with a given row, :meth:`FedPLT.run_recorded` returns the
 realised schedule and :meth:`FedPLT.replay` re-runs one bit for bit.
-
-Not ported here (each raises naming its slice): heterogeneous solver
-groups and per-agent participation tuples.
 """
 
 from __future__ import annotations
@@ -150,13 +157,23 @@ class FedPLT:
 
     ``prox_h`` overrides the coordinator regularizer resolved from
     ``config.prox_h`` (the front door's weight-decay shorthand).
-    ``mesh`` shards the rounds (module docstring)."""
+    ``solver_groups`` partitions the agent axis into ``(size,
+    SolverConfig)`` groups (sizes summing to ``n_agents``; None: one group
+    of ``config.solver``) and ``participation`` overrides
+    ``config.participation`` with a per-agent ``(N,)`` tuple of rates
+    (module docstring).  ``mesh`` shards the rounds."""
 
     def __init__(self, problem, config: FedPLTConfig, prox_h=None,
                  solver_groups=None, participation=None, mesh=None):
-        if solver_groups is not None or isinstance(participation, tuple):
-            raise api._later("heterogeneous solver groups and per-agent "
-                         "participation", "heterogeneous solver groups")
+        if solver_groups is None:
+            solver_groups = ((problem.n_agents, config.solver),)
+        self._groups = tuple((int(size), scfg)
+                             for size, scfg in solver_groups)
+        sizes = [size for size, _ in self._groups]
+        if sum(sizes) != problem.n_agents:
+            raise ValueError(
+                f"solver_groups sizes sum to {sum(sizes)}, problem "
+                f"has n_agents={problem.n_agents}")
         self.problem = problem
         self.mesh = mesh
         self.cfg = config
@@ -194,20 +211,27 @@ class FedPLT:
         self.prox_h = (prox_h if prox_h is not None
                        else prox_lib.make_prox(config.prox_h))
         self._ecfg = config.to_spec(N).round_config()
+        if participation is not None:
+            self._ecfg = dataclasses.replace(
+                self._ecfg, participation=tuple(participation))
         # packed layout: the dense state is single-leaf, so its resident
         # (N, n) buffer IS the stacked tensor
         self._meta = (compress_lib.packed_meta(
             torch.empty((N, n), device="meta"))
             if config.state_layout == "packed" else None)
-        # noisy_gd's sqrt(2 gamma) tau in float32: per agent when the step
-        # size is resolved from the moduli, else one value
-        scfg, rho = config.solver, config.rho
-        gamma = scfg.resolve_step_size(self.mu_i + 1.0 / rho,
-                                       self.L_i + 1.0 / rho)
-        self._noise_scale = torch.sqrt(torch.as_tensor(
-            2.0 * gamma, dtype=torch.float32)).to(self.device) * scfg.tau
-        if self._noise_scale.ndim == 2:
-            self._noise_scale = self._noise_scale[self._rows]
+        # this rank's part of each group: (g, local rows, global agents)
+        self._owned = engine.group_rows(
+            sizes, N, None if mesh is None else self._rows)
+        # noisy_gd's sqrt(2 gamma) tau in float32 a group: per agent when
+        # the step size is resolved from the moduli, else one value
+        self._noise_scale = {}
+        for g, local, _ in self._owned:
+            scfg = self._groups[g][1]
+            gamma = scfg.resolve_step_size(
+                self.mu_i[local] + 1.0 / config.rho,
+                self.L_i[local] + 1.0 / config.rho)
+            self._noise_scale[g] = torch.sqrt(torch.as_tensor(
+                2.0 * gamma, dtype=torch.float32)).to(self.device) * scfg.tau
 
     # ------------------------------------------------------------------
     def _own(self, a: torch.Tensor) -> torch.Tensor:
@@ -245,47 +269,78 @@ class FedPLT:
 
     # ------------------------------------------------------------------
     def _solver(self, gen, batch_idx, noise):
-        """The round's engine solver ``(x, v) -> (w, None)`` with its
-        draws: sgd minibatch rows ``(N_e, N, batch)`` and noisy_gd noise
-        ``(N_e, N, n)``, given or drawn from ``gen`` (global; a sharded
-        round takes its block)."""
-        scfg = self.cfg.solver
+        """The round's engine solver ``(x, v) -> (w, None)`` -- with
+        several groups a tuple of :class:`repro_torch.fed.engine.SolverGroup`
+        -- with its draws: sgd minibatch rows ``(N_e, N, batch)`` and
+        noisy_gd noise ``(N_e, N, n)``, given or drawn from ``gen`` (global,
+        ``N_e`` the groups' largest; a sharded round and a group take their
+        rows)."""
         N, n, dev = self.problem.n_agents, self.problem.dim, self.device
-        local, mesh, cols = self.local, self.mesh, self._cols
+        n_epochs = max(scfg.n_epochs for _, scfg in self._groups)
+        names = {scfg.name for _, scfg in self._groups}
+        idx = None
+        if "sgd" in names and self.cfg.batch_size is not None:
+            if batch_idx is None:
+                batch_idx = torch.randint(
+                    0, self.problem.q, (n_epochs, N, self.cfg.batch_size),
+                    generator=gen, device=dev)
+            idx = torch.as_tensor(batch_idx).to(dev)[:, self._rows]
+        if "noisy_gd" in names:
+            if noise is None:
+                noise = torch.randn((n_epochs, N, n), generator=gen,
+                                    device=dev)
+            noise = self._own(torch.as_tensor(noise, dtype=torch.float32)
+                              .to(dev))
+        whole = len(self._groups) == 1
+        built = {g: self._group_solver(g, local, agents, gen, idx, noise,
+                                       whole)
+                 for g, local, agents in self._owned}
+        if whole:
+            return built[0]
+        return tuple(
+            engine.SolverGroup(size, built.get(g, engine.other_rank_solver))
+            for g, (size, _) in enumerate(self._groups))
+
+    def _group_solver(self, g, local, agents, gen, idx, noise, whole):
+        """Group ``g``'s solver on this rank's rows ``local`` of it (the
+        global ``agents``); ``whole``: the one group of every agent, which
+        slices nothing."""
+        scfg = self._groups[g][1]
+        mesh, cols, n = self.mesh, self._cols, self.problem.dim
+        data = self.local if whole else self.local.agent_block(local)
 
         def full_rows(w):
             return w if mesh is None else sharding.model_gather(w, mesh, n)
         if scfg.name == "sgd" and self.cfg.batch_size is not None:
-            if batch_idx is None:
-                batch_idx = torch.randint(
-                    0, self.problem.q,
-                    (scfg.n_epochs, N, self.cfg.batch_size),
-                    generator=gen, device=dev)
-            idx = torch.as_tensor(batch_idx).to(dev)[:, self._rows]
+            rows_idx = idx if whole else idx[:, local]
 
             def fgrad(w, epoch):
-                return local.minibatch_grads(full_rows(w), idx[epoch])[:, cols]
+                return data.minibatch_grads(full_rows(w),
+                                            rows_idx[epoch])[:, cols]
         else:
             def fgrad(w, epoch):
-                return local.grads(full_rows(w))[:, cols]
+                return data.grads(full_rows(w))[:, cols]
 
         if scfg.name not in solver_registry.CORE_SOLVERS:
+            block = self._block
+            if block is not None and not whole:
+                lo = sum(size for size, _ in self._groups[:g])
+                block = block._replace(
+                    rows=slice(agents.start - lo, agents.stop - lo),
+                    n_rows=self._groups[g][0])
             return solver_registry.make_local_solver(
                 scfg, fgrad, self.cfg.rho, self.mu, self.L, generator=gen,
-                block=self._block)
+                block=block)
         noise_fn = None
         if scfg.name == "noisy_gd":
-            if noise is None:
-                noise = torch.randn((scfg.n_epochs, N, n), generator=gen,
-                                    device=dev)
-            noise = self._own(torch.as_tensor(noise, dtype=torch.float32)
-                              .to(dev))
+            scale = self._noise_scale[g]
+            rows_noise = noise if whole else noise[:, local]
 
             def noise_fn(epoch, w):
-                return self._noise_scale * noise[epoch]
+                return scale * rows_noise[epoch]
         return solver_registry.make_local_solver(
-            scfg, fgrad, self.cfg.rho, self.mu_i, self.L_i, generator=gen,
-            noise=noise_fn, block=self._block)
+            scfg, fgrad, self.cfg.rho, self.mu_i[local], self.L_i[local],
+            generator=gen, noise=noise_fn, block=self._block)
 
     def _round_core(self, state: FedPLTState, u=None, batch_idx=None,
                     noise=None, corrupt=None, live=None, arrival=None):

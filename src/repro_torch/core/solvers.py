@@ -22,8 +22,12 @@ The DP noise cannot reproduce JAX's threefry bits: it is drawn from a
 ``use_fused=True`` routes the step through the fused
 :mod:`repro_torch.kernels.fedplt_update` op whenever the step size is a
 static float and the solver is not agd (the reference's condition).  The
-iterate is a fresh buffer (the warm start ``w0`` is never written), and
-the fused op updates it in place.
+iterate is a fresh buffer, or the ``out`` buffer the caller gives (a
+group's rows of a grouped round's output); the warm start ``w0`` is never
+written, and the fused op updates the iterate in place.  agd's plain
+Eq. (12) step is elementwise and runs a leaf :data:`AGD_CHUNK` elements
+at a time, in place on two float32 temporaries, so they stay at a chunk
+at any width: the same numbers as one whole-leaf expression.
 
 The moduli ``mu`` / ``L`` are Python floats, or ``(N, 1)`` float32
 tensors of per-agent moduli (the dense front end's, Remark 1): the step
@@ -47,6 +51,10 @@ from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
 GradOracle = Callable[[Any, int], Any]
 
 tree_map = pytree.tree_map
+
+# elements of a leaf that agd's plain step takes at a time (a float32
+# temporary of the step is at most this many elements: 64 MB)
+AGD_CHUNK = 1 << 24
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,12 +163,26 @@ def _sqrt(v):
     return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
 
 
+def _by_chunks(op, dst: torch.Tensor, *srcs: torch.Tensor) -> None:
+    """``op(dst, *srcs)`` for an elementwise ``op`` that writes ``dst``,
+    over contiguous pieces of ``AGD_CHUNK`` elements of the flattened
+    leaves, so that its temporaries stay small; one call when the leaf is
+    small or a leaf is not contiguous."""
+    leaves = (dst,) + srcs
+    if dst.numel() <= AGD_CHUNK or not all(l.is_contiguous() for l in leaves):
+        op(dst, *srcs)
+        return
+    flat = [l.view(-1) for l in leaves]
+    for c in range(0, flat[0].numel(), AGD_CHUNK):
+        op(*(f[c:c + AGD_CHUNK] for f in flat))
+
+
 def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
                 cfg: SolverConfig, mu, L, *, batched: bool = False,
                 has_aux: bool = False, use_fused: bool = False,
                 generator: Optional[torch.Generator] = None,
                 noise: Optional[Callable[[int, Any], Any]] = None,
-                block: Optional[StateBlock] = None):
+                block: Optional[StateBlock] = None, out: Any = None):
     """Run ``cfg.n_epochs`` epochs of the chosen solver on d(w).
 
     ``mu``/``L`` are the moduli of f_i (d adds 1/rho to both): floats,
@@ -169,7 +191,8 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     ``noise(epoch, w)`` overrides the noisy_gd draw (required with
     per-agent moduli); ``block`` places a sharded ``w`` in the global
     state, for the noise (:func:`draw_noise`) and the clip norm
-    (:func:`clip_grad`).
+    (:func:`clip_grad`).  ``out`` (shaped like ``w0``) holds the iterate
+    instead of a fresh clone of ``w0``, and is returned.
     """
     mu_d, L_d = mu + 1.0 / rho, L + 1.0 / rho
     gamma = cfg.resolve_step_size(mu_d, L_d)
@@ -198,7 +221,8 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
         return wl.copy_(fedplt_update_ref(wl, gl, vl, tl, gamma=gamma,
                                           inv_rho=inv_rho))
 
-    w = tree_map(torch.clone, w0)
+    w = (tree_map(torch.clone, w0) if out is None
+         else tree_map(lambda o, x0: o.copy_(x0), out, w0))
     auxes = []
 
     if cfg.name in ("gd", "sgd", "noisy_gd"):
@@ -218,17 +242,32 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     else:
         # agd, Eq. (12): constant step 1/L_d, constant momentum beta
         beta = ((_sqrt(L_d) - _sqrt(mu_d)) / (_sqrt(L_d) + _sqrt(mu_d)))
+
+        # each operation rounds as the one expression ``(w - (g + inv_rho
+        # (w - v)) / L_d)`` and ``u + beta (u - u_prev)`` rounds it, the
+        # operands in float32 (a bf16 operand is widened exactly), with
+        # two float32 temporaries a call
+        def gradient_step(ul, wl, gl, vl):
+            a = wl.float()
+            b = torch.sub(a, vl).mul_(inv_rho).add_(gl).div_(L_d)
+            ul.copy_(torch.sub(a, b, out=b))
+
+        def momentum(wl, ul, upl):
+            a = ul.float()
+            wl.copy_(torch.sub(a, upl).mul_(beta).add_(a))
+
+        # per-agent (N, 1) moduli broadcast over whole rows: no chunks
+        chunked = _by_chunks if isinstance(L_d, float) else (
+            lambda op, *ls: op(*ls))
         u_prev = tree_map(torch.clone, w0)
+        u = tree_map(torch.empty_like, w0)
         for e in range(cfg.n_epochs):
             g, aux = dgrad(w, e)
-            u = tree_map(
-                lambda wl, gl, vl: (wl.float() - (gl.float() + inv_rho * (
-                    wl.float() - vl.float())) / L_d).to(wl.dtype),
-                w, g, v)
-            tree_map(lambda wl, ul, upl: wl.copy_(
-                (ul.float() + beta * (ul.float() - upl.float())
-                 ).to(ul.dtype)), w, u, u_prev)
-            u_prev = u
+            tree_map(lambda ul, wl, gl, vl: chunked(
+                gradient_step, ul, wl, gl, vl), u, w, g, v)
+            tree_map(lambda wl, ul, upl: chunked(momentum, wl, ul, upl),
+                     w, u, u_prev)
+            u_prev, u = u, u_prev       # the next epoch's u reuses a buffer
             auxes.append(aux)
 
     if has_aux:

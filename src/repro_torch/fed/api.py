@@ -24,9 +24,14 @@ state's columns and each agent's batch over the model ranks, and needs
 ``state_layout="packed"``.  ``async_mode="stale"`` with ``max_staleness``
 K runs bounded-staleness async rounds (:mod:`repro_torch.fed.async_engine`;
 :func:`effective_privacy_report` composes over a realised schedule).
-Fields whose features are later slices of the port (heterogeneous agent
-groups) raise a ``ValueError`` naming the slice in
-:meth:`FedSpec.validate`.
+``agent_groups`` (:class:`AgentGroupSpec`, or the CLI grammar of
+:func:`parse_agent_groups`) partitions the agent axis into contiguous
+groups, each with its own registered solver, ``n_epochs``, ``gamma`` and
+participation (the engine's :func:`repro_torch.fed.engine.run_solvers`);
+:func:`privacy_report` then gives the per-agent ``(eps_i, delta)`` table.
+The one combination still refused, raising a ``ValueError`` that names
+its slice in :meth:`FedSpec.validate`, is the tree layout under a model
+mesh axis.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -167,6 +172,61 @@ class CompressionSpec:
              "exists; fused = the compress kernels)"))
 
 
+@dataclasses.dataclass(frozen=True)
+class AgentGroupSpec:
+    """One contiguous group of agents with its own local-training recipe
+    (the reference's).  ``None`` fields inherit the top-level
+    :class:`FedSpec` value.  Groups partition the agent axis in order: the
+    first owns agents ``[0, size)``, the next ``[size, size + size')``,
+    and so on; the engine runs each group's registered solver on its rows
+    (:func:`repro_torch.fed.engine.run_solvers`)."""
+
+    size: int
+    solver: Optional[str] = None         # repro_torch.fed.solvers name
+    n_epochs: Optional[int] = None       # N_e of this group
+    gamma: Optional[float] = None        # local step size of this group
+    participation: Optional[float] = None  # Bernoulli p of this group
+
+
+def parse_agent_groups(text: str) -> tuple:
+    """Parse the CLI grammar for ``--agent-groups``: comma-separated
+    groups, each ``SIZE[*SOLVER][:key=value]...`` with keys ``n_epochs`` /
+    ``gamma`` / ``participation``; omitted pieces inherit the top-level
+    spec.  Examples::
+
+        2*gd,2*agd
+        3*gd:participation=0.5,1*agd:n_epochs=1:gamma=0.02
+    """
+    groups = []
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            raise ValueError(f"empty agent group in {text!r}")
+        head, *opts = part.split(":")
+        if "*" in head:
+            size_s, solver = head.split("*", 1)
+            solver = solver.strip() or None
+        else:
+            size_s, solver = head, None
+        try:
+            size = int(size_s)
+        except ValueError:
+            raise ValueError(
+                f"agent group {part!r} must start with an integer size "
+                f"(grammar: SIZE[*SOLVER][:key=value]...)") from None
+        kw = {}
+        for opt in opts:
+            k, sep, val = opt.partition("=")
+            k = k.strip()
+            if not sep or k not in ("n_epochs", "gamma", "participation"):
+                raise ValueError(
+                    f"unknown agent-group option {opt!r} in {part!r} "
+                    f"(known: n_epochs=, gamma=, participation=)")
+            kw[k] = int(val) if k == "n_epochs" else float(val)
+        groups.append(AgentGroupSpec(size=size, solver=solver, **kw))
+    return tuple(groups)
+
+
 # ---------------------------------------------------------------------------
 # The spec
 # ---------------------------------------------------------------------------
@@ -201,10 +261,15 @@ class FedSpec:
         default=None, metadata=_cli(expose=False))
     uncoordinated: bool = dataclasses.field(
         default=False, metadata=_cli(expose=False))
+    # -- heterogeneous agent groups -------------------------------------
+    # None = every agent runs the top-level solver / n_epochs / gamma /
+    # participation; a tuple of AgentGroupSpec partitions the agent axis
     agent_groups: Optional[tuple] = dataclasses.field(
         default=None, metadata=_cli(
-            arg_type=str,
-            help="heterogeneous agent groups (not ported yet)"))
+            arg_type=parse_agent_groups,
+            help="heterogeneous agent groups, e.g. "
+                 "'2*gd,2*agd:n_epochs=1:gamma=0.02' (sizes must sum to "
+                 "n-agents; omitted knobs inherit the top-level spec)"))
     # -- coordinator regularizer h --------------------------------------
     prox_h: str = dataclasses.field(default="zero",
                                     metadata=_cli(expose=False))
@@ -262,6 +327,13 @@ class FedSpec:
              "holds a column block of the state and a share of each "
              "agent's batch); default agent-shards x 1"))
 
+    def __post_init__(self):
+        groups = self.agent_groups
+        if groups is not None:
+            if isinstance(groups, str):
+                groups = parse_agent_groups(groups)
+            object.__setattr__(self, "agent_groups", tuple(groups))
+
     # ------------------------------------------------------------------
     # Resolution
     # ------------------------------------------------------------------
@@ -273,13 +345,53 @@ class FedSpec:
                             n_epochs=self.n_epochs, step_size=self.gamma,
                             tau=self.privacy.tau, clip=self.privacy.clip)
 
+    def resolved_groups(self) -> Optional[tuple]:
+        """``agent_groups`` with every None field filled from the
+        top-level spec (None when the spec is homogeneous)."""
+        if self.agent_groups is None:
+            return None
+        return tuple(AgentGroupSpec(
+            size=g.size,
+            solver=g.solver if g.solver is not None else self.solver,
+            n_epochs=(g.n_epochs if g.n_epochs is not None
+                      else self.n_epochs),
+            gamma=g.gamma if g.gamma is not None else self.gamma,
+            participation=(g.participation if g.participation is not None
+                           else self.participation))
+            for g in self.agent_groups)
+
+    def group_solver_configs(self) -> Optional[tuple]:
+        """Per-group :class:`SolverConfig` (tau > 0 upgrades gd-type
+        groups to noisy GD, as the homogeneous path does)."""
+        groups = self.resolved_groups()
+        if groups is None:
+            return None
+        return tuple(SolverConfig(
+            name=_upgrade_solver(g.solver, self.privacy.tau),
+            n_epochs=g.n_epochs, step_size=g.gamma,
+            tau=self.privacy.tau, clip=self.privacy.clip)
+            for g in groups)
+
+    def participation_schedule(self) -> Union[float, tuple]:
+        """Engine participation: the scalar p, or the per-agent ``(N,)``
+        tuple expanded from the groups when any group deviates."""
+        groups = self.resolved_groups()
+        if groups is None or all(
+                g.participation == self.participation for g in groups):
+            return self.participation
+        out = []
+        for g in groups:
+            out.extend([float(g.participation)] * g.size)
+        return tuple(out)
+
     def round_config(self) -> engine.RoundConfig:
         if self.n_agents is None:
             raise ValueError("FedSpec.n_agents is unresolved (set it "
                              "explicitly at model scale)")
         return engine.RoundConfig(
             n_agents=self.n_agents, rho=self.rho,
-            participation=self.participation, damping=self.damping,
+            participation=self.participation_schedule(),
+            damping=self.damping,
             compression=self.compression.name,
             compress_ratio=self.compression.ratio,
             compress_energy=self.compression.energy,
@@ -420,7 +532,6 @@ class FedSpec:
                              "inf for a finiteness-only screen)")
         validate_aggregator(self.aggregator, self.aggregator_param,
                             self.n_agents)
-        self._validate_mesh()
         if self.weight_decay < 0.0:
             raise ValueError("weight_decay must be >= 0")
         if self.weight_decay != 0.0 and self.prox_h not in (
@@ -429,24 +540,79 @@ class FedSpec:
                              "mutually exclusive (one coordinator h)")
         self.resolve_prox_h()
         if name == "agd":
-            mu, L = self.moduli()
-            if L is not None and L <= mu:
-                raise ValueError(
-                    f"agd momentum needs L > mu; derived L={L:.4g} from "
-                    f"gamma={self.gamma} -- pass an explicit L in the spec")
+            self._check_agd_moduli(self.gamma)
+        self._validate_groups()
+        self._validate_mesh()
         return self
+
+    def _check_agd_moduli(self, gamma: Optional[float],
+                          where: str = "") -> None:
+        mu, L = self.moduli_for(gamma)
+        if L is not None and L <= mu:
+            if self.L is not None:
+                raise ValueError(f"agd momentum needs L > mu (got "
+                                 f"L={L:.4g}, mu={mu:.4g}){where}")
+            raise ValueError(
+                f"agd momentum needs L > mu; derived L={L:.4g} from "
+                f"gamma={gamma} (needs gamma < rho/(1 + mu*rho) "
+                f"= {self.rho / (1.0 + mu * self.rho):.4g}) -- pass "
+                f"an explicit L in the spec{where}")
+
+    def _validate_groups(self) -> None:
+        groups = self.resolved_groups()
+        if groups is None:
+            return
+        if not groups:
+            raise ValueError("agent_groups must have at least one group "
+                             "(use None for the homogeneous path)")
+        for i, g in enumerate(groups):
+            where = f" (agent group {i})"
+            if g.size < 1:
+                raise ValueError(f"agent group sizes must be >= 1, got "
+                                 f"{g.size}{where}")
+            gname = _upgrade_solver(g.solver, self.privacy.tau)
+            get_solver(gname)
+            if g.n_epochs < 1:
+                raise ValueError(f"n_epochs must be >= 1{where}")
+            if g.gamma is not None and g.gamma <= 0.0:
+                raise ValueError(f"gamma must be positive{where}")
+            if not 0.0 < g.participation <= 1.0:
+                raise ValueError(
+                    f"participation must be in (0, 1]{where}")
+            if gname == "agd":
+                self._check_agd_moduli(g.gamma, where)
+        total = sum(g.size for g in groups)
+        if self.n_agents is not None and total != self.n_agents:
+            raise ValueError(
+                f"agent_groups sizes sum to {total}, but "
+                f"n_agents={self.n_agents} -- groups must partition the "
+                f"agent axis")
 
     def _validate_mesh(self) -> None:
         if self.agent_shards < 1:
             raise ValueError(f"agent_shards must be >= 1, got "
                              f"{self.agent_shards}")
-        if self.n_agents is not None:
-            self.round_config()     # checks n_agents against the shards
+        shards = self.resolved_agent_shards()
+        if self.n_agents is None:
+            return
+        self.round_config()     # checks n_agents against the shards
+        groups = self.resolved_groups()
+        if shards == 1 or groups is None:
+            return
+        rows = self.n_agents // shards
+        edge = 0
+        for i, g in enumerate(groups[:-1]):
+            edge += g.size
+            if edge % rows != 0:
+                raise ValueError(
+                    f"agent group {i} ends at row {edge}, which is "
+                    f"not a multiple of the shard size {rows} "
+                    f"(n_agents={self.n_agents} / agent_shards="
+                    f"{shards}) -- a solver group may not straddle "
+                    f"a device boundary; re-cut the groups or "
+                    f"change the shard count")
 
     def _validate_port_scope(self) -> None:
-        if self.agent_groups is not None:
-            raise _later("heterogeneous agent_groups",
-                         "heterogeneous solver groups")
         axes = self.mesh_axes()     # parses and checks mesh_shape
         if axes is not None and axes[1] > 1 and self.state_layout != "packed":
             raise _later(f"a model mesh extent above 1 in the tree layout "
@@ -527,30 +693,80 @@ def _accounting(spec: Any, mu, delta, what: str):
     return spec, mu_eff, delta if delta is not None else spec.privacy.delta
 
 
-def privacy_report(spec: Any, n_rounds: int, local_dataset_size: int,
+def _dataset_sizes(local_dataset_size):
+    """The per-agent ``q_i`` list of a sequence, or None for one q."""
+    if isinstance(local_dataset_size, (str, bytes)):
+        raise TypeError("local_dataset_size must be an int or a "
+                        "sequence of per-agent ints, not a string")
+    try:                     # a per-agent sequence of q_i?
+        return [int(q) for q in local_dataset_size]
+    except TypeError:        # one q (a Python or numpy int): every agent
+        return None
+
+
+def privacy_report(spec: Any, n_rounds: int,
+                   local_dataset_size: Union[int, Sequence[int]],
                    delta: Optional[float] = None, *,
                    mu: Optional[float] = None):
     """Position a DP run on the paper's (eps, delta) map (Prop. 4 +
-    Lemma 5 via :mod:`repro_torch.core.privacy`), homogeneous case: one
-    dataset size q for every agent.  ``mu`` defaults to the curvature
-    the algorithm optimizes against (weight_decay + 1/rho).  The runtime
-    clips the per-agent mean gradient at C, so the per-sample-equivalent
-    sensitivity is C * q; an unclipped run assumes 1.0."""
+    Lemma 5 via :mod:`repro_torch.core.privacy`).
+
+    Prop. 4 is a per-agent statement: eps_i depends on agent i's dataset
+    size q_i, step size and local epochs.  ``local_dataset_size`` is one q
+    (every agent) or a per-agent sequence; with per-agent sizes or a
+    grouped spec (``agent_groups``) the report carries the per-agent
+    ``(eps_i, delta)`` table (``report.per_agent``), each group's agents
+    at its ``gamma`` and ``n_epochs``, and its headline ``adp_eps`` is the
+    max over agents.  A homogeneous spec with one q gives the scalar
+    report.  ``mu`` defaults to the curvature the algorithm optimizes
+    against (weight_decay + 1/rho).  The runtime clips the per-agent mean
+    gradient at C, so the per-sample-equivalent sensitivity is C * q_i;
+    an unclipped run assumes 1.0."""
     from repro_torch.core.privacy import PrivacyReport
 
     spec, mu_eff, delta_eff = _accounting(spec, mu, delta, "privacy_report")
     p = spec.privacy
-    if isinstance(local_dataset_size, (str, bytes)) or hasattr(
-            local_dataset_size, "__len__"):
-        raise _later("per-agent dataset sizes (the per-agent privacy table)",
-                     "heterogeneous solver groups")
-    gamma = _resolve_gamma(spec, spec.gamma)
-    sensitivity = (p.clip * local_dataset_size
-                   if p.clip is not None else 1.0)
-    return PrivacyReport.build(
-        sensitivity=sensitivity, mu=mu_eff, tau=p.tau,
-        q=local_dataset_size, gamma=gamma, K=n_rounds,
-        n_epochs=spec.n_epochs, delta=delta_eff)
+    qs = _dataset_sizes(local_dataset_size)
+    if spec.agent_groups is None and qs is None:
+        gamma = _resolve_gamma(spec, spec.gamma)
+        sensitivity = (p.clip * local_dataset_size
+                       if p.clip is not None else 1.0)
+        return PrivacyReport.build(
+            sensitivity=sensitivity, mu=mu_eff, tau=p.tau,
+            q=local_dataset_size, gamma=gamma, K=n_rounds,
+            n_epochs=spec.n_epochs, delta=delta_eff)
+    qs, gammas, epochs, sensitivities = _per_agent_inputs(
+        spec, qs, local_dataset_size)
+    return PrivacyReport.build_per_agent(
+        sensitivities=sensitivities, mu=mu_eff, tau=p.tau, qs=qs,
+        gammas=gammas, K=n_rounds, n_epochs_seq=epochs, delta=delta_eff)
+
+
+def _per_agent_inputs(spec: FedSpec, qs, local_dataset_size):
+    """One accounting row per agent of a validated spec: ``(qs, gammas,
+    epochs, sensitivities)``, each of length N (a group's agents at its
+    step size and epochs)."""
+    if spec.n_agents is None:
+        raise ValueError("per-agent privacy_report needs a resolved "
+                         "n_agents")
+    N = spec.n_agents
+    if qs is None:
+        qs = [int(local_dataset_size)] * N
+    if len(qs) != N:
+        raise ValueError(f"local_dataset_size has {len(qs)} entries for "
+                         f"n_agents={N}")
+    groups = spec.resolved_groups()
+    if groups is None:
+        gammas = [_resolve_gamma(spec, spec.gamma)] * N
+        epochs = [spec.n_epochs] * N
+    else:
+        gammas, epochs = [], []
+        for g in groups:
+            gammas.extend([_resolve_gamma(spec, g.gamma)] * g.size)
+            epochs.extend([g.n_epochs] * g.size)
+    clip = spec.privacy.clip
+    sensitivities = [clip * q if clip is not None else 1.0 for q in qs]
+    return qs, gammas, epochs, sensitivities
 
 
 def effective_privacy_report(spec: Any, schedule, local_dataset_size,
@@ -563,39 +779,27 @@ def effective_privacy_report(spec: Any, schedule, local_dataset_size,
     Agent i composes Prop. 4 over ``K_i = released_rounds_i`` rounds, the
     rounds of local work its increments carried
     (:func:`repro_torch.fed.async_engine.effective_counts`), instead of
-    the nominal round count: always the per-agent table.
-    ``local_dataset_size`` is one q or a per-agent sequence."""
+    the nominal round count, at its group's ``gamma`` and ``n_epochs``:
+    always the per-agent table.  ``local_dataset_size`` is one q or a
+    per-agent sequence."""
     from repro_torch.core.privacy import PrivacyReport
     from repro_torch.fed.async_engine import effective_counts
 
     spec, mu_eff, delta_eff = _accounting(spec, mu, delta,
                                           "effective_privacy_report")
-    if spec.n_agents is None:
-        raise ValueError("per-agent privacy_report needs a resolved "
-                         "n_agents")
+    qs, gammas, epochs, sensitivities = _per_agent_inputs(
+        spec, _dataset_sizes(local_dataset_size), local_dataset_size)
     N = spec.n_agents
-    if isinstance(local_dataset_size, (str, bytes)):
-        raise TypeError("local_dataset_size must be an int or a "
-                        "sequence of per-agent ints, not a string")
-    try:
-        qs = [int(q) for q in local_dataset_size]
-    except TypeError:
-        qs = [int(local_dataset_size)] * N
-    if len(qs) != N:
-        raise ValueError(f"local_dataset_size has {len(qs)} entries for "
-                         f"n_agents={N}")
     sched = np.asarray(schedule)
     if sched.ndim != 2 or sched.shape[1] != N:
         raise ValueError(f"schedule must be (n_rounds, n_agents={N}), "
                          f"got shape {sched.shape}")
     arrivals, released = effective_counts(sched, spec.max_staleness)
-    clip = spec.privacy.clip
     return PrivacyReport.build_per_agent(
-        sensitivities=[clip * q if clip is not None else 1.0 for q in qs],
-        mu=mu_eff, tau=spec.privacy.tau, qs=qs,
-        gammas=[_resolve_gamma(spec, spec.gamma)] * N, K=int(sched.shape[0]),
-        n_epochs_seq=[spec.n_epochs] * N, delta=delta_eff,
-        Ks=[int(k) for k in released], arrivals=[int(a) for a in arrivals])
+        sensitivities=sensitivities, mu=mu_eff, tau=spec.privacy.tau, qs=qs,
+        gammas=gammas, K=int(sched.shape[0]), n_epochs_seq=epochs,
+        delta=delta_eff, Ks=[int(k) for k in released],
+        arrivals=[int(a) for a in arrivals])
 
 
 # ---------------------------------------------------------------------------
@@ -636,8 +840,18 @@ class DenseTrainer:
         self.problem = problem.to(self.device)
         prox_override = (self.spec.resolve_prox_h()
                          if self.spec.weight_decay != 0.0 else None)
+        groups = self._resolved.resolved_groups()
+        solver_groups = None
+        if groups is not None:
+            solver_groups = tuple(
+                (g.size, scfg) for g, scfg in zip(
+                    groups, self._resolved.group_solver_configs()))
+        part = self._resolved.participation_schedule()
         self.algo = FedPLT(self.problem, self.spec.to_dense_config(),
-                           prox_h=prox_override, mesh=self.mesh)
+                           prox_h=prox_override,
+                           solver_groups=solver_groups,
+                           participation=part if isinstance(part, tuple)
+                           else None, mesh=self.mesh)
 
     def init(self, seed: int = 0, x0=None):
         return self.algo.init(seed, x0)
@@ -706,7 +920,8 @@ class DenseTrainer:
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):
-        """``local_dataset_size`` defaults to the problem's q."""
+        """``local_dataset_size`` (one q or a per-agent sequence of q_i)
+        defaults to the problem's q."""
         q = (local_dataset_size if local_dataset_size is not None
              else self.problem.q)
         return privacy_report(self._resolved, n_rounds, q, delta,
@@ -837,6 +1052,8 @@ class ModelTrainer:
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):
+        """``local_dataset_size`` may be one int or a per-agent sequence
+        of q_i."""
         if local_dataset_size is None:
             raise ValueError("model-scale privacy_report needs the local "
                              "dataset size q_i")

@@ -28,7 +28,10 @@ One round (:func:`packed_async_round_step`, :func:`async_round_step`):
    stale agents keep training against ``2 y_tag - z`` (``z_i`` does not
    move while an agent is stale, so this is the reflection it pulled).
    Every agent runs the local solver warm-started at its ``x``: a stale
-   agent runs more local epochs against the same proximal target.
+   agent runs more local epochs against the same proximal target.  With
+   agent groups (:func:`repro_torch.fed.engine.run_solvers`) each group's
+   agents run their group's solver and epochs against their own targets,
+   stale or fresh.
 3. Arrivals: the participation draw (drawn from the generator AFTER the
    solver, as the synchronous round draws it, so a generator gives both
    rounds the same draws), or a given row (``arrival=``), OR-ed with the
@@ -270,7 +273,8 @@ def packed_async_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     with a given global ``(N,)`` row; ``corrupt`` / ``live`` are the
     synchronous round's fault rows.  ``y_tag`` is updated in place."""
     if mesh is not None:
-        engine.validate_mesh(cfg, mesh, packed=True)
+        engine.validate_mesh(cfg, mesh, packed=True,
+                             local_solver=local_solver)
     K = cfg.staleness.max_staleness
     fresh, stale, below = _row_sets(staleness, K)
     z_seen = t if cfg.compressed else z
@@ -278,7 +282,7 @@ def packed_async_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     y, v = engine.coordinator_edge_packed(cfg, z, z_seen, meta, prox_h, mesh)
     _apply_rows(v, stale, _reflect, y_tag, z)
     _apply_rows(y_tag, fresh, lambda dst: dst.copy_(y[0]))
-    w, aux = engine.run_solvers(local_solver, x, v, cfg.n_agents)
+    w, aux = engine.run_solvers(local_solver, x, v, cfg.n_agents, mesh)
     del v
     u = arrival_mask(cfg, staleness, generator=generator, arrival=arrival,
                      live=live, mesh=mesh)
@@ -313,7 +317,7 @@ def async_round_step(cfg: RoundConfig, x: Any, z: Any, t: Any, y_tag: Any,
     """:func:`packed_async_round_step` on agent-stacked trees (the rows
     of every leaf); mirrors :func:`repro_torch.fed.engine.round_step`."""
     if mesh is not None:
-        engine.validate_mesh(cfg, mesh)
+        engine.validate_mesh(cfg, mesh, local_solver=local_solver)
     K = cfg.staleness.max_staleness
     fresh, stale, below = _row_sets(staleness, K)
     z_seen = t if cfg.compressed else z
@@ -324,7 +328,7 @@ def async_round_step(cfg: RoundConfig, x: Any, z: Any, t: Any, y_tag: Any,
                                leaves(y)):
         _apply_rows(vl, stale, _reflect, ytl, zl)
         _apply_rows(ytl, fresh, lambda dst, yl=yl: dst.copy_(yl))
-    w, aux = engine.run_solvers(local_solver, x, v, cfg.n_agents)
+    w, aux = engine.run_solvers(local_solver, x, v, cfg.n_agents, mesh)
     del v
     u = arrival_mask(cfg, staleness, generator=generator, arrival=arrival,
                      live=live, mesh=mesh)

@@ -98,7 +98,13 @@ raises.
 
 Bounded-staleness async rounds (``RoundConfig.staleness``, mode
 ``"stale"``) run in :mod:`repro_torch.fed.async_engine` on these edges.
-Not ported yet (a later slice): heterogeneous solver groups.
+
+Heterogeneous agent groups (a tuple of :class:`SolverGroup`): contiguous
+row slices of the agent axis, each solved by its own solver on its rows
+(:func:`run_solvers`), the groups in order, each writing its rows of one
+output buffer.  A per-agent participation tuple gives each group's agents
+their rate.  Under a mesh a group boundary must be a shard boundary
+(:func:`validate_mesh`), and each rank runs the groups that own its rows.
 """
 
 from __future__ import annotations
@@ -188,9 +194,8 @@ class StalenessConfig:
 
 
 class SolverGroup(NamedTuple):
-    """A contiguous slice of the agent axis with its own solver; the
-    port runs a single group only (heterogeneous groups are a later
-    slice)."""
+    """A contiguous slice of the agent axis (``size`` rows, after the
+    groups before it) with its own solver."""
 
     size: int
     solver: LocalSolver
@@ -201,8 +206,7 @@ SolverAssignment = Union[LocalSolver, Tuple[SolverGroup, ...]]
 
 @dataclasses.dataclass(frozen=True)
 class RoundConfig:
-    """Round-topology knobs (the reference's ``RoundConfig``; solver
-    groups are a later slice)."""
+    """Round-topology knobs (the reference's ``RoundConfig``)."""
 
     n_agents: int
     rho: float = 1.0
@@ -535,13 +539,14 @@ def _uniform_stack(*trees) -> bool:
 # Mesh plumbing (the mesh contract in the module docstring)
 # ---------------------------------------------------------------------------
 
-def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False) -> None:
+def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False,
+                  local_solver: SolverAssignment = None) -> None:
     """Screening of a sharded round: the mesh's agent axis must evenly
     partition the agent axis and agree with ``cfg.agent_shards`` when
-    that was pinned; a model extent above 1 needs the ``packed`` layout
-    (the tree layout's per-leaf specs are not ported).  Solver groups are
-    not ported yet (:func:`run_solvers` takes one), so no group boundary
-    is screened."""
+    that was pinned; every solver-group boundary of ``local_solver`` must
+    land on a shard boundary (a rank runs the groups that own its rows);
+    a model extent above 1 needs the ``packed`` layout (the tree layout's
+    per-leaf specs are not ported)."""
     shards = mesh_agent_shards(mesh)
     if cfg.n_agents % shards:
         raise ValueError(
@@ -554,6 +559,20 @@ def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False) -> None:
             f"RoundConfig.agent_shards={cfg.agent_shards} but the mesh "
             f"has {shards} agent shards: drop one of the two or make "
             f"them agree")
+    if (shards > 1 and local_solver is not None
+            and not callable(local_solver)
+            and not isinstance(local_solver, SolverGroup)):
+        rows = cfg.n_agents // shards
+        start = 0
+        for g_idx, grp in enumerate(tuple(local_solver)[:-1]):
+            start += grp.size
+            if start % rows:
+                raise ValueError(
+                    f"solver group {g_idx} ends at agent {start}, "
+                    f"inside an agent shard: with {shards} shards of "
+                    f"{rows} agents each, group boundaries must be "
+                    f"multiples of {rows} -- resize the groups or "
+                    f"change the shard count")
     m = sharding.model_shards(mesh)
     if m > 1 and not packed:
         raise ValueError(
@@ -727,10 +746,47 @@ def agent_edge_packed(cfg: RoundConfig, u: torch.Tensor, w: torch.Tensor,
 # Solvers and rounds
 # ---------------------------------------------------------------------------
 
+def group_rows(sizes, n_agents: int, rows: Optional[slice] = None):
+    """``[(g, local, agents)]`` for each group (``sizes`` in order) that
+    owns agents of the block ``rows`` (a global row slice; None = all
+    ``n_agents``): ``local`` its rows in the block, ``agents`` the same
+    rows as global agent indices."""
+    lo, hi = (0, n_agents) if rows is None else (rows.start, rows.stop)
+    out, start = [], 0
+    for g, size in enumerate(sizes):
+        a, b = max(start, lo), min(start + size, hi)
+        if a < b:
+            out.append((g, slice(a - lo, b - lo), slice(a, b)))
+        start += size
+    return out
+
+
+def other_rank_solver(x, v):
+    """The solver a sharded round's front end gives a group whose rows
+    other ranks hold: :func:`run_solvers` never calls it."""
+    raise RuntimeError("a solver group of another rank's rows was run")
+
+
+def _take_rows(tree: Any, rows: slice) -> Any:
+    return tree_map(lambda l: l[rows], tree)
+
+
 def run_solvers(local_solver: SolverAssignment, x: Any, v: Any,
-                n_agents: int) -> Tuple[Any, Any]:
-    """Run the round's solver on the reflected states (one solver, or a
-    single :class:`SolverGroup` covering every agent)."""
+                n_agents: int, mesh=None) -> Tuple[Any, Any]:
+    """Run the round's solver assignment on the reflected states.
+
+    One solver (or a single :class:`SolverGroup`) is called on the whole
+    stack, exactly as an ungrouped round.  Several groups partition the
+    agent axis contiguously: group ``g`` solves its rows, in group order,
+    and writes them into ONE output buffer shaped like ``x`` -- a solver
+    that takes ``out=`` (the core solvers: ``solver.takes_out``) writes
+    its iterate there directly, any other solver's rows are copied in and
+    freed -- so no concatenation holds a second state-sized buffer.
+    ``aux`` is the solver's own aux when there is one group, else the
+    tuple of the per-group auxes (None when every group returned None),
+    in group order.  Under a ``mesh`` ``x`` and ``v`` are this rank's row
+    block and only the groups that own its rows run (``aux`` then holds
+    theirs)."""
     if isinstance(local_solver, SolverGroup):
         local_solver = (local_solver,)
     if callable(local_solver):
@@ -739,10 +795,24 @@ def run_solvers(local_solver: SolverAssignment, x: Any, v: Any,
     if sum(g.size for g in groups) != n_agents:
         raise ValueError(f"solver groups cover {sum(g.size for g in groups)}"
                          f" agents, round has n_agents={n_agents}")
-    if len(groups) != 1:
-        raise ValueError("heterogeneous solver groups are not ported yet "
-                         "(later slice of the port)")
-    return groups[0].solver(x, v)
+    if len(groups) == 1:
+        return groups[0].solver(x, v)
+    rows = None if mesh is None else sharding.agent_rows(mesh, n_agents)
+    w = tree_map(torch.empty_like, x)
+    auxs = []
+    for g, local, _ in group_rows([grp.size for grp in groups], n_agents,
+                                  rows):
+        solver = groups[g].solver
+        out = _take_rows(w, local)
+        args = (_take_rows(x, local), _take_rows(v, local))
+        if getattr(solver, "takes_out", False):
+            _, aux = solver(*args, out=out)
+        else:
+            w_g, aux = solver(*args)
+            tree_map(lambda o, s: o.copy_(s), out, w_g)
+            del w_g
+        auxs.append(aux)
+    return w, (None if all(a is None for a in auxs) else tuple(auxs))
 
 
 def _round_rows(cfg: RoundConfig, mesh, u, corrupt, live, device,
@@ -769,11 +839,11 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     axis splits them, its columns -- and the rows stay global (mesh
     contract: module docstring)."""
     if mesh is not None:
-        validate_mesh(cfg, mesh, packed=True)
+        validate_mesh(cfg, mesh, packed=True, local_solver=local_solver)
     z_seen = t if cfg.compressed else z
     z_seen = robust_seen(cfg, z_seen, live, meta, mesh)
     y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h, mesh)
-    w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
+    w, aux = run_solvers(local_solver, x, v, cfg.n_agents, mesh)
     del v
     u, corrupt = _round_rows(cfg, mesh, u, corrupt, live, x.device,
                              generator)
@@ -805,11 +875,11 @@ def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
     ``mesh`` the trees hold this rank's row block, the ``(N,)`` rows stay
     global, and the result's ``u`` is this rank's block."""
     if mesh is not None:
-        validate_mesh(cfg, mesh)
+        validate_mesh(cfg, mesh, local_solver=local_solver)
     z_seen = t if cfg.compressed else z
     z_seen = robust_seen(cfg, z_seen, live, mesh=mesh)
     y, v = coordinator_edge(cfg, z, z_seen, prox_h, mesh)
-    w, aux = run_solvers(local_solver, x, v, cfg.n_agents)
+    w, aux = run_solvers(local_solver, x, v, cfg.n_agents, mesh)
     del v
     u, corrupt = _round_rows(cfg, mesh, u, corrupt, live,
                              pytree.tree_leaves(x)[0].device, generator)

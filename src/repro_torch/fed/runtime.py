@@ -36,6 +36,25 @@ axis divides both the state and the per-agent forward; a rank with an
 empty share contributes zeros.  The clip norm and the noise are over
 whole rows (:class:`repro_torch.core.solvers.StateBlock`).
 
+Heterogeneous agent groups (``spec.agent_groups``): each group gets its
+own solver (its ``SolverConfig`` from ``spec.group_solver_configs()``,
+its moduli from ``spec.moduli_for(gamma_g)``), whose gradient oracle
+takes the group's rows of the batch and writes its rows of the one
+gradient buffer; the engine runs the groups in order on their rows of the
+state (:func:`repro_torch.fed.engine.run_solvers`).  The ``loss`` metric
+is the mean of every group's last-epoch losses over the agents.  A
+one-group spec builds the ungrouped round (no slicing), with the group's
+knobs.  The draws of a round with two groups or more: an injected
+``noise(epoch, w)`` still returns the epoch's draw for the whole state
+(this rank's block), called once a group an epoch below the group's
+``N_e`` with the group's iterate ``w``, and each group keeps its rows;
+without it, when a group draws DP noise, the round first draws one seed
+from the generator and group g draws from its own generator seeded with
+``seed + g``, the noise of its agents in agent order, each rank keeping
+its rows -- so every rank draws alike (each runs only its own groups),
+no two agents share noise, and a sharded grouped run draws what the
+unsharded one draws.  The participation row follows, as always.
+
 Bounded-staleness async rounds (``async_mode="stale"``): the state also
 carries ``y_tag`` (shaped like ``x``, this rank's block under a mesh) and
 the ``(A,)`` int32 ``staleness`` counters, and the step dispatches to
@@ -180,34 +199,63 @@ def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
     return fgrad
 
 
+def _group_generators(generator, n_groups: int):
+    """One generator a group, seeded ``seed + g`` from one seed drawn from
+    ``generator`` (None without one: the groups then share torch's global
+    generator)."""
+    if generator is None:
+        return [None] * n_groups
+    seed = int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                             device=generator.device))
+    return [torch.Generator(device=generator.device).manual_seed(seed + g)
+            for g in range(n_groups)]
+
+
 def make_train_step(model, spec, mesh=None):
     """Returns ``step(state, batch, *, generator=None, u=None,
     noise=None, corrupt=None, live=None, arrival=None) -> (state,
     metrics)``.  ``batch`` leaves carry a leading agent axis (tokens
     ``(A, b, S)``); ``u`` replays an ``(A,)`` participation row;
-    ``noise(epoch, w)`` overrides the noisy_gd draw; ``corrupt`` (``(A,)``
-    or ``(A, 2)``) and ``live`` (``(A,)``) are fault rows
-    (:func:`repro_torch.fed.engine.round_step`).  Under async rounds
-    ``arrival`` (or ``u``: the same row) replaces the arrival draw; a
-    synchronous spec refuses ``arrival``.  Under a ``mesh`` the batch and
-    the rows are global (all A agents) and the state is this rank's row
-    block."""
+    ``noise(epoch, w)`` overrides the noisy_gd draw (with groups: module
+    docstring); ``corrupt`` (``(A,)`` or ``(A, 2)``) and ``live``
+    (``(A,)``) are fault rows (:func:`repro_torch.fed.engine.round_step`).
+    Under async rounds ``arrival`` (or ``u``: the same row) replaces the
+    arrival draw; a synchronous spec refuses ``arrival``.  Under a
+    ``mesh`` the batch and the rows are global (all A agents) and the
+    state is this rank's row block."""
     spec = spec.validate()
-    scfg = spec.solver_config()
     rcfg = spec.round_config()
     prox_h = spec.resolve_prox_h()
-    mu, L = spec.moduli()
+    N = spec.n_agents
     meta = packed_layout(model, spec) if spec.state_layout == "packed" \
         else None
-    # every rank draws all N agents' noise and keeps its block's
-    block = None
-    if mesh is not None:
-        block = StateBlock(sharding.agent_rows(mesh, spec.n_agents),
-                           spec.n_agents)
-        if meta is not None and sharding.cols_split(mesh, meta.width):
-            block = block._replace(
-                cols=sharding.model_cols(mesh, meta.width), width=meta.width,
-                row_sum=lambda t: sharding.model_sum(t, mesh))
+    # (size, SolverConfig) a group: the spec's one solver when ungrouped
+    groups = spec.resolved_groups()
+    if groups is None:
+        groups = ((N, spec.solver_config()),)
+    else:
+        groups = tuple((g.size, c) for g, c in
+                       zip(groups, spec.group_solver_configs()))
+    noisy = any(c.name == "noisy_gd" for _, c in groups)
+    block_rows = None if mesh is None else sharding.agent_rows(mesh, N)
+    owned = engine.group_rows([size for size, _ in groups], N, block_rows)
+    cols = None
+    if meta is not None and mesh is not None and sharding.cols_split(
+            mesh, meta.width):
+        cols = dict(cols=sharding.model_cols(mesh, meta.width),
+                    width=meta.width,
+                    row_sum=lambda t: sharding.model_sum(t, mesh))
+    starts = [sum(size for size, _ in groups[:g]) for g in range(len(groups))]
+
+    def block_of(g, agents):
+        """Group ``g``'s ``StateBlock``: the agents this rank holds of the
+        group's own rows, every one of which the group's draws cover in
+        agent order (None unsharded)."""
+        if mesh is None:
+            return None
+        lo = starts[g]
+        return StateBlock(slice(agents.start - lo, agents.stop - lo),
+                          groups[g][0], **(cols or {}))
 
     stale = rcfg.staleness.enabled
 
@@ -222,15 +270,43 @@ def make_train_step(model, spec, mesh=None):
         batch = sharding.fed_batch_specs(batch, mesh, spec.n_agents)
         # padding columns of a packed gradient stay zero
         g = tree_map(torch.zeros_like, state.x)
-        fgrad = _gradient_oracle(model, batch, g, meta, mesh)
-        kw = dict(use_fused=spec.use_fused_update, has_aux=True,
-                  generator=generator, noise=noise, block=block)
+        gens = [generator]
+        if len(groups) > 1 and noisy and noise is None:
+            gens = _group_generators(generator, len(groups))
+
+        def solver_of(g_idx, local, agents):
+            size, scfg = groups[g_idx]
+            whole = len(groups) == 1
+            fgrad = _gradient_oracle(
+                model, batch if whole else {k: b[local] for k, b in
+                                            batch.items()},
+                g if whole else tree_map(lambda l: l[local], g), meta, mesh)
+            noise_g = noise
+            if noise is not None and not whole:
+                noise_g = (lambda e, w, local=local: tree_map(
+                    lambda l: l[local], noise(e, w)))
+            mu, L = spec.moduli_for(scfg.step_size)
+            kw = dict(use_fused=spec.use_fused_update, has_aux=True,
+                      generator=gens[g_idx if len(gens) > 1 else 0],
+                      noise=noise_g, block=block_of(g_idx, agents))
+            if meta is not None:
+                return make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
+                                                meta=meta, **kw)
+            return make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
+
+        if len(groups) == 1:
+            solver = solver_of(0, slice(None), block_rows or slice(0, N))
+        else:
+            built = {g_idx: solver_of(g_idx, local, agents)
+                     for g_idx, local, agents in owned}
+            solver = tuple(
+                engine.SolverGroup(size, built.get(
+                    g_idx, engine.other_rank_solver))
+                for g_idx, (size, _) in enumerate(groups))
         t = state.t if rcfg.compressed else state.z
         rows = dict(generator=generator, corrupt=corrupt, live=live,
                     mesh=mesh)
         if meta is not None:
-            solver = make_packed_local_solver(scfg, fgrad, spec.rho, mu, L,
-                                              meta=meta, **kw)
             if stale:
                 res = async_engine.packed_async_round_step(
                     rcfg, meta, state.x, state.z, t, state.y_tag,
@@ -240,7 +316,6 @@ def make_train_step(model, spec, mesh=None):
                 res = engine.packed_round_step(rcfg, meta, state.x, state.z,
                                                t, solver, prox_h, u=u, **rows)
         else:
-            solver = make_local_solver(scfg, fgrad, spec.rho, mu, L, **kw)
             if stale:
                 res = async_engine.async_round_step(
                     rcfg, state.x, state.z, t, state.y_tag, state.staleness,
@@ -250,9 +325,8 @@ def make_train_step(model, spec, mesh=None):
                 res = engine.round_step(rcfg, state.x, state.z, t, solver,
                                         prox_h, u=u, **rows)
         metrics = {
-            "loss": (sharding.agent_mean(res.aux[-1], mesh, spec.n_agents)
-                     if res.aux is not None
-                     else torch.tensor(float("nan"))),
+            "loss": _loss_metric(res.aux, len(groups), mesh, spec.n_agents,
+                                 res.u.device),
             "participation": sharding.agent_mean(res.u, mesh,
                                                  spec.n_agents),
         }
@@ -269,6 +343,29 @@ def make_train_step(model, spec, mesh=None):
         return new, metrics
 
     return train_step
+
+
+def _loss_metric(aux, n_groups: int, mesh, n_agents: int,
+                 device) -> torch.Tensor:
+    """The mean of the agents' last-epoch losses: the solver's ``(N_e,
+    A)`` stack, or with several groups the tuple of theirs (epochs may
+    differ); a group whose solver reports no aux drops out of the mean
+    (NaN when nobody reports).  Under a ``mesh`` the mean is over every
+    rank's agents."""
+    if n_groups == 1:
+        if aux is None:
+            return torch.tensor(float("nan"))
+        return sharding.agent_mean(aux[-1], mesh, n_agents)
+    lasts = [a[-1] for a in (aux or ()) if a is not None]
+    if mesh is None:
+        return (torch.mean(torch.cat(lasts)) if lasts
+                else torch.tensor(float("nan")))
+    tot = torch.zeros(2, device=device)
+    if lasts:
+        tot[0] = torch.cat(lasts).sum()
+        tot[1] = float(sum(l.numel() for l in lasts))
+    sharding.agent_sum(tot, mesh)
+    return tot[0] / tot[1]
 
 
 def consensus_model(state: FedState, meta=None, mesh=None,

@@ -5,7 +5,11 @@ A name maps to a factory ``(scfg, fgrad, rho, mu, L, *, use_fused,
 has_aux, generator, noise, block) -> solver`` and the solver maps
 the stacked states ``(x, v) -> (w, aux)``, warm-started at ``x``.  The core solvers
 gd / agd / sgd / noisy_gd are served by
-:func:`repro_torch.core.solvers.local_train`.
+:func:`repro_torch.core.solvers.local_train`; they also take ``out=`` (a
+buffer shaped like ``x`` that holds the iterate: a group's rows of a
+grouped round's output) and say so with ``solver.takes_out``.  In a
+grouped round (:func:`repro_torch.fed.engine.run_solvers`) each group has
+its own solver, built with its ``SolverConfig``, moduli and oracle.
 
 Packed layout: the reference runs gd / agd / sgd directly on the
 ``(N, width)`` buffer and unpacks around the tree solver for noisy_gd and
@@ -79,13 +83,15 @@ def _core_local_train(scfg, fgrad, rho, mu, L, *, use_fused, has_aux,
                       generator, noise, block):
     from repro_torch.core.solvers import local_train
 
-    def solver(x, v):
-        out = local_train(fgrad, x, v, rho, scfg, mu, L, batched=True,
+    def solver(x, v, out=None):
+        res = local_train(fgrad, x, v, rho, scfg, mu, L, batched=True,
                           has_aux=has_aux, use_fused=use_fused,
                           generator=generator, noise=noise,
-                          block=block)
-        return out if has_aux else (out, None)
+                          block=block, out=out)
+        return res if has_aux else (res, None)
 
+    # a grouped round hands the solver its rows of the output buffer
+    solver.takes_out = True
     return solver
 
 

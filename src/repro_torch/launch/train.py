@@ -22,6 +22,16 @@ resumes from the checkpoint rank 0 finds, keeping its own block; a
 sharded run resumes from an unsharded run's checkpoint and the other way
 round.
 
+Heterogeneous agent groups (``--agent-groups``, the grammar
+``SIZE[*SOLVER][:key=value]...``; each group its own solver, epochs, step
+size and participation): with ``--tau > 0`` the privacy line is followed
+by the per-agent (eps_i, delta) table.  ``--problem logreg`` takes them
+too:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-2b \\
+      --smoke --steps 3 --agent-groups '2*gd,2*agd:n_epochs=1' --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --problem logreg \\
+      --steps 20 --agent-groups '50*gd,50*agd' --device cpu
+
 Bounded-staleness async rounds (``--async-mode stale --max-staleness
 K``): each round line also prints ``stale=`` (the mean staleness), the
 realised arrival rows are collected (and restored on ``--resume``), and
@@ -118,8 +128,9 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             resume=False, log=print):
     """``steps`` Fed-PLT rounds of ``cfg`` under ``spec`` on synthetic
     per-agent batches; logs one line per round (and the privacy position
-    first when ``tau > 0``; under async rounds the effective per-agent
-    table last).  With ``checkpoint_every`` the round state goes to
+    first when ``tau > 0``, followed by the per-agent table under agent
+    groups; under async rounds the effective per-agent table last).
+    With ``checkpoint_every`` the round state goes to
     ``<checkpoint>/rounds/step-NNNNNN`` every that many rounds; ``resume``
     continues from the latest of them (module docstring).  Returns
     ``(trainer, state, history)``, the history of the rounds run here
@@ -137,6 +148,13 @@ def run_fed(cfg: ModelConfig, spec: api.FedSpec, *, steps: int,
             f" over K={rep.K} rounds x N_e={rep.n_epochs};"
             f" ceiling as K*Ne->inf: eps={rep.eps_ceiling:.3f}"
             f" at Renyi order {rep.rdp_order:.1f}{caveat}")
+        if rep.per_agent:
+            # agent groups: the headline eps above is the max over this
+            # per-agent (eps_i, delta) table (Prop. 4)
+            for a in rep.per_agent:
+                log(f"  agent {a.agent:3d}: q_i={a.q} N_e={a.n_epochs} "
+                    f"gamma={a.gamma:.4g} eps_i={a.adp_eps:.3f} "
+                    f"(ceiling {a.eps_ceiling:.3f})")
     state, gen = trainer.init(seed)
     start = 0
     stale = spec.staleness_config().enabled

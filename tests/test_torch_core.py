@@ -195,13 +195,12 @@ def test_fedspec_defaults_and_cli_match_reference():
 
 @pytest.mark.parametrize("kw,slice_name", [
     (dict(state_layout="tree", mesh_shape="1x2"), "tensor-parallel"),
-    # async rounds are ported (tests/test_torch_async.py); with agent
-    # groups or the tree layout under a model axis they still raise
-    (dict(async_mode="stale", agent_groups="2*gd,2*agd"), "groups"),
+    # async rounds and agent groups are ported (tests/test_torch_async.py,
+    # tests/test_torch_groups.py); the tree layout under a model axis
+    # still raises, async or not
     (dict(async_mode="stale", max_staleness=2, state_layout="tree",
           mesh_shape="1x2"), "tensor-parallel"),
     (dict(state_layout="tree", mesh_shape="2x2"), "tensor-parallel"),
-    (dict(agent_groups="2*gd,2*agd"), "groups"),
     (dict(state_layout="tree", agent_shards=2, mesh_shape="2x2"),
      "tensor-parallel"),
 ])

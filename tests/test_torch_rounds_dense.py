@@ -249,10 +249,6 @@ def test_fedplt_config_round_trips_through_the_spec(problems):
     # a model axis is what still raises
     pytest.param(dict(state_layout="tree", mesh_shape="1x2"),
                  "tensor-parallel model axis", id="kw0-dense mesh"),
-    (dict(agent_groups="4*gd,4*agd"), "groups"),
-    # async rounds run (tests/test_torch_async.py); with groups they raise
-    (dict(async_mode="stale", max_staleness=1, agent_groups="4*gd,4*agd"),
-     "groups"),
 ])
 def test_unported_dense_options_raise_naming_the_slice(problems, kw,
                                                        slice_name):

@@ -18,7 +18,8 @@ the torch backend; 2 ranks, topk compression; 2 ranks, ``trimmed_mean``
 f = 1 with guards, agent 1 sign-flipped and agent 3 -- on the other rank
 -- evicted (the all-gather of the row blocks, and the global ``n_live``);
 2 ranks, tree layout (torch backend, one all-reduce per leaf); 2 ranks,
-DP noisy GD (tau 0.05, clip 1).  Rounds draw their participation
+DP noisy GD (tau 0.05, clip 1); 2 ranks, agent groups (one a rank, with
+their own participation, epochs and step size) under DP noise.  Rounds draw their participation
 (p = 0.7) from each rank's generator: the ranks draw the same global row
 as the unsharded run, and each rank draws all N agents' DP noise and
 keeps its own rows, so every agent's noise is the unsharded run's (two
@@ -106,6 +107,13 @@ CASES = {
     "2x4-tree": (2, 4, dict(state_layout="tree"), {}),
     "2x4-noisy-gd": (2, 4, dict(state_layout="packed", privacy=(0.05, 1.0),
                                 **FUSED), {}),
+    # agent groups, one a rank: per-group participation and step size,
+    # each group's DP noise from its own generator (a seed drawn from the
+    # round's generator on every rank)
+    "2x4-groups-noisy": (2, 4, dict(
+        state_layout="packed", privacy=(0.05, 1.0),
+        agent_groups="2*gd:participation=0.5,2*gd:n_epochs=1:gamma=0.02",
+        **FUSED), {}),
 }
 # the model axis: packed, from the reference's parameters, participation 1
 # (the spec's mesh_shape; "ref" marks the cases that share the reference's
