@@ -32,7 +32,8 @@ last line):
    before and read just after: uplink=3, downlink=3, fedplt_update=6,
    flash_attention_fwd=48, flash_attention_bwd=48.
    Then one more round under ``torch.profiler``: device time by kernel
-   group and the device's idle share.
+   group and the device's idle share; then phase 22b's report on the same
+   trainer.
 5. DP path: one round with tau=0.01, clip=1.0 (the noise variant of the
    update kernel) and its privacy line.
 6. Compressed main path: phase 4's spec with the topk z-uplink (ratio
@@ -379,6 +380,36 @@ last line):
    card and the CPU, states 1e-5; DP groups ``50*gd,50*gd:n_epochs=2``
    (tau 0.05, given noise), 100 rounds: states 1e-5 and the per-agent
    privacy tables equal.
+22. The analysis tools (no new kernel: ``repro_torch.launch.dryrun``,
+   ``roofline`` and ``profile_analysis``).  22a: the dry run over every
+   architecture x shape x mesh (1x1, 1x2, 2x1) on the meta device, one
+   line a case, no case FAILED; one round each of falcon-mamba-7b (2
+   layers) and qwen2-moe-a2.7b (1 layer), tree layout, phase 4's spec,
+   under ``torch.cuda.memory._record_memory_history``: the measured peak
+   (``max_memory_allocated``), the 5 largest buffers live at the traced
+   peak by their allocation site in the port, and the dry run's resident
+   ``x + z`` and inputs under that peak; then, at N 4, how many layers of
+   gemma3-12b, nemotron-4-340b, qwen2-moe-a2.7b and internvl2-26b the dry
+   run puts under 80 GB by resident bytes and by resident bytes scaled by
+   gemma2-2b's measured peak-to-state ratio (phase 4's peak over its
+   resident x + z).  22b (on phase 4's trainer, after its profiled
+   round): one steady round counted by ``profile_analysis.count`` --
+   FLOPs (aten ops through ``FlopCounterMode`` and the kernels' own
+   counts), HBM bytes, launches, which must equal
+   ``kernels.launch_counts()`` (flash 16 / 16, fedplt_update 2, uplink 1,
+   downlink 1) -- the H100 roofline of the counts (compute, memory,
+   collective and the bottleneck), ``useful_ratio``, and the MFU of the
+   model FLOPs (6 N D times N_e) over the median wall time of 3 uncounted
+   rounds; the top kernels by least time.  22c: falcon-mamba-7b at
+   published width, 2 layers, bf16, tree layout, N 4, one round under
+   ``mesh_shape="1x2"`` on two gloo ranks spawned on the card (each leaf's
+   tensor-parallel block, lru_scan 16 / 16 and fedplt_update 24 a rank)
+   against the 1x1 round in this process: every gathered leaf's increment
+   over the round (``x - x0``, ``z - x0``) within ``TREE_INC`` of the 1x1
+   run's in norm, the losses within ``TREE_LOSS`` relative, a replicated
+   leaf equal on both ranks; each rank's state bytes, seconds and peak
+   beside the 1x1 run's; then reduced qwen2-moe-a2.7b (float32, its 4
+   experts on the model axis) the same way.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -422,7 +453,10 @@ time) and runs the 64-layer memory probe, as one JSON line; and
 compare two trees on one card.  ``--train-serve`` runs phases 15-17
 alone, ``--moe`` phase 18 (with phase 16's MoE case), ``--encdec`` phase
 19 (with phase 16's mesh case), ``--async`` phase 20, ``--groups`` phase
-21 (after one profiled round of phase 4, which 21b is shown beside).
+21 (after one profiled round of phase 4, which 21b is shown beside),
+``--analysis`` phase 22 (after one profiled round of phase 4, whose
+trainer 22b reports on).  Under ``--src`` the peaks, bounds and
+profile grouping stay this checkout's (:func:`use_tree`).
 """
 
 from __future__ import annotations
@@ -443,7 +477,6 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FULL_N, FULL_M = 4, 745_549_056
 N_EPOCHS, N_LAYERS = 2, 2           # the full-width trainer's N_e and depth
 SLAB = 1 << 26                      # columns per slab of the plain versions
-FP32_PEAK = 67e12                   # H100 SXM float32 (non-tensor) FLOP/s
 
 
 def log(*a):
@@ -461,17 +494,35 @@ def short_kernel_name(mangled: str) -> str:
     return re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+", "", mangled)[:72]
 
 
+SHARED_TOOLS = ("repro_torch.kernels.costs", "repro_torch.launch.roofline",
+                "repro_torch.launch.profile_analysis")
+
+
+def use_tree(src: str):
+    """``--src DIR``: take every ``repro_torch`` module from ``DIR`` except
+    :data:`SHARED_TOOLS` (the peaks, bounds, counts and profile grouping),
+    which stay this checkout's: so two trees are timed against one formula,
+    and a tree from before those modules existed can be timed too."""
+    import importlib
+
+    for name in SHARED_TOOLS:
+        importlib.import_module(name)
+    for name in [m for m in sys.modules if m.split(".")[0] == "repro_torch"
+                 and m not in SHARED_TOOLS]:
+        del sys.modules[name]
+    sys.path.insert(0, src)
+
+
 def card_bandwidth(name: str) -> float:
-    """Data-sheet memory rate (bytes/s) of the named card."""
-    if "H100" not in name and "H200" not in name:
-        fail(f"no data-sheet bandwidth known for {name!r}")
-    if "H200" in name:
-        return 4.8e12
-    if "PCIe" in name:
-        return 2.0e12
-    if "NVL" in name:
-        return 3.9e12
-    return 3.35e12
+    """Data-sheet memory rate (bytes/s) of the named card
+    (:func:`repro_torch.launch.roofline.card_bandwidth`; fails for a card
+    it does not know)."""
+    from repro_torch.launch import roofline
+
+    try:
+        return roofline.card_bandwidth(name)
+    except ValueError as e:
+        fail(str(e))
 
 
 def cuda_ms(torch, fn, reps=7):
@@ -604,6 +655,8 @@ def slabbed(fn, outs, *ins):
 def full_shape(torch, bw):
     """Every kernel at the trainer's full shape, against its slabbed plain
     version; returns ``{name: record}`` (and prints one line each)."""
+    from repro_torch.kernels import costs
+    from repro_torch.launch.roofline import bound as kernel_bound
     from repro_torch.core.prox import make_prox
     from repro_torch.kernels.fedplt_update import ops as update_ops
     from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
@@ -620,10 +673,10 @@ def full_shape(torch, bw):
                            dtype=torch.bfloat16)
 
     def record(name, bytes_, flops, ms, plain_ms, err):
-        bound = max(bytes_ / bw, flops / FP32_PEAK) * 1e3
+        bd = kernel_bound(bw, bytes_, flops)
+        bound = bd["bound_ms"]
         rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
-                   else "operations", max_abs_err=err)
+                   bound_by=bd["bound_by"], max_abs_err=err)
         log(f"phase 2 full shape: {name} ({N}x{M} bf16) max_abs_err={err} "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound:.3f} ms ({bytes_ / 1e9:.2f} GB), "
@@ -644,10 +697,9 @@ def full_shape(torch, bw):
         ms = cuda_ms(torch, lambda: edge_ops.round_uplink(z, t, prox=prox,
                                                           rho_eff=rho))
         pms = cuda_ms(torch, plain, reps=5)
-        reads = N * M * (2 if lagged else 1)
         name = "round_uplink" + ("[lagged]" if lagged else "")
-        recs[name] = record(name, (reads + N * M + M) * s, 3 * N * M + 6 * M,
-                            ms, pms, err)
+        flops, nbytes = costs.round_uplink(N, M, s, lagged)
+        recs[name] = record(name, nbytes, flops, ms, pms, err)
         del z, t, y, v, py, pv
         torch.cuda.empty_cache()
 
@@ -667,10 +719,9 @@ def full_shape(torch, bw):
         ms = cuda_ms(torch, lambda: edge_ops.round_downlink(
             x, w, z, u, t, prox=prox, rho_eff=rho, damping=1.0))
         pms = cuda_ms(torch, plain, reps=5)
-        reads = 3 * N * M + (N * M if lagged else 0)
         name = "round_downlink" + ("[lagged]" if lagged else "")
-        recs[name] = record(name, (reads + 2 * N * M) * s + 4 * N,
-                            4 * N * M + N * M + 6 * M, ms, pms, err)
+        flops, nbytes = costs.round_downlink(N, M, s, lagged)
+        recs[name] = record(name, nbytes, flops, ms, pms, err)
         del x, w, z, t, px, pz
         torch.cuda.empty_cache()
 
@@ -686,10 +737,9 @@ def full_shape(torch, bw):
         ms = cuda_ms(torch, lambda: update_ops.fedplt_update(
             w, g, v, t, gamma=0.05, inv_rho=1.0, out=out))
         pms = cuda_ms(torch, plain, reps=5)
-        n_in = 4 if noise else 3
         name = "fedplt_update" + ("[noise]" if noise else "")
-        recs[name] = record(name, (n_in + 1) * N * M * s,
-                            (5 + int(noise)) * N * M, ms, pms, err)
+        flops, nbytes = costs.fedplt_update(N * M, s, noise)
+        recs[name] = record(name, nbytes, flops, ms, pms, err)
         del w, g, v, t, out, pout
         torch.cuda.empty_cache()
     return recs
@@ -829,6 +879,9 @@ def compress_full_shape(torch, bw):
     """Both compress kernels at the trainer's full shape and packed
     segments against their plain versions run row by row; returns
     ``{name: record}``."""
+    from repro_torch.kernels import costs
+    from repro_torch.launch.profile_analysis import (INT8_STAGES,
+                                                     RANK_SELECT_STAGES)
     from repro_torch.configs import get_config
     from repro_torch.fed import runtime
     from repro_torch.fed.api import FedSpec
@@ -845,7 +898,7 @@ def compress_full_shape(torch, bw):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn((N, M), generator=gen, device=dev, dtype=torch.bfloat16)
-    bytes_ = 2 * N * M * 2                 # read x once, write q once
+    bytes_ = costs.compress_rows(N, M, 2)[1]     # read x, write q
     bound = bytes_ / bw * 1e3
     log(f"phase 2 full shape: {len(segs)} packed segments, largest "
         f"{max(b - a for a, b in segs):,} columns")
@@ -1075,6 +1128,8 @@ def robust_small_checks(torch):
 def robust_full_shape(torch, bw):
     """sort_aggregate at the trainer's full shape against its slabbed
     plain version; returns ``{name: record}``."""
+    from repro_torch.kernels import costs
+    from repro_torch.launch.roofline import bound as kernel_bound
     from repro_torch.kernels.robust_agg import ops as rops
     from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
 
@@ -1096,14 +1151,13 @@ def robust_full_shape(torch, bw):
     del want
     torch.cuda.empty_cache()
     sort_ms = cuda_ms(torch, lambda: torch.sort(x, dim=0), reps=3)
-    bytes_ = (N * M + M) * 2
-    # per column: 6 compare-exchanges (2 ops each) of the 4-key bitonic
-    # network, 4 selects, 3 adds and a multiply
-    ops = M * (2 * 6 + 4 + 3 + 1)
-    bound = max(bytes_ / bw, ops / FP32_PEAK) * 1e3
+    # per column at N 4: 6 compare-exchanges (2 ops each) of the 4-key
+    # bitonic network, 4 selects, 3 adds and a multiply
+    ops, bytes_ = costs.sort_aggregate(N, M, 2, x.dtype)
+    bd = kernel_bound(bw, bytes_, ops)
+    bound = bd["bound_ms"]
     rec = dict(bytes=bytes_, ms=ms, plain_ms=pms, bound_ms=bound,
-               bound_by="bytes" if bytes_ / bw >= ops / FP32_PEAK
-               else "operations", max_abs_err=0.0,   # bit-equal
+               bound_by=bd["bound_by"], max_abs_err=0.0,   # bit-equal
                library_ms=None, sort_yardstick_ms=sort_ms)
     log(f"phase 2 full shape: sort_aggregate trimmed_mean f=1 ({N}x{M} "
         f"bf16) bit-equal to the plain version; kernel {ms:.3f} ms, plain "
@@ -1207,42 +1261,6 @@ def small_input_parity(torch):
         f"{err:.3g} (tolerance 1e-4)")
 
 
-def _kernel_group(name: str) -> str:
-    low = name.lower()
-    if "flash_fwd_kernel" in name or "flash_bwd_" in name:
-        return "flash_attention"
-    if "lru_fwd_kernel" in name or "lru_bwd_kernel" in name:
-        return "lru_scan"
-    if any(k in name for k in ("ssm_fwd_kernel", "ssm_bwd_kernel",
-                               "ssm_reduce_kernel")):
-        return "ssm_scan"
-    if "partial_sum_kernel" in name:
-        return "round_uplink_partial"
-    if "downlink_presummed_kernel" in name:
-        return "round_downlink_presummed"
-    if "uplink_kernel" in name:
-        return "round_uplink"
-    if "downlink_kernel" in name:
-        return "round_downlink"
-    if "update_kernel" in name:
-        return "fedplt_update"
-    if any(k in name for names in RANK_SELECT_STAGES.values()
-           for k in names):
-        return "rank_select"
-    if "absmax_kernel" in name or "quantize_kernel" in name:
-        return "int8_quantize"
-    if "sort_aggregate_" in name:     # every route's kernel
-        return "sort_aggregate"
-    if any(k in name for names in SEGMENT_RANKS_STAGES.values()
-           for k in names):
-        return "segment_ranks"
-    if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
-        return "matmul"
-    if any(k in low for k in ("copy", "memcpy", "fill", "memset")):
-        return "copy/fill"
-    return "other elementwise/reduction"
-
-
 def attention_calls(cfg, seq):
     """The flash calls of one agent's forward at ``seq`` tokens, as
     ``(S, T, causal)``: a self-attention layer over the sequence (a local
@@ -1263,6 +1281,10 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
     """One more main-path round under torch.profiler: device time by
     kernel group, the top kernels, and the device's idle share of the
     round's wall time (one stream, so kernel times do not overlap)."""
+    from repro_torch.launch.profile_analysis import kernel_group
+    from repro_torch.launch.profile_analysis import profile as profile_groups
+    from repro_torch.launch.roofline import (flash_bounds, lru_bounds,
+                                             ssm_bounds)
     from repro_torch import kernels
     from repro_torch.configs.base import InputShape
     from repro_torch.data.synthetic import make_batch_for
@@ -1278,11 +1300,11 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
         float(m["loss"])
         torch.cuda.synchronize()
 
-    wall_ms, groups, kernels_ms = _profile(torch, one_round)
+    wall_ms, groups, kernels_ms = profile_groups(one_round)
     busy = sum(groups.values())
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     compress_ms = {k: v for k, v in kernels_ms.items()
-                   if _kernel_group(k) in ("rank_select", "int8_quantize",
+                   if kernel_group(k) in ("rank_select", "int8_quantize",
                                            "sort_aggregate")}
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1.0 - busy / wall_ms) if busy else None,
@@ -1292,7 +1314,7 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
     counts = kernels.launch_counts()
     bw = card_bandwidth(torch.cuda.get_device_name(0))
     flash_ms = {k: v for k, v in kernels_ms.items()
-                if _kernel_group(k) == "flash_attention"}
+                if kernel_group(k) == "flash_attention"}
     if flash_ms:
         rec["flash_kernels_ms"] = flash_ms
         # this round's flash time against its bound: the bounds of one
@@ -1310,7 +1332,7 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
             rec[f"flash_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
                                         share_of_bound=bound / ms if ms else None)
     lru_ms = {k: v for k, v in kernels_ms.items()
-              if _kernel_group(k) == "lru_scan"}
+              if kernel_group(k) == "lru_scan"}
     if lru_ms:
         # every scan layer of the model has the same width
         bounds = lru_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ,
@@ -1322,7 +1344,7 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
             rec[f"lru_scan_{name}"] = dict(launches=n, ms=ms, bound_ms=bound,
                                            share_of_bound=bound / ms if ms else None)
     ssm_ms = {k: v for k, v in kernels_ms.items()
-              if _kernel_group(k) == "ssm_scan"}
+              if kernel_group(k) == "ssm_scan"}
     if ssm_ms:
         bounds = ssm_bounds(bw, MAIN_BATCH // FULL_N, MAIN_SEQ, cfg.d_inner,
                             cfg.ssm_state, 2)
@@ -1669,6 +1691,8 @@ def sharded_small_checks(torch):
 def sharded_full_shape(torch, bw):
     """Both sharded kernels at the trainer's full shape against their
     slabbed plain versions; returns ``{name: record}``."""
+    from repro_torch.kernels import costs
+    from repro_torch.launch.roofline import bound as kernel_bound
     from repro_torch.kernels.round_edge import ops as edge_ops
     from repro_torch.kernels.round_edge import ref as edge_ref
 
@@ -1681,10 +1705,10 @@ def sharded_full_shape(torch, bw):
                            dtype=torch.bfloat16)
 
     def record(name, bytes_, flops, ms, plain_ms, lib_ms):
-        bound = max(bytes_ / bw, flops / FP32_PEAK) * 1e3
+        bd = kernel_bound(bw, bytes_, flops)
+        bound = bd["bound_ms"]
         rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
-                   else "operations", max_abs_err=0.0,   # bit-equal
+                   bound_by=bd["bound_by"], max_abs_err=0.0,   # bit-equal
                    library_ms=lib_ms)
         log(f"phase 8a full shape: {name} ({N}x{M} bf16) bit-equal to the "
             f"plain version; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1704,8 +1728,9 @@ def sharded_full_shape(torch, bw):
     ms = cuda_ms(torch, lambda: edge_ops.round_uplink_partial(z))
     pms = cuda_ms(torch, plain, reps=5)
     lib_ms = cuda_ms(torch, lambda: torch.sum(z, dim=0, keepdim=True))
+    flops, nbytes = costs.round_uplink_partial(N, M, sz)
     recs["round_uplink_partial"] = record(
-        "round_uplink_partial", (N * M + M) * sz, N * M, ms, pms, lib_ms)
+        "round_uplink_partial", nbytes, flops, ms, pms, lib_ms)
     del z, ps
     torch.cuda.empty_cache()
 
@@ -1723,9 +1748,9 @@ def sharded_full_shape(torch, bw):
     ms = cuda_ms(torch, lambda: edge_ops.round_downlink_presummed(
         x, w, z, y, u, damping=1.0))
     pms = cuda_ms(torch, plain, reps=5)
+    flops, nbytes = costs.round_downlink_presummed(N, M, sz)
     recs["round_downlink_presummed"] = record(
-        "round_downlink_presummed", (5 * N * M + M) * sz + 4 * N,
-        3 * N * M, ms, pms, None)
+        "round_downlink_presummed", nbytes, flops, ms, pms, None)
     del x, w, z, y, s, px, pz
     torch.cuda.empty_cache()
     return recs
@@ -1975,7 +2000,6 @@ def sharded_robust_round(torch, base):
 # Phase 9: flash attention, forward and backward
 # ---------------------------------------------------------------------------
 
-BF16_PEAK = 989e12                  # H100 SXM bf16 tensor-core FLOP/s, dense
 FLASH_FULL = dict(B=1, S=8192, H=8, Hkv=4, D=256)   # gemma2-2b at 8192 tokens
 FLASH_CAP, FLASH_WINDOW = 50.0, 4096
 # (H, Hkv, D, window) of phi4-mini-3.8b, nemotron-4-340b (and MQA at its
@@ -2156,44 +2180,6 @@ def flash_small_checks(torch):
         f"also launched from a fresh thread, bit-equal")
 
 
-def visible_pairs(S, T, causal, window):
-    """The (query, key) pairs that the masks let through."""
-    total = 0
-    for qpos in range(S):
-        lo = 0 if window is None else max(0, qpos - window + 1)
-        hi = min(T - 1, qpos) if causal else T - 1
-        total += max(0, hi - lo + 1)
-    return total
-
-
-def flash_bounds(bw, B, S, H, Hkv, D, causal, window, T=None):
-    """The least time of the bf16 flash forward and backward at a shape
-    (``T`` keys, ``S`` by default): the larger of the bytes (q, k, v, o,
-    and dO, dq, dk, dv, once each, with the float32 lse) over the memory
-    rate and the operations as the tensor-core kernels run them, all at
-    the bf16 tensor-core peak: q k^T and dO v^T (two bf16 operands) once
-    each, and p v, p^T dO, ds^T q and ds k once per bf16 term of their
-    float32 p or ds (NSPLIT terms)."""
-    from repro_torch.kernels.flash_attention.kernel import NSPLIT
-
-    T = S if T is None else T
-    pairs = B * H * visible_pairs(S, T, causal, window)
-    q_elts, kv_elts, lse_bytes = B * S * H * D, B * T * Hkv * D, B * H * S * 4
-    out = {"pairs": pairs}
-    for name, f_bf16, f_split, bytes_ in (
-            ("fwd", 2 * D * pairs, NSPLIT * 2 * D * pairs,
-             (2 * q_elts + 2 * kv_elts) * 2 + lse_bytes),
-            ("bwd", 4 * D * pairs, NSPLIT * 6 * D * pairs,
-             (4 * q_elts + 4 * kv_elts) * 2 + lse_bytes)):
-        ops_s = (f_bf16 + f_split) / BF16_PEAK
-        out[name] = dict(
-            bound_ms=max(bytes_ / bw, ops_s) * 1e3,
-            bound_by="bytes" if bytes_ / bw >= ops_s else "operations",
-            flops_bf16=f_bf16, flops_split=f_split, nsplit=NSPLIT,
-            bytes=bytes_)
-    return out
-
-
 def _plain_by_head(fn, q, k, v, *rest, **kw):
     """A plain flash function run one query head at a time (bounded
     float32 scores); returns the per-head outputs stacked on the head
@@ -2243,6 +2229,7 @@ def flash_full_shape(torch, bw):
     forward and backward, against their plain versions run head by head,
     timed beside the bounds and the yardsticks; then the same forward and
     backward twice, bit for bit.  Returns ``{kind: record}``."""
+    from repro_torch.launch.roofline import BF16_PEAK, flash_bounds
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import attention as attn_lib
 
@@ -2403,22 +2390,6 @@ def scan_width(cfg) -> int:
     if "ssm" in cfg.layer_kinds():
         return cfg.d_inner * cfg.ssm_state
     return cfg.resolved_lru_width
-
-
-def lru_bounds(bw, B, S, W, elt):
-    """The least time of the scans at a shape: the bytes (forward reads a,
-    b and writes h; backward reads g, a, h and writes da, db; each once)
-    over the memory rate, or the float operations (2 a step forward, 3
-    backward) over the float32 peak, whichever is larger."""
-    n = B * S * W
-    out = {}
-    for name, n_io, flops in (("fwd", 3, 2 * n), ("bwd", 5, 3 * n)):
-        bytes_ = n_io * n * elt
-        out[name] = dict(bytes=bytes_, flops=flops,
-                         bound_ms=max(bytes_ / bw, flops / FP32_PEAK) * 1e3,
-                         bound_by="bytes" if bytes_ / bw >= flops / FP32_PEAK
-                         else "operations")
-    return out
 
 
 # (B, W) of 10a's rows across the ring kernel's tiling on an H100 (132 SMs,
@@ -2588,6 +2559,7 @@ def lru_full_shape(torch, bw):
     (CUDA events, median of 7; plain median of 3) beside the byte bound.
     Returns ``{name: record}`` with ``lru_scan_fwd`` / ``_bwd`` at the
     Mamba shape and ``lru_scan_fwd[rglru ...]`` variants."""
+    from repro_torch.launch.roofline import lru_bounds
     from repro_torch.kernels.lru_scan import ops as lops
     from repro_torch.kernels.lru_scan import ref as lref
 
@@ -2789,6 +2761,8 @@ def segment_ranks_full_shape(torch, bw):
     byte bound, the plain version and the yardstick ``torch.argsort(key,
     stable=True)`` per (row, interval) on the complemented key (the sort
     alone).  Returns ``(counts, {name: record})``."""
+    from repro_torch.kernels import costs
+    from repro_torch.launch.profile_analysis import SEGMENT_RANKS_STAGES
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.fed import runtime
@@ -2841,7 +2815,7 @@ def segment_ranks_full_shape(torch, bw):
     lib_ms = cuda_ms(torch, lib, reps=3)
     del ckey, x
     torch.cuda.empty_cache()
-    bytes_ = N * M * 2 + N * M * 4        # read bf16 x once, write int32 ranks
+    bytes_ = costs.segment_ranks(N, M, 2)[1]   # read bf16 x, write int32
     bound = bytes_ / bw * 1e3
     rec = dict(bytes=bytes_, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                bound_by="bytes", max_abs_err=0.0, library_ms=lib_ms,
@@ -2857,30 +2831,13 @@ def segment_ranks_full_shape(torch, bw):
     return counts, {"segment_ranks": rec}
 
 
-# kernel-name substrings of each stage of the two ops that rank magnitude
-# keys (bf16 and float32 kernels alike)
-RANK_SELECT_STAGES = {
-    "hist": ("hist_high_kernel", "hist_low_kernel", "select_hist_kernel"),
-    "bin_sums": ("select_sum_kernel",),
-    "select": ("select_exact_kernel", "select_stage"),
-    "ties": ("count_ties_kernel", "tie_prefix_kernel"),
-    "write": ("write_select_kernel", "select_write_kernel")}
-INT8_STAGES = {"absmax": ("absmax_kernel",),
-               "quantize": ("quantize_kernel",)}
-SEGMENT_RANKS_STAGES = {
-    "hist": ("rank_hist_kernel", "radix_hist_kernel"),
-    "bases": ("rank_sum_kernel", "rank_above_kernel", "scan_reduce_kernel",
-              "scan_partials_kernel", "scan_apply_kernel"),
-    "rank": ("rank_write_kernel", "scatter_kernel")}
-
-
 def profile_stages(torch, fn, stages):
     """Device ms of one profiled call of ``fn`` (synchronised here) by
     stage: ``{stage: ms}`` over the kernels whose names hold one of the
     stage's substrings."""
-    _, _, kernels_ms = _profile(torch, lambda: (fn(),
-                                                torch.cuda.synchronize()),
-                                width=None)
+    from repro_torch.launch.profile_analysis import profile as profile_groups
+    _, _, kernels_ms = profile_groups(
+        lambda: (fn(), torch.cuda.synchronize()), width=None)
     split = {stage: sum(v for k, v in kernels_ms.items()
                         if any(n in k for n in names))
              for stage, names in stages.items()}
@@ -2889,33 +2846,6 @@ def profile_stages(torch, fn, stages):
         log(f"profile_stages: no kernel of {list(stages)} in the profile; "
             f"it saw {[k[:80] for k in kernels_ms][:8]}")
     return split
-
-
-def _profile(torch, fn, width=60):
-    """``fn()`` under torch.profiler (it must end in a synchronize):
-    ``(wall ms, {kernel group: device ms}, {kernel: device ms})``, the
-    kernel names cut to ``width`` characters (None: whole; the profiler
-    may report a name mangled, where the cut can drop the kernel's own
-    name)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels_ms = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0)) / 1e3
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + ms
-        name = e.key[:width]
-        kernels_ms[name] = kernels_ms.get(name, 0.0) + ms
-    return wall_ms, groups, kernels_ms
 
 
 PAPER_PROBLEM = dict(n_agents=100, q=250, dim=5, eps=0.5, seed=0)
@@ -3028,6 +2958,7 @@ def dense_kernel_path(torch):
     (100, 5) and (100, 100) with one segment); ``DENSE_PROFILED`` rounds
     under the profiler, reported per round.  Returns
     ``{cell: {run: record}}``."""
+    from repro_torch.launch.profile_analysis import profile as profile_groups
     from repro_torch import kernels
     from repro_torch.core.fedplt import FedPLTState
     from repro_torch.core.problem import make_logreg_problem
@@ -3148,7 +3079,7 @@ def dense_kernel_path(torch):
                     st = step(card, st)
                 torch.cuda.synchronize()
 
-            wall, groups, kernels_ms = _profile(torch, profiled_rounds)
+            wall, groups, kernels_ms = profile_groups(profiled_rounds)
             wall /= DENSE_PROFILED
             groups = {k: v / DENSE_PROFILED for k, v in groups.items()}
             kernels_ms = {k: v / DENSE_PROFILED
@@ -3273,22 +3204,6 @@ def robust_tile_checks(torch, bw, timed=True):
     return robust_timed(torch, bw) if timed else {}
 
 
-def network_ops(n: int, m: int, dtype) -> float:
-    """Integer min/max operations (two a compare-exchange) of the network
-    the kernel runs over ``m`` columns of ``n`` rows: the register route's
-    bitonic network up to 32 rows; above, each thread's 32 registers by
-    Batcher's odd-even merge sort (191 compare-exchanges) and bitonic
-    merges of sizes 64 ... P, log2(size) stages of P/2 each; a packed 16x2
-    operation of the bf16 lane routes counts once for its two columns."""
-    pow2 = 1 << max(0, (n - 1).bit_length())
-    lg = pow2.bit_length() - 1
-    if pow2 <= 32:
-        return 2 * m * pow2 * lg * (lg + 1) / 4
-    ce = 191 * pow2 // 32 + sum(pow2 // 2 * s for s in range(6, lg + 1))
-    packed = str(dtype).endswith("bfloat16")
-    return 2 * m * ce / (2 if packed else 1)
-
-
 def robust_timed(torch, bw, plain=True, shapes=ROBUST_TIMED):
     """sort_aggregate timed at ``shapes``, bf16 and fp32, trimmed_mean (f
     N/10) and coord_median, all rows live: kernel ms (CUDA events, median
@@ -3297,6 +3212,8 @@ def robust_timed(torch, bw, plain=True, shapes=ROBUST_TIMED):
     its time, and ``torch.sort(x, dim=0)`` as the yardstick of the sort
     alone.  Runs against whichever ``repro_torch`` is imported (the parent
     tree's too: it reads no route tally)."""
+    from repro_torch.kernels import costs
+    from repro_torch.kernels.costs import network_ops
     from repro_torch.kernels.robust_agg import ops as rops
     from repro_torch.kernels.robust_agg.ref import robust_aggregate_ref
 
@@ -3330,7 +3247,8 @@ def robust_timed(torch, bw, plain=True, shapes=ROBUST_TIMED):
                     pms = cuda_ms(torch, plain_fn, reps=3)
                     del got, want
                 ms = cuda_ms(torch, run)
-                bytes_ = (n * m + m) * x.element_size()
+                bytes_ = costs.sort_aggregate(n, m, x.element_size(),
+                                              dtype)[1]
                 byte_ms = bytes_ / bw * 1e3
                 net_ms = network_ops(n, m, dtype) / INT32_PEAK * 1e3
                 name = f"sort_aggregate[N={n},{dt},{stat}]"
@@ -4048,13 +3966,6 @@ def chunked_variant(torch, spec, cell, chunk, n_chunks, tol, plain):
 # falcon-mamba-7b's scan in the full-width trainer: B (8 sequences over 4
 # agents), S, d_inner, state
 SSM_FULL = (MAIN_BATCH // FULL_N, MAIN_SEQ, 8192, 16)
-# the exponential's rate: 16 MUFU results a clock an SM on compute
-# capability 9.0 (CUDA C Programming Guide, arithmetic instructions), 132
-# SMs at the H100 SXM's 1.98 GHz boost clock
-EXP_RATE = 16 * 132 * 1.98e9
-# the float32 rate of kernels built with --fmad=false: every multiply and
-# add issues on its own, 128 a clock an SM (FP32_PEAK counts an FMA as two)
-FP32_OPS_NO_FMA = 128 * 132 * 1.98e9
 # 14a: (B, S, d_in, n) -- S 1, 7 and 513 over 128-step spans; d_in 5 and
 # 100 not a multiple of a block's 64 channels
 SSM_SMALL = tuple((B, S, d, n) for B, S in ((1, 1), (2, 7), (2, 513))
@@ -4089,30 +4000,6 @@ def ssm_inputs(torch, gen, B, S, d_in, n, u_dtype):
                    + 0.1 * rnd(d_in, n))
     return (dt, rnd(B, S, d_in).to(u_dtype), rnd(B, S, n), rnd(B, S, n), A,
             rnd(d_in), rnd(B, S, d_in))
-
-
-def ssm_bounds(bw, B, S, d_in, n, u_elt):
-    """The least time of the selective scan at a shape: the bytes (forward
-    reads dt, u, B, C, A, D and writes y; backward reads those and gy and
-    writes the six gradients; each once), over the memory rate; the float
-    operations (6 a state entry and 3 a row forward, 18 and 6 backward)
-    over :data:`FP32_OPS_NO_FMA`; and one exponential a (b, t, d, i) over
-    :data:`EXP_RATE`; whichever is largest."""
-    rows, elems = B * S * d_in, B * S * d_in * n
-    small = 2 * B * S * n * 4 + d_in * n * 4 + d_in * 4
-    out = {}
-    for name, bytes_, flops in (
-            ("fwd", rows * (4 + u_elt + 4) + small, 6 * elems + 3 * rows),
-            ("bwd", rows * (4 + u_elt + 4 + 4 + 4) + 2 * small,
-             18 * elems + 6 * rows)):
-        times = {"bytes": bytes_ / bw, "flops": flops / FP32_OPS_NO_FMA,
-                 "exp": elems / EXP_RATE}
-        worst = max(times, key=times.get)
-        out[name] = dict(bytes=bytes_, flops=flops, exps=elems,
-                         bound_ms=times[worst] * 1e3,
-                         bound_by="bytes" if worst == "bytes"
-                         else "operations")
-    return out
 
 
 def ssm_routes_run(before, after):
@@ -4258,6 +4145,7 @@ def ssm_full_shape(torch, bw):
     8192, n 16, bf16 u), scan dtype float32 and bfloat16, bit-equal to the
     plain versions and timed (:func:`ssm_timings`; plain median of 3)
     beside the bound.  No PyTorch call computes the function."""
+    from repro_torch.launch.roofline import ssm_bounds
     from repro_torch.kernels.lru_scan import kernel as lkernel
     from repro_torch.kernels.lru_scan import ref as lref
 
@@ -5376,34 +5264,17 @@ def encdec_reduced_parity(torch):
     return out
 
 
-def _plain_flash_bound(bw, B, S, T, H, Hkv, D, causal):
-    """The bound at a flash shape as 4 D operations a visible (query,
-    key) pair forward and 10 D backward at the bf16 tensor-core peak,
-    against the bytes (q, k, v, o and the lse forward; with dO, dq, dk,
-    dv backward) over the memory rate."""
-    pairs = B * H * visible_pairs(S, T, causal, None)
-    q, kv, lse = B * S * H * D, B * T * Hkv * D, B * H * S * 4
-    out = {}
-    for name, ops, nbytes in (("fwd", 4 * D * pairs, (2 * q + 2 * kv) * 2
-                               + lse),
-                              ("bwd", 10 * D * pairs, (4 * q + 4 * kv) * 2
-                               + lse)):
-        ops_ms, bytes_ms = ops / BF16_PEAK * 1e3, nbytes / bw * 1e3
-        out[name] = dict(bound_ms=max(ops_ms, bytes_ms),
-                         bound_by="operations" if ops_ms >= bytes_ms
-                         else "bytes", flops=ops, bytes=nbytes)
-    return out
-
-
 def encdec_flash_checks(torch, bw):
     """19a: the flash forward and backward at whisper-small's encoder,
     decoder self- and cross-attention shapes and internvl2-26b's layer
     (:data:`ENCDEC_FLASH`, bf16, no cap) against their plain versions run
     head by head, at 9a's bf16 tolerances; whisper's shapes timed (CUDA
-    events, median of 7) beside the bound (:func:`_plain_flash_bound`),
+    events, median of 7) beside the bound (:func:`plain_flash_bound`),
     the bound as the kernels run the products (9b's), the plain versions,
     SDPA (the same function: no cap) and ``flex_attention`` compiled.
     Returns ``{label: record}``."""
+    from repro_torch.launch.roofline import (BF16_PEAK, flash_bounds,
+                                             plain_flash_bound)
     import torch.nn.functional as F
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
@@ -5470,7 +5341,7 @@ def encdec_flash_checks(torch, bw):
                 times["flex_bwd"] = cuda_ms(torch, lambda: torch.autograd.grad(
                     out, (qt, kt, vt), dot, retain_graph=True))
             del out, qt, kt, vt, dot
-            bounds = _plain_flash_bound(bw, B, S, T, H, Hkv, D, causal)
+            bounds = plain_flash_bound(bw, B, S, T, H, Hkv, D, causal)
             as_run = flash_bounds(bw, B, S, H, Hkv, D, causal, None, T=T)
             for name in ("fwd", "bwd"):
                 bd = bounds[name]
@@ -6271,7 +6142,7 @@ def _groups_mesh_worker(rank, world, store, out_dir):
         solver = engine.other_rank_solver
         try:
             engine.validate_mesh(
-                engine.RoundConfig(n_agents=FULL_N), mesh, packed=True,
+                engine.RoundConfig(n_agents=FULL_N), mesh,
                 local_solver=(engine.SolverGroup(1, solver),
                               engine.SolverGroup(3, solver)))
         except ValueError as e:
@@ -6439,6 +6310,487 @@ def groups_phases(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the analysis tools on the card (the dry run and the measured
+# peaks, a profiled round's report, the tree layout under a model axis)
+# ---------------------------------------------------------------------------
+
+CARD_BYTES = 80e9                   # the H100's device memory
+# 22a: the configurations whose cuts the dry run sizes at N 4
+CUT_ARCHS = ("gemma3-12b", "nemotron-4-340b", "qwen2-moe-a2.7b",
+             "internvl2-26b")
+PEAK_TOP = 5                        # 22a: the live buffers listed at a peak
+# 22c: the tree-layout mesh, and its tolerances against the 1x1 run, for
+# the full-width bf16 cell and the reduced float32 MoE (its experts on the
+# model axis): each leaf's increment over the round (x - x0, z - x0) within
+# TREE_INC[cell] of the 1x1 run's in norm, and the loss within
+# TREE_LOSS[cell] relative.  Set from the runs read on the H100: bf16 0.111
+# in norm (dt_proj, whose increment is a few bf16 ulps of x: the batch
+# split reorders the gradient's sums and flips roundings) and a loss gap of
+# 3.9e-5; float32 bit for bit (an MoE's model ranks each run the whole
+# batch at weight 1/m).  A gradient that skips its model_sum, or lands in
+# the mirrored block, read 0.49-3.8 in norm and 0.10-1.2 in loss.
+TREE_MESH = "1x2"
+TREE_INC = {"full": 0.25, "reduced": 1e-6}
+TREE_LOSS = {"full": 2e-4, "reduced": 1e-6}
+
+
+def _site(frames) -> str:
+    """An allocation's innermost frame in the port (else its innermost
+    frame): ``file:line function``, which names the tensor it made."""
+    frames = frames or []
+    own = [f for f in frames if "repro_torch" in f.get("filename", "")]
+    f = (own or frames or [{}])[0]
+    name = f.get("filename", "?").split("src/repro_torch/")[-1]
+    return f"{name}:{f.get('line', '?')} {f.get('name', '?')}"
+
+
+def peak_buffers(torch, fn):
+    """``fn()`` under ``torch.cuda.memory._record_memory_history``:
+    ``(fn's result, record)``, the record holding the measured peak
+    (``max_memory_allocated``), the traced allocations' own peak (replayed
+    from the snapshot's trace: allocations live since recording began)
+    and the :data:`PEAK_TOP` largest buffers live at that peak, each by
+    its allocation site."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.memory._record_memory_history(max_entries=4_000_000,
+                                             stacks="python")
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    events = [e for trace in snap["device_traces"] for e in trace]
+    live, total, best, best_i = {}, 0, 0, -1
+    for i, e in enumerate(events):
+        if e["action"] == "alloc":
+            live[e["addr"]] = e["size"]
+            total += e["size"]
+            if total > best:
+                best, best_i = total, i
+        elif e["action"] in ("free_requested", "free_completed"):
+            total -= live.pop(e["addr"], 0)
+    at_peak = {}
+    for e in events[:best_i + 1]:
+        if e["action"] == "alloc":
+            at_peak[e["addr"]] = e
+        elif e["action"] in ("free_requested", "free_completed"):
+            at_peak.pop(e["addr"], None)
+    top = sorted(at_peak.values(), key=lambda e: -e["size"])[:PEAK_TOP]
+    sites = {}
+    for e in at_peak.values():
+        site = _site(e.get("frames"))
+        sites[site] = sites.get(site, 0) + e["size"]
+    return out, dict(
+        measured_peak=torch.cuda.max_memory_allocated(), base=base,
+        traced_peak=best, events=len(events),
+        top=[dict(bytes=e["size"], site=_site(e.get("frames")))
+             for e in top],
+        sites=sorted(sites.items(), key=lambda kv: -kv[1])[:PEAK_TOP])
+
+
+def _resident(cfg, n_agents=FULL_N, agents=1, model=1):
+    """The dry run's resident bytes a rank holds of ``x`` and ``z`` in the
+    layout the model trains in (packed where its leaves share a dtype)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import build_model
+
+    st = dryrun.state_bytes(build_model(cfg), n_agents, agents, model)
+    layout = "packed" if st["packed"] is not None else "tree"
+    return 2 * st[layout], layout
+
+
+def dryrun_phase(torch, base, gemma_peak):
+    """Phase 22a: the dry run over every case, the measured peaks of
+    falcon-mamba-7b's and qwen2-moe-a2.7b's tree rounds with the buffers
+    that set them, and the cuts the dry run puts under 80 GB; returns
+    the record."""
+    from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.launch import dryrun
+
+    t0 = time.time()
+    cases = [dryrun.run_case(a, s, m, verbose=False) for a in ARCH_IDS
+             for s in SHAPES for m in dryrun.MESHES]
+    for r in cases:
+        line = f"phase 22a dryrun: {r['arch']} {r['shape']} {r['mesh']} "
+        if r["status"] != "ok":
+            log(line + r["status"] + " " + r.get("reason", r.get("error", "")))
+            continue
+        res = r["resident_bytes_per_rank"]
+        rl = r["roofline"]
+        mem = ", ".join(f"{k} {(v['sync'] if isinstance(v, dict) else v) / 1e9:.3f}"
+                        for k, v in res.items() if v is not None)
+        log(line + f"ok params {r['params']:,} resident GB/rank ({mem}) "
+            f"model_flops {r['model_flops']:.3e} -> {rl['bottleneck']} "
+            f"({rl['compute_s']:.3e} / {rl['memory_s']:.3e} / "
+            f"{rl['collective_s']:.3e} s)")
+    failed = [r for r in cases if r["status"] == "FAILED"]
+    if failed:
+        fail(f"phase 22a: the dry run failed {len(failed)} cases: "
+             f"{failed[0]['arch']} {failed[0]['shape']}: {failed[0]['error']}")
+    rec = {"cases": len(cases), "seconds": round(time.time() - t0, 2),
+           "ok": sum(r["status"] == "ok" for r in cases), "peaks": {}}
+    spec = FedSpec(**dict(base, state_layout="tree"))
+    for cell in (MAMBA, QWEN):
+        label = f"phase 22a/{cell.arch} ({cell.n_layers} layers, tree layout)"
+        (counts, hist, _), mem = peak_buffers(torch, lambda: train_phase(
+            torch, label, spec, 1,
+            expected_counts(1, cell, fedplt_update=N_EPOCHS * cell.n_leaves),
+            cell=cell))
+        cfg = dataclasses.replace(get_config(cell.arch),
+                                  n_layers=cell.n_layers)
+        resident, layout = _resident(cfg)
+        batch = MAIN_BATCH * MAIN_SEQ * 8 * 2       # int64 tokens, labels
+        if resident + batch > mem["measured_peak"]:
+            fail(f"{label}: the dry run's resident {resident / 1e9:.2f} GB "
+                 f"exceeds the measured peak {mem['measured_peak'] / 1e9:.2f}")
+        log(f"{label}: measured peak {mem['measured_peak'] / 1e9:.3f} GB "
+            f"(traced {mem['traced_peak'] / 1e9:.3f} GB over "
+            f"{mem['events']} events, {mem['base'] / 1e9:.3f} GB live "
+            f"before); the dry run's resident x + z {resident / 1e9:.3f} GB "
+            f"({layout}) and inputs {batch / 1e6:.1f} MB, under it; the "
+            f"{PEAK_TOP} largest live buffers at the peak: "
+            + "; ".join(f"{t['bytes'] / 1e9:.3f} GB {t['site']}"
+                        for t in mem["top"])
+            + f"; the {PEAK_TOP} sites holding most at the peak: "
+            + "; ".join(f"{b / 1e9:.3f} GB {site}" for site, b in mem["sites"]))
+        rec["peaks"][cell.arch] = dict(mem, resident=resident,
+                                       layout=layout, loss=hist[0]["loss"])
+    ratio = gemma_peak / _resident(dataclasses.replace(
+        get_config(GEMMA.arch), n_layers=GEMMA.n_layers))[0]
+    rec["gemma_peak_to_state"] = ratio
+    rec["cuts"] = {}
+    for arch in CUT_ARCHS:
+        cfg = get_config(arch)
+        r1, layout = _resident(dataclasses.replace(cfg, n_layers=1))
+        r2, _ = _resident(dataclasses.replace(cfg, n_layers=2))
+        per, fixed = r2 - r1, 2 * r1 - r2
+        by_state = min(cfg.n_layers, int((CARD_BYTES - fixed) // per))
+        scaled = min(cfg.n_layers,
+                     int((CARD_BYTES / ratio - fixed) // per))
+        rec["cuts"][arch] = dict(layout=layout, per_layer=per, fixed=fixed,
+                                 layers_by_state=by_state,
+                                 layers_scaled=scaled,
+                                 of=cfg.n_layers)
+        log(f"phase 22a cut: {arch} at N {FULL_N} ({layout} layout; x + z "
+            f"{fixed / 1e9:.3f} GB + {per / 1e9:.3f} GB a layer): "
+            f"{max(by_state, 0)} of {cfg.n_layers} layers fit 80 GB by "
+            f"resident bytes; {max(scaled, 0)} by resident bytes scaled by "
+            f"gemma2-2b's measured peak-to-state ratio {ratio:.3f}")
+    return rec
+
+
+def round_report(torch, trainer, state, cfg, out, prof):
+    """Phase 22b on phase 4's trainer (its ``after`` hook): one steady
+    round counted through :mod:`repro_torch.launch.profile_analysis`, its
+    launches held to the kernels' own counts, the H100 roofline of the
+    counts, and the MFU of an uncounted round's wall time, beside the
+    device ms by kernel group of phase 4's profiled round ``prof`` (the
+    same trainer, just before); fills ``out``."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.launch import profile_analysis, roofline
+
+    shape = InputShape("22b", MAIN_SEQ, MAIN_BATCH, "train")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    batch = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device="cuda")
+
+    def one_round():
+        _, m = trainer.step(state, batch, gen)
+        float(m["loss"])
+        torch.cuda.synchronize()
+
+    _, c = profile_analysis.count(one_round)
+    counts = kernels.launch_counts()
+    want = expected_counts(1, round_uplink=1, round_downlink=1,
+                           fedplt_update=N_EPOCHS)
+    if counts != want:
+        fail(f"phase 22b: launches {counts}, want {want}")
+    if c.launches() != {k: v for k, v in counts.items() if v}:
+        fail(f"phase 22b: the report's launches {c.launches()} are not the "
+             f"launch counts {counts}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_round()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    mf = roofline.model_flops(cfg, shape, "train") * N_EPOCHS
+    bw = card_bandwidth(torch.cuda.get_device_name(0))
+    rl = roofline.analyze(c, mf, 1, bw)
+    mfu = roofline.mfu(mf, wall)
+    aten = {k: sum(v[k] for v in c.ops.values()) for k in ("flops", "bytes")}
+    kern = {k: sum(v[k] for v in c.kernels.values())
+            for k in ("flops", "bytes")}
+    out.update(flops=c.flops, hbm_bytes=c.bytes, aten=aten, kernels=kern,
+               launches=c.launches(), roofline=rl.as_dict(),
+               model_flops=mf, round_s=walls, mfu=mfu,
+               top_kernels=profile_analysis.top_kernels(c, 8, bw),
+               top_collectives=profile_analysis.top_collectives(c),
+               profile_groups_ms=prof.get("groups_ms"))
+    log(f"phase 22b report: one steady round of phase 4's trainer counted: "
+        f"{c.flops:.4e} FLOPs ({aten['flops']:.4e} in aten ops, "
+        f"{kern['flops']:.4e} in the kernels), {c.bytes / 1e9:.3f} GB of "
+        f"HBM traffic ({aten['bytes'] / 1e9:.3f} aten, "
+        f"{kern['bytes'] / 1e9:.3f} kernels); launches {c.launches()} equal "
+        f"kernels.launch_counts(); H100 roofline compute "
+        f"{rl.compute_s * 1e3:.3f} ms, memory {rl.memory_s * 1e3:.3f} ms, "
+        f"collective {rl.collective_s * 1e3:.3f} ms -> {rl.bottleneck}; "
+        f"useful_ratio {rl.useful_ratio:.4f}; model FLOPs {mf:.4e} over the "
+        f"median wall {wall * 1e3:.1f} ms of 3 uncounted rounds: MFU "
+        f"{100 * mfu:.2f}% of {roofline.BF16_PEAK / 1e12:.0f} TFLOP/s")
+    groups = {k: round(v, 2)
+              for k, v in (prof.get("groups_ms") or {}).items()}
+    log(f"phase 22b top kernels (least ms, name, calls, flops, bytes): "
+        f"{[(round(r[0], 3),) + r[1:] for r in out['top_kernels']]}; "
+        f"device ms by kernel group of phase 4's profiled round of the "
+        f"same trainer: {groups}")
+
+
+def _tree_mesh_spec(base, mesh_shape=None):
+    from repro_torch.fed.api import FedSpec
+
+    return FedSpec(**dict(base, state_layout="tree", mesh_shape=mesh_shape))
+
+
+def _tree_mesh_run(torch, base, device, mesh_shape=None, reduced=False):
+    """22c's run: falcon-mamba-7b at published width cut to 2 layers
+    (``reduced``: the reduced qwen2-moe-a2.7b, float32, its 4 experts on
+    the model axis), tree layout, one round from the seeded init; this
+    rank's blocks (CPU), the loss, the seconds, the launches, the peak
+    and the state's bytes."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.fed import api
+    from repro_torch.models.model import build_model
+
+    if reduced:
+        cfg = get_config(QWEN.arch).reduced()
+        shape = InputShape("22c", 64, 8, "train")
+    else:
+        cfg = dataclasses.replace(get_config(MAMBA.arch),
+                                  n_layers=MAMBA.n_layers)
+        shape = InputShape("22c", MAIN_SEQ, MAIN_BATCH, "train")
+    tr = api.build_trainer(build_model(cfg), _tree_mesh_spec(base, mesh_shape),
+                           device)
+    st, gen = tr.init(0)
+    x0 = {k: v.cpu() for k, v in st.x.items()} if mesh_shape is None else None
+    batch = {k: v.to(tr.device) for k, v in make_batch_for(
+        cfg, shape, torch.Generator().manual_seed(5), n_agents=FULL_N).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    st, m = tr.step(st, batch, gen)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    nbytes = sum(l.numel() * l.element_size()
+                 for v in (st.x, st.z) for l in v.values())
+    return dict(x={k: v.cpu() for k, v in st.x.items()},
+                z={k: v.cpu() for k, v in st.z.items()}, x0=x0, loss=loss,
+                s=secs, counts=kernels.launch_counts(), state_bytes=nbytes,
+                peak=torch.cuda.max_memory_allocated(),
+                dims=None if tr.tree_blocks is None else tr.tree_blocks.dims)
+
+
+def _tree_mesh_worker(rank, world, store, out_dir, base):
+    """22c on one of two gloo ranks on the one card (two host threads
+    each: the ranks share the host's cores)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        res = {"full": _tree_mesh_run(torch, base, "cuda:0", TREE_MESH),
+               "reduced": _tree_mesh_run(torch, base, "cuda:0", TREE_MESH,
+                                         reduced=True)}
+        torch.save(res, os.path.join(out_dir, f"tree-rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tree_increment_err(torch, ranks, want):
+    """Each leaf's increments over the round, ``x - x0`` and ``z - x0``
+    (``z0`` is ``x0``), of the ranks' gathered blocks against the 1x1
+    run's (``ranks`` a list of per-rank ``{x, z, dims}``, ``want`` the 1x1
+    run with its init ``x0``), on the card in float32: ``{var: [norm
+    ratio ||d - d_1x1|| / ||d_1x1||, leaf, max ratio max|d - d_1x1| /
+    max|d_1x1|, leaf]}``, each the worst over the leaves (a replicated
+    leaf read on rank 0), and the replicated leaves that differ between
+    the ranks.  Fails where a gathered leaf's shape or dtype is off."""
+    out, differ = {}, []
+    for var in ("x", "z"):
+        worst = [0.0, None, 0.0, None]
+        for k, w in want[var].items():
+            d = ranks[0]["dims"][k]
+            if d is None:
+                got = ranks[0][var][k]
+                if not all(torch.equal(r[var][k], got) for r in ranks[1:]):
+                    differ.append(f"{var}.{k}")
+            else:
+                got = torch.cat([r[var][k] for r in ranks], d + 1)
+            if got.shape != w.shape or got.dtype != w.dtype:
+                fail(f"phase 22c: {var}.{k} gathered {tuple(got.shape)} "
+                     f"{got.dtype}, want {tuple(w.shape)} {w.dtype}")
+            x0 = want["x0"][k].cuda().float()
+            dw = w.cuda().float() - x0
+            diff = got.cuda().float() - x0 - dw
+            ref_norm, ref_max = float(dw.norm()), float(dw.abs().max())
+            moved = math.inf if bool(diff.any()) else 0.0
+            e_norm = float(diff.norm()) / ref_norm if ref_norm else moved
+            e_max = float(diff.abs().max()) / ref_max if ref_max else moved
+            if e_norm >= worst[0]:
+                worst[:2] = [e_norm, k]
+            if e_max >= worst[2]:
+                worst[2:] = [e_max, k]
+            del x0, dw, diff
+        out[var] = worst
+    return out, differ
+
+
+def tree_mesh_phase(torch, base):
+    """Phase 22c: the tree layout under a 1x2 model axis on two gloo
+    ranks sharing the card, each cell held to its 1x1 run in this
+    process; returns the record."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    want = {"full": _tree_mesh_run(torch, base, "cuda"),
+            "reduced": _tree_mesh_run(torch, base, "cuda", reduced=True)}
+    torch.cuda.empty_cache()
+    root = _scratch_dir()
+    try:
+        t0 = time.time()
+        try:
+            mp.start_processes(_tree_mesh_worker,
+                               args=(2, os.path.join(root, "store"), root,
+                                     base),
+                               nprocs=2, join=True, start_method="spawn")
+        except Exception as e:
+            text = str(e)
+            fail(f"phase 22c: a rank failed: "
+                 f"{(text.strip().splitlines() or [type(e).__name__])[-1]}")
+        spawn_s = time.time() - t0
+        ranks = [torch.load(os.path.join(root, f"tree-rank{r}.pt"))
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = {"spawn_s": spawn_s}
+    bad = []
+    for cell in ("full", "reduced"):
+        rk = [r[cell] for r in ranks]
+        w = want[cell]
+        inc, differ = _tree_increment_err(torch, rk, w)
+        bad += [f"{cell} replicated {k} differs between the ranks"
+                for k in differ]
+        loss_gap = max(abs(r["loss"] - w["loss"]) / abs(w["loss"])
+                       for r in rk)
+        bad += [f"{cell} {var}.{v[1]} increment {v[0]:.4g} of its norm off "
+                f"the 1x1 run's (limit {TREE_INC[cell]:g})"
+                for var, v in inc.items() if not v[0] <= TREE_INC[cell]]
+        if not loss_gap <= TREE_LOSS[cell]:
+            bad.append(f"{cell} loss {loss_gap:.4g} relative off the 1x1 "
+                       f"run's (limit {TREE_LOSS[cell]:g})")
+        split = sorted(k for k, d in rk[0]["dims"].items() if d is not None)
+        if cell == "full":
+            lru = FULL_N * N_EPOCHS * MAMBA.scan_layers
+            want_c = expected_counts(fedplt_update=N_EPOCHS * MAMBA.n_leaves,
+                                     lru_scan_fwd=lru, lru_scan_bwd=lru)
+            for i, r in enumerate(rk):
+                if r["counts"] != want_c:
+                    fail(f"phase 22c: rank {i} launches {r['counts']}, "
+                         f"want {want_c}")
+            if w["counts"] != want_c:
+                fail(f"phase 22c: the 1x1 run's launches {w['counts']}, "
+                     f"want {want_c}")
+        rec[cell] = dict(increment_err=inc, loss_gap=loss_gap,
+                         losses=[r["loss"] for r in rk],
+                         loss_1x1=w["loss"], seconds=[r["s"] for r in rk],
+                         seconds_1x1=w["s"],
+                         state_gb=[r["state_bytes"] / 1e9 for r in rk],
+                         state_gb_1x1=w["state_bytes"] / 1e9,
+                         peak_gb=[r["peak"] / 1e9 for r in rk],
+                         peak_gb_1x1=w["peak"] / 1e9, split_leaves=split)
+        what = (f"{MAMBA.arch} at published width, {MAMBA.n_layers} "
+                f"layers, bf16" if cell == "full"
+                else f"reduced {QWEN.arch}, float32")
+        log(f"phase 22c: {what}, tree layout, N {FULL_N}, one round under "
+            f"{TREE_MESH} on two gloo ranks on the card against the 1x1 "
+            f"run: {len(split)} leaves split ({', '.join(split)}); each "
+            f"leaf's increment (x - x0, z - x0) off the 1x1 run's, worst "
+            f"leaf: "
+            + "; ".join(f"{var} {v[0]:.4g} of its norm ({v[1]}), {v[2]:.4g} "
+                        f"of its largest entry ({v[3]})"
+                        for var, v in inc.items())
+            + f" (limit {TREE_INC[cell]:g} in norm); loss {loss_gap:.4g} "
+            f"relative off (limit {TREE_LOSS[cell]:g}); losses "
+            f"{rec[cell]['losses']} (1x1 {w['loss']}); state x + z "
+            f"per rank {[round(v, 3) for v in rec[cell]['state_gb']]} GB "
+            f"(1x1 {rec[cell]['state_gb_1x1']:.3f}); round seconds "
+            f"{[round(v, 2) for v in rec[cell]['seconds']]} (1x1 "
+            f"{w['s']:.2f}; gloo stages the model group's collectives "
+            f"through host memory); peak per rank "
+            f"{[round(v, 2) for v in rec[cell]['peak_gb']]} GB (1x1 "
+            f"{rec[cell]['peak_gb_1x1']:.2f})")
+    if bad:
+        fail("phase 22c: " + "; ".join(bad))
+    return rec
+
+
+def analysis_phase(torch, base, gemma_peak):
+    """Phase 22a and 22c (22b runs on phase 4's trainer); returns their
+    record."""
+    return {"22a": dryrun_phase(torch, base, gemma_peak),
+            "22c": tree_mesh_phase(torch, base)}
+
+
+def analysis_phases(torch) -> int:
+    """``--analysis``: build the kernels, run phase 4's main path (one
+    round, profiled, with 22b's report on its trainer) and phase 22, and
+    print the record as one JSON line."""
+    from repro_torch import kernels
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all(kernels.kernel_sources())
+    t0 = time.time()
+    main_prof, report = {}, {}
+    _, _, peak = train_phase(
+        torch, "phase 4 main path (one round, with 22b)",
+        FedSpec(**MAIN_SPEC), 1,
+        expected_counts(1, round_uplink=1, round_downlink=1,
+                        fedplt_update=N_EPOCHS),
+        profile=True, profile_out=main_prof,
+        after=lambda tr, st, cfg: round_report(torch, tr, st, cfg, report,
+                                               main_prof))
+    rec = dict(analysis_phase(torch, MAIN_SPEC, peak), **{"22b": report})
+    log(json.dumps({"analysis": rec, "seconds": round(time.time() - t0, 1),
+                    "card": smi}, default=str))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6447,9 +6799,11 @@ def main() -> int:
               "script needs a CUDA card", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    src = (args[args.index("--src") + 1] if "--src" in args
-           else os.path.join(ROOT, "src"))
+    src = os.path.join(ROOT, "src")
     sys.path.insert(0, src)
+    if "--src" in args:
+        src = args[args.index("--src") + 1]
+        use_tree(src)
     if "--sort-aggregate-times" in args:
         return sort_aggregate_times(torch, src)
     if "--ssm-scan" in args:
@@ -6468,6 +6822,8 @@ def main() -> int:
         return async_phases(torch)
     if "--groups" in args:
         return groups_phases(torch)
+    if "--analysis" in args:
+        return analysis_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -6519,11 +6875,13 @@ def main() -> int:
     stamp(3)
     # phase 4: the main path
     base = dict(MAIN_SPEC)
-    main_prof = {}
+    main_prof, report = {}, {}
     main_counts, hist, main_peak = train_phase(
         torch, "phase 4 main path", FedSpec(**base), 3,
         expected_counts(3, round_uplink=3, round_downlink=3, fedplt_update=6),
-        profile=True, profile_out=main_prof)
+        profile=True, profile_out=main_prof,
+        after=lambda tr, st, cfg: round_report(torch, tr, st, cfg, report,
+                                               main_prof))
     round_ms = [1e3 * h["dt"] for h in hist]
     main_run = (hist, main_peak, main_prof)      # 13c's full-logit gemma2
 
@@ -6677,6 +7035,10 @@ def main() -> int:
     groups_rec = groups_phase(torch, base, main_prof)
 
     stamp(21)
+    # phase 22: the analysis tools (22b ran on phase 4's trainer)
+    analysis = dict(analysis_phase(torch, base, main_peak), **{"22b": report})
+
+    stamp(22)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -6777,7 +7139,8 @@ def main() -> int:
                     "standard": standard, "resume": resumed,
                     "serve": serving, "moe": moe, "encdec": encdec,
                     "async": async_rec, "groups": groups_rec,
-                    "phase_seconds": phase_s}))
+                    "analysis": analysis, "phase_seconds": phase_s},
+                   default=str))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist
 

@@ -49,8 +49,10 @@ sliced per rank, so a sharded run takes the unsharded run's draws.  The
 criterion ``|| sum_i grad f_i(x_bar) ||^2`` and ``x_bar`` come from the
 consensus all-reduced over the agent group and gathered over the model
 group, on every rank.  The state's ``x``, ``z``, ``t`` and ``y`` are this
-rank's block.  The tree layout takes an agent axis only (a model axis
-needs ``state_layout="packed"``).
+rank's block.  The dense state is a single leaf, so both layouts hold
+the same ``(N, n)`` tensor; under a model axis the tree layout's rounds
+run as the packed layout's (the guard's row norms, the compressor's rows
+and a non-elementwise prox's row reach over the model group there).
 
 Bounded-staleness async rounds (``async_mode="stale"``): the state
 carries ``y_tag`` and the ``(N,)`` int32 ``staleness`` counters (this
@@ -215,10 +217,13 @@ class FedPLT:
             self._ecfg = dataclasses.replace(
                 self._ecfg, participation=tuple(participation))
         # packed layout: the dense state is single-leaf, so its resident
-        # (N, n) buffer IS the stacked tensor
+        # (N, n) buffer IS the stacked tensor; the tree layout under a
+        # model axis takes the packed round, which reaches over the model
+        # group where a round couples columns
+        packed = (config.state_layout == "packed"
+                  or sharding.model_shards(mesh) > 1)
         self._meta = (compress_lib.packed_meta(
-            torch.empty((N, n), device="meta"))
-            if config.state_layout == "packed" else None)
+            torch.empty((N, n), device="meta")) if packed else None)
         # this rank's part of each group: (g, local rows, global agents)
         self._owned = engine.group_rows(
             sizes, N, None if mesh is None else self._rows)

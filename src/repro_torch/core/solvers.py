@@ -77,40 +77,54 @@ class StateBlock(NamedTuple):
     state of a sharded round: agent rows ``rows`` of ``n_rows`` and, under
     a model axis that splits the columns, columns ``cols`` of ``width``
     (None: whole rows), with ``row_sum`` summing per-row partials over the
-    ranks that share a row (the model group).  A plain ``(rows, n_rows)``
-    pair is a block of whole rows."""
+    ranks that share a row (the model group).  A tree of leaf blocks (the
+    tree layout under a model axis) gives ``cuts`` instead of ``cols``:
+    for each leaf in tree order, None where the leaf is whole, else its
+    full row shape and this rank's index into it; ``row_sum`` then sums
+    the split leaves' partials.  A plain ``(rows, n_rows)`` pair is a
+    block of whole rows."""
 
     rows: slice
     n_rows: int
     cols: Optional[slice] = None
     width: Optional[int] = None
     row_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    cuts: Optional[tuple] = None
 
 
 def grad_norm(g: Any, *, batched: bool = False,
-              row_sum=None) -> torch.Tensor:
+              row_sum=None, cuts=None) -> torch.Tensor:
     """l2 norm across all leaves; per agent (leading axis) when
     ``batched``.  ``row_sum`` completes the per-agent squares of a column
-    block over the ranks that hold the rest of each row."""
+    block over the ranks that hold the rest of each row; with ``cuts``
+    (:class:`StateBlock`) only the split leaves' squares are partial."""
     leaves = pytree.tree_leaves(g)
     if batched:
-        sq = sum(torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
-                           dim=-1) for l in leaves)
-        if row_sum is not None:
-            sq = row_sum(sq)
+        sqs = [torch.sum(torch.square(l.float()).reshape(l.shape[0], -1),
+                         dim=-1) for l in leaves]
+        if cuts is None:
+            sq = sum(sqs)
+            if row_sum is not None:
+                sq = row_sum(sq)
+        else:
+            split = [q for q, c in zip(sqs, cuts) if c is not None]
+            sq = sum(q for q, c in zip(sqs, cuts) if c is None)
+            if split:
+                sq = sq + row_sum(sum(split))
     else:
         sq = sum(torch.sum(torch.square(l.float())) for l in leaves)
     return torch.sqrt(sq)
 
 
 def clip_grad(g: Any, clip: Optional[float], *, batched: bool = False,
-              row_sum=None) -> Any:
+              row_sum=None, cuts=None) -> Any:
     """Norm clipping ``g * min(1, C / ||g||)`` over the whole gradient
     (per agent when ``batched``; a column block's norm is completed by
-    ``row_sum``, so an agent's norm is over its whole row), in place."""
+    ``row_sum``, so an agent's norm is over its whole row; ``cuts``: see
+    :func:`grad_norm`), in place."""
     if clip is None:
         return g
-    nrm = grad_norm(g, batched=batched, row_sum=row_sum)
+    nrm = grad_norm(g, batched=batched, row_sum=row_sum, cuts=cuts)
     factor = torch.clamp(clip / torch.clamp(nrm, min=1e-12), max=1.0)
     for l in pytree.tree_leaves(g):
         f = factor.reshape((-1,) + (1,) * (l.ndim - 1)) if batched \
@@ -130,7 +144,9 @@ def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
     that ``w`` holds the agents ``rows`` of ``n_total`` (one rank's block
     of a sharded round): every leaf then draws all ``n_total`` rows in
     agent order and keeps its own; with ``block.cols`` each row is drawn
-    at its full ``block.width`` and cut to the rank's columns.  Each
+    at its full ``block.width`` and cut to the rank's columns, with
+    ``block.cuts`` each leaf's row at its full shape and cut to the
+    rank's block.  Each
     agent then gets the noise that an unsharded run draws for it from
     the same generator, and no two agents (and no two column blocks)
     share theirs, at the cost of the unsharded run's draws on every
@@ -140,7 +156,7 @@ def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
     def draw(shape, device):
         return scale * torch.randn(shape, generator=generator, device=device)
 
-    def leaf(l):
+    def leaf(l, cut):
         if l.ndim < 2:
             if block is None:
                 return draw(l.shape, l.device).to(l.dtype)
@@ -149,14 +165,21 @@ def draw_noise(w: Any, scale: float, generator: Optional[torch.Generator],
         rows, n = ((slice(0, l.shape[0]), l.shape[0]) if block is None
                    else block[:2])
         cols = None if block is None else block.cols
-        row_shape = l.shape[1:] if cols is None else (block.width,)
+        index = cols if cut is None else cut[1]
+        row_shape = (l.shape[1:] if index is None
+                     else cut[0] if cut is not None else (block.width,))
         out = torch.empty_like(l)
         for r in range(n):
             d = draw(row_shape, l.device)
             if rows.start <= r < rows.stop:
-                out[r - rows.start] = d if cols is None else d[cols]
+                out[r - rows.start] = d if index is None else d[index]
         return out
-    return tree_map(leaf, w)
+
+    leaves, spec = pytree.tree_flatten(w)
+    cuts = ((None,) * len(leaves) if block is None or block.cuts is None
+            else block.cuts)
+    return pytree.tree_unflatten([leaf(l, c) for l, c in zip(leaves, cuts)],
+                                 spec)
 
 
 def _sqrt(v):
@@ -208,9 +231,10 @@ def local_train(fgrad: GradOracle, w0: Any, v: Any, rho: float,
     def dgrad(w, epoch):
         out = fgrad(w, epoch)
         g, aux = out if has_aux else (out, None)
+        sb = None if block is None else StateBlock(*block)
         return clip_grad(g, cfg.clip, batched=batched,
-                         row_sum=None if block is None
-                         else StateBlock(*block).row_sum), aux
+                         row_sum=None if sb is None else sb.row_sum,
+                         cuts=None if sb is None else sb.cuts), aux
 
     def step_leaf(wl, gl, vl, tl):
         """w - gamma (g + inv_rho (w - v)) [+ t], float32 accumulation,

@@ -19,9 +19,10 @@ aggregators run the :mod:`repro_torch.kernels.robust_agg` kernel.
 ``agent_shards`` / ``mesh_shape`` shard the agent axis over an
 ``("agent", "model")`` mesh of processes (:mod:`repro_torch.launch.mesh`,
 one process per rank under torchrun; a 1x1 mesh runs in the caller's
-process); a model extent above 1 (``"AxM"``) also splits the packed
-state's columns and each agent's batch over the model ranks, and needs
-``state_layout="packed"``.  ``async_mode="stale"`` with ``max_staleness``
+process); a model extent above 1 (``"AxM"``) also splits each agent's
+batch over the model ranks and the state: a packed buffer's columns, or
+in the tree layout each leaf's tensor-parallel dim (the reference's
+per-leaf ``param_specs``).  ``async_mode="stale"`` with ``max_staleness``
 K runs bounded-staleness async rounds (:mod:`repro_torch.fed.async_engine`;
 :func:`effective_privacy_report` composes over a realised schedule).
 ``agent_groups`` (:class:`AgentGroupSpec`, or the CLI grammar of
@@ -29,9 +30,6 @@ K runs bounded-staleness async rounds (:mod:`repro_torch.fed.async_engine`;
 groups, each with its own registered solver, ``n_epochs``, ``gamma`` and
 participation (the engine's :func:`repro_torch.fed.engine.run_solvers`);
 :func:`privacy_report` then gives the per-agent ``(eps_i, delta)`` table.
-The one combination still refused, raising a ``ValueError`` that names
-its slice in :meth:`FedSpec.validate`, is the tree layout under a model
-mesh axis.
 
 The train CLI is generated from the spec's dataclass fields
 (:func:`add_spec_args` / :func:`spec_from_args`).
@@ -81,11 +79,6 @@ def _cli(flag=None, help="", arg_type=None, choices=None, default=None,
                     "expose": expose}}
 
 
-def _later(what: str, slice_name: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it comes with the "
-                      f"{slice_name} slice of the PyTorch port")
-
-
 def _save(trainer, path: str, state, **kw) -> None:
     """:func:`repro_torch.checkpoint.io.save_checkpoint` of a trainer's
     state.  Under a mesh every rank calls this with its block: each
@@ -98,11 +91,14 @@ def _save(trainer, path: str, state, **kw) -> None:
     mesh, n_agents = trainer.mesh, trainer.spec.n_agents
     gathered = {}
     for f, v in zip(state._fields, state):
-        if isinstance(v, (torch.Tensor, dict)):
-            place = trainer._placement("." + f)
-            gathered[f] = pytree.tree_map(
-                lambda t: sharding.gather_block(t, mesh, n_agents, **place),
-                v)
+        if isinstance(v, torch.Tensor):
+            gathered[f] = sharding.gather_block(
+                v, mesh, n_agents, **trainer._placement("." + f))
+        elif isinstance(v, dict):
+            gathered[f] = {n: sharding.gather_block(
+                t, mesh, n_agents,
+                **trainer._placement(f".{f}/" + n.replace(".", "/")))
+                for n, t in v.items()}
     state = state._replace(**gathered)
     err = None
     if dist.get_rank() == 0:
@@ -484,9 +480,8 @@ class FedSpec:
     # Validation
     # ------------------------------------------------------------------
     def validate(self) -> "FedSpec":
-        """Raise ValueError on any inconsistent or not-yet-ported
-        combination; returns self."""
-        self._validate_port_scope()
+        """Raise ValueError on any inconsistent combination; returns
+        self."""
         if self.n_agents is not None and self.n_agents < 1:
             raise ValueError("n_agents must be >= 1")
         if self.rho <= 0.0:
@@ -611,14 +606,6 @@ class FedSpec:
                     f"{shards}) -- a solver group may not straddle "
                     f"a device boundary; re-cut the groups or "
                     f"change the shard count")
-
-    def _validate_port_scope(self) -> None:
-        axes = self.mesh_axes()     # parses and checks mesh_shape
-        if axes is not None and axes[1] > 1 and self.state_layout != "packed":
-            raise _later(f"a model mesh extent above 1 in the tree layout "
-                         f"(mesh_shape={self.mesh_shape!r}: per-leaf "
-                         f"parameter specs; the packed layout takes it)",
-                         "tensor-parallel model axis (tree layout)")
 
     # ------------------------------------------------------------------
     # Legacy-config bridge
@@ -910,10 +897,10 @@ class DenseTrainer:
         return state, _restore_generator(path, state.generator)
 
     def _placement(self, key: str) -> dict:
-        """How a leaf of the state is split over the mesh: the
-        coordinator row ``y`` by columns only, the ``(N,)`` staleness
-        counters by agent rows only, the rest (``y_tag`` as ``x``) by
-        agent rows and columns."""
+        """How a leaf of the state (its checkpoint key) is split over the
+        mesh: the coordinator row ``y`` by columns only, the ``(N,)``
+        staleness counters by agent rows only, the rest (``y_tag`` as
+        ``x``) by agent rows and columns."""
         if key == ".staleness":
             return dict(width=None)
         return dict(width=self.problem.dim, rows=key != ".y")
@@ -968,6 +955,8 @@ class ModelTrainer:
         self._runtime = runtime
         self.packed_meta = (runtime.packed_layout(model, self.spec)
                             if self.spec.state_layout == "packed" else None)
+        # each leaf's block in the tree layout under a model axis
+        self.tree_blocks = runtime.tree_blocks(model, self.spec, self.mesh)
         self._step = runtime.make_train_step(model, self.spec, self.mesh)
 
     def init(self, seed: int = 0, params: Optional[dict] = None):
@@ -1011,7 +1000,8 @@ class ModelTrainer:
     def consensus(self, state) -> dict:
         return self._runtime.consensus_model(state, meta=self.packed_meta,
                                              mesh=self.mesh,
-                                             n_agents=self.spec.n_agents)
+                                             n_agents=self.spec.n_agents,
+                                             blocks=self.tree_blocks)
 
     def save_state(self, path: str, state, generator=None,
                    extra: Optional[dict] = None):
@@ -1021,7 +1011,8 @@ class ModelTrainer:
         ``state.step``, with ``generator``'s state in
         ``extra["generator"]``.  Under a mesh every rank calls this with
         its block of the state: the blocks are gathered over the agent
-        group (and a packed state's columns over the model group), and
+        group (and a packed state's columns, or a tree's split leaves,
+        over the model group), and
         rank 0 writes the file the unsharded run writes for the same
         state (every rank's generator is in the same state)."""
         extra = dict(extra or {})
@@ -1043,12 +1034,22 @@ class ModelTrainer:
         return state, _restore_generator(path, generator)
 
     def _placement(self, key: str) -> dict:
-        """How a leaf of the state is split over the mesh: by agent rows,
-        and a packed buffer (``y_tag`` as ``x``) by its columns too (the
-        tree layout and the ``(N,)`` staleness counters split rows
-        only)."""
-        return dict(width=None if self.packed_meta is None
-                    or key == ".staleness" else self.packed_meta.width)
+        """How a leaf of the state (its checkpoint key) is split over the
+        mesh: by agent rows, and a packed buffer (``y_tag`` as ``x``) by
+        its columns too; a tree leaf under a model axis by its split dim
+        (the ``(N,)`` staleness counters, and a tree without a model
+        axis, split rows only)."""
+        if key == ".staleness":
+            return dict(width=None)
+        if self.packed_meta is not None:
+            return dict(width=self.packed_meta.width)
+        if self.tree_blocks is None or "/" not in key:
+            return dict(width=None)
+        name = key.split("/", 1)[1].replace("/", ".")
+        if not self.tree_blocks.split(name):
+            return dict(width=None)
+        return dict(width=self.tree_blocks.sizes[name],
+                    axis=1 + self.tree_blocks.dims[name])
 
     def privacy_report(self, n_rounds: int, local_dataset_size=None,
                        delta: Optional[float] = None):

@@ -273,8 +273,7 @@ def packed_async_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     with a given global ``(N,)`` row; ``corrupt`` / ``live`` are the
     synchronous round's fault rows.  ``y_tag`` is updated in place."""
     if mesh is not None:
-        engine.validate_mesh(cfg, mesh, packed=True,
-                             local_solver=local_solver)
+        engine.validate_mesh(cfg, mesh, local_solver=local_solver)
     K = cfg.staleness.max_staleness
     fresh, stale, below = _row_sets(staleness, K)
     z_seen = t if cfg.compressed else z
@@ -313,16 +312,18 @@ def packed_async_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
 def async_round_step(cfg: RoundConfig, x: Any, z: Any, t: Any, y_tag: Any,
                      staleness: torch.Tensor, local_solver: SolverAssignment,
                      prox_h: ProxH = None, *, generator=None, arrival=None,
-                     corrupt=None, live=None, mesh=None) -> AsyncRoundResult:
+                     corrupt=None, live=None, mesh=None,
+                     blocks=None) -> AsyncRoundResult:
     """:func:`packed_async_round_step` on agent-stacked trees (the rows
-    of every leaf); mirrors :func:`repro_torch.fed.engine.round_step`."""
+    of every leaf; each leaf's block under ``blocks``); mirrors
+    :func:`repro_torch.fed.engine.round_step`."""
     if mesh is not None:
         engine.validate_mesh(cfg, mesh, local_solver=local_solver)
     K = cfg.staleness.max_staleness
     fresh, stale, below = _row_sets(staleness, K)
     z_seen = t if cfg.compressed else z
-    z_seen = engine.robust_seen(cfg, z_seen, live, mesh=mesh)
-    y, v = engine.coordinator_edge(cfg, z, z_seen, prox_h, mesh)
+    z_seen = engine.robust_seen(cfg, z_seen, live, mesh=mesh, blocks=blocks)
+    y, v = engine.coordinator_edge(cfg, z, z_seen, prox_h, mesh, blocks)
     leaves = pytree.tree_leaves
     for vl, ytl, zl, yl in zip(leaves(v), leaves(y_tag), leaves(z),
                                leaves(y)):
@@ -334,7 +335,7 @@ def async_round_step(cfg: RoundConfig, x: Any, z: Any, t: Any, y_tag: Any,
                      live=live, mesh=mesh)
     w = engine.apply_corruption(
         w, sharding.fed_row_spec(corrupt, mesh, cfg.n_agents))
-    u, ok = engine.increment_guard(cfg, w, u)
+    u, ok = engine.increment_guard(cfg, w, u, blocks=blocks)
     x_new, z_new = engine.agent_edge(cfg, u, w, x, z, y, z_seen, prox_h,
                                      mesh)
     live_block = _live_block(cfg, live, u.device, mesh)
@@ -349,7 +350,7 @@ def async_round_step(cfg: RoundConfig, x: Any, z: Any, t: Any, y_tag: Any,
     t_new = z_new
     if cfg.compressed:
         q = compress_lib.compress_increment(tree_map(torch.sub, z_new, t),
-                                            cfg)
+                                            cfg, blocks)
         t_new = tree_map(
             lambda tl, ql: tl.addcmul_(_col(u.to(ql.dtype), ql), ql), t, q)
     return AsyncRoundResult(x=x_new, z=z_new, t=t_new, y=y, y_tag=y_tag,

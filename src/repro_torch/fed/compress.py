@@ -263,11 +263,18 @@ def unpack_coord(buf: torch.Tensor, meta: PackedMeta) -> Any:
 # Compressing an increment
 # ---------------------------------------------------------------------------
 
-def compress_increment(dz: Any, cfg) -> Any:
+def compress_increment(dz: Any, cfg, blocks=None) -> Any:
     """The configured compressor on an agent-stacked increment tree
     (scales and keep-counts per agent per leaf).  Torch backend: leaf by
     leaf.  Fused backend: the leaves are packed into one buffer and the
-    kernel runs once, with one segment per leaf."""
+    kernel runs once, with one segment per leaf.  A tree of leaf
+    ``blocks`` (:class:`repro_torch.fed.sharding.TreeBlocks`) is gathered
+    over the model group, compressed whole and cut back to the blocks --
+    bit-equal to the unsplit run."""
+    if blocks is not None:
+        full = compress_increment(blocks.gather_tree(dz), cfg)
+        return {n: l.contiguous()
+                for n, l in blocks.block_tree(full).items()}
     leaves = pytree.tree_leaves(dz)
     if _use_fused(cfg):
         if len({(l.shape[0], l.dtype) for l in leaves}) == 1:

@@ -78,7 +78,7 @@ locally.  An order-statistic aggregator gathers the row blocks first
 (:func:`repro_torch.fed.robust.robust_seen_packed`); the survivor mean
 scales by the global ``N / n_live``.
 
-The ``model`` axis (packed layout; the reference's ``_mesh_col_axis``):
+The ``model`` axis, packed layout (the reference's ``_mesh_col_axis``):
 with model extent ``m > 1`` dividing the packed width, each rank holds
 the ``(N / agent_shards, width / m)`` column block of every state buffer
 (:func:`repro_torch.fed.sharding.model_cols`; otherwise the columns are
@@ -91,10 +91,22 @@ group: the guard's row norms and ``norm_clip_mean``'s residual norms sum
 their partials, the compressor gathers the rows (its segments are leaves
 of the global layout), and a non-elementwise prox gathers the ``(1,
 width)`` coordinator row, applies the prox to the tree, and keeps the
-block (the reference's fall-through to the unsharded formula).  The
-gradient oracle's model-axis work is :mod:`repro_torch.fed.runtime`'s.
-The tree layout under a model axis (per-leaf specs) is not ported and
-raises.
+block (the reference's fall-through to the unsharded formula).
+
+The ``model`` axis, tree layout (the reference's per-leaf
+``param_specs``): :func:`round_step` takes ``blocks``
+(:class:`repro_torch.fed.sharding.TreeBlocks`), and each rank holds each
+leaf's block by its spec -- the leaf's tensor-parallel dim split over
+the model ranks, a leaf with no rule or whose dim the extent does not
+divide replicated -- in the leaf's own dtype.  The edges run unchanged
+on the blocks, per leaf (or packed, where the leaves share a dtype).
+What couples a leaf's entries reaches over the model group: the guard's
+row norms sum the split leaves' partials (a replicated leaf counts
+once), the compressor gathers each leaf's rows (its keep-counts and
+scales are per leaf), an order-statistic or ``norm_clip_mean``
+aggregate gathers the leaves, and a non-elementwise prox gathers each
+coordinator leaf.  The gradient oracle's model-axis work, in both
+layouts, is :mod:`repro_torch.fed.runtime`'s.
 
 Bounded-staleness async rounds (``RoundConfig.staleness``, mode
 ``"stale"``) run in :mod:`repro_torch.fed.async_engine` on these edges.
@@ -430,13 +442,16 @@ def apply_corruption(w: Any, corrupt) -> Any:
     return w
 
 
-def _row_sq_norms(w: Any, meta=None, mesh=None) -> torch.Tensor:
+def _row_sq_norms(w: Any, meta=None, mesh=None,
+                  blocks=None) -> torch.Tensor:
     """Per-agent squared l2 norm over the non-agent axes, in float32.
     For a resident packed buffer pass ``meta``: only the real columns
     count (padding may have drifted, even to NaN).  Under a ``mesh``
     whose model axis splits the columns, ``w`` is this rank's column
     block: the partial squares are summed over the model group, so the
-    norm is over the whole row."""
+    norm is over the whole row.  A tree of leaf ``blocks`` sums its split
+    leaves' partials over the model group and adds the replicated leaves
+    once."""
     if meta is not None:
         if mesh is None:
             return robust_lib.row_sq_norms(w, meta.segments)
@@ -446,6 +461,18 @@ def _row_sq_norms(w: Any, meta=None, mesh=None) -> torch.Tensor:
         if sharding.cols_split(mesh, meta.width):
             sharding.model_sum(sq, mesh)
         return sq
+    if blocks is not None:
+        part = rest = None
+        for name, l in w.items():
+            sq = robust_lib.row_sq_norms(l.reshape(l.shape[0], -1))
+            if blocks.split(name):
+                part = sq if part is None else part + sq
+            else:
+                rest = sq if rest is None else rest + sq
+        if part is not None:
+            part = sharding.model_sum(part, blocks.mesh)
+        return part if rest is None else (rest if part is None
+                                          else rest + part)
     total = None
     for l in pytree.tree_leaves(w):
         sq = robust_lib.row_sq_norms(l.reshape(l.shape[0], -1))
@@ -454,17 +481,18 @@ def _row_sq_norms(w: Any, meta=None, mesh=None) -> torch.Tensor:
 
 
 def increment_guard(cfg: RoundConfig, w: Any, u: torch.Tensor, meta=None,
-                    mesh=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    mesh=None, blocks=None
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The uplink screen: returns ``(u_guarded, ok)``, ``ok`` the
     per-agent ``(N,)`` bool clean mask (None when guards are off).  A
     row that is non-finite, or whose l2 norm exceeds
     ``cfg.guard_norm_bound``, becomes a non-arrival (``u_i -> 0``), and
     the NaN-safe selects downstream keep it out of ``(x, z, t)``.  With
-    every row clean ``u * ok`` multiplies by ones.  ``mesh``: see
-    :func:`_row_sq_norms`."""
+    every row clean ``u * ok`` multiplies by ones.  ``mesh``, ``blocks``:
+    see :func:`_row_sq_norms`."""
     if not cfg.guard_increments:
         return u, None
-    sq = _row_sq_norms(w, meta, mesh)
+    sq = _row_sq_norms(w, meta, mesh, blocks)
     ok = torch.isfinite(sq)
     if math.isfinite(cfg.guard_norm_bound):
         bound = torch.tensor(cfg.guard_norm_bound, dtype=torch.float32)
@@ -493,7 +521,7 @@ def survivor_mean_input(cfg: RoundConfig, z_seen: Any, live,
 
 
 def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None,
-                mesh=None) -> Any:
+                mesh=None, blocks=None) -> Any:
     """The uplink's aggregation input transform.  ``mean`` (and
     ``trimmed_mean`` at ``f = 0``) is :func:`survivor_mean_input`, which
     returns ``z_seen`` itself without a live row, so the exact edges are
@@ -502,7 +530,8 @@ def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None,
     the agent axis (:mod:`repro_torch.fed.robust`).  ``meta`` marks the
     packed form (``z_seen`` a resident ``(N, width)`` buffer).  Under a
     ``mesh`` ``z_seen`` is this rank's row block and ``live`` the global
-    row (the robust aggregate all-gathers the blocks)."""
+    row (the robust aggregate all-gathers the blocks; a tree of leaf
+    ``blocks`` is gathered over the model group too)."""
     name = cfg.robust_aggregator
     if name is None:
         return survivor_mean_input(cfg, z_seen, live, mesh)
@@ -512,7 +541,7 @@ def robust_seen(cfg: RoundConfig, z_seen: Any, live, meta=None,
             backend=cfg.engine_backend, mesh=mesh)
     return robust_lib.robust_seen_tree(
         z_seen, live, name=name, param=cfg.aggregator_param,
-        backend=cfg.engine_backend, mesh=mesh)
+        backend=cfg.engine_backend, mesh=mesh, blocks=blocks)
 
 
 def live_mask_rows(u: torch.Tensor, live) -> torch.Tensor:
@@ -539,14 +568,13 @@ def _uniform_stack(*trees) -> bool:
 # Mesh plumbing (the mesh contract in the module docstring)
 # ---------------------------------------------------------------------------
 
-def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False,
+def validate_mesh(cfg: RoundConfig, mesh,
                   local_solver: SolverAssignment = None) -> None:
     """Screening of a sharded round: the mesh's agent axis must evenly
     partition the agent axis and agree with ``cfg.agent_shards`` when
     that was pinned; every solver-group boundary of ``local_solver`` must
-    land on a shard boundary (a rank runs the groups that own its rows);
-    a model extent above 1 needs the ``packed`` layout (the tree layout's
-    per-leaf specs are not ported)."""
+    land on a shard boundary (a rank runs the groups that own its
+    rows)."""
     shards = mesh_agent_shards(mesh)
     if cfg.n_agents % shards:
         raise ValueError(
@@ -573,12 +601,6 @@ def validate_mesh(cfg: RoundConfig, mesh, packed: bool = False,
                     f"{rows} agents each, group boundaries must be "
                     f"multiples of {rows} -- resize the groups or "
                     f"change the shard count")
-    m = sharding.model_shards(mesh)
-    if m > 1 and not packed:
-        raise ValueError(
-            f"a mesh with model extent {m} needs the packed state layout: "
-            f"the tensor-parallel model axis of the tree layout (per-leaf "
-            f"specs) is not ported yet")
 
 
 def _packed_prox(zbar: torch.Tensor, meta, prox_h: ProxH, rho_eff: float,
@@ -614,16 +636,22 @@ def _uplink_sharded_torch(cfg: RoundConfig, z: torch.Tensor,
 
 
 def _tree_uplink_sharded(cfg: RoundConfig, z: Any, z_seen: Any,
-                         prox_h: ProxH, mesh) -> Tuple[Any, Any]:
+                         prox_h: ProxH, mesh, blocks=None) -> Tuple[Any, Any]:
     """Sharded uplink on agent-stacked trees: per-leaf local sums, one
     all-reduce per leaf, ``/ N``; the ``y`` leaves are complete after the
-    reduction, so any per-leaf prox applies unchanged."""
+    reduction, so any per-leaf prox applies unchanged -- or, under leaf
+    ``blocks``, an elementwise one; another gathers each split leaf over
+    the model group, applies the prox and keeps the block."""
     y = tree_map(lambda sl: sharding.agent_sum(torch.sum(sl, dim=0),
                                                mesh).div_(cfg.n_agents),
                  z_seen)
     if prox_h is not None:
         rho_eff = cfg.rho / cfg.n_agents
-        y = tree_map(lambda l: prox_h(l, rho_eff), y)
+        if blocks is None or getattr(prox_h, "elementwise", False):
+            y = tree_map(lambda l: prox_h(l, rho_eff), y)
+        else:
+            y = {n: blocks.block(n, prox_h(blocks.gather(n, l, 0), rho_eff),
+                                 0).contiguous() for n, l in y.items()}
     return y, reflect(y, z)
 
 
@@ -632,12 +660,13 @@ def _tree_uplink_sharded(cfg: RoundConfig, z: Any, z_seen: Any,
 # ---------------------------------------------------------------------------
 
 def coordinator_edge(cfg: RoundConfig, z: Any, z_seen: Any,
-                     prox_h: ProxH = None, mesh=None) -> Tuple[Any, Any]:
+                     prox_h: ProxH = None, mesh=None,
+                     blocks=None) -> Tuple[Any, Any]:
     """The uplink: ``y = prox_{rho h/N}(mean_i z_seen_i)`` and
     ``v = 2 y - z``.  Under the fused backend the leaves are packed and
     the edge is one :mod:`repro_torch.kernels.round_edge` launch.  With a
-    ``mesh`` the same edge runs on this rank's row block (mesh contract:
-    module docstring)."""
+    ``mesh`` the same edge runs on this rank's row block, and on each
+    leaf's block under ``blocks`` (mesh contract: module docstring)."""
     if cfg.fused and fusible_prox(prox_h) and _uniform_stack(z, z_seen):
         buf_z, meta = compress_lib.pack_leaves(z)
         buf_t = None if z_seen is z else compress_lib.pack_leaves(
@@ -653,7 +682,7 @@ def coordinator_edge(cfg: RoundConfig, z: Any, z_seen: Any,
         return (compress_lib.unpack_coord(y_buf, meta),
                 compress_lib.unpack_leaves(v_buf, meta))
     if mesh is not None:
-        return _tree_uplink_sharded(cfg, z, z_seen, prox_h, mesh)
+        return _tree_uplink_sharded(cfg, z, z_seen, prox_h, mesh, blocks)
     y = coordinator_prox(z_seen, cfg, prox_h)
     return y, reflect(y, z)
 
@@ -839,7 +868,7 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
     axis splits them, its columns -- and the rows stay global (mesh
     contract: module docstring)."""
     if mesh is not None:
-        validate_mesh(cfg, mesh, packed=True, local_solver=local_solver)
+        validate_mesh(cfg, mesh, local_solver=local_solver)
     z_seen = t if cfg.compressed else z
     z_seen = robust_seen(cfg, z_seen, live, meta, mesh)
     y, v = coordinator_edge_packed(cfg, z, z_seen, meta, prox_h, mesh)
@@ -863,7 +892,7 @@ def packed_round_step(cfg: RoundConfig, meta, x: torch.Tensor,
 def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
                local_solver: SolverAssignment, prox_h: ProxH = None, *,
                generator=None, u=None, corrupt=None, live=None,
-               mesh=None) -> RoundResult:
+               mesh=None, blocks=None) -> RoundResult:
     """One Fed-PLT round on agent-stacked trees.  ``t`` is the
     coordinator's copy of ``z`` (``z`` itself when the exchange is
     uncompressed; advanced in place when compressed).  ``u`` replays a
@@ -873,24 +902,25 @@ def round_step(cfg: RoundConfig, x: Any, z: Any, t: Any,
     agents from the participation row and from the coordinator's
     aggregate.  ``None`` for both runs the fault-free round.  With a
     ``mesh`` the trees hold this rank's row block, the ``(N,)`` rows stay
-    global, and the result's ``u`` is this rank's block."""
+    global, and the result's ``u`` is this rank's block; under a model
+    axis ``blocks`` places each leaf's block (module docstring)."""
     if mesh is not None:
         validate_mesh(cfg, mesh, local_solver=local_solver)
     z_seen = t if cfg.compressed else z
-    z_seen = robust_seen(cfg, z_seen, live, mesh=mesh)
-    y, v = coordinator_edge(cfg, z, z_seen, prox_h, mesh)
+    z_seen = robust_seen(cfg, z_seen, live, mesh=mesh, blocks=blocks)
+    y, v = coordinator_edge(cfg, z, z_seen, prox_h, mesh, blocks)
     w, aux = run_solvers(local_solver, x, v, cfg.n_agents, mesh)
     del v
     u, corrupt = _round_rows(cfg, mesh, u, corrupt, live,
                              pytree.tree_leaves(x)[0].device, generator)
     w = apply_corruption(w, corrupt)
-    u, _ok = increment_guard(cfg, w, u)
+    u, _ok = increment_guard(cfg, w, u, blocks=blocks)
     x_new, z_new = agent_edge(cfg, u, w, x, z, y, z_seen, prox_h, mesh)
     del w
     t_new = z_new
     if cfg.compressed:
         q = compress_lib.compress_increment(tree_map(torch.sub, z_new, t),
-                                            cfg)
+                                            cfg, blocks)
         t_new = tree_map(
             lambda tl, ql: tl.addcmul_(
                 u.to(ql.dtype).reshape((-1,) + (1,) * (ql.ndim - 1)), ql),

@@ -276,24 +276,26 @@ def _segment_colmask(meta, cols: Optional[slice] = None):
 # ---------------------------------------------------------------------------
 
 def robust_seen_packed(z_seen: torch.Tensor, live, *, name: str,
-                       param: float, meta, backend: str,
-                       mesh=None) -> torch.Tensor:
+                       param: float, meta, backend: str, mesh=None,
+                       whole_rows: bool = False) -> torch.Tensor:
     """Robust ``z_seen`` transform on the resident packed buffer:
     aggregate the live rows, broadcast back to a contiguous
     ``(N, width)`` buffer of ``z_seen``'s dtype.  With a ``mesh``
     ``z_seen`` is this rank's block: the row blocks are gathered on the
     agent axis, this rank's columns of the full agent column aggregated
     with the global ``live`` row, and this rank's block of the broadcast
-    returned."""
+    returned (``whole_rows``: the buffer holds whole rows, whatever the
+    model axis)."""
     full = z_seen
     cols = slice(0, meta.width)
     model_mesh = None
     if mesh is not None:
         full = sharding.agent_gather(
             z_seen, mesh, sharding.mesh_agent_shards(mesh) * z_seen.shape[0])
-        cols = sharding.model_cols(mesh, meta.width)
-        if sharding.cols_split(mesh, meta.width):
-            model_mesh = mesh
+        if not whole_rows:
+            cols = sharding.model_cols(mesh, meta.width)
+            if sharding.cols_split(mesh, meta.width):
+                model_mesh = mesh
     agg = aggregate_rows(full, live, name=name, param=param,
                          colmask=_segment_colmask(meta, cols),
                          backend=backend, model_mesh=model_mesh)
@@ -301,11 +303,19 @@ def robust_seen_packed(z_seen: torch.Tensor, live, *, name: str,
 
 
 def robust_seen_tree(z_seen, live, *, name: str, param: float,
-                     backend: str, mesh=None):
+                     backend: str, mesh=None, blocks=None):
     """Robust ``z_seen`` transform on agent-stacked trees: pack the
-    leaves (a fresh pack: gap columns are exact zeros), aggregate,
-    broadcast, unpack (this rank's row block under a ``mesh``)."""
-    buf, meta = compress_lib.pack_leaves(z_seen)
-    out = robust_seen_packed(buf, live, name=name, param=param, meta=meta,
-                             backend=backend, mesh=mesh)
-    return compress_lib.unpack_leaves(out, meta)
+    leaves (a fresh pack: gap columns are exact zeros; whole rows, whatever
+    the model axis), aggregate, broadcast, unpack (this rank's row block
+    under a ``mesh``).  A tree of leaf ``blocks`` is gathered over the
+    model group first (``norm_clip_mean``'s residual norms are over whole
+    rows) and the result cut back to the blocks."""
+    tree = z_seen if blocks is None else blocks.gather_tree(z_seen)
+    buf, meta = compress_lib.pack_leaves(tree)
+    out = compress_lib.unpack_leaves(
+        robust_seen_packed(buf, live, name=name, param=param, meta=meta,
+                           backend=backend, mesh=mesh, whole_rows=True),
+        meta)
+    if blocks is None:
+        return out
+    return {n: l.contiguous() for n, l in blocks.block_tree(out).items()}

@@ -33,8 +33,23 @@ agent's ``b`` batch rows (the loss is a mean over tokens), weights the
 gradient by ``b_r / b``, sums it over the model group and keeps this
 rank's columns; the loss metric is the same weighted sum.  So the model
 axis divides both the state and the per-agent forward; a rank with an
-empty share contributes zeros.  The clip norm and the noise are over
+empty share contributes zeros.  An MoE model couples an agent's batch
+rows (its capacity and aux loss are over all the agent's tokens), so
+there every model rank runs the whole batch and weights it by ``1 /
+m``.  The clip norm and the noise are over
 whole rows (:class:`repro_torch.core.solvers.StateBlock`).
+
+Under a model axis in the tree layout each leaf of the state is this
+rank's block by the leaf's spec (:func:`tree_blocks`,
+:class:`repro_torch.fed.sharding.TreeBlocks`: the leaf's tensor-parallel
+dim split over the model ranks, or the whole leaf), in the leaf's own
+dtype.  The oracle works as in the packed layout, leaf by leaf: it
+gathers each split leaf's full value for the agent's forward on this
+rank's share of the batch rows, sums every leaf's weighted gradient over
+the model group and keeps each leaf's block.  The clip norm sums the
+split leaves' partial squares over the group (a replicated leaf counts
+once) and each leaf's noise is drawn at its full shape and cut, so a
+``1 x m`` run draws what the ``1 x 1`` run draws.
 
 Heterogeneous agent groups (``spec.agent_groups``): each group gets its
 own solver (its ``SolverConfig`` from ``spec.group_solver_configs()``,
@@ -109,12 +124,22 @@ def packed_layout(model, spec) -> compress_lib.PackedMeta:
     return compress_lib.packed_meta(_stacked_meta_tree(model, spec.n_agents))
 
 
+def tree_blocks(model, spec, mesh) -> Optional[sharding.TreeBlocks]:
+    """The tree layout's per-leaf placement on ``mesh``'s model axis
+    (None for the packed layout, or without a model axis)."""
+    if spec.state_layout == "packed":
+        return None
+    return sharding.tree_blocks(
+        {n: s for n, (s, _) in model.param_shapes().items()}, mesh)
+
+
 def init_state(model, spec, device, generator=None,
                params: Optional[dict] = None, mesh=None) -> FedState:
     """Every agent starts from the same parameters: ``params`` when
     given (e.g. converted from the reference), else ``model.init``.
     Under a ``mesh`` only this rank's ``N / shards`` agent rows are
-    allocated, and of a packed state only this rank's columns."""
+    allocated, and of a packed state only this rank's columns (of a tree
+    under a model axis, each leaf's block)."""
     if params is None:
         params = model.init(generator, device)
     params = {n: params[n].to(device) for n in model.param_shapes()}
@@ -131,6 +156,9 @@ def init_state(model, spec, device, generator=None,
         state = FedState(x=x, z=x.clone(), step=0,
                          t=x.clone() if compressed else None)
     else:
+        blocks = tree_blocks(model, spec, mesh)
+        if blocks is not None:
+            params = blocks.block_tree(params, lead=0)
         x = {n: p[None].expand((A,) + tuple(p.shape)).clone()
              for n, p in params.items()}
         state = FedState(x=x, z={n: l.clone() for n, l in x.items()}, step=0,
@@ -143,15 +171,17 @@ def init_state(model, spec, device, generator=None,
     return state
 
 
-def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
+def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None,
+                     blocks=None):
     """``fgrad(w, epoch) -> (g, losses)``: per-agent loss gradients at the
     stacked state ``w`` (packed buffer when ``meta`` is given, else a
     dict of ``(A, ...)`` tensors), written into ``g`` (same layout as
     ``w``) every epoch.  Under a ``mesh`` with a model axis ``w`` and
-    ``g`` are this rank's column blocks and each agent's gradient is
-    split over the model ranks by batch rows (module docstring)."""
+    ``g`` are this rank's column blocks (a tree's leaf ``blocks``) and
+    each agent's gradient is split over the model ranks by batch rows
+    (module docstring)."""
     names = list(model.param_shapes())
-    split = meta is not None and sharding.model_shards(mesh) > 1
+    split = sharding.model_shards(mesh) > 1
 
     def rows(w, i):
         if meta is not None:
@@ -179,21 +209,38 @@ def _gradient_oracle(model, batch: dict, g, meta=None, mesh=None):
                                                 batch.items()}, rows(g, i))
             return g, losses
         b = batch["tokens"].shape[1]
-        share = sharding.batch_share(mesh, b)
-        weight = (share.stop - share.start) / b
+        if model.config.n_experts:
+            # an MoE couples an agent's batch rows (the capacity and the
+            # aux loss are over all its tokens): every rank runs them all
+            share, weight = slice(0, b), 1.0 / sharding.model_shards(mesh)
+        else:
+            share = sharding.batch_share(mesh, b)
+            weight = (share.stop - share.start) / b
         for i in range(A):
-            full = sharding.model_gather(w[i:i + 1], mesh, meta.width)
-            g_full = torch.zeros_like(full)
+            if meta is not None:
+                full = [sharding.model_gather(w[i:i + 1], mesh, meta.width)]
+            else:
+                full = [blocks.gather(n, w[n][i:i + 1]) for n in names]
+            g_full = [torch.zeros_like(f) for f in full]
             losses[i] = 0.0
             if weight > 0:
-                leaves = [p.detach().requires_grad_() for p in
-                          rows(full, 0)]
+                if meta is not None:
+                    leaves, dst = rows(full[0], 0), rows(g_full[0], 0)
+                else:
+                    leaves, dst = [f[0] for f in full], [d[0] for d in g_full]
+                leaves = [p.detach().requires_grad_() for p in leaves]
                 losses[i] = agent_grad(leaves, {k: v[i, share] for k, v in
                                                 batch.items()},
-                                       rows(g_full, 0)) * weight
-                g_full.mul_(weight)
-            sharding.model_sum(g_full, mesh)
-            g[i].copy_(sharding.col_block(g_full[0], mesh, meta.width))
+                                       dst) * weight
+                for d in g_full:
+                    d.mul_(weight)
+            for d in g_full:
+                sharding.model_sum(d, mesh)
+            if meta is not None:
+                g[i].copy_(sharding.col_block(g_full[0][0], mesh, meta.width))
+            else:
+                for n, d in zip(names, g_full):
+                    g[n][i].copy_(blocks.block(n, d)[0])
         return g, sharding.model_sum(losses, mesh)
 
     return fgrad
@@ -239,11 +286,16 @@ def make_train_step(model, spec, mesh=None):
     noisy = any(c.name == "noisy_gd" for _, c in groups)
     block_rows = None if mesh is None else sharding.agent_rows(mesh, N)
     owned = engine.group_rows([size for size, _ in groups], N, block_rows)
+    blocks = tree_blocks(model, spec, mesh)
     cols = None
     if meta is not None and mesh is not None and sharding.cols_split(
             mesh, meta.width):
         cols = dict(cols=sharding.model_cols(mesh, meta.width),
                     width=meta.width,
+                    row_sum=lambda t: sharding.model_sum(t, mesh))
+    elif blocks is not None:
+        cols = dict(cuts=tuple(blocks.cut(n, s) for n, (s, _) in
+                               model.param_shapes().items()),
                     row_sum=lambda t: sharding.model_sum(t, mesh))
     starts = [sum(size for size, _ in groups[:g]) for g in range(len(groups))]
 
@@ -280,7 +332,8 @@ def make_train_step(model, spec, mesh=None):
             fgrad = _gradient_oracle(
                 model, batch if whole else {k: b[local] for k, b in
                                             batch.items()},
-                g if whole else tree_map(lambda l: l[local], g), meta, mesh)
+                g if whole else tree_map(lambda l: l[local], g), meta, mesh,
+                blocks)
             noise_g = noise
             if noise is not None and not whole:
                 noise_g = (lambda e, w, local=local: tree_map(
@@ -320,10 +373,10 @@ def make_train_step(model, spec, mesh=None):
                 res = async_engine.async_round_step(
                     rcfg, state.x, state.z, t, state.y_tag, state.staleness,
                     solver, prox_h, arrival=u if arrival is None else arrival,
-                    **rows)
+                    blocks=blocks, **rows)
             else:
                 res = engine.round_step(rcfg, state.x, state.z, t, solver,
-                                        prox_h, u=u, **rows)
+                                        prox_h, u=u, blocks=blocks, **rows)
         metrics = {
             "loss": _loss_metric(res.aux, len(groups), mesh, spec.n_agents,
                                  res.u.device),
@@ -369,19 +422,21 @@ def _loss_metric(aux, n_groups: int, mesh, n_agents: int,
 
 
 def consensus_model(state: FedState, meta=None, mesh=None,
-                    n_agents: Optional[int] = None) -> dict:
+                    n_agents: Optional[int] = None, blocks=None) -> dict:
     """The deployable model: the agent average of the local states
     (``meta`` required for a packed state).  Under a ``mesh`` the state
     is this rank's block of ``n_agents`` agents: the row sums are
     all-reduced over the agent axis and divided by N, and a column block
-    is gathered over the model axis, on every rank."""
+    (a tree's leaf ``blocks``) is gathered over the model axis, on every
+    rank."""
     if mesh is None:
         x = state.x if meta is None else compress_lib.unpack_leaves(state.x,
                                                                     meta)
         return {n: torch.mean(l, dim=0) for n, l in x.items()}
     if meta is None:
-        return {n: sharding.agent_sum(torch.sum(l, dim=0), mesh).div_(
+        mean = {n: sharding.agent_sum(torch.sum(l, dim=0), mesh).div_(
             n_agents) for n, l in state.x.items()}
+        return mean if blocks is None else blocks.gather_tree(mean, lead=0)
     mean = sharding.agent_sum(torch.sum(state.x, dim=0, keepdim=True),
                               mesh).div_(n_agents)
     mean = sharding.model_gather(mean, mesh, meta.width)

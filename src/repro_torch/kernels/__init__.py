@@ -34,8 +34,9 @@ plain version.
                     to ``y = <h, C> + D u`` with its backward
                     (``ssm_scan``), behind another.
 
-Every ops wrapper counts its kernel launches; :func:`launch_counts` and
-:func:`reset_launch_counts` read and clear them all.
+Every ops wrapper counts its kernel launches and records each launch's
+operations and bytes (:mod:`.costs`); :func:`launch_counts` and
+:func:`launch_costs` read them, :func:`reset_launch_counts` clears both.
 """
 
 
@@ -68,9 +69,20 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
+def launch_costs() -> dict:
+    """``{kernel: {"launches", "flops", "bytes"}}`` of the launches since
+    the last reset (:mod:`.costs`)."""
+    from repro_torch.kernels import costs
+
+    return costs.tally()
+
+
 def reset_launch_counts() -> None:
+    from repro_torch.kernels import costs
+
     for fn in _wrappers().values():
         fn.launches = 0
+    costs.reset()
 
 
 def kernel_sources() -> list:

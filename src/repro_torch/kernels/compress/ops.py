@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.compress import kernel, ref
 
 RANK_MODES = ("topk", "adaptive_topk")
@@ -65,6 +66,8 @@ def rank_select(x: torch.Tensor, *, segments=None, mode: str = "topk",
         return ref.rank_select_ref(x, segments, mode, ratio, energy)
     out = kernel.rank_select(x, segments, mode, ratio, energy)
     rank_select.launches += 1
+    costs.record("rank_select", *costs.compress_rows(*x.shape,
+                                                      x.element_size()))
     return out
 
 
@@ -78,6 +81,8 @@ def segment_ranks(x: torch.Tensor, *, segments=None) -> torch.Tensor:
         return ref.segment_ranks_ref(x, segments)
     out = kernel.segment_ranks(x, segments)
     segment_ranks.launches += 1
+    costs.record("segment_ranks", *costs.segment_ranks(*x.shape,
+                                                        x.element_size()))
     return out
 
 
@@ -89,6 +94,8 @@ def int8_quantize(x: torch.Tensor, *, segments=None) -> torch.Tensor:
         return ref.int8_ref(x, segments)
     out = kernel.int8_quantize(x, segments)
     int8_quantize.launches += 1
+    costs.record("int8_quantize", *costs.compress_rows(*x.shape,
+                                                        x.element_size()))
     return out
 
 

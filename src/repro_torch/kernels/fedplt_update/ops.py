@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.fedplt_update import kernel
 from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
 
@@ -30,6 +31,8 @@ def fedplt_update(w, g, v, t=None, *, gamma: float, inv_rho: float,
     t = None if t is None else t.to(w.dtype).contiguous()
     kernel.fedplt_update(w, g, v, t, out, gamma, inv_rho)
     fedplt_update.launches += 1
+    costs.record("fedplt_update", *costs.fedplt_update(
+        w.numel(), w.element_size(), t is not None))
     return out
 
 

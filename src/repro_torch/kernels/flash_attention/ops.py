@@ -19,9 +19,17 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
+
+
+def _record(name, q, k, causal, window):
+    B, S, H, D = q.shape
+    c = costs.flash(B, S, H, k.shape[2], D, causal, window, T=k.shape[1],
+                    bf16=q.dtype == torch.bfloat16)[name]
+    costs.record(f"flash_attention_{name}", c["flops"], c["bytes"])
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=None, cap=None):
@@ -32,6 +40,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=None, cap=None):
                                    cap=cap)
     out = kernel.flash_fwd(q, k, v, causal=causal, window=window, cap=cap)
     flash_attention_fwd.launches += 1
+    _record("fwd", q, k, causal, window)
     return out
 
 
@@ -45,6 +54,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
     out = kernel.flash_bwd(q, k, v, o, lse, do, causal=causal,
                            window=window, cap=cap)
     flash_attention_bwd.launches += 1
+    _record("bwd", q, k, causal, window)
     return out
 
 

@@ -22,9 +22,20 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.lru_scan import kernel
 from repro_torch.kernels.lru_scan.ref import (lru_scan_bwd_ref, lru_scan_ref,
                                               ssm_scan_bwd_ref, ssm_scan_ref)
+
+
+def _record_lru(name, a):
+    c = costs.lru(*a.shape[:2], a[0, 0].numel(), a.element_size())[name]
+    costs.record(f"lru_scan_{name}", c["flops"], c["bytes"])
+
+
+def _record_ssm(name, dt, u, Bm):
+    c = costs.ssm(*dt.shape, Bm.shape[-1], u.element_size())[name]
+    costs.record(f"ssm_scan_{name}", c["flops"], c["bytes"])
 
 
 def lru_scan_fwd(a, b):
@@ -33,6 +44,7 @@ def lru_scan_fwd(a, b):
         return lru_scan_ref(a, b)
     out = kernel.lru_fwd(a, b)
     lru_scan_fwd.launches += 1
+    _record_lru("fwd", a)
     return out
 
 
@@ -43,6 +55,7 @@ def lru_scan_bwd(a, h, g):
         return lru_scan_bwd_ref(a, h, g)
     out = kernel.lru_bwd(a, h, g)
     lru_scan_bwd.launches += 1
+    _record_lru("bwd", a)
     return out
 
 
@@ -84,6 +97,7 @@ def ssm_scan_fwd(dt, u, Bm, Cm, A, D, scan_dtype=torch.float32):
         return ssm_scan_ref(dt, u, Bm, Cm, A, D, scan_dtype), None
     out = kernel.ssm_fwd(dt, u, Bm, Cm, A, D, scan_dtype)
     ssm_scan_fwd.launches += 1
+    _record_ssm("fwd", dt, u, Bm)
     return out
 
 
@@ -94,6 +108,7 @@ def ssm_scan_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype=torch.float32):
         return ssm_scan_bwd_ref(dt, u, Bm, Cm, A, D, gy, scan_dtype)
     out = kernel.ssm_bwd(dt, u, Bm, Cm, A, D, ckpt, gy, scan_dtype)
     ssm_scan_bwd.launches += 1
+    _record_ssm("bwd", dt, u, Bm)
     return out
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import costs
 from repro_torch.kernels.robust_agg import kernel
 from repro_torch.kernels.robust_agg.ref import (ROBUST_STATS, live_row,
                                                 robust_aggregate_ref)
@@ -40,6 +41,8 @@ def robust_aggregate(x: torch.Tensor, live=None, *, stat: str,
     lv = None if live is None else live_row(live, x.shape[0], x.device)
     out = kernel.sort_aggregate(x, lv, stat, int(trim))
     robust_aggregate.launches += 1
+    costs.record("sort_aggregate", *costs.sort_aggregate(
+        *x.shape, x.element_size(), x.dtype))
     return out
 
 

@@ -10,9 +10,10 @@ kernel launches in ``.launches``.
 MESH-AWARE REALIZATIONS.  When each rank of an ``("agent", "model")``
 device mesh holds a contiguous row block of the agent axis, the uplink is
 :func:`round_uplink_sharded`: one :func:`round_uplink_partial` launch on
-the rank's rows, ONE ``dist.all_reduce`` of the ``(1, M)`` partials over
-the mesh's ``agent`` group, then ``/ N -> prox -> reflection`` in PyTorch
-at coordinator size (the reference does that part in XLA).  The downlink
+the rank's rows, ONE all-reduce of the ``(1, M)`` partials over the
+mesh's ``agent`` group (:func:`repro_torch.collectives.all_reduce`),
+then ``/ N -> prox -> reflection`` in PyTorch at coordinator size (the
+reference does that part in XLA).  The downlink
 needs no collective: it is one :func:`round_downlink_presummed` launch on
 the rank's rows consuming the replicated ``y`` (the reference's
 ``round_downlink_sharded`` is that launch under ``shard_map``).  A
@@ -23,9 +24,10 @@ rank the float32 results equal the unsharded ops bit for bit.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 
+from repro_torch import collectives
 from repro_torch.core.prox import prox_kernel_params
+from repro_torch.kernels import costs
 from repro_torch.kernels.round_edge import kernel, ref
 
 
@@ -44,6 +46,8 @@ def round_uplink(z, t=None, *, prox=None, rho_eff=1.0):
         return ref.round_uplink_ref(z, t, prox, rho_eff)
     out = kernel.round_uplink(z, t, *prox_kernel_params(prox, rho_eff))
     round_uplink.launches += 1
+    costs.record("round_uplink", *costs.round_uplink(
+        *z.shape, z.element_size(), t is not None))
     return out
 
 
@@ -58,6 +62,8 @@ def round_downlink(x, w, z, u, t=None, *, prox=None, rho_eff=1.0,
                                 *prox_kernel_params(prox, rho_eff),
                                 2.0 * damping)
     round_downlink.launches += 1
+    costs.record("round_downlink", *costs.round_downlink(
+        *x.shape, x.element_size(), t is not None))
     return out
 
 
@@ -68,6 +74,8 @@ def round_uplink_partial(seen):
         return ref.round_uplink_partial_ref(seen)
     out = kernel.round_uplink_partial(seen)
     round_uplink_partial.launches += 1
+    costs.record("round_uplink_partial", *costs.round_uplink_partial(
+        *seen.shape, seen.element_size()))
     return out
 
 
@@ -80,6 +88,8 @@ def round_downlink_presummed(x, w, z, y, u, *, damping=1.0):
         return ref.round_downlink_presummed_ref(x, w, z, u, y, damping)
     out = kernel.round_downlink_presummed(x, w, z, y, u, 2.0 * damping)
     round_downlink_presummed.launches += 1
+    costs.record("round_downlink_presummed",
+                 *costs.round_downlink_presummed(*x.shape, x.element_size()))
     return out
 
 
@@ -91,7 +101,8 @@ def round_uplink_sharded(z, t=None, *, mesh, n_total, prox=None,
     is the GLOBAL agent count.  Returns ``(y, v)``, ``y`` the same on
     every rank."""
     part = round_uplink_partial(z if t is None else t)
-    dist.all_reduce(part, group=mesh.get_group("agent"))
+    collectives.all_reduce(part, mesh.get_group("agent"),
+                           "round_uplink_sharded")
     y = ref.finish_coordinator(part, n_total, prox, rho_eff)
     return y, ref.reflect_ref(y, z)
 

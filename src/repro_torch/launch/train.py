@@ -85,13 +85,17 @@ Two gloo ranks on the CPU:
       --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
       --smoke --n-agents 4 --agent-shards 2 --state-layout packed \\
       --engine-backend fused --use-fused-update --device cpu
-The model axis (``--mesh-shape AxM``, M > 1; packed layout): each model
-rank holds a column block of the state and runs a share of each agent's
-batch:
+The model axis (``--mesh-shape AxM``, M > 1): each model rank holds a
+column block of the packed state (in the tree layout, each leaf's block
+by its spec) and runs a share of each agent's batch:
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 2 -m repro_torch.launch.train --arch gemma2-2b \\
       --smoke --n-agents 4 --mesh-shape 1x2 --state-layout packed \\
       --engine-backend fused --use-fused-update --device cpu
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch falcon-mamba-7b --smoke --n-agents 4 --mesh-shape 1x2 \\
+      --device cpu
 The paper's dense front end (``--problem logreg``: N agents, ``--dim``
 features, ``--q`` samples each; one criterion line a round), sharded the
 same way:

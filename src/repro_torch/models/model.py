@@ -9,6 +9,11 @@ mapping, typically views into a packed agent buffer row.
 path (:mod:`repro_torch.models.decode`); for an encoder-decoder model
 ``encode(params, enc_embeds)`` is the encoder's normed output, which
 :func:`repro_torch.models.decode.fill_cross_cache` takes.
+
+:func:`batch_specs`, :func:`cache_specs` and :func:`input_specs` describe
+every model input of an ``(arch, shape)`` pair as meta-device tensors
+(shapes and dtypes, nothing allocated), with the reference's keys and
+shapes; :func:`shape_supported` records the reference's skips.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Callable
 import torch
 from torch.func import functional_call
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import decode as decode_lib
 from repro_torch.models import transformer as tfm
 
@@ -72,3 +77,58 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(config=cfg, module=module, init=init, loss_fn=loss_fn,
                  forward=forward, init_cache=init_cache,
                  decode_step=decode_step, encode=encode)
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta-device stand-ins for every model input
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: InputShape,
+                with_labels: bool) -> dict:
+    """The data batch of the train and prefill modes."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {}
+    if cfg.n_enc_layers:                     # enc-dec (whisper)
+        specs["enc_embeds"] = _meta((B, cfg.n_enc_tokens, cfg.d_model),
+                                    cfg.dtype)
+        specs["tokens"] = _meta((B, S), torch.int32)
+    elif cfg.frontend == "vision":
+        n_front = cfg.n_frontend_tokens
+        specs["patch_embeds"] = _meta((B, n_front, cfg.d_model), cfg.dtype)
+        specs["tokens"] = _meta((B, S - n_front), torch.int32)
+    else:
+        specs["tokens"] = _meta((B, S), torch.int32)
+    if with_labels:
+        specs["labels"] = _meta((B, specs["tokens"].shape[1]), torch.int32)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """The decode cache (:func:`repro_torch.models.decode.init_cache` on
+    the meta device)."""
+    return decode_lib.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 shape.name == "long_500k", device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """All inputs of the step for this shape (parameters excluded)."""
+    if shape.kind == "train":
+        return {"batch": batch_specs(cfg, shape, with_labels=True)}
+    if shape.kind == "prefill":
+        return {"batch": batch_specs(cfg, shape, with_labels=False)}
+    return {"cache": cache_specs(cfg, shape),
+            "tokens": _meta((shape.global_batch,), torch.int32)}
+
+
+def shape_supported(cfg: ModelConfig, shape: InputShape) -> tuple:
+    """Whether (arch, shape) is runnable; ``(False, reason)`` records the
+    skip."""
+    if shape.name == "long_500k" and not cfg.supports_long_ctx:
+        return False, ("pure full-attention architecture: long_500k "
+                       "requires sub-quadratic attention (DESIGN.md skip)")
+    return True, ""

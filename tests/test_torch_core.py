@@ -193,20 +193,29 @@ def test_fedspec_defaults_and_cli_match_reference():
     assert tapi.spec_from_args([]) == tapi.FedSpec(n_agents=4, gamma=0.05)
 
 
-@pytest.mark.parametrize("kw,slice_name", [
-    (dict(state_layout="tree", mesh_shape="1x2"), "tensor-parallel"),
-    # async rounds and agent groups are ported (tests/test_torch_async.py,
-    # tests/test_torch_groups.py); the tree layout under a model axis
-    # still raises, async or not
-    (dict(async_mode="stale", max_staleness=2, state_layout="tree",
-          mesh_shape="1x2"), "tensor-parallel"),
-    (dict(state_layout="tree", mesh_shape="2x2"), "tensor-parallel"),
-    (dict(state_layout="tree", agent_shards=2, mesh_shape="2x2"),
-     "tensor-parallel"),
+# async rounds, agent groups and the tree layout under a model axis are
+# ported (tests/test_torch_async.py, tests/test_torch_groups.py, the tree
+# cases of tests/test_torch_rounds_sharded.py); the case ids are those of
+# the raises these specs once met
+@pytest.mark.parametrize("kw,agents", [
+    pytest.param(dict(state_layout="tree", mesh_shape="1x2"), 1,
+                 id="kw0-tensor-parallel"),
+    pytest.param(dict(async_mode="stale", max_staleness=2,
+                      state_layout="tree", mesh_shape="1x2"), 1,
+                 id="kw1-tensor-parallel"),
+    pytest.param(dict(state_layout="tree", mesh_shape="2x2"), 2,
+                 id="kw2-tensor-parallel"),
+    pytest.param(dict(state_layout="tree", agent_shards=2, mesh_shape="2x2"),
+                 2, id="kw3-tensor-parallel"),
 ])
-def test_unported_fields_raise_naming_the_slice(kw, slice_name):
-    with pytest.raises(ValueError, match=slice_name):
-        tapi.FedSpec(n_agents=4, gamma=0.05, **kw).validate()
+def test_unported_fields_raise_naming_the_slice(kw, agents):
+    """Each spec that once raised for the tree layout under a model axis
+    validates, keeps its other fields, and resolves its agent shards from
+    the mesh."""
+    spec = tapi.FedSpec(n_agents=4, gamma=0.05, **kw).validate()
+    assert spec.mesh_axes() == (agents, 2) and spec.state_layout == "tree"
+    assert spec.resolved_agent_shards() == agents
+    assert spec.async_mode == kw.get("async_mode", "off")
 
 
 def test_custom_registered_solver_runs_on_the_tree_under_packing():

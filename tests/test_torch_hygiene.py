@@ -70,6 +70,17 @@ def test_moe_slice_modules_are_scanned():
     assert slice_ <= names, slice_ - names
 
 
+def test_analysis_modules_are_scanned():
+    """The analysis tools (the dry run, the H100 roofline, the round
+    analyzer), the kernels' cost formulas and the collectives' tally are
+    among the modules the import rules here scan."""
+    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    slice_ = {"launch/dryrun.py", "launch/roofline.py",
+              "launch/profile_analysis.py", "kernels/costs.py",
+              "collectives.py"}
+    assert slice_ <= names, slice_ - names
+
+
 def test_no_module_imports_ml_dtypes():
     """The card machine has no ml_dtypes (it comes with JAX): the port
     reads and writes bfloat16 checkpoints without it."""

@@ -245,13 +245,18 @@ def test_fedplt_config_round_trips_through_the_spec(problems):
 
 
 @pytest.mark.parametrize("kw,slice_name", [
-    # a dense mesh runs since the model-axis slice; its tree layout under
-    # a model axis is what still raises
+    # a dense mesh runs since the model-axis slice, in either layout; a
+    # 1x2 mesh in one process raises for its missing second rank, naming
+    # torchrun (tests/test_torch_rounds_sharded.py runs it on two)
     pytest.param(dict(state_layout="tree", mesh_shape="1x2"),
-                 "tensor-parallel model axis", id="kw0-dense mesh"),
+                 "needs 2 devices.*torch.distributed.run",
+                 id="kw0-dense mesh"),
 ])
 def test_unported_dense_options_raise_naming_the_slice(problems, kw,
                                                        slice_name):
+    """The dense trainer takes the tree layout under a model axis; built
+    in one process, a 1x2 mesh raises for its missing rank, naming
+    torchrun, not a slice still to port."""
     _, tp = problems
     with pytest.raises(ValueError, match=slice_name):
         tapi.build_trainer(tp, tapi.FedSpec(**kw), device="cpu")

@@ -65,7 +65,20 @@ columns, a tree-layout state saved under the mesh) raises a shape
 mismatch in an N 8 trainer on the same mesh.  The dense trainer likewise
 (``ckpt-dense-2x2``: the reference's problem at n 12, 50% participation
 drawn from the generator, 4 rounds, a checkpoint, 4 more, and a resume
-from it to the same round; the file restored unsharded).  Async rounds
+from it to the same round; the file restored unsharded).  The tree
+layout under a model axis (each leaf's tensor-parallel dim split over
+the model ranks by the reference's per-leaf specs; from the reference's
+seeded parameters, participation 1): reduced falcon-mamba-7b (fused
+backend), qwen2-moe-a2.7b (torch backend; 4 experts split at 1x2 and
+2x2, and 6 experts at 1x4, where the expert axis does not divide and
+stays whole) and gemma2-2b (fused; and under DP noise at 1x2), each
+held to its unsharded run as above, and that run to the reference's
+tree-layout run on the same start and batches to the tolerances of
+``tests/test_torch_rounds_ssm.py`` and ``tests/test_torch_rounds_moe.py``
+(1e-4 absolute, losses 1e-6 relative;
+``test_tree_model_axis_unsharded_match_reference``); a tree state
+checkpointed under 1x2 (``ckpt-1x2-tree``) resumes bit for bit and
+restores unsharded and through the reference.  Async rounds
 (K 2, packed, fused, a fixed schedule with stale arrivals on both ranks'
 agents): ``2x1-async`` and ``1x2-async`` (``y_tag`` a column block)
 against the unsharded port, ``y_tag``, the counters and the realised
@@ -153,6 +166,30 @@ ASYNC_ROWS = ([1.0, 0.0, 1.0, 1.0], [1.0, 1.0, 1.0, 0.0],
 CASES["2x1-async"] = (2, 4, dict(ASYNC), dict(arrivals=ASYNC_ROWS))
 CASES["1x2-async"] = (2, 4, dict(ASYNC, mesh_shape="1x2"),
                       dict(arrivals=ASYNC_ROWS))
+# the tree layout under a model axis: each leaf's block by its spec; the
+# spec's arch (and expert count) picks the reduced model; "ref": the
+# reference's seeded start (of that model)
+TREE_SPECS = {
+    "falcon-mamba": dict(arch="falcon-mamba-7b", **FUSED),
+    "qwen2-moe": dict(arch="qwen2-moe-a2.7b"),
+    "gemma2": dict(arch="gemma2-2b", **FUSED),
+}
+for _mesh, _ranks in (("1x2", 2), ("2x2", 4)):
+    for _k, _kw in TREE_SPECS.items():
+        CASES[f"{_mesh}-tree-{_k}"] = (_ranks, 4, dict(
+            state_layout="tree", mesh_shape=_mesh, participation=1.0,
+            ref=True, **_kw), {})
+del _mesh, _ranks, _k, _kw
+# 6 experts over 4 model ranks: the expert axis stays whole and the
+# expert leaves split their hidden dims (the reference's _sanitize)
+CASES["1x4-tree-qwen2-moe-6"] = (4, 4, dict(
+    state_layout="tree", mesh_shape="1x4", participation=1.0, ref=True,
+    arch="qwen2-moe-a2.7b", experts=6), {})
+# DP noise: each split leaf's noise drawn at its full shape and cut, the
+# clip norm over whole rows (a replicated leaf counted once)
+CASES["1x2-tree-gemma2-noisy"] = (2, 4, dict(
+    state_layout="tree", mesh_shape="1x2", participation=1.0,
+    arch="gemma2-2b", privacy=(0.05, 1.0), **FUSED), {})
 
 # the dense front end: the reference's problem (N 8, q 20, n 12 or 5),
 # packed, fused backend (plain on the CPU), N_e 2, DENSE_ROUNDS rounds;
@@ -165,12 +202,15 @@ DENSE["dense-2x2-n12-p0.5"] = (4, "2x2", 12, 0.5)
 # under a model axis it gathers the (1, n) row over the model group
 DENSE["dense-1x2-n12-group-prox"] = (2, "1x2", 12, 1.0)
 GROUP_PROX = ("dense-1x2-n12-group-prox",)
+# the tree layout under a model axis (the dense state's one leaf a column
+# block, run as the packed round)
+DENSE["dense-1x2-n12-tree"] = (2, "1x2", 12, 1.0)
 
 # checkpoints of a sharded state: name -> (ranks, mesh_shape); run_fed
 # saves every CKPT_EVERY rounds of CKPT_ROUNDS
 CKPT = {"ckpt-2x1": (2, "2x1"), "ckpt-1x2": (2, "1x2"),
         "ckpt-2x2": (4, "2x2"), "ckpt-dense-2x2": (4, "2x2"),
-        "ckpt-2x1-async": (2, "2x1")}
+        "ckpt-2x1-async": (2, "2x1"), "ckpt-1x2-tree": (2, "1x2")}
 CKPT_ROUNDS, CKPT_EVERY, CKPT_TOKENS = 4, 2, 16
 
 
@@ -187,8 +227,8 @@ def _spec(n_agents, kw, shards=1):
     from repro_torch.fed import api
 
     kw = {**BASE, **kw}
-    kw.pop("ref", None)
-    kw.pop("untied", None)
+    for k in ("ref", "untied", "arch", "experts"):
+        kw.pop(k, None)
     mesh = kw.pop("mesh_shape", None)
     if shards > 1:
         kw.update(mesh_shape=mesh) if mesh else kw.update(agent_shards=shards)
@@ -209,12 +249,28 @@ def _batches(vocab, n_agents):
     return out
 
 
-def _model(untied=False):
+def _reduced(get_config, arch="gemma2-2b", experts=None, untied=False):
+    """The reduced config of ``arch`` (either package's ``get_config``):
+    gemma2-2b with 2 KV heads (and an untied head on request), an MoE
+    model with ``experts`` experts where given."""
+    cfg = get_config(arch).reduced(
+        **({} if experts is None else {"n_experts": experts}))
+    if arch == "gemma2-2b":
+        cfg = dataclasses.replace(cfg, n_kv_heads=2,
+                                  tie_embeddings=not untied)
+    return cfg
+
+
+def _start_key(spec_kw) -> str:
+    """The reference start a case takes (one per model)."""
+    return f"{spec_kw.get('arch', 'gemma2-2b')}-{spec_kw.get('experts')}"
+
+
+def _model(untied=False, arch="gemma2-2b", experts=None):
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(), n_kv_heads=2,
-                              tie_embeddings=not untied)
+    cfg = _reduced(get_config, arch, experts, untied)
     return cfg, build_model(cfg)
 
 
@@ -225,7 +281,9 @@ def _run(n_agents, spec_kw, step_kw, shards=1, params=None):
     compressed increment ``z_r - t_{r-1}`` (packed, when compressed)."""
     from repro_torch.fed import api
 
-    cfg, model = _model(spec_kw.get("untied", False))
+    cfg, model = _model(spec_kw.get("untied", False),
+                        spec_kw.get("arch", "gemma2-2b"),
+                        spec_kw.get("experts"))
     tr = api.build_trainer(model, _spec(n_agents, spec_kw, shards), "cpu")
     state, gen = tr.init(0, params=params)
     hist, increments = [], []
@@ -251,7 +309,8 @@ def _dense_spec(name, sharded):
 
     _, mesh, _, p = DENSE[name]
     return api.FedSpec(n_agents=DENSE_N, n_epochs=2, participation=p,
-                       state_layout="packed", engine_backend="fused",
+                       state_layout="tree" if name.endswith("-tree")
+                       else "packed", engine_backend="fused",
                        mesh_shape=mesh if sharded else None)
 
 
@@ -279,14 +338,18 @@ def _dense_run(name, out_dir, sharded):
     return dict(x=state.x, z=state.z, crit=crit, sched=sched)
 
 
-def _ckpt_spec(mesh_shape=None, stale=False):
+def _ckpt_spec(mesh_shape=None, stale=False, layout="packed"):
     """The resume cases' spec; ``stale``: async rounds, K 2."""
     from repro_torch.fed import api
 
     kw = dict(async_mode="stale", max_staleness=2) if stale else {}
     return api.FedSpec(n_agents=4, **{**BASE, "n_epochs": 1},
-                       state_layout="packed", **FUSED, mesh_shape=mesh_shape,
+                       state_layout=layout, **FUSED, mesh_shape=mesh_shape,
                        **kw)
+
+
+def _ckpt_layout(name) -> str:
+    return "tree" if name.endswith("-tree") else "packed"
 
 
 def _ckpt_run(name, out_dir):
@@ -298,7 +361,7 @@ def _ckpt_run(name, out_dir):
     from repro_torch.launch.train import run_fed
 
     cfg, _ = _model()
-    spec = _ckpt_spec(CKPT[name][1], "async" in name)
+    spec = _ckpt_spec(CKPT[name][1], "async" in name, _ckpt_layout(name))
     root = os.path.join(out_dir, name)
     kw = dict(seq_len=CKPT_TOKENS, batch=8, device="cpu",
               checkpoint_every=CKPT_EVERY, log=lambda *a: None)
@@ -324,7 +387,8 @@ def _other_agent_count(spec, packed_path, tree_path):
     """The errors of restoring an N 4 file into an N 8 trainer on the same
     mesh: the packed round checkpoint and, where the mesh splits no
     columns, a tree-layout state that this mesh saves (which first
-    restores into its own N 4 trainer as it was saved)."""
+    restores into its own N 4 trainer as it was saved); of a tree-layout
+    run, its round checkpoint."""
     from repro_torch.fed import api
 
     _, model = _model()
@@ -338,6 +402,8 @@ def _other_agent_count(spec, packed_path, tree_path):
             return str(e)
         return None
 
+    if spec.state_layout == "tree":
+        return {"tree": refused(packed_path, "tree")}
     out = {"packed": refused(packed_path, "packed")}
     if spec.mesh_shape.endswith("x1"):
         tr = api.build_trainer(model, dataclasses.replace(
@@ -404,7 +470,8 @@ def _worker(rank, world, store_path, out_dir, names):
                 continue
             _, n_agents, spec_kw, step_kw = CASES[name]
             run = _run(n_agents, spec_kw, step_kw, shards=world,
-                       params=params if spec_kw.get("ref") else None)
+                       params=params[_start_key(spec_kw)]
+                       if spec_kw.get("ref") else None)
             torch.save({k: run[k] for k in ("x", "z", "t", "y_tag",
                                             "staleness", "consensus",
                                             "hist")},
@@ -427,20 +494,27 @@ def _spawn(world, names, tmp, timeout=300):
 
 @pytest.fixture(scope="module")
 def reference_start():
-    """The reference's seeded parameters of the reduced model (numpy),
-    as the port's tensors: the model-axis cases' start."""
+    """The reference's seeded parameters of each reduced model that a
+    ``ref`` case runs (numpy), as the port's tensors, by
+    :func:`_start_key`: the model-axis cases' start."""
     import jax
 
     from repro.configs import get_config as jax_get_config
     from repro.models.model import build_model as jax_build_model
     from repro_torch.convert import params_from_jax
 
-    cfg, _ = _model()
-    jcfg = dataclasses.replace(jax_get_config("gemma2-2b").reduced(),
-                               n_kv_heads=2)
-    tree = jax.tree_util.tree_map(
-        np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
-    return params_from_jax(tree, cfg)
+    out = {}
+    for _, _, kw, _ in CASES.values():
+        key = _start_key(kw)
+        if not kw.get("ref") or key in out:
+            continue
+        arch, experts = kw.get("arch", "gemma2-2b"), kw.get("experts")
+        cfg, _ = _model(False, arch, experts)
+        jcfg = _reduced(jax_get_config, arch, experts)
+        tree = jax.tree_util.tree_map(
+            np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+        out[key] = params_from_jax(tree, cfg)
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -477,15 +551,42 @@ def sharded_runs(tmp_path_factory, reference_start, dense_problems):
     return out
 
 
-def _gather(blocks, model=1, width=None):
+def _tree_dims(spec_kw, model) -> dict:
+    """The split dim (agent axis first) of each leaf of a case's tree
+    layout over ``model`` model ranks, None where it is replicated."""
+    from repro_torch.fed import sharding
+
+    _, mdl = _model(False, spec_kw.get("arch", "gemma2-2b"),
+                    spec_kw.get("experts"))
+    specs = sharding.param_specs(
+        {n: s for n, (s, _) in mdl.param_shapes().items()}, fsdp_axis=None,
+        axis_sizes={"agent": 1, "model": model})
+    return {n: (1 + s.index("model") if "model" in s else None)
+            for n, s in specs.items()}
+
+
+def _gather(blocks, model=1, width=None, dims=None):
     """The global state from the ranks' blocks: rank ``r * model + c``
     holds agent block ``r`` and model block ``c`` (``width`` the packed
     width: the model blocks are its columns where they are narrower, and
-    replicated copies otherwise, which must agree)."""
+    replicated copies otherwise, which must agree; ``dims`` a tree's
+    split dim a leaf, :func:`_tree_dims`)."""
     if blocks[0] is None:
         return None
     if isinstance(blocks[0], dict):
-        return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}
+        out = {}
+        for k in blocks[0]:
+            rows = []
+            for r in range(len(blocks) // model):
+                own = [b[k] for b in blocks[r * model:(r + 1) * model]]
+                d = None if dims is None else dims[k]
+                if d is None:
+                    assert all(torch.equal(b, own[0]) for b in own), k
+                    rows.append(own[0])
+                else:
+                    rows.append(torch.cat(own, d))
+            out[k] = torch.cat(rows)
+        return out
     rows = []
     for r in range(len(blocks) // model):
         own = blocks[r * model:(r + 1) * model]
@@ -567,7 +668,8 @@ def _unsharded(unsharded_runs, name, reference_start):
     if key not in unsharded_runs:
         unsharded_runs[key] = _run(
             n_agents, spec_kw, step_kw,
-            params=reference_start if spec_kw.get("ref") else None)
+            params=reference_start[_start_key(spec_kw)]
+            if spec_kw.get("ref") else None)
     return unsharded_runs[key]
 
 
@@ -591,12 +693,22 @@ def test_sharded_rounds_match_unsharded(sharded_runs, unsharded_runs,
         rows = {(b.shape[0] if isinstance(b, torch.Tensor)
                  else next(iter(b.values())).shape[0]) for b in blocks}
         assert rows == {n_agents // agents}, rows
-        if model > 1:       # the reduced model's packed width splits
+        dims = None
+        if model > 1 and isinstance(want[var], dict):
+            # every split leaf is this rank's block of its dim
+            dims = _tree_dims(spec_kw, model)
+            assert any(d is not None for d in dims.values())
+            for b in blocks:
+                for k, d in dims.items():
+                    if d is not None:
+                        assert b[k].shape[d] * model == want[var][k].shape[d]
+                    assert b[k].dtype == want[var][k].dtype
+        elif model > 1:     # the reduced model's packed width splits
             assert {b.shape[1] for b in blocks} == {
                 want[var].shape[1] // model}
         width = (want[var].shape[-1] if isinstance(want[var], torch.Tensor)
                  else None)
-        _close(_gather(blocks, model, width), want[var], near,
+        _close(_gather(blocks, model, width, dims), want[var], near,
                model_axis=model > 1)
     if want["staleness"] is not None:
         # the counters advance locally: each rank holds its agents', the
@@ -696,6 +808,52 @@ def test_model_axis_specs_unsharded_match_reference(
                                want["losses"], rtol=1e-5)
 
 
+TREE_REF = ["1x2-tree-falcon-mamba", "1x2-tree-qwen2-moe", "1x2-tree-gemma2"]
+
+
+@pytest.mark.parametrize("name", TREE_REF)
+def test_tree_model_axis_unsharded_match_reference(unsharded_runs,
+                                                   reference_start, name):
+    """The port's unsharded tree-layout run of each tree model-axis spec,
+    which the 1x2 and 2x2 cases are held to above, against the
+    reference's tree-layout run (xla backend) from the same start and
+    batches: the states to 1e-4 absolute and the losses to 1e-6 relative,
+    the tolerances of ``tests/test_torch_rounds_ssm.py`` and
+    ``tests/test_torch_rounds_moe.py`` for these models' tree rounds."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_config as jax_get_config
+    from repro.fed import api as japi
+    from repro.models.model import build_model as jax_build_model
+    from repro_torch.convert import params_to_jax
+
+    torch.set_num_threads(2)
+    _, n_agents, spec_kw, _ = CASES[name]
+    port = _unsharded(unsharded_runs, name, reference_start)
+    arch, experts = spec_kw["arch"], spec_kw.get("experts")
+    cfg, _ = _model(False, arch, experts)
+    jmodel = jax_build_model(_reduced(jax_get_config, arch, experts))
+    jtr = japi.build_trainer(jmodel, japi.FedSpec(
+        n_agents=n_agents, state_layout="tree", engine_backend="xla",
+        **{**BASE, "participation": 1.0}))
+    key = jax.random.PRNGKey(0)
+    state, losses = jtr.init(key), []
+    for r, b in enumerate(_batches(cfg.vocab, n_agents)):
+        state, m = jtr.step(state, {k: jnp.asarray(v.numpy().astype(np.int32))
+                                    for k, v in b.items()},
+                            jax.random.fold_in(key, r))
+        losses.append(float(m["loss"]))
+    for var in ("x", "z"):
+        want = jax.tree_util.tree_map(lambda l: np.asarray(l, np.float32),
+                                      getattr(state, var))
+        jax.tree_util.tree_map(
+            lambda p, q: np.testing.assert_allclose(q, p, atol=1e-4, rtol=0),
+            want, params_to_jax(port[var]))
+    np.testing.assert_allclose([h["loss"] for h in port["hist"]], losses,
+                               rtol=1e-6)
+
+
 def _hit(crit, threshold):
     hit = np.flatnonzero(np.asarray(crit) <= threshold)
     return int(hit[0]) + 1 if hit.size else None
@@ -705,7 +863,8 @@ def _hit(crit, threshold):
 def test_dense_meshes_match_the_reference(sharded_runs, dense_problems,
                                           name):
     """The dense front end under 2x1, 1x2 and 2x2 meshes (n 12: the model
-    axis splits the columns; n 5: they are replicated) against the
+    axis splits the columns; n 5: they are replicated; at 1x2 n 12 in
+    the tree layout too) against the
     reference's unsharded ``build_trainer(problem, spec).run``, as the
     reference holds its own 4x2 run to its unsharded one: the gathered
     blocks of ``x`` and ``z`` to 1e-5 absolute after 30 rounds (the
@@ -784,6 +943,9 @@ def test_mesh_checkpoint_resumes_bit_for_bit(sharded_runs, name):
     if "dense" in name:
         _check_dense_ckpt(sharded_runs, name, model)
         return
+    if _ckpt_layout(name) == "tree":
+        _check_tree_ckpt(sharded_runs, name, model)
+        return
     stale = "async" in name
     packed_vars = ("x", "z", "y_tag") if stale else ("x", "z")
     for g in got:
@@ -835,6 +997,58 @@ def test_mesh_checkpoint_resumes_bit_for_bit(sharded_runs, name):
         want = tio.to_reference_packed(full[var], tr.packed_meta).numpy()
         assert ref.shape == want.shape
         assert np.array_equal(ref.view(np.uint32), want.view(np.uint32)), var
+
+
+def _tree_bits_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        torch.equal(_int_bits(a[k]), _int_bits(b[k])) for k in a)
+
+
+def _check_tree_ckpt(sharded_runs, name, model):
+    """The tree-layout case of :func:`test_mesh_checkpoint_resumes_bit_for_bit`:
+    each rank's leaf blocks resumed bit for bit; the round-2 file (the
+    gathered leaves) restored unsharded and through the reference as the
+    ranks' gathered blocks."""
+    import jax
+
+    from repro.checkpoint import io as jio
+    from repro.configs import get_config as jax_get_config
+    from repro.fed import api as japi
+    from repro.models.model import build_model as jax_build_model
+    from repro_torch.convert import params_to_jax
+    from repro_torch.fed import api
+
+    got = sharded_runs[name]
+    dims = _tree_dims({}, model)
+    for g in got:
+        assert g["second"]["step"] == g["whole"]["step"] == CKPT_ROUNDS
+        assert set(g["refused"]) == {"tree"}
+        assert "shape mismatch" in g["refused"]["tree"]
+        for var in ("x", "z"):
+            assert _tree_bits_equal(g["second"][var], g["whole"][var]), var
+    _, mdl = _model()
+    path = os.path.join(sharded_runs["dir"], name, "split", "rounds",
+                        f"step-{CKPT_EVERY:06d}")
+    tr = api.build_trainer(mdl, _ckpt_spec(layout="tree"), "cpu")
+    state, extra = tr.restore_state(path, tr.init(1)[0])
+    assert state.step == CKPT_EVERY and extra["round"] == CKPT_EVERY
+    jcfg = _reduced(jax_get_config)
+    jtr = japi.build_trainer(jax_build_model(jcfg), japi.FedSpec(
+        n_agents=4, gamma=0.05, state_layout="tree"))
+    jstate = jio.restore_checkpoint(
+        path, jax.eval_shape(jtr.init, jax.random.PRNGKey(0)))
+    assert int(jstate.step) == CKPT_EVERY
+    for var in ("x", "z"):
+        full = _gather([g["first"][var] for g in got], model, dims=dims)
+        assert _tree_bits_equal(getattr(state, var), full), var
+        ref = jax.tree_util.tree_map(np.asarray, getattr(jstate, var))
+        want = params_to_jax(full)
+        assert jax.tree_util.tree_structure(ref) == \
+            jax.tree_util.tree_structure(want)
+        for r, w in zip(jax.tree_util.tree_leaves(ref),
+                        jax.tree_util.tree_leaves(want)):
+            assert r.shape == w.shape
+            assert np.array_equal(r.view(np.uint32), w.view(np.uint32)), var
 
 
 def _check_dense_ckpt(sharded_runs, name, model):

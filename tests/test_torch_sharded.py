@@ -479,18 +479,14 @@ def test_mesh_larger_than_the_world_raises_naming_torchrun():
         tmesh.make_fed_mesh(2, 1, device="cpu")
 
 
-def test_model_extent_above_one_is_not_ported_yet():
-    """The tree layout under a model axis (per-leaf specs) still raises;
-    the packed layout takes it."""
-    with pytest.raises(ValueError, match="not ported yet"):
-        tapi.FedSpec(n_agents=4, state_layout="tree",
-                     mesh_shape="2x2").validate()
-    with pytest.raises(ValueError, match="not ported yet"):
-        tapi.FedSpec(n_agents=4, state_layout="tree",
-                     mesh_shape="1x2").validate()
-    for shape in ("1x2", "2x2"):
-        assert tapi.FedSpec(n_agents=4, state_layout="packed",
-                            mesh_shape=shape).validate().mesh_axes()[1] == 2
+def test_model_extent_above_one_validates_in_both_layouts():
+    """A model axis takes the tree layout (per-leaf specs) as it takes the
+    packed layout: 1x2 and 2x2 validate in both."""
+    for layout in ("tree", "packed"):
+        for shape in ("1x2", "2x2"):
+            spec = tapi.FedSpec(n_agents=4, state_layout=layout,
+                                mesh_shape=shape).validate()
+            assert spec.mesh_axes() == (int(shape[0]), 2)
 
 
 def test_round_config_rejects_bad_shards():
