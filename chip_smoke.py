@@ -410,6 +410,35 @@ last line):
    leaf equal on both ranks; each rank's state bytes, seconds and peak
    beside the 1x1 run's; then reduced qwen2-moe-a2.7b (float32, its 4
    experts on the model axis) the same way.
+23. The examples' torch twins (``examples/*_torch.py``; no new kernel),
+   gemma3-12b at published width and the grouped MoE route at width.  23a:
+   the dense twins at their own sizes on the card, each beside the same
+   twin's run on the CPU in this process (draws made on a CPU
+   generator): quickstart (N 100, n 5, q 250; 200 / 400 / 400 rounds; x*
+   solved once on the card) with equal hitting rounds and ``||x_bar -
+   x*||`` within 1e-5; private (300 rounds of noisy GD with ``dp_init``)
+   with tau and eps equal and states within 1e-5; compressed (n 20, 600
+   rounds, six rows) with each row's hitting round equal and
+   ``rank_select`` launched 600 times in ``adaptive/fused`` and never in
+   the others (the tallies); async (40 broker rounds) replayed bit for
+   bit on the card.  23b: ``train_lm_federated_torch`` at its ~100M
+   float32 config, 20 rounds (300 under ``--examples``): finite losses,
+   the last below the first, flash fp32 launches 4 agents x 3 epochs x 8
+   layers a round; round ms and peak GB.  23c: ``serve_stream`` of
+   ``continuous_batching_torch`` at published width (gemma2-2b cut to 2
+   layers, recurrentgemma-2b to one pattern unit; bf16 and float32), 4
+   slots, 12 requests of 3-12 prompt tokens, 10 generated: every slot's
+   logits at every step against the request decoded alone (its tokens
+   equal to ``generate``'s), the largest difference over the largest
+   |logit| under ``BATCH_LIMIT``, tokens equal wherever the alone run's
+   top-2 margin exceeds it; steps, tokens/s and the utilisation figure.
+   23d: gemma3-12b (d 3840, 16 / 8 heads, head_dim 256, d_ff 15,360, vocab
+   262,144) cut to 2 layers (1,454,918,400 parameters, both layers local:
+   window 1024 > seq 512), phase 4's spec, 3 rounds: uplink 3, downlink 3,
+   fedplt_update 6, flash 48 / 48; peak under 80 GB; a profiled round
+   beside phase 4's.  23e: qwen2-moe-a2.7b at 18b's cut and spec with
+   ``moe_grouped=True``, one round: flash 8 / 8, fedplt_update 26, a
+   finite loss; each route's dropped contributions on one agent's batch.
 
 Phase 2 also holds the compress kernels against their plain versions,
 bit for bit (masks and int8 codes are discrete): topk, adaptive_topk and
@@ -455,7 +484,8 @@ alone, ``--moe`` phase 18 (with phase 16's MoE case), ``--encdec`` phase
 19 (with phase 16's mesh case), ``--async`` phase 20, ``--groups`` phase
 21 (after one profiled round of phase 4, which 21b is shown beside),
 ``--analysis`` phase 22 (after one profiled round of phase 4, whose
-trainer 22b reports on).  Under ``--src`` the peaks, bounds and
+trainer 22b reports on) and ``--examples`` phase 23 (23b at 300
+rounds).  Under ``--src`` the peaks, bounds and
 profile grouping stay this checkout's (:func:`use_tree`).
 """
 
@@ -1293,25 +1323,31 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
     shape = InputShape("profile", seq, MAIN_BATCH, "train")
     batch = make_batch_for(cfg, shape, gen, n_agents=FULL_N, device="cuda")
 
-    kernels.reset_launch_counts()
-
     def one_round():
+        kernels.reset_launch_counts()     # the profiled (second) call's
         _, m = trainer.step(state, batch, gen)
         float(m["loss"])
         torch.cuda.synchronize()
 
-    wall_ms, groups, kernels_ms = profile_groups(one_round)
+    events = {}
+    wall_ms, groups, kernels_ms = profile_groups(one_round, events=events)
     busy = sum(groups.values())
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     compress_ms = {k: v for k, v in kernels_ms.items()
                    if kernel_group(k) in ("rank_select", "int8_quantize",
                                            "sort_aggregate")}
+    counts = kernels.launch_counts()
+    # the kernels that run one device kernel a launch: the profile holds
+    # every launch the tallies counted, or it lost events
+    seen = {g: [events.get(g, 0), counts[g]] for g in ONE_KERNEL_A_LAUNCH
+            if counts[g] or events.get(g, 0)}
+    complete = all(a == b for a, b in seen.values())
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy,
            "idle_share": (1.0 - busy / wall_ms) if busy else None,
-           "groups_ms": groups, "top_kernels_ms": top}
+           "groups_ms": groups, "top_kernels_ms": top,
+           "events_vs_launches": seen, "events_complete": complete}
     if compress_ms:
         rec["compress_kernels_ms"] = compress_ms
-    counts = kernels.launch_counts()
     bw = card_bandwidth(torch.cuda.get_device_name(0))
     flash_ms = {k: v for k, v in kernels_ms.items()
                 if kernel_group(k) == "flash_attention"}
@@ -1358,11 +1394,18 @@ def profile_round(torch, trainer, state, gen, cfg, label, seq=None):
     log(f"{label} profile: one round {wall_ms:.1f} ms wall under the "
         f"profiler, device busy {busy:.1f} ms"
         + (f" ({100 * rec['idle_share']:.1f}% idle)" if busy else
-           " (the profiler saw no device time)"))
+           " (the profiler saw no device time)")
+        + ("" if complete else f"; the profile LOST events (kernel "
+           f"executions seen vs launches counted: {seen}), so its busy "
+           f"time and idle share are not the round's"))
     log(json.dumps({"profile": rec}))
     return rec
 
 
+# the kernel groups whose every launch runs one device kernel
+ONE_KERNEL_A_LAUNCH = ("round_uplink", "round_downlink",
+                       "round_uplink_partial", "round_downlink_presummed",
+                       "fedplt_update")
 MAIN_SEQ, MAIN_BATCH = 512, 8     # the main path's tokens per sequence, batch
 # phase 4's FedSpec fields (the full-width trainers' spec)
 MAIN_SPEC = dict(n_agents=FULL_N, n_epochs=N_EPOCHS, gamma=0.05,
@@ -2006,6 +2049,9 @@ FLASH_CAP, FLASH_WINDOW = 50.0, 4096
 # D 192) and gemma3-12b's local layer
 NEW_HEADS = ((24, 8, 128, None), (96, 8, 192, None), (8, 1, 192, None),
              (16, 8, 256, 1024))
+# 23b's twin, one agent's (B, S): its --batch 8 over --n-agents 4, and
+# --seq-len 128
+LM_TWIN_SHAPE = (2, 128)
 
 
 def flash_close(torch, got, want, what, grad=False):
@@ -2152,6 +2198,19 @@ def flash_small_checks(torch):
         shapes.append(f"{arch}'s B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}"
                       f", bf16, cap {cfg.attn_softcap}, causal, window "
                       f"{window}")
+    # 23b's twin (the ~100M gemma2-family config, float32): one agent's
+    # batch through its global and local layers
+    lm = example("train_lm_federated").lm_config()
+    B, S = LM_TWIN_SHAPE
+    H, Hkv, D = lm.n_heads, lm.n_kv_heads, lm.resolved_head_dim
+    q, k, v, do = draw(B, S, S, H, Hkv, D, torch.float32)
+    for window in (None, lm.window):
+        kw = dict(causal=True, window=window, cap=lm.attn_softcap)
+        check(q, k, v, do, kw, f"LM twin shape B={B} S={S} H={H} "
+              f"Hkv={Hkv} D={D} fp32 {kw}")
+    shapes.append(f"the LM twin's B {B}, S = T {S}, H {H}, Hkv {Hkv}, D {D}"
+                  f", fp32, cap {lm.attn_softcap}, causal with window None "
+                  f"and {lm.window}")
     # rows with no visible key (S > T + window - 1): the mean of v
     q, k, v, do = draw(2, 300, 40, 8, 4, 64, torch.float32)
     for causal in (True, False):
@@ -6791,6 +6850,547 @@ def analysis_phases(torch) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the examples as torch twins; gemma3-12b and the grouped MoE route
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("quickstart", "private_training", "compressed_training",
+            "async_training", "train_lm_federated", "serve_lm",
+            "continuous_batching")
+LM_ROUNDS = 20                      # 23b in the whole script (300: --examples)
+# gemma3-12b (hf:google/gemma-3-12b-pt: d 3840, 16 / 8 heads, head_dim 256,
+# d_ff 15,360, vocab 262,144, window 1024) cut to 2 layers, both local: the
+# tied embedding 1,006,632,960 + 2 x 224,140,800 + the final norm's 3,840;
+# 18 leaves, bf16, packed
+GEMMA3 = Cell("gemma3-12b", N_LAYERS, 1_454_918_400, 18, 1_454_918_400,
+              N_LAYERS)
+# 23c: gemma2-2b at phase 4's cut, recurrentgemma-2b at one pattern unit
+BATCH_CELLS = ((GEMMA.arch, GEMMA.n_layers), (RGEMMA.arch, RGEMMA.n_layers))
+BATCH_DTYPES = ("bfloat16", "float32")
+# 23c's limit on a slot's logits against the request decoded alone, the
+# largest difference over the largest |logit| of the request: about 4x and
+# 30x the largest measured on the H100 (bf16 0.00752, float32 3.3e-7; a
+# slot refilled without reset_slots is off by 0.21 at its first step;
+# PERF.md §6)
+BATCH_LIMIT = {"bfloat16": 3e-2, "float32": 1e-5}
+
+
+def example(name: str):
+    """The torch twin ``examples/<name>_torch.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quiet(*a):
+    pass
+
+
+def _launched(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def dense_twins(torch):
+    """Phase 23a: the four dense twins at their own sizes on the card, each
+    beside the same twin's run on the CPU in this process (the draws are
+    made on a CPU generator, so both see the same ones).  Returns the
+    record."""
+    from repro_torch import kernels
+    from repro_torch.core.metrics import hitting_round
+    from repro_torch.core.problem import make_logreg_problem
+
+    out = {}
+
+    def timed(fn, dev):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(dev, log if dev == "cuda" else _quiet)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, kernels.launch_counts()
+
+    # quickstart: N 100, n 5, q 250, 200 / 400 / 400 rounds; x* once
+    qs = example("quickstart")
+    problem = make_logreg_problem(n_agents=100, q=250, dim=5, seed=0,
+                                  device="cpu")
+    x_star = problem.to("cuda").solve()
+    log("phase 23a quickstart_torch on the card:")
+    (card, s_card, c_card), (cpu, s_cpu, _) = (
+        timed(lambda d, lg: qs.run(problem, d, x_star=x_star.to(d), log=lg),
+              dev) for dev in ("cuda", "cpu"))
+    for k in ("hit", "hit_pp"):
+        if card[k] != cpu[k] or card[k] is None:
+            fail(f"phase 23a quickstart: {k} card {card[k]} / CPU {cpu[k]}")
+    gap = abs(card["x_bar_err"] - cpu["x_bar_err"])
+    if not (gap <= 1e-5 and card["x_bar_err"] < 1e-4):
+        fail(f"phase 23a quickstart: ||x_bar - x*|| card "
+             f"{card['x_bar_err']} / CPU {cpu['x_bar_err']}")
+    log(f"phase 23a quickstart: hitting rounds {card['hit']} / "
+        f"{card['hit_pp']} on the card and the CPU; ||x_bar - x*|| "
+        f"{card['x_bar_err']:.3e} / {cpu['x_bar_err']:.3e}; {s_card:.2f} s "
+        f"on the card, {s_cpu:.2f} s on the CPU; launches "
+        f"{_launched(c_card)}")
+    out["quickstart"] = dict(hit=card["hit"], hit_pp=card["hit_pp"],
+                             x_bar_err=[card["x_bar_err"], cpu["x_bar_err"]],
+                             seconds=[s_card, s_cpu],
+                             launches=_launched(c_card))
+
+    # private: 300 rounds of noisy GD with dp_init
+    pv = example("private_training")
+    log("phase 23a private_training_torch on the card:")
+    (card, s_card, c_card), (cpu, s_cpu, _) = (
+        timed(lambda d, lg: pv.run(problem, d, log=lg), dev)
+        for dev in ("cuda", "cpu"))
+    err = _state_err(torch, card["state"], cpu["state"])
+    if not (err <= 1e-5 and card["tau"] == cpu["tau"]
+            and card["report"].adp_eps == cpu["report"].adp_eps
+            and math.isfinite(float(card["crit"][-1]))):
+        fail(f"phase 23a private: states {err}, tau {card['tau']} / "
+             f"{cpu['tau']}, eps {card['report'].adp_eps} / "
+             f"{cpu['report'].adp_eps}")
+    log(f"phase 23a private: card vs CPU states {err:.3g} (tolerance 1e-5), "
+        f"tau and eps equal, criterion {card['crit'][-1]:.4e} / "
+        f"{cpu['crit'][-1]:.4e}; {s_card:.2f} s on the card, {s_cpu:.2f} s "
+        f"on the CPU; launches {_launched(c_card)}")
+    out["private"] = dict(tau=card["tau"], adp_eps=card["report"].adp_eps,
+                          crit=[float(card["crit"][-1]),
+                                float(cpu["crit"][-1])],
+                          state_err=err, seconds=[s_card, s_cpu],
+                          launches=_launched(c_card))
+
+    # compressed: n 20, 600 rounds, six rows; each row through
+    # ``run_row`` on the card and the CPU, its tallies read between rows
+    cp = example("compressed_training")
+    problem20 = make_logreg_problem(n_agents=100, q=250, dim=20, seed=0,
+                                    device="cpu")
+    rows, s_card, s_cpu = {}, 0.0, 0.0
+    for name, comp, _ in cp.ROWS:
+        (card, secs, t), (cpu, secs_cpu, _) = (
+            timed(lambda d, lg: cp.run_row(problem20, d, comp, cp.ROUNDS),
+                  dev) for dev in ("cuda", "cpu"))
+        s_card, s_cpu = s_card + secs, s_cpu + secs_cpu
+        k_card, k_cpu = hitting_round(card), hitting_round(cpu)
+        want = cp.ROUNDS if name == "adaptive/fused" else 0
+        if t["rank_select"] != want:
+            fail(f"phase 23a compressed {name}: rank_select "
+                 f"{t['rank_select']}, want {want}")
+        if k_card != k_cpu or k_card is None:
+            fail(f"phase 23a compressed {name}: hitting round card "
+                 f"{k_card} / CPU {k_cpu}")
+        rows[name] = dict(rounds=k_card, final_crit=float(card[-1]),
+                          launches=_launched(t))
+    log(f"phase 23a compressed: hitting rounds "
+        f"{ {k: v['rounds'] for k, v in rows.items()} } on the card and the "
+        f"CPU; launches { {k: v['launches'] for k, v in rows.items()} }; "
+        f"{s_card:.2f} s on the card, {s_cpu:.2f} s on the CPU")
+    out["compressed"] = dict(rows=rows, seconds=[s_card, s_cpu])
+
+    # async: 40 rounds through the broker, replayed bit for bit
+    asy = example("async_training")
+    log("phase 23a async_training_torch on the card:")
+    problem8 = make_logreg_problem(n_agents=asy.N_AGENTS, q=200, dim=5,
+                                   seed=0, device="cpu")
+    res, s_card, c_card = timed(lambda d, lg: asy.run(problem8, d, log=lg),
+                                "cuda")
+    if not res["bitwise"] or res["state"].x.device.type != "cuda":
+        fail("phase 23a async: the replay is not bit for bit on the card")
+    arrivals, _ = res["schedule"].effective_counts()
+    log(f"phase 23a async: replay bit for bit on the card; arrivals "
+        f"{[int(a) for a in arrivals]}; effective eps "
+        f"{res['effective'].adp_eps:.3f}; {s_card:.2f} s; launches "
+        f"{_launched(c_card)}")
+    out["async"] = dict(arrivals=[int(a) for a in arrivals],
+                        adp_eps=res["effective"].adp_eps, seconds=s_card,
+                        launches=_launched(c_card))
+    return out
+
+
+def lm_twin(torch, rounds):
+    """Phase 23b: ``train_lm_federated_torch`` at its own config (~100M,
+    float32) for ``rounds`` rounds on the card: finite losses, the last
+    below the first, flash fp32 launches agents x epochs x 8 layers a
+    round; round ms and peak GB."""
+    from repro_torch import kernels
+
+    lm = example("train_lm_federated")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lm.main(["--rounds", str(rounds), "--device", "cuda"], log=log)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in res["history"]]
+    cfg = lm.lm_config()
+    want = rounds * 4 * 3 * cfg.n_layers
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        fail(f"phase 23b: losses {losses}")
+    if counts["flash_attention_fwd"] != want or \
+            counts["flash_attention_bwd"] != want:
+        fail(f"phase 23b: flash launches {_launched(counts)}, want {want}")
+    ms = [h["ms"] for h in res["history"]]
+    steady = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+    log(f"phase 23b: {res['n_params']:,} parameters, {rounds} rounds, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; round {steady:.1f} ms "
+        f"(median of rounds 2-{rounds}; the first {ms[0]:.1f}), peak "
+        f"{peak / 1e9:.2f} GB; launches {_launched(counts)}; {secs:.1f} s")
+    n_params = res["n_params"]
+    del res
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, rounds=rounds, loss_first=losses[0], loss_last=losses[-1],
+                round_ms_median=steady, round_ms=ms, peak_gb=peak / 1e9,
+                launches=_launched(counts), seconds=secs)
+
+
+def decode_alone(torch, model, params, prompt, gen_len, cache_len):
+    """One request decoded alone as ``generate`` decodes it (its prompt
+    through ``decode_step`` a token at a time, then greedy tokens),
+    keeping every step's logits: ``(tokens, [(vocab,) rows])``."""
+    cache = model.init_cache(1, cache_len, device="cuda")
+    rows, toks = [], []
+    with torch.no_grad():
+        for t in prompt:
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([t], dtype=torch.int32,
+                                            device="cuda"))
+            rows.append(logits[0])
+        for _ in range(gen_len):
+            toks.append(int(torch.argmax(rows[-1])))
+            if len(toks) == gen_len:
+                break
+            logits, cache = model.decode_step(
+                params, cache, torch.tensor([toks[-1]], dtype=torch.int32,
+                                            device="cuda"))
+            rows.append(logits[0])
+    return toks, rows
+
+
+def batching_phase(torch):
+    """Phase 23c: ``serve_stream`` of ``continuous_batching_torch`` at
+    published width (gemma2-2b cut to 2 layers, recurrentgemma-2b to one
+    pattern unit; bf16 and float32), 4 slots, 12 requests of 3-12 prompt
+    tokens, 10 generated: every slot's logits at every step against the
+    request decoded alone, the largest difference over the largest |logit|
+    of the request under :data:`BATCH_LIMIT`; tokens equal wherever the
+    alone run's top-2 margin (over the same largest |logit|) exceeds the
+    limit, compared up to a token that a smaller margin let flip; the
+    alone tokens equal ``generate``'s.  Returns the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    cb = example("continuous_batching")
+    out = {}
+    for arch, n_layers in BATCH_CELLS:
+        for dtype in BATCH_DTYPES:
+            label = f"{arch} ({n_layers} layers, {dtype})"
+            cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                                      dtype=dtype)
+            model = build_model(cfg)
+            params = model.init(
+                torch.Generator(device="cuda").manual_seed(1), "cuda")
+            queue = cb.make_queue(cfg.vocab, 12, 12)
+            cache_len = 12 + 10
+            torch.cuda.synchronize()
+            res = cb.serve_stream(model, params, queue, 4, 10, "cuda",
+                                  cache_len=cache_len, record=True)
+            worst, flips, compared = 0.0, 0, 0
+            for rid, prompt in enumerate(queue):
+                toks, rows = decode_alone(torch, model, params, prompt, 10,
+                                          cache_len)
+                gen_toks = generate(
+                    model, params, torch.tensor([prompt], device="cuda"),
+                    10, cache_len)[0].tolist()
+                if gen_toks != toks:
+                    fail(f"phase 23c {label}: request {rid} decoded alone "
+                         f"{toks}, generate {gen_toks}")
+                got = res["logits"][rid]
+                if len(got) != len(rows):
+                    fail(f"phase 23c {label}: request {rid} took "
+                         f"{len(got)} steps, alone {len(rows)}")
+                scale = max(float(r.float().abs().max()) for r in rows)
+                lim = BATCH_LIMIT[dtype]
+                for j, (g, a) in enumerate(zip(got, rows)):
+                    err = float((g.float() - a.float()).abs().max()) / scale
+                    worst = max(worst, err)
+                    compared += 1
+                    if err > lim:
+                        fail(f"phase 23c {label}: request {rid} step {j}: "
+                             f"logits differ by {err:.3g} of the largest "
+                             f"|logit| (limit {lim})")
+                    k = j - (len(prompt) - 1)      # generated token index
+                    if k < 0:
+                        continue
+                    if res["done"][rid][k] != toks[k]:
+                        top2 = torch.topk(a.float(), 2).values
+                        margin = float(top2[0] - top2[1]) / scale
+                        if margin > lim:
+                            fail(f"phase 23c {label}: request {rid} token "
+                                 f"{k}: {res['done'][rid][k]} in the slot, "
+                                 f"{toks[k]} alone (top-2 margin {margin:.3g})")
+                        flips += 1
+                        break
+            log(f"phase 23c {label}: {len(queue)} requests through 4 slots in "
+                f"{res['steps']} steps vs {res['naive_steps']} sequential "
+                f"(x{res['utilization']:.1f} utilization), "
+                f"{res['tokens_per_s']:.1f} gen tok/s; {compared} slot-steps "
+                f"against the requests alone: largest difference "
+                f"{worst:.3g} of the largest |logit| (limit {BATCH_LIMIT[dtype]}), "
+                f"{flips} near-tie token flips")
+            out[label] = dict(steps=res["steps"],
+                              naive_steps=res["naive_steps"],
+                              utilization=res["utilization"],
+                              tokens_per_s=res["tokens_per_s"],
+                              max_rel_err=worst, flips=flips,
+                              compared=compared)
+            del model, params, res
+            torch.cuda.empty_cache()
+    return out
+
+
+def packed_width_checks(torch, width, n_rows=FULL_N):
+    """23d: the uplink, downlink and fedplt_update wrappers once each on
+    card tensors of a trainer's packed shape ``(n_rows, width)`` bf16
+    (past 2^32 elements at gemma3-12b's), against their plain versions
+    computed slab by slab, at phase 2's tolerances; each must launch its
+    kernel once.  Runs with no trainer alive: the downlink's three inputs
+    and two outputs are 58 GB at gemma3-12b's width.  Returns
+    ``{kernel: max abs err}``."""
+    from repro_torch import kernels
+    from repro_torch.core.prox import make_prox
+    from repro_torch.kernels.fedplt_update import ops as update_ops
+    from repro_torch.kernels.fedplt_update.ref import fedplt_update_ref
+    from repro_torch.kernels.round_edge import ops as edge_ops
+    from repro_torch.kernels.round_edge import ref as edge_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    prox, rho = make_prox("weight_decay", weight=0.01), 0.25
+
+    def buf():
+        b = torch.empty((n_rows, width), device=dev, dtype=torch.bfloat16)
+        for row in b:
+            row.normal_(generator=gen)
+        return b
+
+    def held(got, plain, ins, what):
+        err = 0.0
+        for c0 in range(0, width, SLAB):
+            want = plain(*[a[..., c0:c0 + SLAB] for a in ins])
+            for g, w in zip(got, want if isinstance(want, tuple)
+                            else (want,)):
+                err = max(err, compare(torch, g[..., c0:c0 + SLAB], w,
+                                       f"phase 23d {what}"))
+        return err
+
+    kernels.reset_launch_counts()
+    errs = {}
+    z = buf()
+    y, v = edge_ops.round_uplink(z, None, prox=prox, rho_eff=rho)
+    errs["round_uplink"] = held(
+        (y, v), lambda z_: edge_ref.round_uplink_ref(z_, None, prox, rho),
+        (z,), "round_uplink")
+    del z, y, v
+    x, w, z = buf(), buf(), buf()
+    u = torch.tensor([1.0, 0.0] + [1.0] * (n_rows - 2), device=dev)
+    xo, zo = edge_ops.round_downlink(x, w, z, u, None, prox=prox,
+                                     rho_eff=rho, damping=1.0)
+    errs["round_downlink"] = held(
+        (xo, zo), lambda x_, w_, z_: edge_ref.round_downlink_ref(
+            x_, w_, z_, u, None, prox, rho, 1.0), (x, w, z),
+        "round_downlink")
+    if not (torch.equal(xo[1], x[1]) and torch.equal(zo[1], z[1])):
+        fail("phase 23d round_downlink: the inactive agent's row changed")
+    del x, w, z, xo, zo
+    w, g, v = buf(), buf(), buf()
+    out = update_ops.fedplt_update(w, g, v, None, gamma=0.05, inv_rho=1.0)
+    errs["fedplt_update"] = held(
+        (out,), lambda w_, g_, v_: fedplt_update_ref(
+            w_, g_, v_, None, gamma=0.05, inv_rho=1.0), (w, g, v),
+        "fedplt_update")
+    del w, g, v, out
+    torch.cuda.synchronize()
+    counts = _launched(kernels.launch_counts())
+    if counts != dict.fromkeys(errs, 1):
+        fail(f"phase 23d packed-width checks: launches {counts}")
+    torch.cuda.empty_cache()
+    log(f"phase 23d: round_uplink, round_downlink and fedplt_update at the "
+        f"packed shape ({n_rows}, {width:,}) bf16 ({n_rows * width:,} "
+        f"elements) against their plain versions slab by slab: max abs err "
+        f"{errs}")
+    return errs
+
+
+def gemma3_phase(torch, base, main_prof=None):
+    """Phase 23d: gemma3-12b at published width cut to 2 layers (both
+    local; window 1024 > seq 512, so the window does not bite: the global
+    layer's head shape is held in 9a), phase 4's spec, 3 rounds: uplink 3,
+    downlink 3, fedplt_update 6, flash 48 / 48; peak under 80 GB; two
+    profiled rounds beside phase 4's; then the edge and update kernels at
+    the packed shape against their plain versions."""
+    from repro_torch.configs import get_config
+    from repro_torch.fed.api import FedSpec
+    from repro_torch.models.transformer import build_stages
+
+    cfg = dataclasses.replace(get_config(GEMMA3.arch),
+                              n_layers=GEMMA3.n_layers)
+    kinds = [k for s in build_stages(cfg) for _ in range(s.n_units)
+             for k in s.unit]
+    if kinds != ["local"] * GEMMA3.n_layers or not cfg.window > MAIN_SEQ:
+        fail(f"phase 23d: layer kinds {kinds}, window {cfg.window}")
+    prof, again = {}, {}
+
+    def second_profile(trainer, state, cfg_):
+        again.update(profile_round(
+            torch, trainer, state,
+            torch.Generator(device="cuda").manual_seed(2), cfg_,
+            "phase 23d (again)", GEMMA3.seq_len))
+
+    counts, hist, peak = train_phase(
+        torch, "phase 23d gemma3-12b (2 local layers)", FedSpec(**base), 3,
+        expected_counts(3, GEMMA3, round_uplink=3, round_downlink=3,
+                        fedplt_update=6),
+        profile=True, cell=GEMMA3, profile_out=prof, after=second_profile)
+    if peak > 80e9:
+        fail(f"phase 23d: peak device memory {peak / 1e9:.2f} GB")
+    ms = [1e3 * h["dt"] for h in hist]
+
+    def groups(p):
+        return {k: round(v, 2) for k, v in p.get("groups_ms", {}).items()}
+
+    def idle(p):
+        return 100 * (p.get("idle_share") or 0)
+
+    side = ""
+    if main_prof:
+        side = (f"; phase 4: {main_prof.get('wall_ms', 0):.1f} ms wall, idle "
+                f"{idle(main_prof):.1f}%, groups {groups(main_prof)}")
+    log(f"phase 23d: rounds {[round(v, 1) for v in ms]} ms, peak "
+        f"{peak / 1e9:.2f} GB; profiled rounds {prof.get('wall_ms', 0):.1f} "
+        f"/ {again.get('wall_ms', 0):.1f} ms wall, idle {idle(prof):.1f} / "
+        f"{idle(again):.1f}%, events complete "
+        f"{prof.get('events_complete')} / {again.get('events_complete')}, "
+        f"groups {groups(prof)} / {groups(again)}{side}")
+    errs = packed_width_checks(torch, GEMMA3.packed_width)
+    return dict(counts=_launched(counts), peak_gb=peak / 1e9, round_ms=ms,
+                losses=[h["loss"] for h in hist], profile=prof,
+                profile_again=again, phase4_profile=main_prof,
+                packed_width_err=errs)
+
+
+def _dropped_by_route(torch, trainer, state, cfg, out):
+    """Each MoE route's dropped contributions on one agent's batch through
+    the consensus model (``dispatch_plan`` wrapped to count them)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import build_model
+
+    params = trainer.consensus(state)
+    batch = make_batch_for(cfg, InputShape("moe", MAIN_SEQ, 2, "train"),
+                           torch.Generator(device="cuda").manual_seed(5),
+                           device="cuda")
+    plan_fn, seen = moe_lib.dispatch_plan, []
+
+    def counting(experts, n_experts, cap):
+        plan = plan_fn(experts, n_experts, cap)
+        seen.append((int((~plan["kept"]).sum()), plan["kept"].numel(), cap))
+        return plan
+
+    moe_lib.dispatch_plan = counting
+    try:
+        for grouped in (False, True):
+            seen.clear()
+            model = build_model(dataclasses.replace(cfg, moe_grouped=grouped))
+            with torch.no_grad():
+                model.loss_fn(params, batch)
+            if len(seen) != cfg.n_layers:
+                fail(f"phase 23e: {len(seen)} dispatch plans seen in "
+                     f"{cfg.n_layers} MoE layers (grouped={grouped})")
+            out["grouped" if grouped else "flat"] = {
+                "dropped": sum(s[0] for s in seen),
+                "contributions": sum(s[1] for s in seen),
+                "capacity": seen[0][2]}
+    finally:
+        moe_lib.dispatch_plan = plan_fn
+
+
+def grouped_moe_phase(torch, base, flat=None):
+    """Phase 23e: qwen2-moe-a2.7b at 18b's one-layer cut and spec with
+    ``moe_grouped=True``, one round: a finite loss, flash 8 / 8,
+    fedplt_update 26; each route's dropped contributions on one agent's
+    batch; round ms and peak GB beside 18b's flat route (``flat``, its
+    record, in the whole script)."""
+    from repro_torch.fed.api import FedSpec
+
+    drops = {}
+    counts, hist, peak = train_phase(
+        torch, "phase 23e qwen2-moe-a2.7b grouped route (1 layer, tree)",
+        FedSpec(**dict(base, state_layout="tree")), 1,
+        expected_counts(1, QWEN, fedplt_update=N_EPOCHS * QWEN.n_leaves),
+        cell=QWEN, cfg_kw=dict(moe_grouped=True),
+        after=lambda tr, st, cfg: _dropped_by_route(torch, tr, st, cfg,
+                                                    drops))
+    if peak > 80e9:
+        fail(f"phase 23e: peak device memory {peak / 1e9:.2f} GB")
+    side = ""
+    if flat:
+        side = (f"; 18b's flat route: rounds "
+                f"{[round(v, 1) for v in flat['round_ms']]} ms, peak "
+                f"{flat['peak_gb']:.2f} GB")
+    log(f"phase 23e: round {1e3 * hist[0]['dt']:.1f} ms, loss "
+        f"{hist[0]['loss']:.4f}, peak {peak / 1e9:.2f} GB; dropped "
+        f"contributions on one agent's batch (2 x {MAIN_SEQ} tokens): "
+        f"{drops}{side}")
+    return dict(counts=_launched(counts), peak_gb=peak / 1e9,
+                round_ms=1e3 * hist[0]["dt"], loss=hist[0]["loss"],
+                dropped=drops)
+
+
+def examples_phase(torch, base, lm_rounds=LM_ROUNDS, main_prof=None,
+                   moe_flat=None):
+    """Phase 23 (23a-23e); returns its record with each part's seconds."""
+    rec, secs = {}, {}
+    for part, fn in (("23a", lambda: dense_twins(torch)),
+                     ("23b", lambda: lm_twin(torch, lm_rounds)),
+                     ("23c", lambda: batching_phase(torch)),
+                     ("23d", lambda: gemma3_phase(torch, base, main_prof)),
+                     ("23e", lambda: grouped_moe_phase(torch, base,
+                                                       moe_flat))):
+        t0 = time.time()
+        rec[part] = fn()
+        secs[part] = round(time.time() - t0, 1)
+    log(f"phase 23 seconds: {secs} ({sum(secs.values()):.1f} s)")
+    rec["seconds"] = secs
+    return rec
+
+
+def examples_phases(torch) -> int:
+    """``--examples``: build the kernels and run phase 23 alone (23b at the
+    twin's default 300 rounds)."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.time()
+    build.build_all(kernels.kernel_sources())
+    rec = examples_phase(torch, MAIN_SPEC, lm_rounds=300)
+    log(json.dumps({"examples": rec, "seconds": round(time.time() - t0, 1),
+                    "card": smi}, default=str))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6824,6 +7424,8 @@ def main() -> int:
         return groups_phases(torch)
     if "--analysis" in args:
         return analysis_phases(torch)
+    if "--examples" in args:
+        return examples_phases(torch)
     from repro_torch import kernels
     from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
     from repro_torch.kernels import build
@@ -7039,6 +7641,11 @@ def main() -> int:
     analysis = dict(analysis_phase(torch, base, main_peak), **{"22b": report})
 
     stamp(22)
+    # phase 23: the examples' torch twins, gemma3-12b, the grouped MoE route
+    examples_rec = examples_phase(torch, base, main_prof=main_prof,
+                                  moe_flat=moe["18b"])
+
+    stamp(23)
     log(f"phase seconds: {phase_s}; {sum(phase_s.values()):.1f} s in all")
 
     table = []
@@ -7139,7 +7746,8 @@ def main() -> int:
                     "standard": standard, "resume": resumed,
                     "serve": serving, "moe": moe, "encdec": encdec,
                     "async": async_rec, "groups": groups_rec,
-                    "analysis": analysis, "phase_seconds": phase_s},
+                    "analysis": analysis, "examples": examples_rec,
+                    "phase_seconds": phase_s},
                    default=str))
     log(json.dumps({"kernels": table}))
     import torch.distributed as dist

@@ -7,11 +7,11 @@ the encoder-decoder whisper-small and the vision-prefixed internvl2-26b.
 """
 
 from repro_torch.configs.base import SHAPES, InputShape, ModelConfig  # noqa: F401
-from repro_torch.configs import (falcon_mamba_7b, gemma2_2b,  # noqa: E402
-                                 gemma3_12b, grok_1_314b, internvl2_26b,
-                                 nemotron_4_340b, phi4_mini_3_8b,
-                                 qwen2_moe_a2_7b, recurrentgemma_2b,
-                                 whisper_small)
+from repro_torch.configs import (falcon_mamba_7b, fedplt_logreg,  # noqa: E402,F401
+                                 gemma2_2b, gemma3_12b, grok_1_314b,
+                                 internvl2_26b, nemotron_4_340b,
+                                 phi4_mini_3_8b, qwen2_moe_a2_7b,
+                                 recurrentgemma_2b, whisper_small)
 
 REGISTRY = {
     "phi4-mini-3.8b": phi4_mini_3_8b.CONFIG,

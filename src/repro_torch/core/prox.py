@@ -1,5 +1,7 @@
-"""Proximal operators (counterpart of ``repro/core/prox.py``, the
-``make_prox`` table).
+"""Proximal operators (counterpart of ``repro/core/prox.py``: the
+``make_prox`` table, the derived operators ``reflect``,
+``moreau_conjugate`` and ``prox_of_smooth``, and Lemma 6's
+``coordinator_prox``).
 
 Every operator is ``(y, rho) -> x`` with
 ``prox_{rho f}(y) = argmin_x f(x) + ||x - y||^2 / (2 rho)``.  All table
@@ -145,3 +147,63 @@ def apply_prox_code(y: torch.Tensor, code: int, a: float,
     if code == PROX_CLIP:
         return torch.clamp(y, a, b)
     raise ValueError(f"unknown prox code {code}")
+
+
+# ---------------------------------------------------------------------------
+# Derived operators
+# ---------------------------------------------------------------------------
+
+def reflect(prox: ProxFn) -> ProxFn:
+    """Reflective operator refl_{rho f}(y) = 2 prox_{rho f}(y) - y.
+
+    The reflection formula lives in the round engine
+    (:func:`repro_torch.fed.engine.reflect`, the one source of the round's
+    topology); this combinator evaluates it on a single-agent stack."""
+
+    def refl(y: torch.Tensor, rho: float) -> torch.Tensor:
+        from repro_torch.fed import engine
+
+        return engine.reflect(prox(y, rho), y[None])[0]
+
+    return refl
+
+
+def moreau_conjugate(prox: ProxFn) -> ProxFn:
+    """prox of the convex conjugate via the Moreau identity:
+    ``prox_{rho f*}(y) = y - rho prox_{f / rho}(y / rho)``."""
+
+    def prox_star(y: torch.Tensor, rho: float) -> torch.Tensor:
+        return y - rho * prox(y / rho, 1.0 / rho)
+
+    return prox_star
+
+
+def prox_of_smooth(grad_fn, y: torch.Tensor, rho: float, steps: int = 50,
+                   step_size: float | None = None,
+                   smoothness: float = 1.0) -> torch.Tensor:
+    """Approximate prox of a smooth f by ``steps`` gradient steps on
+    ``d(x) = f(x) + ||x - y||^2 / (2 rho)`` from ``x = y`` (used when h is
+    not proximable; the induced error is the additive noise allowed by
+    Prop. 2)."""
+    if step_size is None:
+        step_size = 1.0 / (smoothness + 1.0 / rho)
+    x = y
+    for _ in range(steps):
+        x = x - step_size * (grad_fn(x) + (x - y) / rho)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Fed-PLT coordinator step (paper Lemma 6)
+# ---------------------------------------------------------------------------
+
+def coordinator_prox(z: torch.Tensor, rho: float,
+                     prox_h: ProxFn) -> torch.Tensor:
+    """``y = prox_{rho h / N}(mean_i z_i)`` for a stacked ``(N, n)`` ``z``:
+    the (single, shared) coordinator model, shape ``(n,)``.  The dense
+    array is the single-leaf case of
+    :func:`repro_torch.fed.engine.coordinator_prox`."""
+    from repro_torch.fed import engine
+
+    return engine.coordinator_prox(
+        z, engine.RoundConfig(n_agents=z.shape[0], rho=rho), prox_h)

@@ -8,15 +8,19 @@ encoder-decoder config's batch also holds the encoder's frame
 embeddings ``enc_embeds`` and a vision config's the patch embeddings
 ``patch_embeds`` (:mod:`repro_torch.models.frontends`), its text cut to
 ``seq_len - n_frontend_tokens``; a batch of a non-train shape has no
-``labels``.
+``labels``.  :func:`fed_lm_batches` is the endless stream of
+agent-stacked batches the federated examples train on.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Iterator
 
+import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.models import frontends
 
@@ -65,3 +69,27 @@ def make_batch_for(cfg: ModelConfig, shape: InputShape,
         return one(B, 0.0)
     per = [one(B // n_agents, float(i)) for i in range(n_agents)]
     return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+
+
+def _step_seed(seed: int, step: int) -> int:
+    """The generator seed of step ``step`` of a stream seeded ``seed`` (the
+    counterpart of ``jax.random.fold_in(PRNGKey(seed), step)``: distinct
+    steps, independent streams)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def fed_lm_batches(cfg: ModelConfig, shape: InputShape, n_agents: int,
+                   seed: int = 0, device=None) -> Iterator[dict]:
+    """Endless iterator of agent-stacked training batches on ``device``
+    (CUDA unless the CPU is asked for): step ``i`` is
+    :func:`make_batch_for` drawn from a generator seeded with
+    ``_step_seed(seed, i)``, agent ``a`` at skew ``a``."""
+    device = resolve_device(device)
+    step = 0
+    while True:
+        gen = torch.Generator(device=device).manual_seed(
+            _step_seed(seed, step))
+        yield make_batch_for(cfg, shape, gen, n_agents=n_agents,
+                             device=device)
+        step += 1

@@ -793,7 +793,34 @@ def effective_privacy_report(spec: Any, schedule, local_dataset_size,
 # The trainer handle
 # ---------------------------------------------------------------------------
 
-class DenseTrainer:
+class FedTrainer:
+    """Uniform handle over both Fed-PLT front ends (the reference's).
+
+    ``init / step / run / consensus / privacy_report`` mean the same
+    thing on the dense paper problems and at model scale; only ``step``
+    / ``run`` arity differs (model-scale rounds consume a batch).  Where
+    the reference takes a ``PRNGKey`` the port takes an integer seed."""
+
+    spec: FedSpec
+
+    def init(self, seed: int = 0, *args):
+        raise NotImplementedError
+
+    def step(self, state, *args, **kw):
+        raise NotImplementedError
+
+    def run(self, seed: int, n_rounds: int, *args, **kw):
+        raise NotImplementedError
+
+    def consensus(self, state):
+        raise NotImplementedError
+
+    def privacy_report(self, n_rounds: int, local_dataset_size=None,
+                       delta: Optional[float] = None):
+        raise NotImplementedError
+
+
+class DenseTrainer(FedTrainer):
     """:class:`repro_torch.core.fedplt.FedPLT` behind the trainer handle
     (``init / step / run / consensus / privacy_report``), on ``device``
     (CUDA unless ``device='cpu'``; the problem's data is moved there).
@@ -926,7 +953,7 @@ class DenseTrainer:
             mu=self.algo.mu if self.algo.mu > 0 else None)
 
 
-class ModelTrainer:
+class ModelTrainer(FedTrainer):
     """:mod:`repro_torch.fed.runtime` behind one handle: ``init / step /
     run / consensus / privacy_report``.  Runs on the model's device
     (CUDA unless ``device='cpu'``).  A sharded spec builds its mesh
@@ -1062,7 +1089,7 @@ class ModelTrainer:
                               delta)
 
 
-def build_trainer(problem_or_model, spec: Any, device=None):
+def build_trainer(problem_or_model, spec: Any, device=None) -> FedTrainer:
     """The front door: a :class:`DenseTrainer` for a dense problem
     (``local_loss`` + ``n_agents``), a :class:`ModelTrainer` for a model
     (``init`` + ``loss_fn``), on ``device`` (CUDA unless the CPU is asked

@@ -80,6 +80,7 @@ draw with a given global row, and the metrics hold the realised global
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -92,6 +93,66 @@ from repro_torch.fed.solvers import (make_local_solver,
                                      make_packed_local_solver)
 
 tree_map = pytree.tree_map
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """Thin legacy shim over :class:`repro_torch.fed.api.FedSpec` (the
+    reference's, with the port's backend names: ``use_fused_update`` for
+    ``use_pallas_update``, ``engine_backend`` / ``compress_backend``
+    ``"torch" | "fused"`` for ``"xla" | "pallas"``).  Every entry point
+    normalizes it via :meth:`to_spec` (``api.as_spec``); prefer a
+    ``FedSpec`` in new code."""
+
+    n_agents: int = 16
+    rho: float = 1.0
+    gamma: float = 0.05
+    n_epochs: int = 5
+    participation: float = 1.0
+    tau: float = 0.0                 # DP noise std (forces noisy local GD)
+    clip: Optional[float] = None     # per-agent gradient clipping
+    weight_decay: float = 0.0        # coordinator prox: l2 regularizer h
+    use_fused_update: bool = False   # fused fedplt_update kernel
+    solver: str = "gd"               # gd | agd | sgd (tau>0 -> noisy_gd)
+    # curvature moduli of the local losses; 0 -> derived from gamma
+    mu: float = 0.0
+    L: float = 0.0
+    compression: str = "none"        # z-uplink compressor registry name
+    compress_ratio: float = 0.25
+    compress_backend: str = "torch"  # "auto" | "torch" per-leaf | "fused"
+    engine_backend: str = "torch"    # round edges: "torch" | "fused"
+    state_layout: str = "tree"       # "tree" | "packed" resident buffer
+    damping: float = 1.0             # Krasnosel'skii relaxation
+    async_mode: str = "off"          # "off" | "stale" bounded staleness
+    max_staleness: int = 0           # K: forced arrival bound
+    guard_increments: bool = False   # finite/norm screen on uplinks
+    guard_norm_bound: float = float("inf")  # inf = finiteness-only screen
+    aggregator: str = "mean"         # repro_torch.fed.robust registry name
+    aggregator_param: float = 0.0    # trim count f / clip radius
+
+    def to_spec(self):
+        from repro_torch.fed.api import CompressionSpec, FedSpec, PrivacySpec
+
+        return FedSpec(
+            n_agents=self.n_agents, rho=self.rho,
+            participation=self.participation, damping=self.damping,
+            solver=self.solver, n_epochs=self.n_epochs, gamma=self.gamma,
+            mu=self.mu if self.mu != 0.0 else None,
+            L=self.L if self.L > 0.0 else None,
+            weight_decay=self.weight_decay,
+            privacy=PrivacySpec(tau=self.tau, clip=self.clip),
+            compression=CompressionSpec(name=self.compression,
+                                        ratio=self.compress_ratio,
+                                        backend=self.compress_backend),
+            engine_backend=self.engine_backend,
+            state_layout=self.state_layout,
+            use_fused_update=self.use_fused_update,
+            async_mode=self.async_mode,
+            max_staleness=self.max_staleness,
+            guard_increments=self.guard_increments,
+            guard_norm_bound=self.guard_norm_bound,
+            aggregator=self.aggregator,
+            aggregator_param=self.aggregator_param)
 
 
 class FedState(NamedTuple):
@@ -441,3 +502,15 @@ def consensus_model(state: FedState, meta=None, mesh=None,
                               mesh).div_(n_agents)
     mean = sharding.model_gather(mean, mesh, meta.width)
     return compress_lib.unpack_row(mean[0], meta)
+
+
+def privacy_report(fcfg, n_rounds: int, local_dataset_size: int,
+                   delta: float = 1e-5):
+    """Position a DP training run on the paper's (eps, delta) map: a
+    delegate to :func:`repro_torch.fed.api.privacy_report` (one
+    accountant for both front ends), charging the curvature the algorithm
+    optimizes against (weight_decay + 1/rho)."""
+    from repro_torch.fed import api
+
+    return api.privacy_report(api.as_spec(fcfg), n_rounds,
+                              local_dataset_size, delta)

@@ -6,12 +6,15 @@ the plain version (:mod:`.ref`); no fallback.  ``g``, ``v`` and ``t``
 are cast to ``w``'s dtype first, as the reference's wrapper casts them,
 and made contiguous: in the tree layout a leaf of ``v`` is a view into
 the fused uplink's packed buffer (a column block of its rows).
-``fedplt_update.launches`` counts kernel launches.
+``fedplt_update.launches`` counts kernel launches;
+:func:`fedplt_update_tree` applies the update leaf by leaf (one launch a
+leaf on the card).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils import _pytree as pytree
 
 from repro_torch.kernels import costs
 from repro_torch.kernels.fedplt_update import kernel
@@ -37,3 +40,12 @@ def fedplt_update(w, g, v, t=None, *, gamma: float, inv_rho: float,
 
 
 fedplt_update.launches = 0
+
+
+def fedplt_update_tree(w_tree, g_tree, v_tree, *, gamma: float,
+                       inv_rho: float):
+    """Apply the fused update leaf-wise across a parameter tree."""
+    return pytree.tree_map(
+        lambda w, g, v: fedplt_update(w, g, v, gamma=gamma,
+                                      inv_rho=inv_rho),
+        w_tree, g_tree, v_tree)

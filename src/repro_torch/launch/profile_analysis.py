@@ -97,23 +97,32 @@ def kernel_group(name: str) -> str:
     return "other elementwise/reduction"
 
 
-def profile(fn, width=60):
+def profile(fn, width=60, events=None):
     """``fn()`` under torch.profiler (it must end in a synchronize):
     ``(wall ms, {kernel group: device ms}, {kernel: device ms})``, the
     kernel names cut to ``width`` characters (None: whole; the profiler
     may report a name mangled, where the cut can drop the kernel's own
-    name)."""
+    name).  ``fn`` runs twice: the profiler traces the first call as its
+    warm-up and drops it, and reports the second (a process that had
+    profiled before could lose the first kernels of a traced call).
+    ``events``, a dict, receives ``{kernel group: kernel executions}``
+    of the reported call."""
     from torch.profiler import ProfilerActivity, profile as _profile
+    from torch.profiler import schedule
 
     torch.cuda.synchronize()
-    with _profile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with _profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, kernels_ms = {}, {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # the step's own annotation spans the step on the device
+        if e.device_type != torch.autograd.DeviceType.CUDA or \
+                e.key.startswith("ProfilerStep"):
             continue
         ms = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0)) / 1e3
@@ -121,6 +130,8 @@ def profile(fn, width=60):
         groups[g] = groups.get(g, 0.0) + ms
         name = e.key[:width]
         kernels_ms[name] = kernels_ms.get(name, 0.0) + ms
+        if events is not None:
+            events[g] = events.get(g, 0) + e.count
     return wall_ms, groups, kernels_ms
 
 

@@ -1,9 +1,10 @@
 """Import hygiene and device rules of the PyTorch port.
 
-``repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor anything
-of the reference package ``repro``; every module imports on a machine
-without CUDA, nvcc or Triton; an entry point asked for CUDA on such a
-machine raises rather than carrying on on the CPU.
+``repro_torch``, the examples' torch twins (``examples/*_torch.py``) and
+``chip_smoke.py`` import neither ``jax`` nor anything of the reference
+package ``repro``; every module imports on a machine without CUDA, nvcc
+or Triton; an entry point asked for CUDA on such a machine raises rather
+than carrying on on the CPU.
 """
 
 import ast
@@ -20,8 +21,18 @@ PKG = ROOT / "src" / "repro_torch"
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "ml_dtypes")
 
 
+EXAMPLES = ROOT / "examples"
+
+
 def _modules():
-    return sorted(p for p in PKG.rglob("*.py"))
+    """The port's modules and the examples' torch twins."""
+    return sorted(PKG.rglob("*.py")) + sorted(EXAMPLES.glob("*_torch.py"))
+
+
+def _package_names():
+    """The port's modules by their path in the package."""
+    return {p.relative_to(PKG).as_posix() for p in _modules()
+            if PKG in p.parents}
 
 
 def _imported_roots(path):
@@ -44,7 +55,7 @@ def test_no_reference_or_jax_imports(path):
 def test_flash_attention_suite_is_scanned():
     """The flash-attention suite is among the modules the import rules
     here scan (and ``chip_smoke.py``, which drives it on the card)."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     suite = {f"kernels/flash_attention/{m}.py"
              for m in ("__init__", "kernel", "ops", "ref")}
     assert suite <= names, suite - names
@@ -53,7 +64,7 @@ def test_flash_attention_suite_is_scanned():
 def test_ssm_slice_modules_are_scanned():
     """The lru_scan suite, the SSM and RG-LRU blocks and their configs are
     among the modules the import rules here scan."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     slice_ = {f"kernels/lru_scan/{m}.py"
               for m in ("__init__", "kernel", "ops", "ref")}
     slice_ |= {"models/ssm.py", "models/rglru.py",
@@ -64,7 +75,7 @@ def test_ssm_slice_modules_are_scanned():
 def test_moe_slice_modules_are_scanned():
     """The MoE FFN and the MoE configs are among the modules the import
     rules here scan."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     slice_ = {"models/moe.py", "configs/qwen2_moe_a2_7b.py",
               "configs/grok_1_314b.py"}
     assert slice_ <= names, slice_ - names
@@ -74,7 +85,7 @@ def test_analysis_modules_are_scanned():
     """The analysis tools (the dry run, the H100 roofline, the round
     analyzer), the kernels' cost formulas and the collectives' tally are
     among the modules the import rules here scan."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     slice_ = {"launch/dryrun.py", "launch/roofline.py",
               "launch/profile_analysis.py", "kernels/costs.py",
               "collectives.py"}
@@ -91,7 +102,7 @@ def test_no_module_imports_ml_dtypes():
 def test_encdec_and_frontend_modules_are_scanned():
     """The frontend stubs and the enc-dec and vision configs are among the
     modules the import rules here scan."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     slice_ = {"models/frontends.py", "configs/whisper_small.py",
               "configs/internvl2_26b.py"}
     assert slice_ <= names, slice_ - names
@@ -101,7 +112,7 @@ def test_checkpoint_optim_and_serving_modules_are_scanned():
     """The checkpoint, optimizer, decode and serve modules are among the
     modules the import rules here scan (and import in the subprocess
     below)."""
-    names = {p.relative_to(PKG).as_posix() for p in _modules()}
+    names = _package_names()
     slice_ = {"checkpoint/__init__.py", "checkpoint/io.py",
               "optim/__init__.py", "optim/optimizers.py",
               "models/decode.py", "launch/serve.py",
@@ -109,16 +120,32 @@ def test_checkpoint_optim_and_serving_modules_are_scanned():
     assert slice_ <= names, slice_ - names
 
 
+def test_the_example_twins_are_scanned():
+    """Each of the seven reference examples has its torch twin among the
+    files the import rules here scan."""
+    twins = {p.name for p in _modules() if p.parent == EXAMPLES}
+    refs = {p.stem for p in EXAMPLES.glob("*.py")
+            if not p.stem.endswith("_torch")}
+    assert len(refs) == 7 and twins == {f"{r}_torch.py" for r in refs}
+
+
 def test_every_module_imports_without_jax_repro_or_triton():
-    names = []
+    names, files = [], []
     for p in _modules():
+        if PKG not in p.parents:
+            files.append(str(p))
+            continue
         rel = p.relative_to(ROOT / "src").with_suffix("")
         parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
         names.append(".".join(parts))
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, pathlib, sys\n"
         f"for n in {names!r}:\n"
         "    importlib.import_module(n)\n"
+        f"for f in {files!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        pathlib.Path(f).stem, f)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
